@@ -10,12 +10,17 @@ Runs on one NVIDIA GPU; exits non-zero without one. Phases:
    tolerance stated; device times of kernel, plain version and the PyTorch
    library call computing the same function;
 4. serve: ``pimref-100m`` at full width, batch-mode ``serve()`` with the
-   fused and the per-token engine; greedy tokens must be identical and every
-   prefill / decode step must have launched the attention kernels once per
-   layer;
+   fused and the per-token engine, in every KV layout (contiguous, Proteus
+   int8 / int4 / auto codes, pages of 16, pages of 16 holding int8 codes);
+   greedy tokens of the two engines must be identical and every prefill /
+   decode step must have launched the prefill kernel and the layout's
+   decode kernel once per layer, and no other;
 5. card vs CPU: the same fp32 weights on the card (kernels) and on the CPU
-   (plain path), prefill plus teacher-forced decode steps, logits compared;
-6. engine: ``ServeEngine`` drains mixed-length requests on 8 slots;
+   (plain path), prefill plus teacher-forced decode steps, logits compared,
+   through the contiguous, the paged and the int8 cache;
+6. engine: ``ServeEngine`` drains mixed-length requests with a shared
+   prefix on 8 slots, contiguous, paged and paged int8: one completion per
+   request, prefix sharing, every page back in the pool at the end;
 7. profile: ``torch.profiler`` over batch-mode serving (prefill and three
    fused chunks): the device's busy share and the kernels by device time.
 
@@ -45,11 +50,38 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 PARITY_ATOL = 1e-3                  # fp32 logits, card vs CPU
+# int8 cache: a K/V element that lands on a rounding boundary may take the
+# neighbouring code on one side (the card's fp32 sums run in another order);
+# one code step moves the element by max|row| / 127, the int8 grid's own
+# resolution, so the logits are held to the grid's error, not to fp32 noise
+PARITY_INT8_ATOL = 2e-2
 KERNEL_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 REPLACES = {
     "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:126",
     "flash_decode_fwd": "src/repro/kernels/flash_attention/kernel.py:174",
+    "flash_decode_quant_fwd": "src/repro/kernels/flash_attention/kernel.py:262",
+    "flash_decode_paged_fwd": "src/repro/kernels/flash_attention/kernel.py:359",
+    "flash_decode_paged_quant_fwd":
+        "src/repro/kernels/flash_attention/kernel.py:443",
 }
+# the serving layouts: (kv_quant, page_size, the decode kernel of each step)
+LAYOUTS = {
+    "contiguous": ("off", 0, "flash_decode_fwd"),
+    "int8": ("int8", 0, "flash_decode_quant_fwd"),
+    "int4": ("int4", 0, "flash_decode_quant_fwd"),
+    "auto": ("auto", 0, "flash_decode_quant_fwd"),
+    "paged16": ("off", 16, "flash_decode_paged_fwd"),
+    "paged16_int8": ("int8", 16, "flash_decode_paged_quant_fwd"),
+}
+# the layout whose serve run gives each kernel's launches in the JSON line
+MAIN_LAYOUT = {"flash_attention_fwd": "contiguous",
+               "flash_decode_fwd": "contiguous",
+               "flash_decode_quant_fwd": "int8",
+               "flash_decode_paged_fwd": "paged16",
+               "flash_decode_paged_quant_fwd": "paged16_int8"}
+NO_LIBRARY = ("no single PyTorch call computes attention over quantized "
+              "codes or through a page table")
+DEVICE = "cuda"
 
 
 def log(phase: str, msg: str) -> None:
@@ -105,7 +137,7 @@ def bound_ms(nbytes: int, flops: float, dtype) -> tuple:
 # inputs
 # ---------------------------------------------------------------------------
 def randn(gen, shape, dtype):
-    return torch.randn(shape, generator=gen, device="cuda",
+    return torch.randn(shape, generator=gen, device=DEVICE,
                        dtype=torch.float32).to(dtype)
 
 
@@ -116,7 +148,25 @@ def ring_positions(depths, S, T):
     qp = torch.stack([torch.arange(d, d + S, dtype=torch.int32)
                       for d in depths])
     kp = torch.cat([ring_position_ids(1, d + S, T) for d in depths])
-    return qp.cuda(), kp.cuda()
+    return qp.to(DEVICE), kp.to(DEVICE)
+
+
+def page_table(gen, kp, ps: int, share: int = 0,
+               trash_slots=()) -> torch.Tensor:
+    """(B, NP) int32 table over a pool of 1 + B * NP pages: a random
+    permutation (not the identity); slot 1 shares its first ``share``
+    physical pages with slot 0; the pages of ``trash_slots`` that hold no
+    position point at the trash page 0."""
+    B, T = kp.shape
+    NP = T // ps
+    perm = torch.randperm(B * NP, generator=gen, device=DEVICE) + 1
+    table = perm.reshape(B, NP).to(torch.int32)
+    if share:
+        table[1, :share] = table[0, :share]
+    empty = (kp.reshape(B, NP, ps) < 0).all(dim=-1)
+    for b in trash_slots:
+        table[b][empty[b]] = 0
+    return table.contiguous()
 
 
 def visible_pairs(qp, kp, causal, window) -> int:
@@ -169,14 +219,14 @@ def phase_kernels(seed: int) -> dict:
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ops, ref
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
     rows = {}
 
     # -- prefill at the main path's shape (model layout, strided views) ----
     B, H, S, D, dt = 8, 12, 512, 64, torch.bfloat16
     q, k, v = (randn(gen, (B, S, H, D), dt) for _ in range(3))
     out, lse = ops.flash_attention_gqa_fwd(q, k, v, causal=True)
-    pos = torch.arange(S, dtype=torch.int32, device="cuda").expand(B, S)
+    pos = torch.arange(S, dtype=torch.int32, device=DEVICE).expand(B, S)
     split = lambda x: x.reshape(B, S, H, 1, D).permute(0, 2, 3, 1, 4)
     r_out, r_lse = ref.flash_attention_fwd_ref(
         split(q), k.transpose(1, 2), v.transpose(1, 2), pos, pos, causal=True)
@@ -217,7 +267,7 @@ def phase_kernels(seed: int) -> dict:
         kp = torch.arange(T2, dtype=torch.int32).repeat(B2, 1)
         kp[0, 64:140] = -1
         kp[1, ::7] = -1
-        qp, kp = qp.cuda(), kp.cuda()
+        qp, kp = qp.to(DEVICE), kp.to(DEVICE)
         kw = dict(causal=True, window=48, softcap=20.0)
         o, l = fk.flash_attention_fwd(q5, k4, v4, qp, kp, **kw)
         ro, rl = ref.flash_attention_fwd_ref(q5, k4, v4, qp, kp, **kw)
@@ -282,6 +332,158 @@ def phase_kernels(seed: int) -> dict:
     log("kernels", f"decode times: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
         f"sdpa {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
         f"{flops:.3e} FLOP); splits {fk.decode_splits(B, H, T)}")
+    rows.update(kernels_kv_layouts(gen))
+    return rows
+
+
+def _identical(name, got, want) -> None:
+    same = torch.equal(got, want)
+    log("kernels", f"{name}: bitwise identical {same}")
+    if not same:
+        raise AssertionError(f"{name}: not bitwise identical")
+
+
+def _check_layouts_case(gen, dt, B, H, G, S, T, D, ps, depths, kw,
+                        share=0) -> dict:
+    """Kernels 3-5 against their plain versions in the kernel layout, and
+    the two identities: paged == dense and paged-quant == quant on the
+    pages gathered through the table. Returns the max errors by kernel."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.models.layers import kv_quantize
+    label = (f"B{B} H{H} G{G} S{S} T{T} D{D} ps{ps} w{kw['window']} "
+             f"cap{kw['softcap']:g} {str(dt)[6:]}")
+    q5 = randn(gen, (B, H, G, S, D), dt)
+    qp, kp = ring_positions(depths, S, T)
+    table = page_table(gen, kp, ps, share=share, trash_slots=(0,))
+    P = 1 + B * (T // ps)
+    gather = ref.gather_pages
+    errs = {}
+    kpool, vpool = (randn(gen, (P, ps, H, D), dt) for _ in range(2))
+    o = fk.flash_decode_paged_fwd(q5, kpool, vpool, table, qp, kp, **kw)
+    errs["flash_decode_paged_fwd"] = _check(
+        f"paged {label}", o, ref.flash_decode_paged_fwd_ref(
+            q5, kpool, vpool, table, qp, kp, **kw), TOL[dt])
+    _identical(f"paged == dense on gathered pages {label}", o,
+               fk.flash_decode_fwd(q5, gather(kpool, table),
+                                   gather(vpool, table), qp, kp, **kw))
+    for mode in ("int8", "int4"):
+        kq, vq = (kv_quantize(randn(gen, (P, ps, H, D), torch.float32), mode)
+                  for _ in range(2))
+        pq = (kq.codes, kq.scale, vq.codes, vq.scale)
+        o = fk.flash_decode_paged_quant_fwd(q5, *pq, table, qp, kp, **kw)
+        e = _check(f"paged {mode} {label}", o,
+                   ref.flash_decode_paged_quant_fwd_ref(q5, *pq, table, qp,
+                                                        kp, **kw), TOL[dt])
+        errs["flash_decode_paged_quant_fwd"] = max(
+            e, errs.get("flash_decode_paged_quant_fwd", 0.0))
+        gq = tuple(gather(x, table) for x in pq)
+        oq = fk.flash_decode_quant_fwd(q5, *gq, qp, kp, **kw)
+        _identical(f"paged {mode} == {mode} on gathered pages {label}", o, oq)
+        e = _check(f"{mode} {label}", oq,
+                   ref.flash_decode_quant_fwd_ref(q5, *gq, qp, kp, **kw),
+                   TOL[dt])
+        errs["flash_decode_quant_fwd"] = max(
+            e, errs.get("flash_decode_quant_fwd", 0.0))
+    return errs
+
+
+def kernels_kv_layouts(gen) -> dict:
+    """The decode kernels over Proteus codes and pages: checks at the main
+    path's shape and at edge cases, then device times at the main path's
+    shape (S = 1, bf16, int8 codes, pages of 16)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.models.layers import kv_quantize
+    rows = {}
+    B, H, T, D, ps = 8, 12, 576, 64, 16
+    depths = [17, 100, 511, 575, 300, 572, 40, 250]
+    plain = dict(window=0, softcap=0.0)
+    for dt in (torch.bfloat16, torch.float32):
+        errs = _check_layouts_case(gen, dt, B, H, 1, 1, T, D, ps, depths,
+                                   dict(causal=True, **plain), share=3)
+        if dt == torch.bfloat16:
+            main_err = errs
+    # edge cases: G 4 with S 4 verify rows and D 128, window and softcap,
+    # ring wrap (depth past T), slots with -1 rows, page sizes 8 / 32 / 64
+    for dt in (torch.float32, torch.bfloat16):
+        _check_layouts_case(gen, dt, 3, 2, 4, 4, 320, 128, 32, [10, 150, 400],
+                            dict(causal=True, window=100, softcap=30.0),
+                            share=2)
+        _check_layouts_case(gen, dt, 4, 3, 2, 1, 256, 64, 8, [0, 63, 255, 700],
+                            dict(causal=True, **plain), share=5)
+        _check_layouts_case(gen, dt, 2, 2, 1, 2, 128, 64, 64, [5, 200],
+                            dict(causal=True, window=0, softcap=10.0))
+    # model layout through ops (strided views of the (B, T, H, Dc) cache),
+    # int4 at the main path's shape
+    dt = torch.bfloat16
+    q = randn(gen, (B, 1, H, D), dt)
+    qp, kp = ring_positions(depths, 1, T)
+    to5 = lambda x: x.reshape(B, 1, H, 1, D).permute(0, 2, 3, 1, 4)
+    for mode in ("int8", "int4", "auto"):
+        kq, vq = (kv_quantize(randn(gen, (B, T, H, D), dt), mode)
+                  for _ in range(2))
+        o = ops.flash_decode_quant(q, kq.codes, kq.scale, vq.codes, vq.scale,
+                                   qp, kp)
+        r = ref.flash_decode_quant_fwd_ref(
+            to5(q), kq.codes.transpose(1, 2), kq.scale.transpose(1, 2),
+            vq.codes.transpose(1, 2), vq.scale.transpose(1, 2), qp, kp)
+        _check(f"ops.flash_decode_quant {mode} B8 H12 T576 S1 D64 bf16", o,
+               r.permute(0, 3, 1, 2, 4).reshape(B, 1, H, D), TOL[dt])
+
+    # -- device times at the main path's shape ------------------------------
+    qp, kp = ring_positions([575 - 8 * b for b in range(B)], 1, T)
+    NP = T // ps
+    table = page_table(gen, kp, ps)
+    valid_rows = int((kp >= 0).sum())
+    flops = 4.0 * D * H * visible_pairs(qp, kp, True, 0)
+    base_bytes = 2 * B * H * D * 2 + qp.nbytes + kp.nbytes   # q, out, positions
+    P = 1 + B * NP
+
+    def quant_set(lead, mode):
+        kq, vq = (kv_quantize(randn(gen, lead + (H, D), dt), mode)
+                  for _ in range(2))
+        return kq.codes, kq.scale, vq.codes, vq.scale
+
+    cases = {
+        # name: (make one input set, kernel call, plain call, bytes)
+        "flash_decode_quant_fwd": (
+            lambda: (randn(gen, (B, 1, H, D), dt),) + quant_set((B, T), "int8"),
+            lambda s: ops.flash_decode_quant(*s, qp, kp),
+            lambda s: ref.flash_decode_quant_fwd_ref(
+                to5(s[0]), *(x.transpose(1, 2) for x in s[1:]), qp, kp),
+            valid_rows * H * (2 * D + 2 * 4)),
+        "flash_decode_paged_fwd": (
+            lambda: (randn(gen, (B, 1, H, D), dt), randn(gen, (P, ps, H, D), dt),
+                     randn(gen, (P, ps, H, D), dt)),
+            lambda s: ops.flash_decode_paged(*s, table, qp, kp),
+            lambda s: ref.flash_decode_paged_fwd_ref(to5(s[0]), *s[1:], table,
+                                                     qp, kp),
+            valid_rows * H * 2 * D * 2 + table.nbytes),
+        "flash_decode_paged_quant_fwd": (
+            lambda: (randn(gen, (B, 1, H, D), dt),) + quant_set((P, ps), "int8"),
+            lambda s: ops.flash_decode_paged_quant(*s, table, qp, kp),
+            lambda s: ref.flash_decode_paged_quant_fwd_ref(to5(s[0]), *s[1:],
+                                                           table, qp, kp),
+            valid_rows * H * (2 * D + 2 * 4) + table.nbytes),
+    }
+    for name, (make, kern, plain_fn, kv_bytes) in cases.items():
+        sample = make()
+        n_sets = n_sets_for(sum(x.nbytes for x in sample))
+        sets = [sample] + [make() for _ in range(n_sets - 1)]
+        t_k = device_ms(lambda i: kern(sets[i]), n_sets, 50)
+        t_p = device_ms(lambda i: plain_fn(sets[i]), n_sets, 10)
+        del sets
+        nbytes = kv_bytes + base_bytes
+        b_ms, b_by = bound_ms(nbytes, flops, dt)
+        rows[name] = dict(max_abs_err=main_err[name], ms=t_k, plain_ms=t_p,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        what = {"flash_decode_quant_fwd": "int8 codes",
+                "flash_decode_paged_fwd": f"pages of {ps}",
+                "flash_decode_paged_quant_fwd": f"int8 codes in pages of {ps}"}
+        log("kernels", f"{name} times (B8 H12 T576 S1 D64 bf16, {what[name]}"
+            f"): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {flops:.3e} FLOP); library: "
+            f"none ({NO_LIBRARY})")
     return rows
 
 
@@ -291,11 +493,15 @@ def _reset():
         LAUNCHES[name] = 0
 
 
-def _check_launches(phase, n_layers, prefills, decode_steps) -> dict:
+def _check_launches(phase, n_layers, prefills, decode_steps,
+                    decode_kernel="flash_decode_fwd") -> dict:
+    """Every prefill launched the prefill kernel and every decode step the
+    layout's decode kernel, once per layer; no other kernel ran."""
     from repro_torch.kernels.flash_attention import LAUNCHES
     got = dict(LAUNCHES)
-    want = {"flash_attention_fwd": n_layers * prefills,
-            "flash_decode_fwd": n_layers * decode_steps}
+    want = dict.fromkeys(LAUNCHES, 0)
+    want["flash_attention_fwd"] = n_layers * prefills
+    want[decode_kernel] = n_layers * decode_steps
     log(phase, f"launches {got} (want {want}: {n_layers} layers x "
         f"{prefills} prefills / {decode_steps} decode steps)")
     if got != want:
@@ -304,102 +510,170 @@ def _check_launches(phase, n_layers, prefills, decode_steps) -> dict:
 
 
 def phase_serve(model, smi: str) -> dict:
+    """Batch serving in every KV layout; returns the launches of each
+    layout's fused run."""
     from repro_torch.launch.serve import serve
     cfg = model.cfg
     kw = dict(batch=8, prompt_len=512, gen=64, chunk=8, seed=0)
-    serve(model=model, engine="fused", **{**kw, "gen": 8})   # first-call costs
-    runs, launches = {}, {}
-    for engine in ("fused", "loop"):
-        _reset()
-        out = serve(model=model, engine=engine, **kw)
-        launches[engine] = _check_launches(f"serve/{engine}", cfg.num_layers,
-                                           out["prefills"],
-                                           out["decode_steps"])
-        toks = out["tokens"]
-        if toks.shape != (kw["batch"], kw["gen"]) or toks.min() < 0 \
-                or toks.max() >= cfg.vocab_size:
-            raise AssertionError(f"serve/{engine}: bad tokens {toks.shape} "
-                                 f"[{toks.min()}, {toks.max()}]")
-        log(f"serve/{engine}", f"{smi}: prefill {out['prefill_s'] * 1e3:.3f} "
-            f"ms (B=8 x 512), decode {out['decode_s_per_tok'] * 1e3:.4f} "
-            f"ms/token-step, {out['throughput_tok_s']:.1f} tokens/s, "
-            f"{out['dispatches']} host syncs")
-        runs[engine] = out
-    same = np.array_equal(runs["fused"]["tokens"], runs["loop"]["tokens"])
-    log("serve", f"fused == loop tokens: {same}")
-    if not same:
-        raise AssertionError("fused and loop greedy tokens differ")
-    return launches["fused"]
+    launches = {}
+    for layout, (kv_quant, page_size, decode_kernel) in LAYOUTS.items():
+        lk = dict(kw, kv_quant=kv_quant, page_size=page_size)
+        serve(model=model, engine="fused", **{**lk, "gen": 8})  # first calls
+        runs = {}
+        for engine in ("fused", "loop"):
+            _reset()
+            out = serve(model=model, engine=engine, **lk)
+            got = _check_launches(f"serve/{layout}/{engine}", cfg.num_layers,
+                                  out["prefills"], out["decode_steps"],
+                                  decode_kernel)
+            if engine == "fused":
+                launches[layout] = got
+            toks = out["tokens"]
+            if toks.shape != (kw["batch"], kw["gen"]) or toks.min() < 0 \
+                    or toks.max() >= cfg.vocab_size:
+                raise AssertionError(f"serve/{layout}/{engine}: bad tokens "
+                                     f"{toks.shape} [{toks.min()}, "
+                                     f"{toks.max()}]")
+            log(f"serve/{layout}/{engine}", f"{smi}: prefill "
+                f"{out['prefill_s'] * 1e3:.3f} ms (B=8 x 512), decode "
+                f"{out['decode_s_per_tok'] * 1e3:.4f} ms/token-step, "
+                f"{out['throughput_tok_s']:.1f} tokens/s, "
+                f"{out['dispatches']} host syncs")
+            runs[engine] = out
+        same = np.array_equal(runs["fused"]["tokens"], runs["loop"]["tokens"])
+        log(f"serve/{layout}", f"fused == loop tokens: {same}")
+        if not same:
+            raise AssertionError(f"{layout}: fused and loop greedy tokens "
+                                 "differ")
+    return launches
+
+
+def _cache_diff(cc, cg):
+    """(max |CPU - card| over the K/V values or scales, codes that differ,
+    largest code difference) of two caches of one layout."""
+    from repro_torch.models.layers import PagedKVCache, QKVCache
+    err, flips, code_max = 0.0, 0, 0
+    for n in ("k", "v"):
+        a, b = cc[n], cg[n]
+        if isinstance(a, PagedKVCache):
+            if not torch.equal(a.table, b.table.cpu()):
+                raise AssertionError("parity: page tables differ")
+            a, b = a.pages, b.pages
+        if isinstance(a, QKVCache):
+            d = a.codes.int() - b.codes.cpu().int()
+            flips += int((d != 0).sum())
+            code_max = max(code_max, int(d.abs().max()))
+            a, b = a.scale, b.scale
+        err = max(err, (a - b.cpu()).abs().max().item())
+    return err, flips, code_max
 
 
 def phase_parity(seed: int) -> None:
+    """fp32 logits and caches, card vs CPU, in the contiguous, paged and
+    int8 layouts."""
     from repro_torch.configs import get_config
     from repro_torch.models import TransformerLM, init_params
     cfg = get_config("pimref-100m").replace(compute_dtype="float32")
     state = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
-    cpu = TransformerLM(cfg, device="cpu")
-    cpu.load_state_dict(state)
-    gpu = TransformerLM(cfg, device="cuda")
-    gpu.load_state_dict(state)
+    cpu0 = TransformerLM(cfg, device="cpu")
+    cpu0.load_state_dict(state)
+    gpu0 = TransformerLM(cfg, device="cuda")
+    gpu0.load_state_dict(state)
     rng = np.random.default_rng(seed)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64))
                               .astype(np.int32))
     feed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8))
                             .astype(np.int32))
-    lc, cc = cpu.prefill(prompt, max_len=72)
-    lg, cg = gpu.prefill(prompt.cuda(), max_len=72)
-    pairs = [(lc, lg)]
-    for i in range(feed.shape[1]):
-        lc, cc = cpu.decode_step(cc, feed[:, i:i + 1])
-        lg, cg = gpu.decode_step(cg, feed[:, i:i + 1].cuda())
-        pairs.append((lc, lg))
-    errs = [(c - g.cpu()).abs().max().item() for c, g in pairs]
-    agree = np.mean([float((c.argmax(-1) == g.cpu().argmax(-1)).all())
-                     for c, g in pairs])
-    kv = max((cc[n] - cg[n].cpu()).abs().max().item() for n in ("k", "v"))
-    log("parity", f"fp32 logits card vs CPU, prefill 64 + 8 decode steps: "
-        f"max_abs_err per call {['%.2e' % e for e in errs]}, cache "
-        f"{kv:.2e}, top-1 agreement {agree:.3f} (tol {PARITY_ATOL:.0e})")
-    if max(errs) > PARITY_ATOL or kv > PARITY_ATOL:
-        raise AssertionError(f"card vs CPU logits differ by {max(errs)}")
+    for layout in ("contiguous", "paged16", "int8"):
+        kv_quant, page_size, _ = LAYOUTS[layout]
+        cpu = cpu0.with_kv_layout(kv_quant, page_size)
+        gpu = gpu0.with_kv_layout(kv_quant, page_size)
+        lc, cc = cpu.prefill(prompt, max_len=72)
+        lg, cg = gpu.prefill(prompt.cuda(), max_len=72)
+        pairs = [(lc, lg)]
+        for i in range(feed.shape[1]):
+            lc, cc = cpu.decode_step(cc, feed[:, i:i + 1])
+            lg, cg = gpu.decode_step(cg, feed[:, i:i + 1].cuda())
+            pairs.append((lc, lg))
+        errs = [(c - g.cpu()).abs().max().item() for c, g in pairs]
+        agree = np.mean([float((c.argmax(-1) == g.cpu().argmax(-1)).all())
+                         for c, g in pairs])
+        kv, flips, code_max = _cache_diff(cc, cg)
+        tol = PARITY_INT8_ATOL if kv_quant != "off" else PARITY_ATOL
+        log("parity", f"{layout}: fp32 logits card vs CPU, prefill 64 + 8 "
+            f"decode steps: max_abs_err per call "
+            f"{['%.2e' % e for e in errs]}, cache {kv:.2e}, codes differing "
+            f"{flips} (largest difference {code_max}), top-1 agreement "
+            f"{agree:.3f} (tol {tol:.0e})")
+        if max(errs) > tol or kv > PARITY_ATOL or code_max > 1:
+            raise AssertionError(f"{layout}: card vs CPU differ: logits "
+                                 f"{max(errs)}, cache {kv}, code {code_max}")
 
 
-def phase_engine(model, seed: int) -> None:
-    from repro_torch.launch.engine import Request
-    from repro_torch.launch.serve import make_queue_engine
-    cfg = model.cfg
-    rng = np.random.default_rng(seed + 7)
-    reqs = [Request(uid=i, tokens=rng.integers(
-        1, cfg.vocab_size, int(rng.integers(4, 257))).astype(np.int32),
-        max_new_tokens=int(rng.integers(16, 65))) for i in range(24)]
-    eng = make_queue_engine(model=model, slots=8, prompt_len=256, gen=64,
-                            chunk=8, seed=seed)
+def _drain(eng, reqs, label, decode_kernel) -> dict:
+    """Drain ``reqs`` through ``eng``: exact launches, one completion per
+    request, each of the right length; returns the engine's stats."""
+    cfg = eng.model.cfg
     _reset()
     comps = eng.run(list(reqs))
     torch.cuda.synchronize()
     s = eng.stats
-    _check_launches("engine", cfg.num_layers, s["prefills"], s["decode_steps"])
+    _check_launches(label, cfg.num_layers, s["prefills"], s["decode_steps"],
+                    decode_kernel)
     by_uid = {}
     for c in comps:
         if c.uid in by_uid:
-            raise AssertionError(f"engine: two completions for {c.uid}")
+            raise AssertionError(f"{label}: two completions for {c.uid}")
         by_uid[c.uid] = c
     if sorted(by_uid) != [r.uid for r in reqs]:
-        raise AssertionError(f"engine: completions {sorted(by_uid)}")
+        raise AssertionError(f"{label}: completions {sorted(by_uid)}")
     for r in reqs:
         c = by_uid[r.uid]
         t = np.asarray(c.tokens)
         if c.finish_reason not in ("length", "eos") or len(t) == 0 \
                 or t.min() < 0 or t.max() >= cfg.vocab_size:
-            raise AssertionError(f"engine: bad completion {c}")
+            raise AssertionError(f"{label}: bad completion {c}")
         if c.finish_reason == "length" and len(t) != r.max_new_tokens:
-            raise AssertionError(f"engine: request {r.uid} got {len(t)} of "
+            raise AssertionError(f"{label}: request {r.uid} got {len(t)} of "
                                  f"{r.max_new_tokens} tokens")
-    log("engine", f"{len(comps)} completions for {len(reqs)} requests "
+    if eng.paged:
+        free = len(eng._alloc.free)
+        if (s["kv_pages_in_use"] != 0 or free != eng.n_phys_pages - 1
+                or eng._host_table.any() or s["prefix_hits"] <= 0):
+            raise AssertionError(
+                f"{label}: pages in use {s['kv_pages_in_use']}, free {free} "
+                f"of {eng.n_phys_pages - 1}, host table zero "
+                f"{not eng._host_table.any()}, prefix hits "
+                f"{s['prefix_hits']}")
+    log(label, f"{len(comps)} completions for {len(reqs)} requests "
         f"({sorted({c.finish_reason for c in comps})}), "
         f"{s['tokens_out']} tokens in {s['wall_seconds']:.3f} s "
         f"({s['tokens_per_second']:.1f} tokens/s), {s['prefills']} prefills, "
-        f"{s['decode_dispatches']} chunks")
+        f"{s['decode_dispatches']} chunks, kv_bytes_per_token "
+        f"{s['kv_bytes_per_token']:.1f}"
+        + (f", pages peak {s['kv_pages_peak']}, prefix hits "
+           f"{s['prefix_hits']}" if eng.paged else ""))
+    return s
+
+
+def phase_engine(model, seed: int) -> None:
+    """24 mixed requests with a 64-token shared prefix on 8 slots, in the
+    contiguous, paged and paged int8 layouts."""
+    from repro_torch.launch.serve import make_queue_engine, synth_requests
+    reqs = synth_requests(cfg=model.cfg, requests=24, prompt_len=256, gen=64,
+                          seed=seed, shared_prefix=64)
+    per_token = {}
+    for layout in ("contiguous", "paged16", "paged16_int8"):
+        kv_quant, page_size, decode_kernel = LAYOUTS[layout]
+        eng = make_queue_engine(model=model, slots=8, prompt_len=256, gen=64,
+                                chunk=8, seed=seed, kv_quant=kv_quant,
+                                page_size=page_size)
+        s = _drain(eng, reqs, f"engine/{layout}", decode_kernel)
+        per_token[layout] = s["kv_bytes_per_token"]
+    base = per_token["contiguous"]
+    log("engine", "kv_bytes_per_token " + ", ".join(
+        f"{k} {v:.1f} ({v / base:.3f} of contiguous)"
+        for k, v in per_token.items()))
 
 
 def phase_profile(model, smi: str) -> None:
@@ -467,7 +741,8 @@ def main() -> int:
         phase_parity(args.seed)
 
     kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCE,
-                    replaces=REPLACES[name], launches=launches.get(name),
+                    replaces=REPLACES[name],
+                    launches=launches.get(MAIN_LAYOUT[name], {}).get(name),
                     **rows.get(name, {})) for name in REPLACES]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,36 +1,54 @@
-// Flash attention for Hopper (sm_90a): prefill forward and split-KV decode.
+// Flash attention for Hopper (sm_90a): prefill forward and split-KV decode
+// over every KV-cache layout of the serving engine.
 //
 // Replaces the TPU kernels of src/repro/kernels/flash_attention/kernel.py:
 //   * flash_attention_fwd (prefill; body _flash_kernel, _tile_update)
 //       -> repro_flash_attention_fwd / flash_fwd_kernel
-//   * flash_decode_fwd (every decode step)
-//       -> repro_flash_decode_fwd / flash_decode_partial_kernel
+//   * flash_decode_fwd (decode over the contiguous ring cache)
+//   * flash_decode_quant_fwd (decode over int8 / nibble-packed int4 codes
+//     with per-row fp32 scales; _dequant_rows)
+//   * flash_decode_paged_fwd (decode over a page pool through a per-slot
+//     page table; page 0 is the trash page)
+//   * flash_decode_paged_quant_fwd (both)
+//       -> repro_flash_decode_fwd / flash_decode_partial_kernel<KVSource>
 //          + flash_decode_combine_kernel
+// The four decode kernels are one kernel: only the fetch of a K/V row
+// differs (the KVSource policy of Tile::run), so the splits, the online
+// softmax and the combine are shared, and a paged launch is bitwise equal to
+// a contiguous launch on the gathered pages.
 //
 // Semantics (the masking rule of _tile_update): s = (q.k) * scale, optional
 // softcap s = cap * tanh(s / cap); a (q, kv) pair is visible iff
 // kp >= 0 && qp >= 0 && (!causal || kp <= qp) && (window <= 0 || kp > qp - window).
 // Online softmax in fp32 with the fully-masked-row guard; l == 0 gives an
 // output of 0 and lse = -1e30, otherwise lse = m + log(l). Output has q's
-// dtype. Any S and T: the ragged edges are masked here, nothing is padded.
-// q/k/v may be strided views (last dim contiguous), so the model's
-// (B, T, Hkv, D) cache layout is read in place without a transposing copy.
+// dtype. Codes are dequantized in fp32 (code * scale) whatever q's dtype.
+// Any S and T: the ragged edges are masked here, nothing is padded. q and the
+// K/V operands may be strided views (last dim contiguous), so the model's
+// (B, T, Hkv, D) cache layout and the (P, ps, Hkv, D) page pools are read in
+// place without a copy.
 //
-// Bound on the H100: at the serving shapes both kernels move far fewer
-// operations than bytes would allow, so the floor is the bytes of q, k, v
-// (and out) over 3.35 TB/s (decode: the K/V cache stream, ~14 MB per launch
-// at B=8, T=576, Hkv=12, D=64, bf16). What the design does about it:
+// Bound on the H100: at the serving shapes every kernel does far fewer
+// operations than bytes would allow, so the floor is the bytes of q, K/V
+// (codes, scales, table) and out over 3.35 TB/s (decode: the K/V cache
+// stream, ~14 MB per launch at B=8, T=576, Hkv=12, D=64 in bf16, half that in
+// int8 codes, a quarter in int4). What the design does about it:
 //   * each K/V tile is read from device memory once per block and staged in
-//     shared memory, where every q row of the block reuses it (all G query
-//     heads of a kv head ride in one block, so GQA reads K/V once per kv head);
+//     shared memory in fp32, where every q row of the block reuses it (all G
+//     query heads of a kv head ride in one block, so GQA reads K/V once per
+//     kv head); codes are read as stored (1 or 1/2 byte per element) and
+//     dequantized while staged;
 //   * scores and probabilities never leave shared memory;
 //   * tiles whose (q, kv) pairs are all masked are skipped before K/V load
-//     (dead ring slots, the upper causal triangle);
+//     (dead ring slots, trash-page rows, the upper causal triangle);
 //   * decode splits the kv axis over blocks (flash-decoding) so B*Hkv*n_split
 //     blocks fill the 132 SMs, and a second pass merges the partials in a
-//     fixed order (no atomics: results are bitwise reproducible).
-// This first version multiplies with fp32 FMA loops; tensor cores (mma/wgmma)
-// and TMA pipelines are later work.
+//     fixed order (no atomics: results are bitwise reproducible);
+//   * a paged tile resolves one pool address per row (a 64-row tile spans
+//     64 / page_size pages), staged in shared memory beside the positions.
+// This first version multiplies with fp32 FMA loops and loads codes a byte
+// at a time; tensor cores (mma/wgmma), 16-byte loads and TMA pipelines are
+// later work.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -52,16 +70,25 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
+// One K or V operand: values or int8 codes, and for codes one fp32 scale per
+// row, by element strides. In a paged operand "b" walks the pool's pages and
+// "t" the rows inside a page.
+struct KVOperand {
+  const void* data;
+  const float* scale;
+  long long s_b, s_h, s_t;     // data
+  long long c_b, c_h, c_t;     // scale
+};
+
 struct Params {
   const void* q;
-  const void* k;
-  const void* v;
+  KVOperand k, v;
   const int* qpos;    // (B, S)
-  const int* kpos;    // (B, T)
+  const int* kpos;    // (B, T), logical positions
+  const int* table;   // (B, n_pages) pool rows of a paged operand
   long long qs_b, qs_h, qs_g, qs_s;  // element strides of q (B, Hkv, G, S, D)
-  long long ks_b, ks_h, ks_t;        // element strides of k (B, Hkv, T, D)
-  long long vs_b, vs_h, vs_t;        // element strides of v
   int B, H, G, S, T;
+  int n_pages, page_size;
   int causal, window;
   float softcap, scale;
 };
@@ -72,6 +99,37 @@ __device__ __forceinline__ bool visible(int qp, int kp, int causal, int window) 
   if (window > 0) m = m && (kp > qp - window);
   return m;
 }
+
+// How element d of a K/V row at element offset `off` becomes fp32.
+template <typename T>
+struct Values {
+  static constexpr bool kScaled = false;
+  __device__ static float at(const void* base, long long off, int d) {
+    return to_f32(static_cast<const T*>(base)[off + d]);
+  }
+};
+struct Int8Codes {               // times the row's scale
+  static constexpr bool kScaled = true;
+  __device__ static float at(const void* base, long long off, int d) {
+    return static_cast<float>(static_cast<const int8_t*>(base)[off + d]);
+  }
+};
+struct Int4Codes {               // element 2i in the low nibble, 2i+1 high
+  static constexpr bool kScaled = true;
+  __device__ static float at(const void* base, long long off, int d) {
+    const int byte = static_cast<const uint8_t*>(base)[off + (d >> 1)];
+    const int nib = (d & 1) ? (byte >> 4) : (byte & 0xF);
+    return static_cast<float>((nib ^ 8) - 8);       // sign-extend 4 bits
+  }
+};
+
+// The K/V fetch policy of Tile::run: element decoding, and whether logical
+// row t of slot b lives at (b, t) or at (table[b, t / ps], t % ps).
+template <class Codes, bool PAGED>
+struct KVSource {
+  using C = Codes;
+  static constexpr bool kPaged = PAGED;
+};
 
 // One block: ROWS query rows staged in shared memory against a stream of
 // BK-row K/V tiles. 256 threads laid out TY x TX for the score tile and the
@@ -87,7 +145,8 @@ struct Tile {
   static_assert(kThreads % ROWS == 0 && TPR <= 32 && (TPR & (TPR - 1)) == 0,
                 "softmax row groups must be power-of-two slices of a warp");
 
-  // shared-memory layout, in 4-byte words (fp32 / int32), then row offsets
+  // shared-memory layout, in 4-byte words (fp32 / int32), then the 8-byte
+  // element offsets of the q rows and of the K and V rows of the tile
   static constexpr int DP = D + 1;     // +1: conflict-free column reads
   static constexpr int BKP = BK + 1;
   static constexpr int kQ = 0;
@@ -99,20 +158,27 @@ struct Tile {
   static constexpr int kA = kL + ROWS;
   static constexpr int kKp = kA + ROWS;
   static constexpr int kQp = kKp + BK;
-  static constexpr int kWords = kQp + ROWS;
-  static constexpr size_t kRowOffBytes = ((kWords * 4 + 15) / 16) * 16;
-  static constexpr size_t kSmemBytes = kRowOffBytes + ROWS * sizeof(long long);
+  static constexpr int kKsc = kQp + ROWS;
+  static constexpr int kVsc = kKsc + BK;
+  static constexpr int kWords = kVsc + BK;
+  static constexpr size_t kOffBytes = ((kWords * 4 + 15) / 16) * 16;
+  static constexpr size_t kSmemBytes =
+      kOffBytes + (ROWS + 2 * BK) * sizeof(long long);
 
   struct Smem {
     float* q; float* k; float* v; float* p; float* m; float* l; float* a;
-    int* kp; int* qp; long long* rowoff;
+    int* kp; int* qp; float* ksc; float* vsc;
+    long long* rowoff; long long* koff; long long* voff;
     __device__ explicit Smem(unsigned char* raw) {
       float* f = reinterpret_cast<float*>(raw);
       q = f + kQ; k = f + kK; v = f + kV; p = f + kP;
       m = f + kM; l = f + kL; a = f + kA;
       kp = reinterpret_cast<int*>(f + kKp);
       qp = reinterpret_cast<int*>(f + kQp);
-      rowoff = reinterpret_cast<long long*>(raw + kRowOffBytes);
+      ksc = f + kKsc; vsc = f + kVsc;
+      rowoff = reinterpret_cast<long long*>(raw + kOffBytes);
+      koff = rowoff + ROWS;
+      voff = koff + BK;
     }
   };
 
@@ -132,13 +198,13 @@ struct Tile {
     __syncthreads();
   }
 
-  // Online softmax of the staged rows over kv rows [t_begin, t_end).
+  // Online softmax of the staged rows over logical kv rows [t_begin, t_end).
+  template <class Src>
   __device__ static void run(const Params& p, int b, int h, int t_begin,
                              int t_end, const Smem& sm, float (&acc)[RPT][DPT]) {
+    using C = typename Src::C;
     const int tid = threadIdx.x;
     const int ty = tid / TX, tx = tid % TX;
-    const T* kb = static_cast<const T*>(p.k) + b * p.ks_b + h * p.ks_h;
-    const T* vb = static_cast<const T*>(p.v) + b * p.vs_b + h * p.vs_h;
     const int* kpos = p.kpos + static_cast<long long>(b) * p.T;
 
     for (int t0 = t_begin; t0 < t_end; t0 += BK) {
@@ -157,13 +223,36 @@ struct Tile {
                          p.window);
       if (!__syncthreads_or(any)) continue;
 
+      // where each kv row of the tile lives (one page lookup per row), and
+      // its scales
+      for (int c = tid; c < BK; c += kThreads) {
+        const int t = t0 + c;
+        if (t >= t_end) continue;
+        long long pb = b;
+        int r = t;
+        if constexpr (Src::kPaged) {
+          pb = p.table[static_cast<long long>(b) * p.n_pages + t / p.page_size];
+          r = t % p.page_size;
+        }
+        sm.koff[c] = pb * p.k.s_b + h * p.k.s_h + r * p.k.s_t;
+        sm.voff[c] = pb * p.v.s_b + h * p.v.s_h + r * p.v.s_t;
+        if constexpr (C::kScaled) {
+          sm.ksc[c] = p.k.scale[pb * p.k.c_b + h * p.k.c_h + r * p.k.c_t];
+          sm.vsc[c] = p.v.scale[pb * p.v.c_b + h * p.v.c_h + r * p.v.c_t];
+        }
+      }
+      __syncthreads();
+
       for (int idx = tid; idx < BK * D; idx += kThreads) {
         const int c = idx / D, d = idx % D;
-        const int t = t0 + c;
         float kv = 0.f, vv = 0.f;
-        if (t < t_end) {
-          kv = to_f32(kb[t * p.ks_t + d]);
-          vv = to_f32(vb[t * p.vs_t + d]);
+        if (t0 + c < t_end) {
+          kv = C::at(p.k.data, sm.koff[c], d);
+          vv = C::at(p.v.data, sm.voff[c], d);
+          if constexpr (C::kScaled) {
+            kv *= sm.ksc[c];
+            vv *= sm.vsc[c];
+          }
         }
         sm.k[c * DP + d] = kv;
         sm.v[c * DP + d] = vv;
@@ -292,7 +381,7 @@ flash_fwd_kernel(Params p, T* __restrict__ out, float* __restrict__ lse) {
   for (int i = 0; i < TL::RPT; ++i)
 #pragma unroll
     for (int j = 0; j < TL::DPT; ++j) acc[i][j] = 0.f;
-  TL::run(p, b, h, 0, p.T, sm, acc);
+  TL::template run<KVSource<Values<T>, false>>(p, b, h, 0, p.T, sm, acc);
 
   const int ty = threadIdx.x / TL::TX, tx = threadIdx.x % TL::TX;
 #pragma unroll
@@ -315,15 +404,15 @@ flash_fwd_kernel(Params p, T* __restrict__ out, float* __restrict__ lse) {
 
 // ---------------------------------------------------------------------------
 // Decode (flash-decoding): grid (n_split, Hkv, B). Each block takes all G*S
-// query rows of its kv head, 8 rows at a time, against kv rows
-// [split * split_len, (split + 1) * split_len), and writes partial (m, l, acc)
-// for the combine pass.
+// query rows of its kv head, 8 rows at a time, against logical kv rows
+// [split * split_len, (split + 1) * split_len), and writes partial
+// (m, l, acc) for the combine pass.
 // ---------------------------------------------------------------------------
 constexpr int kDecodeRows = 8;
 template <typename T, int D>
 using DecodeTile = Tile<T, D, kDecodeRows, 64, 8>;
 
-template <typename T, int D>
+template <typename T, int D, class Src>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_partial_kernel(Params p, int split_len, float* __restrict__ pm,
                             float* __restrict__ pl, float* __restrict__ pacc) {
@@ -353,7 +442,7 @@ flash_decode_partial_kernel(Params p, int split_len, float* __restrict__ pm,
     for (int i = 0; i < TL::RPT; ++i)
 #pragma unroll
       for (int j = 0; j < TL::DPT; ++j) acc[i][j] = 0.f;
-    TL::run(p, b, h, t_begin, t_end, sm, acc);
+    TL::template run<Src>(p, b, h, t_begin, t_end, sm, acc);
 
 #pragma unroll
     for (int i = 0; i < TL::RPT; ++i) {
@@ -421,41 +510,74 @@ cudaError_t launch_fwd(const Params& p, void* out, void* lse, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_decode(const Params& p, int n_split, int split_len, void* out,
-                          float* pm, float* pl, float* pacc, cudaStream_t st) {
+struct Scratch {
+  void* out;
+  float* pm; float* pl; float* pacc;
+  int n_split, split_len;
+};
+
+template <typename T, int D, class Src>
+cudaError_t launch_decode(const Params& p, const Scratch& w, cudaStream_t st) {
   using TL = DecodeTile<T, D>;
   static bool ready = false;
   if (!ready) {
-    cudaError_t e = allow_smem(flash_decode_partial_kernel<T, D>, TL::kSmemBytes);
+    cudaError_t e = allow_smem(flash_decode_partial_kernel<T, D, Src>, TL::kSmemBytes);
     if (e != cudaSuccess) return e;
     ready = true;
   }
-  dim3 grid(n_split, p.H, p.B);
-  flash_decode_partial_kernel<T, D><<<grid, kThreads, TL::kSmemBytes, st>>>(
-      p, split_len, pm, pl, pacc);
+  dim3 grid(w.n_split, p.H, p.B);
+  flash_decode_partial_kernel<T, D, Src><<<grid, kThreads, TL::kSmemBytes, st>>>(
+      p, w.split_len, w.pm, w.pl, w.pacc);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int R = p.G * p.S;
   flash_decode_combine_kernel<T><<<p.B * p.H * R, D, 0, st>>>(
-      pm, pl, pacc, static_cast<T*>(out), R, n_split, D);
+      w.pm, w.pl, w.pacc, static_cast<T*>(w.out), R, w.n_split, D);
   return cudaGetLastError();
 }
 
-Params make_params(const void* q, const void* k, const void* v, const void* qpos,
-                   const void* kpos, long long qs_b, long long qs_h, long long qs_g,
-                   long long qs_s, long long ks_b, long long ks_h, long long ks_t,
-                   long long vs_b, long long vs_h, long long vs_t, int B, int H,
-                   int G, int S, int T, int causal, int window, float softcap,
+// The decode instantiation for K/V held as values of q's type (bits 0),
+// int8 codes (8) or int4 codes (4), contiguous or paged.
+template <typename T, int D>
+cudaError_t dispatch_decode(const Params& p, const Scratch& w, int bits,
+                            bool paged, cudaStream_t st) {
+  if (bits == 0)
+    return paged ? launch_decode<T, D, KVSource<Values<T>, true>>(p, w, st)
+                 : launch_decode<T, D, KVSource<Values<T>, false>>(p, w, st);
+  if (bits == 8)
+    return paged ? launch_decode<T, D, KVSource<Int8Codes, true>>(p, w, st)
+                 : launch_decode<T, D, KVSource<Int8Codes, false>>(p, w, st);
+  if (bits == 4)
+    return paged ? launch_decode<T, D, KVSource<Int4Codes, true>>(p, w, st)
+                 : launch_decode<T, D, KVSource<Int4Codes, false>>(p, w, st);
+  return cudaErrorInvalidValue;
+}
+
+KVOperand operand(const void* data, const void* scale, long long s_b,
+                  long long s_h, long long s_t, long long c_b, long long c_h,
+                  long long c_t) {
+  KVOperand o;
+  o.data = data;
+  o.scale = static_cast<const float*>(scale);
+  o.s_b = s_b; o.s_h = s_h; o.s_t = s_t;
+  o.c_b = c_b; o.c_h = c_h; o.c_t = c_t;
+  return o;
+}
+
+Params make_params(const void* q, const KVOperand& k, const KVOperand& v,
+                   const void* qpos, const void* kpos, const void* table,
+                   long long qs_b, long long qs_h, long long qs_g, long long qs_s,
+                   int B, int H, int G, int S, int T, int n_pages,
+                   int page_size, int causal, int window, float softcap,
                    float scale) {
   Params p;
   p.q = q; p.k = k; p.v = v;
   p.qpos = static_cast<const int*>(qpos);
   p.kpos = static_cast<const int*>(kpos);
+  p.table = static_cast<const int*>(table);
   p.qs_b = qs_b; p.qs_h = qs_h; p.qs_g = qs_g; p.qs_s = qs_s;
-  p.ks_b = ks_b; p.ks_h = ks_h; p.ks_t = ks_t;
-  p.vs_b = vs_b; p.vs_h = vs_h; p.vs_t = vs_t;
   p.B = B; p.H = H; p.G = G; p.S = S; p.T = T;
+  p.n_pages = n_pages; p.page_size = page_size;
   p.causal = causal; p.window = window; p.softcap = softcap; p.scale = scale;
   return p;
 }
@@ -477,9 +599,11 @@ int repro_flash_attention_fwd(
     long long vs_b, long long vs_h, long long vs_t, int B, int H, int G, int S,
     int T, int D, int is_bf16, int causal, int window, float softcap,
     float scale, void* stream) {
-  const Params p = make_params(q, k, v, qpos, kpos, qs_b, qs_h, qs_g, qs_s, ks_b,
-                               ks_h, ks_t, vs_b, vs_h, vs_t, B, H, G, S, T,
-                               causal, window, softcap, scale);
+  const Params p = make_params(
+      q, operand(k, nullptr, ks_b, ks_h, ks_t, 0, 0, 0),
+      operand(v, nullptr, vs_b, vs_h, vs_t, 0, 0, 0), qpos, kpos, nullptr,
+      qs_b, qs_h, qs_g, qs_s, B, H, G, S, T, 0, 0, causal, window, softcap,
+      scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || H == 0 || G == 0 || S == 0) return cudaSuccess;
   if (is_bf16) {
@@ -492,29 +616,46 @@ int repro_flash_attention_fwd(
   return cudaErrorInvalidValue;
 }
 
-// Same operand layout as the prefill entry point; pm/pl (B, Hkv, n_split, G*S)
+// Decode over any cache layout. q (B, Hkv, G, S, D) by element strides. k/v
+// hold values of q's dtype (code_bits 0), int8 codes (8) or nibble-packed
+// int4 codes (4, D / 2 bytes a row), by element strides (ks_*/vs_*) over
+// (B, Hkv, T) rows, or over (page, Hkv, row in page) when page_size > 0;
+// codes carry fp32 scales by the strides kc_*/vc_* of the same axes. table
+// (B, n_pages) int32 pool rows when paged. qpos (B, S), kpos (B, T) logical.
+// out contiguous (B, Hkv, G, S, D) in q's dtype; pm/pl (B, Hkv, n_split, G*S)
 // and pacc (B, Hkv, n_split, G*S, D) fp32 are scratch from the caller.
 int repro_flash_decode_fwd(
-    const void* q, const void* k, const void* v, const void* qpos,
-    const void* kpos, void* out, void* pm, void* pl, void* pacc, long long qs_b,
-    long long qs_h, long long qs_g, long long qs_s, long long ks_b, long long ks_h,
-    long long ks_t, long long vs_b, long long vs_h, long long vs_t, int B, int H,
-    int G, int S, int T, int D, int is_bf16, int n_split, int split_len,
-    int causal, int window, float softcap, float scale, void* stream) {
-  const Params p = make_params(q, k, v, qpos, kpos, qs_b, qs_h, qs_g, qs_s, ks_b,
-                               ks_h, ks_t, vs_b, vs_h, vs_t, B, H, G, S, T,
-                               causal, window, softcap, scale);
+    const void* q, const void* k, const void* v, const void* kscale,
+    const void* vscale, const void* table, const void* qpos, const void* kpos,
+    void* out, void* pm, void* pl, void* pacc, long long qs_b, long long qs_h,
+    long long qs_g, long long qs_s, long long ks_b, long long ks_h,
+    long long ks_t, long long vs_b, long long vs_h, long long vs_t,
+    long long kc_b, long long kc_h, long long kc_t, long long vc_b,
+    long long vc_h, long long vc_t, int B, int H, int G, int S, int T, int D,
+    int is_bf16, int code_bits, int n_pages, int page_size, int n_split,
+    int split_len, int causal, int window, float softcap, float scale,
+    void* stream) {
+  const Params p = make_params(
+      q, operand(k, kscale, ks_b, ks_h, ks_t, kc_b, kc_h, kc_t),
+      operand(v, vscale, vs_b, vs_h, vs_t, vc_b, vc_h, vc_t), qpos, kpos,
+      table, qs_b, qs_h, qs_g, qs_s, B, H, G, S, T, n_pages, page_size,
+      causal, window, softcap, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || H == 0 || G == 0 || S == 0) return cudaSuccess;
-  float* m = static_cast<float*>(pm);
-  float* l = static_cast<float*>(pl);
-  float* a = static_cast<float*>(pacc);
+  Scratch w;
+  w.out = out;
+  w.pm = static_cast<float*>(pm);
+  w.pl = static_cast<float*>(pl);
+  w.pacc = static_cast<float*>(pacc);
+  w.n_split = n_split;
+  w.split_len = split_len;
+  const bool paged = page_size > 0;
   if (is_bf16) {
-    if (D == 64) return launch_decode<__nv_bfloat16, 64>(p, n_split, split_len, out, m, l, a, st);
-    if (D == 128) return launch_decode<__nv_bfloat16, 128>(p, n_split, split_len, out, m, l, a, st);
+    if (D == 64) return dispatch_decode<__nv_bfloat16, 64>(p, w, code_bits, paged, st);
+    if (D == 128) return dispatch_decode<__nv_bfloat16, 128>(p, w, code_bits, paged, st);
   } else {
-    if (D == 64) return launch_decode<float, 64>(p, n_split, split_len, out, m, l, a, st);
-    if (D == 128) return launch_decode<float, 128>(p, n_split, split_len, out, m, l, a, st);
+    if (D == 64) return dispatch_decode<float, 64>(p, w, code_bits, paged, st);
+    if (D == 128) return dispatch_decode<float, 128>(p, w, code_bits, paged, st);
   }
   return cudaErrorInvalidValue;
 }

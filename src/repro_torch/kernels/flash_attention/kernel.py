@@ -1,18 +1,33 @@
 """ctypes wrappers of the flash-attention CUDA kernels.
 
-Replaces the TPU kernels of ``repro/kernels/flash_attention/kernel.py``:
-``flash_attention_fwd`` (prefill, ``kernel.py:126``) and ``flash_decode_fwd``
-(decode, ``kernel.py:174``), with the same argument layout: q
-``(B, Hkv, G, S, D)``, k/v ``(B, Hkv, T, D)``, ``q_positions`` ``(B, S)`` and
-``kv_positions`` ``(B, T)`` int32 (-1 = masked). The CUDA source is
-``csrc/flash_attention.cu``.
+Replaces the TPU kernels of ``repro/kernels/flash_attention/kernel.py`` with
+their argument layouts:
 
-Bound on the H100: bytes. At the serving shapes the kernels stream q/k/v
-once (decode: the whole K/V cache per launch), far below the ~295 bf16
-operations per byte where the tensor cores would become the limit. The
-kernels keep scores in shared memory, read each K/V tile once per kv head,
-skip fully masked tiles, and split the decode kv axis over blocks so the
-cache stream occupies every SM.
+* ``flash_attention_fwd`` (prefill, ``kernel.py:126``): q
+  ``(B, Hkv, G, S, D)``, k/v ``(B, Hkv, T, D)``;
+* ``flash_decode_fwd`` (decode, ``kernel.py:174``): the same operands, small
+  S;
+* ``flash_decode_quant_fwd`` (``kernel.py:262``): k/v as int8 codes
+  ``(B, Hkv, T, Dc)`` (``Dc = D``, or ``D // 2`` nibble-packed int4) and
+  fp32 scales ``(B, Hkv, T)``;
+* ``flash_decode_paged_fwd`` (``kernel.py:359``): k/v as page pools
+  ``(P, ps, Hkv, D)`` read through a table ``(B, NP)`` int32 (page 0 is the
+  trash page);
+* ``flash_decode_paged_quant_fwd`` (``kernel.py:443``): code pools
+  ``(P, ps, Hkv, Dc)`` and scale pools ``(P, ps, Hkv)`` through the table.
+
+``q_positions`` ``(B, S)`` and ``kv_positions`` ``(B, T)`` (``T = NP * ps``
+when paged) are int32, -1 = masked. The CUDA source is
+``csrc/flash_attention.cu``; the four decode wrappers launch one kernel that
+differs only in how it fetches a K/V row, so the paged kernels equal the
+dense and quantized ones on the gathered pages bit for bit.
+
+Bound on the H100: bytes. At the serving shapes the kernels stream q and the
+K/V operands once (decode: the whole cache per launch, as codes where the
+cache holds codes), far below the ~295 bf16 operations per byte where the
+tensor cores would become the limit. The kernels keep scores in shared
+memory, read each K/V tile once per kv head, skip fully masked tiles, and
+split the decode kv axis over blocks so the cache stream occupies every SM.
 
 Selection is by the device of the inputs: CPU tensors go to the plain
 versions in ``ref.py``; CUDA tensors launch the kernels or raise. Inputs may
@@ -29,12 +44,18 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention.ref import (flash_attention_fwd_ref,
-                                                     flash_decode_fwd_ref)
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_fwd_ref, flash_decode_fwd_ref, flash_decode_paged_fwd_ref,
+    flash_decode_paged_quant_fwd_ref, flash_decode_quant_fwd_ref)
 
-LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0, "flash_decode_fwd": 0}
+LAUNCHES: Dict[str, int] = {
+    "flash_attention_fwd": 0, "flash_decode_fwd": 0,
+    "flash_decode_quant_fwd": 0, "flash_decode_paged_fwd": 0,
+    "flash_decode_paged_quant_fwd": 0,
+}
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+KERNEL_PAGE_SIZES = (8, 16, 32, 64)
 # decode split-KV: aim for this many blocks per launch (2 per SM on 132 SMs)
 DECODE_TARGET_BLOCKS = 264
 DECODE_SPLIT_MULTIPLE = 64        # the kernel's kv tile
@@ -43,8 +64,6 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
-_STRIDES = [_L] * 10
-_SHAPE = [_I] * 7                 # B, H, G, S, T, D, is_bf16
 _MASK = [_I, _I, _F, _F, _P]      # causal, window, softcap, scale, stream
 _bound = False
 
@@ -53,54 +72,93 @@ def _lib() -> ctypes.CDLL:
     global _bound
     lib = build.library("flash_attention")
     if not _bound:
-        lib.repro_flash_attention_fwd.argtypes = [_P] * 7 + _STRIDES + _SHAPE + _MASK
+        lib.repro_flash_attention_fwd.argtypes = ([_P] * 7 + [_L] * 10
+                                                  + [_I] * 7 + _MASK)
         lib.repro_flash_attention_fwd.restype = _I
-        lib.repro_flash_decode_fwd.argtypes = ([_P] * 9 + _STRIDES + _SHAPE
-                                               + [_I, _I] + _MASK)
+        # 12 pointers, 4 q + 3 x 4 operand strides, B H G S T D is_bf16
+        # code_bits n_pages page_size n_split split_len
+        lib.repro_flash_decode_fwd.argtypes = ([_P] * 12 + [_L] * 16
+                                               + [_I] * 12 + _MASK)
         lib.repro_flash_decode_fwd.restype = _I
         _bound = True
     return lib
+
+
+def _same_device(*ts) -> None:
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {devs}")
+
+
+def _check_q(q, q_positions, kv_positions, T) -> Tuple[int, ...]:
+    if q.dim() != 5:
+        raise ValueError(f"expected q (B,Hkv,G,S,D); got {tuple(q.shape)}")
+    B, H, G, S, D = q.shape
+    if tuple(q_positions.shape) != (B, S) or tuple(kv_positions.shape) != (B, T):
+        raise ValueError(f"positions {tuple(q_positions.shape)}, "
+                         f"{tuple(kv_positions.shape)}; expected ({B}, {S}), "
+                         f"({B}, {T})")
+    return B, H, G, S, D
 
 
 def _check(q, k, v, q_positions, kv_positions) -> Tuple[int, ...]:
     if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"expected q (B,Hkv,G,S,D) and k/v (B,Hkv,T,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    B, H, G, S, D = q.shape
     T = k.shape[2]
+    B, H, G, S, D = _check_q(q, q_positions, kv_positions, T)
     if k.shape[0] != B or k.shape[1] != H or k.shape[3] != D:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
-    if tuple(q_positions.shape) != (B, S) or tuple(kv_positions.shape) != (B, T):
-        raise ValueError(f"positions {tuple(q_positions.shape)}, "
-                         f"{tuple(kv_positions.shape)}; expected ({B}, {S}), "
-                         f"({B}, {T})")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
-    devs = {t.device for t in (q, k, v, q_positions, kv_positions)}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on several devices: {devs}")
+    _same_device(q, k, v, q_positions, kv_positions)
     return B, H, G, S, T, D
 
 
-def _check_cuda(q, k, v, q_positions, kv_positions, D) -> None:
+def _check_codes(D, codes, scales, lead) -> int:
+    """Codes (*lead, Dc) int8 with Dc in (D, D // 2) and scales (*lead)
+    fp32, for k and v alike; returns code_bits (8 or 4)."""
+    (kc, vc), (ks, vs) = codes, scales
+    if tuple(kc.shape[:-1]) != lead or kc.shape != vc.shape:
+        raise ValueError(f"codes {tuple(kc.shape)}, {tuple(vc.shape)}; "
+                         f"expected {lead} + (Dc,)")
+    if tuple(ks.shape) != lead or ks.shape != vs.shape:
+        raise ValueError(f"scales {tuple(ks.shape)}, {tuple(vs.shape)}; "
+                         f"expected {lead}")
+    if kc.dtype != torch.int8 or vc.dtype != torch.int8:
+        raise TypeError(f"codes must be int8, got {kc.dtype}, {vc.dtype}")
+    if ks.dtype != torch.float32 or vs.dtype != torch.float32:
+        raise TypeError(f"scales must be float32, got {ks.dtype}, {vs.dtype}")
+    Dc = kc.shape[-1]
+    if Dc not in (D, D // 2) or D % 2:
+        raise ValueError(f"code width {Dc} for head_dim {D}: expected {D} "
+                         f"(int8) or {D // 2} (int4)")
+    return 8 if Dc == D else 4
+
+
+def _check_table(table, B) -> int:
+    if table.dim() != 2 or table.shape[0] != B:
+        raise ValueError(f"table {tuple(table.shape)}: expected ({B}, NP)")
+    if table.dtype != torch.int32:
+        raise TypeError(f"table must be int32, got {table.dtype}")
+    return table.shape[1]
+
+
+def _check_cuda(q, D, operands=(), ints=()) -> None:
+    """What the kernels take: a CUDA q of a kernel dtype and head_dim,
+    operands with a contiguous last axis, contiguous int32 index arrays."""
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head_dim {D}: the CUDA kernels take {KERNEL_HEAD_DIMS}")
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"dtype {q.dtype}: the CUDA kernels take {KERNEL_DTYPES}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q),) + tuple(operands):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have a contiguous last axis")
-    for name, t in (("q_positions", q_positions), ("kv_positions", kv_positions)):
+    for name, t in ints:
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous int32")
-
-
-def _operands(q, k, v, q_positions, kv_positions):
-    return ([q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
-             kv_positions.data_ptr()],
-            [*q.stride()[:4], *k.stride()[:3], *v.stride()[:3]])
 
 
 def _mask_args(causal, window, softcap, D):
@@ -120,13 +178,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_fwd_ref(q, k, v, q_positions, kv_positions,
                                        causal=causal, window=window,
                                        softcap=softcap)
-    _check_cuda(q, k, v, q_positions, kv_positions, D)
+    _check_cuda(q, D, (("k", k), ("v", v)),
+                (("q_positions", q_positions), ("kv_positions", kv_positions)))
     lib = _lib()
     out = torch.empty((B, H, G, S, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, G, S), dtype=torch.float32, device=q.device)
-    ptrs, strides = _operands(q, k, v, q_positions, kv_positions)
     err = lib.repro_flash_attention_fwd(
-        *ptrs, out.data_ptr(), lse.data_ptr(), *strides,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
+        kv_positions.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        *q.stride()[:4], *k.stride()[:3], *v.stride()[:3],
         B, H, G, S, T, D, int(q.dtype == torch.bfloat16),
         *_mask_args(causal, window, softcap, D))
     build.check(lib, err, "flash_attention_fwd")
@@ -138,11 +198,58 @@ def decode_splits(B: int, H: int, T: int) -> Tuple[int, int]:
     """(n_split, split_len) for the decode kernel: enough kv splits that
     B * H * n_split blocks fill the card, each a whole number of kv tiles.
     A function of the shapes only, so every call at one shape sums in the
-    same order."""
+    same order (and a paged call in the order of a contiguous one)."""
     want = max(1, -(-DECODE_TARGET_BLOCKS // max(B * H, 1)))
     split_len = -(-max(T, 1) // want)
     split_len = -(-split_len // DECODE_SPLIT_MULTIPLE) * DECODE_SPLIT_MULTIPLE
     return -(-max(T, 1) // split_len), split_len
+
+
+def _rows3(x: torch.Tensor, paged: bool):
+    """Element strides (b, h, t) of a K/V operand's rows: (B, Hkv, T, ...)
+    contiguous-cache layout, or (P, ps, Hkv, ...) pools, whose "b" is the
+    page and "t" the row inside it."""
+    s = x.stride()
+    return (s[0], s[2], s[1]) if paged else (s[0], s[1], s[2])
+
+
+def _launch_decode(name: str, q, k, v, k_scale, v_scale, table, q_positions,
+                   kv_positions, *, T: int, code_bits: int, page_size: int,
+                   causal, window, softcap) -> torch.Tensor:
+    B, H, G, S, D = q.shape
+    paged = page_size > 0
+    if paged and page_size not in KERNEL_PAGE_SIZES:
+        raise ValueError(f"page size {page_size}: the CUDA kernels take "
+                         f"{KERNEL_PAGE_SIZES}")
+    ints = [("q_positions", q_positions), ("kv_positions", kv_positions)]
+    if paged:
+        ints.append(("table", table))
+    _check_cuda(q, D, (("k", k), ("v", v)), ints)
+    lib = _lib()
+    n_split, split_len = decode_splits(B, H, T)
+    R = G * S
+    out = torch.empty((B, H, G, S, D), dtype=q.dtype, device=q.device)
+    pm = torch.empty((B, H, n_split, R), dtype=torch.float32, device=q.device)
+    pl = torch.empty_like(pm)
+    pacc = torch.empty((B, H, n_split, R, D), dtype=torch.float32,
+                       device=q.device)
+    scaled = code_bits > 0
+    err = lib.repro_flash_decode_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scale.data_ptr() if scaled else None,
+        v_scale.data_ptr() if scaled else None,
+        table.data_ptr() if paged else None,
+        q_positions.data_ptr(), kv_positions.data_ptr(), out.data_ptr(),
+        pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(),
+        *q.stride()[:4], *_rows3(k, paged), *_rows3(v, paged),
+        *(_rows3(k_scale, paged) if scaled else (0, 0, 0)),
+        *(_rows3(v_scale, paged) if scaled else (0, 0, 0)),
+        B, H, G, S, T, D, int(q.dtype == torch.bfloat16), code_bits,
+        table.shape[1] if paged else 0, page_size, n_split, split_len,
+        *_mask_args(causal, window, softcap, D))
+    build.check(lib, err, name)
+    LAUNCHES[name] += 1
+    return out
 
 
 def flash_decode_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -152,24 +259,98 @@ def flash_decode_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Decode kernel (flash-decoding split-KV + deterministic combine):
     returns out (B, Hkv, G, S, D) in q's dtype. Any G * S and T."""
     B, H, G, S, T, D = _check(q, k, v, q_positions, kv_positions)
+    kw = dict(causal=causal, window=window, softcap=softcap)
     if q.device.type == "cpu":
-        return flash_decode_fwd_ref(q, k, v, q_positions, kv_positions,
-                                    causal=causal, window=window,
-                                    softcap=softcap)
-    _check_cuda(q, k, v, q_positions, kv_positions, D)
-    lib = _lib()
-    n_split, split_len = decode_splits(B, H, T)
-    R = G * S
-    out = torch.empty((B, H, G, S, D), dtype=q.dtype, device=q.device)
-    pm = torch.empty((B, H, n_split, R), dtype=torch.float32, device=q.device)
-    pl = torch.empty_like(pm)
-    pacc = torch.empty((B, H, n_split, R, D), dtype=torch.float32,
-                       device=q.device)
-    ptrs, strides = _operands(q, k, v, q_positions, kv_positions)
-    err = lib.repro_flash_decode_fwd(
-        *ptrs, out.data_ptr(), pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(),
-        *strides, B, H, G, S, T, D, int(q.dtype == torch.bfloat16),
-        n_split, split_len, *_mask_args(causal, window, softcap, D))
-    build.check(lib, err, "flash_decode_fwd")
-    LAUNCHES["flash_decode_fwd"] += 1
-    return out
+        return flash_decode_fwd_ref(q, k, v, q_positions, kv_positions, **kw)
+    return _launch_decode("flash_decode_fwd", q, k, v, None, None, None,
+                          q_positions, kv_positions, T=T, code_bits=0,
+                          page_size=0, **kw)
+
+
+def flash_decode_quant_fwd(q: torch.Tensor, k_codes: torch.Tensor,
+                           k_scale: torch.Tensor, v_codes: torch.Tensor,
+                           v_scale: torch.Tensor, q_positions: torch.Tensor,
+                           kv_positions: torch.Tensor, *, causal: bool = True,
+                           window: int = 0,
+                           softcap: float = 0.0) -> torch.Tensor:
+    """Decode over a quantized ring cache: codes (B, Hkv, T, Dc) int8,
+    scales (B, Hkv, T) fp32, dequantized in fp32 in the kernel. Returns out
+    (B, Hkv, G, S, D) in q's dtype."""
+    if k_codes.dim() != 4:
+        raise ValueError(f"expected codes (B,Hkv,T,Dc); got "
+                         f"{tuple(k_codes.shape)}")
+    T = k_codes.shape[2]
+    B, H, G, S, D = _check_q(q, q_positions, kv_positions, T)
+    bits = _check_codes(D, (k_codes, v_codes), (k_scale, v_scale), (B, H, T))
+    _same_device(q, k_codes, k_scale, v_codes, v_scale, q_positions,
+                 kv_positions)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    if q.device.type == "cpu":
+        return flash_decode_quant_fwd_ref(q, k_codes, k_scale, v_codes,
+                                          v_scale, q_positions, kv_positions,
+                                          **kw)
+    return _launch_decode("flash_decode_quant_fwd", q, k_codes, v_codes,
+                          k_scale, v_scale, None, q_positions, kv_positions,
+                          T=T, code_bits=bits, page_size=0, **kw)
+
+
+def flash_decode_paged_fwd(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, table: torch.Tensor,
+                           q_positions: torch.Tensor,
+                           kv_positions: torch.Tensor, *, causal: bool = True,
+                           window: int = 0,
+                           softcap: float = 0.0) -> torch.Tensor:
+    """Decode over page pools (P, ps, Hkv, D) through table (B, NP) int32;
+    kv_positions (B, NP * ps). Returns out (B, Hkv, G, S, D)."""
+    if k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
+        raise ValueError(f"expected pools (P,ps,Hkv,D); got "
+                         f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
+    _, ps, Hp, Dp = k_pages.shape
+    NP = _check_table(table, q.shape[0])
+    B, H, G, S, D = _check_q(q, q_positions, kv_positions, NP * ps)
+    if (Hp, Dp) != (H, D):
+        raise ValueError(f"q {tuple(q.shape)} and pool "
+                         f"{tuple(k_pages.shape)} disagree")
+    if not (q.dtype == k_pages.dtype == v_pages.dtype):
+        raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k_pages.dtype}, "
+                        f"{v_pages.dtype}")
+    _same_device(q, k_pages, v_pages, table, q_positions, kv_positions)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    if q.device.type == "cpu":
+        return flash_decode_paged_fwd_ref(q, k_pages, v_pages, table,
+                                          q_positions, kv_positions, **kw)
+    return _launch_decode("flash_decode_paged_fwd", q, k_pages, v_pages, None,
+                          None, table, q_positions, kv_positions, T=NP * ps,
+                          code_bits=0, page_size=ps, **kw)
+
+
+def flash_decode_paged_quant_fwd(q: torch.Tensor, k_codes: torch.Tensor,
+                                 k_scale: torch.Tensor, v_codes: torch.Tensor,
+                                 v_scale: torch.Tensor, table: torch.Tensor,
+                                 q_positions: torch.Tensor,
+                                 kv_positions: torch.Tensor, *,
+                                 causal: bool = True, window: int = 0,
+                                 softcap: float = 0.0) -> torch.Tensor:
+    """Decode over code pools (P, ps, Hkv, Dc) int8 and scale pools
+    (P, ps, Hkv) fp32 through table (B, NP) int32. Returns out
+    (B, Hkv, G, S, D)."""
+    if k_codes.dim() != 4:
+        raise ValueError(f"expected code pools (P,ps,Hkv,Dc); got "
+                         f"{tuple(k_codes.shape)}")
+    P, ps, Hp, _ = k_codes.shape
+    NP = _check_table(table, q.shape[0])
+    B, H, G, S, D = _check_q(q, q_positions, kv_positions, NP * ps)
+    if Hp != H:
+        raise ValueError(f"q {tuple(q.shape)} and pool "
+                         f"{tuple(k_codes.shape)} disagree")
+    bits = _check_codes(D, (k_codes, v_codes), (k_scale, v_scale), (P, ps, H))
+    _same_device(q, k_codes, k_scale, v_codes, v_scale, table, q_positions,
+                 kv_positions)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    if q.device.type == "cpu":
+        return flash_decode_paged_quant_fwd_ref(
+            q, k_codes, k_scale, v_codes, v_scale, table, q_positions,
+            kv_positions, **kw)
+    return _launch_decode("flash_decode_paged_quant_fwd", q, k_codes, v_codes,
+                          k_scale, v_scale, table, q_positions, kv_positions,
+                          T=NP * ps, code_bits=bits, page_size=ps, **kw)

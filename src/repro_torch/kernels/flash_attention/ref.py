@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the flash-attention kernels, in the kernels'
 layout (counterpart of the TPU kernels' semantics in
-``repro/kernels/flash_attention/kernel.py``: ``_tile_update`` and
-``_tile_finalize``).
+``repro/kernels/flash_attention/kernel.py``: ``_tile_update``,
+``_tile_finalize`` and ``_dequant_rows``).
 
 They compute in fp32 with the kernels' mask rule and fully-masked-row guard,
 over the whole kv axis at once. The wrappers in ``kernel.py`` call them for
@@ -14,6 +14,8 @@ import math
 from typing import Tuple
 
 import torch
+
+from repro_torch.kernels.common import unpack_int4
 
 NEG_INF = -1e30
 
@@ -70,3 +72,58 @@ def flash_decode_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Decode: the same function for a small q block; returns out only."""
     return _attend(q, k, v, q_positions, kv_positions, causal, window,
                    softcap)[0]
+
+
+def dequant_rows(codes: torch.Tensor, scale: torch.Tensor,
+                 d: int) -> torch.Tensor:
+    """Codes (..., Dc) int8 and per-row scales (...) fp32 -> (..., d) fp32,
+    ``codes * scale`` as the TPU kernel's ``_dequant_rows`` computes it (in
+    fp32 whatever q's dtype). ``Dc == d // 2`` means nibble-packed int4."""
+    if codes.shape[-1] != d:
+        assert codes.shape[-1] * 2 == d, (tuple(codes.shape), d)
+        codes = unpack_int4(codes)
+    return codes.float() * scale[..., None]
+
+
+def gather_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Pool (P, ps, Hkv, ...) through table (B, NP) -> the dense kernel
+    layout (B, Hkv, NP * ps, ...)."""
+    x = pool[table.long()]                          # (B, NP, ps, Hkv, ...)
+    B, NP, ps = x.shape[:3]
+    return x.reshape((B, NP * ps) + tuple(x.shape[3:])).transpose(1, 2)
+
+
+def flash_decode_quant_fwd_ref(q, k_codes, k_scale, v_codes, v_scale,
+                               q_positions, kv_positions, *,
+                               causal: bool = True, window: int = 0,
+                               softcap: float = 0.0) -> torch.Tensor:
+    """Decode over a quantized cache: codes (B, Hkv, T, Dc) int8, scales
+    (B, Hkv, T) fp32, dequantized in fp32, then :func:`flash_decode_fwd_ref`."""
+    D = q.shape[-1]
+    return _attend(q, dequant_rows(k_codes, k_scale, D),
+                   dequant_rows(v_codes, v_scale, D), q_positions,
+                   kv_positions, causal, window, softcap)[0]
+
+
+def flash_decode_paged_fwd_ref(q, k_pages, v_pages, table, q_positions,
+                               kv_positions, *, causal: bool = True,
+                               window: int = 0,
+                               softcap: float = 0.0) -> torch.Tensor:
+    """Decode over pools (P, ps, Hkv, D) through table (B, NP): the pages
+    gathered into the dense layout, then :func:`flash_decode_fwd_ref`."""
+    return _attend(q, gather_pages(k_pages, table),
+                   gather_pages(v_pages, table), q_positions, kv_positions,
+                   causal, window, softcap)[0]
+
+
+def flash_decode_paged_quant_fwd_ref(q, k_codes, k_scale, v_codes, v_scale,
+                                     table, q_positions, kv_positions, *,
+                                     causal: bool = True, window: int = 0,
+                                     softcap: float = 0.0) -> torch.Tensor:
+    """Decode over code pools (P, ps, Hkv, Dc) and scale pools (P, ps, Hkv):
+    gathered, then :func:`flash_decode_quant_fwd_ref`."""
+    return flash_decode_quant_fwd_ref(
+        q, gather_pages(k_codes, table), gather_pages(k_scale, table),
+        gather_pages(v_codes, table), gather_pages(v_scale, table),
+        q_positions, kv_positions, causal=causal, window=window,
+        softcap=softcap)

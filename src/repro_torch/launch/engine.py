@@ -1,17 +1,31 @@
-"""Continuous-batching serving engine over the fused decode loop, contiguous
-KV layout (counterpart: ``repro/launch/engine.py``, ``ServeEngine``).
+"""Continuous-batching serving engine over the fused decode loop
+(counterpart: ``repro/launch/engine.py``, ``ServeEngine``).
 
 Callers submit :class:`Request`s and get :class:`Completion`s back. The engine
-keeps ``slots`` rows of one pre-sized ring KV cache. Between fused decode
-chunks it retires finished sequences (from the on-device ``done`` flags and
-``n_valid`` counts) and prefills queued prompts into the freed rows: each
-prompt is left-padded to the ``prompt_len`` bucket, prefilled at batch 1 and
-copied into its slot row. Every request ends in exactly one completion:
-``length``, ``eos``, or an ``error`` with a typed reason for a prompt that
-is too long or malformed.
+keeps ``slots`` rows of one pre-sized KV cache. Between fused decode chunks
+it retires finished sequences (from the on-device ``done`` flags and
+``n_valid`` counts) and prefills queued prompts into the freed rows, one
+prompt at batch 1 each. Every request ends in exactly one completion:
+``length``, ``eos``, or an ``error`` with a typed reason.
 
-Paged and quantized caches, speculative decoding, deadlines, retries and
-fault injection are ported in later slices.
+The cache is laid out as the model says (``kv_quant``, ``page_size``):
+
+* contiguous (ring per slot, values or Proteus codes and scales): each
+  prompt is left-padded to the ``prompt_len`` bucket and its cache rows are
+  copied into the slot's rows;
+* paged: fixed-size pages live in one pool per leaf and each slot holds a
+  page table. Prompts are right-padded, prefilled with every position's
+  logits, and the first token is read at the true prompt end. A host-side
+  free-list allocator hands out pool rows at admission and takes them back
+  at retirement, so the memory committed to KV follows the tokens held.
+  Full prompt pages are hash-consed across concurrent slots (prefix
+  sharing, reference-counted, copied before a divergent write), and pool
+  row 0 is the trash page: unused and retired slots point there. Admission
+  reserves each request's worst-case pages, so decode can never run out of
+  pages; a request that can never fit ends in a ``page_pool`` error.
+
+Speculative decoding, deadlines, retries, load shedding, snapshots and fault
+injection are ported in later slices.
 """
 from __future__ import annotations
 
@@ -19,12 +33,14 @@ import enum
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Deque, Dict, List, Optional
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.launch.steps import make_generate_step
+from repro_torch.models.layers import (PagedKVCache, QKVCache, TRASH_PAGE,
+                                       kv_zeros)
 
 
 class ErrorReason(str, enum.Enum):
@@ -32,6 +48,7 @@ class ErrorReason(str, enum.Enum):
 
     PROMPT_TOO_LONG = "prompt_too_long"   # prompt exceeds the engine bucket
     BAD_REQUEST = "bad_request"           # empty prompt, bad ids or extras
+    PAGE_POOL = "page_pool"               # KV page pool cannot hold request
     NAN_LOGITS = "nan_logits"             # finite guard retired the slot
 
     def __str__(self) -> str:
@@ -62,6 +79,7 @@ class Completion:
 class _Slot:
     request: Request
     cap: int                      # per-request generation cap
+    n: int = 0                    # true prompt length
     produced: List[int] = field(default_factory=list)
 
 
@@ -69,24 +87,99 @@ class PromptTooLongError(ValueError):
     """Prompt exceeds the engine's prompt bucket (no silent truncation)."""
 
 
+class PagePoolExhaustedError(RuntimeError):
+    """The KV page pool has no free page. Admission reserves every active
+    slot's worst case, so the engine's own demand never raises this."""
+
+    def __init__(self, alloc: "_PageAllocator", what: str):
+        super().__init__(
+            f"KV page pool exhausted during {what}: {alloc.used}/"
+            f"{alloc.n_phys - 1} pages in use, {len(alloc.free)} free, "
+            f"{len(alloc.registry)} prefix-registered")
+
+
+class _PageAllocator:
+    """Host-side free-list allocator over the physical page pool.
+
+    Pool row 0 is the trash page and is never handed out. ``refs`` counts the
+    slot-table entries that point at each page; ``registry`` hash-conses full
+    prompt pages, (logical page index, prefix-token bytes) -> page. A
+    registered page leaves the registry when its last reference drops, so
+    sharing is across concurrent slots.
+    """
+
+    def __init__(self, n_phys: int):
+        self.n_phys = n_phys
+        self.free: List[int] = list(range(n_phys - 1, 0, -1))
+        self.refs = np.zeros(n_phys, np.int32)
+        self.registry: Dict[Tuple[int, bytes], int] = {}
+        self.reg_key: Dict[int, Tuple[int, bytes]] = {}
+        self.hits = 0
+
+    def alloc(self, what: str = "alloc") -> int:
+        if not self.free:
+            raise PagePoolExhaustedError(self, what)
+        phys = self.free.pop()
+        self.refs[phys] = 1
+        return phys
+
+    def lookup(self, key: Tuple[int, bytes]) -> Optional[int]:
+        phys = self.registry.get(key)
+        if phys is not None:
+            self.refs[phys] += 1
+            self.hits += 1
+        return phys
+
+    def register(self, phys: int, key: Tuple[int, bytes]) -> None:
+        self.registry[key] = phys
+        self.reg_key[phys] = key
+
+    def unregister(self, phys: int) -> None:
+        key = self.reg_key.pop(phys, None)
+        if key is not None:
+            self.registry.pop(key, None)
+
+    def decref(self, phys: int) -> None:
+        self.refs[phys] -= 1
+        if self.refs[phys] == 0:
+            self.unregister(phys)
+            self.free.append(phys)
+
+    @property
+    def used(self) -> int:
+        return int((self.refs > 0).sum())
+
+
+def _pools(pages) -> List[torch.Tensor]:
+    """The tensors of a pool: values, or codes and scales."""
+    return [pages.codes, pages.scale] if isinstance(pages, QKVCache) \
+        else [pages]
+
+
 class ServeEngine:
     """Slot-based continuous batching over :func:`make_generate_step`.
 
     Args:
-      model: a ``TransformerLM``; the engine runs on its device.
+      model: a ``TransformerLM``; the engine runs on its device and serves
+        from the KV layout of its ``kv_quant`` and ``page_size``.
       slots: concurrently decoded sequences (cache batch rows).
-      prompt_len: prompt bucket (left-padded; longer prompts are rejected).
+      prompt_len: prompt bucket (longer prompts are rejected).
       max_new: per-request generation cap; the cache holds
-        ``max_len = prompt_len + max_new`` positions.
+        ``max_len = prompt_len + max_new`` positions (whole pages when
+        paged).
       chunk: decode steps per fused chunk (one host sync each).
       eos_id: stop token (None = length-only stopping).
       temperature/top_k: sampling (0 temperature = greedy).
+      page_pool_pages: physical pages of the paged pool (default
+        ``slots`` times the pages of one slot, the worst case). A smaller
+        pool makes admission wait until a request's worst-case pages fit.
     """
 
     def __init__(self, model, *, slots: int = 4, prompt_len: int = 32,
                  max_new: int = 32, chunk: int = 8,
                  eos_id: Optional[int] = None, temperature: float = 0.0,
-                 top_k: int = 0, seed: int = 0):
+                 top_k: int = 0, seed: int = 0,
+                 page_pool_pages: Optional[int] = None):
         if max_new < 1 or prompt_len < 1:
             raise ValueError(f"prompt_len {prompt_len} and max_new {max_new} "
                              "must be positive")
@@ -95,23 +188,74 @@ class ServeEngine:
         self.slots, self.prompt_len, self.chunk = slots, prompt_len, chunk
         self.max_new, self.eos_id = max_new, eos_id
         self.max_len = prompt_len + max_new
+        self.paged = model.page_size > 0
         self._generate = make_generate_step(model, chunk=chunk,
                                             temperature=temperature,
                                             top_k=top_k)
         # empty slot rows are zeros, like the reference's tiled template
-        self.cache = model.init_cache(slots, self.max_len)
-        self.cache["pos_ids"].zero_()
+        if self.paged:
+            cfg, dev = model.cfg, self.device
+            self.page_size = model.page_size
+            self.cache_pos_len = model.cache_len(self.max_len)
+            self.n_logical_pages = self.cache_pos_len // self.page_size
+            # +1: pool row 0 is the trash page
+            self.n_phys_pages = (slots * self.n_logical_pages
+                                 if page_pool_pages is None
+                                 else int(page_pool_pages)) + 1
+            pool = (cfg.num_layers, self.n_phys_pages, self.page_size,
+                    cfg.num_kv_heads, cfg.resolved_head_dim)
+            table = (cfg.num_layers, slots, self.n_logical_pages)
+
+            def leaf():                  # every table row on the trash page
+                return PagedKVCache(
+                    kv_zeros(pool, model.cdtype, model.kv_quant, dev),
+                    torch.zeros(table, dtype=torch.int32, device=dev))
+            self.cache = {
+                "k": leaf(), "v": leaf(),
+                "pos_ids": torch.zeros((slots, self.cache_pos_len),
+                                       dtype=torch.int32, device=dev),
+                "pos": torch.zeros((slots,), dtype=torch.int32, device=dev)}
+            self._alloc = _PageAllocator(self.n_phys_pages)
+            self._host_table = np.zeros((slots, self.n_logical_pages),
+                                        np.int32)
+            # prefix sharing needs page <-> position identity: a bucket
+            # prefill that never ring-wraps
+            self._share_ok = self.cache_pos_len >= self.prompt_len
+        else:
+            self.cache = model.init_cache(slots, self.max_len)
+            self.cache["pos_ids"].zero_()
         self._tok = torch.zeros((slots, 1), dtype=torch.int32,
                                 device=self.device)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._queue: Deque[Request] = deque()
         self._active: Dict[int, _Slot] = {}
         self._free: List[int] = list(range(slots))[::-1]
+        # admission reservation: worst-case pages per active slot
+        self._reserved: Dict[int, int] = {}
+        self._reserved_total = 0
         self.completions: List[Completion] = []
         self.stats: Dict[str, Any] = {
             "decode_dispatches": 0, "decode_steps": 0, "prefills": 0,
             "tokens_out": 0, "wall_seconds": 0.0, "error_completions": 0,
+            "kv_pages_in_use": 0, "kv_pages_peak": 0, "kv_pages_reserved": 0,
+            "prefix_hits": 0, "admission_blocked": 0,
         }
+        kv = [t for name in ("k", "v") for t in self._leaf_tensors(name)]
+        if self.paged:
+            self._page_bytes = sum(t.nbytes // t.shape[1] for t in kv)
+            self.stats["kv_hbm_bytes"] = 0
+        else:
+            # contiguous: the whole cache is committed up front (the ring
+            # positions count, as in the reference)
+            self.stats["kv_hbm_bytes"] = (sum(t.nbytes for t in kv)
+                                          + self.cache["pos_ids"].nbytes)
+        self.stats["kv_hbm_bytes_peak"] = self.stats["kv_hbm_bytes"]
+
+    def _leaf_tensors(self, name: str) -> List[torch.Tensor]:
+        leaf = self.cache[name]
+        if isinstance(leaf, PagedKVCache):
+            return _pools(leaf.pages)
+        return _pools(leaf)
 
     # -- queue interface ---------------------------------------------------
     def _error(self, uid: int, tokens, reason: ErrorReason, msg: str) -> None:
@@ -123,8 +267,10 @@ class ServeEngine:
     def submit(self, request: Request) -> None:
         self._queue.append(request)
 
-    def _prefill_tokens(self, req: Request) -> torch.Tensor:
-        """The prompt left-padded to the (1, prompt_len) bucket."""
+    def _prefill_tokens(self, req: Request
+                        ) -> Tuple[torch.Tensor, int, np.ndarray]:
+        """The prompt padded to the (1, prompt_len) bucket (left-padded, or
+        right-padded when paged), its true length and the flat prompt."""
         t = np.asarray(req.tokens, np.int32).reshape(-1)
         if len(t) > self.prompt_len:
             raise PromptTooLongError(
@@ -143,14 +289,120 @@ class ServeEngine:
                              f"{self.model.cfg.family!r} takes no extras, got "
                              f"{sorted(req.extras)}")
         toks = np.zeros((1, self.prompt_len), np.int32)
-        toks[0, self.prompt_len - len(t):] = t
-        return torch.from_numpy(toks).to(self.device)
+        if self.paged:
+            toks[0, :len(t)] = t          # right-pad; decode overwrites pads
+        else:
+            toks[0, self.prompt_len - len(t):] = t
+        return torch.from_numpy(toks).to(self.device), len(t), t
+
+    # -- pages -------------------------------------------------------------
+    def _worst_pages(self, n: int, cap: int) -> int:
+        """Worst-case pages a request can touch: the prompt, ``cap`` decode
+        steps and the overrun of the last chunk. Pages past that hold only
+        prefill pad rows, which decode never writes and always reads
+        masked: they stay on the trash page."""
+        maxp = n + cap - 1 + self.chunk       # one past the last written pos
+        return min(-(-min(maxp, self.cache_pos_len) // self.page_size),
+                   self.n_logical_pages)
+
+    def _plan_pages(self, slot: int, toks: np.ndarray, n: int,
+                    cap: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Claim the slot's pages; returns (dest, table_row). ``dest[i]`` is
+        the pool row the prefill writes logical page i to, 0 for a page
+        shared through the prefix registry (its content exists) or an
+        unclaimed tail."""
+        ps, NP = self.page_size, self.n_logical_pages
+        dest = np.zeros(NP, np.int32)
+        trow = np.zeros(NP, np.int32)
+        claimed: List[int] = []
+        try:
+            for i in range(self._worst_pages(n, cap)):
+                key = ((i, toks[:(i + 1) * ps].tobytes())
+                       if self._share_ok and (i + 1) * ps <= n else None)
+                phys = self._alloc.lookup(key) if key is not None else None
+                if phys is None:
+                    phys = self._alloc.alloc("prefill page planning")
+                    if key is not None:
+                        self._alloc.register(phys, key)
+                    dest[i] = phys
+                claimed.append(phys)
+                trow[i] = phys
+        except PagePoolExhaustedError:
+            for phys in claimed:
+                self._alloc.decref(phys)
+            raise
+        self._host_table[slot] = trow
+        return dest, trow
+
+    def _refresh_page_stats(self) -> None:
+        used = self._alloc.used
+        s = self.stats
+        s["kv_pages_in_use"] = used
+        s["kv_pages_peak"] = max(s["kv_pages_peak"], used)
+        s["kv_hbm_bytes"] = used * self._page_bytes
+        s["kv_hbm_bytes_peak"] = max(s["kv_hbm_bytes_peak"], s["kv_hbm_bytes"])
+        s["prefix_hits"] = self._alloc.hits
+        s["kv_pages_reserved"] = self._reserved_total
+
+    def _set_table_row(self, slot: int, row) -> None:
+        for name in ("k", "v"):
+            self.cache[name].table[:, slot] = row
+
+    def _ensure_writable(self) -> None:
+        """Copy-on-write before a chunk: a page the chunk may write that
+        other slots share is copied to a fresh pool row first, and a
+        sole-owned page still in the prefix registry leaves it."""
+        ps, T = self.page_size, self.cache_pos_len
+        for slot, st in list(self._active.items()):
+            pos0 = st.n + len(st.produced)
+            for i in sorted({(p % T) // ps
+                             for p in range(pos0, pos0 + self.chunk)}):
+                phys = int(self._host_table[slot, i])
+                if phys == TRASH_PAGE:
+                    continue              # unclaimed tail: writes go to trash
+                if self._alloc.refs[phys] > 1:
+                    new = self._alloc.alloc("copy-on-write")
+                    for name in ("k", "v"):
+                        leaf = self.cache[name]
+                        for pool in _pools(leaf.pages):
+                            pool[:, new] = pool[:, phys]
+                        leaf.table[:, slot, i] = new
+                    self._alloc.refs[phys] -= 1
+                    self._host_table[slot, i] = new
+                elif phys in self._alloc.reg_key:
+                    self._alloc.unregister(phys)
+
+    # -- admission ---------------------------------------------------------
+    def _insert(self, slot: int, small, first: torch.Tensor, n: int,
+                dest: Optional[np.ndarray], trow: Optional[np.ndarray]) -> None:
+        """Copy a batch-1 prefill cache into slot ``slot``: its rows
+        (contiguous), or its owned pages into the pool rows ``dest`` plus the
+        slot's table row (paged; pages resolved by sharing and unclaimed
+        tails are not written)."""
+        c = self.cache
+        if self.paged:
+            own = np.nonzero(dest)[0]
+            dst = torch.from_numpy(dest[own].astype(np.int64)).to(self.device)
+            src = torch.from_numpy(own + 1).to(self.device)   # identity table
+            for name in ("k", "v"):
+                for pool, spool in zip(_pools(c[name].pages),
+                                       _pools(small[name].pages)):
+                    pool[:, dst] = spool[:, src]
+            self._set_table_row(slot, torch.from_numpy(trow).to(self.device))
+            c["pos"][slot] = n      # decode resumes at the true prompt end
+        else:
+            for name in ("k", "v"):
+                for big, row in zip(_pools(c[name]), _pools(small[name])):
+                    big[:, slot] = row[:, 0]
+            c["pos"][slot] = small["pos"][0]
+        c["pos_ids"][slot] = small["pos_ids"][0]
+        self._tok[slot, 0] = first
 
     def _admit(self) -> None:
         while self._free and self._queue:
             req = self._queue[0]
             try:
-                toks = self._prefill_tokens(req)
+                toks, n, t = self._prefill_tokens(req)
             except PromptTooLongError as e:
                 self._queue.popleft()
                 self._error(req.uid, (), ErrorReason.PROMPT_TOO_LONG, str(e))
@@ -159,26 +411,52 @@ class ServeEngine:
                 self._queue.popleft()
                 self._error(req.uid, (), ErrorReason.BAD_REQUEST, str(e))
                 continue
+            if self.paged:
+                cap = min(req.max_new_tokens, self.max_len - n)
+                need = self._worst_pages(n, cap)
+                capacity = self.n_phys_pages - 1
+                if need > capacity:
+                    self._queue.popleft()
+                    self._error(
+                        req.uid, (), ErrorReason.PAGE_POOL,
+                        f"request {req.uid}: needs {need} KV pages, pool "
+                        f"holds {capacity} (shrink the request or grow "
+                        "page_pool_pages)")
+                    continue
+                if self._reserved_total + need > capacity:
+                    # wait for retirements to free reservations
+                    self.stats["admission_blocked"] += 1
+                    break
+            else:
+                cap = min(req.max_new_tokens, self.max_len - self.prompt_len)
             self._queue.popleft()
             slot = self._free.pop()
-            logits, small = self.model.prefill(toks, max_len=self.max_len)
-            cap = min(req.max_new_tokens, self.max_len - self.prompt_len)
-            first = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-            c = self.cache
-            c["k"][:, slot] = small["k"][:, 0]
-            c["v"][:, slot] = small["v"][:, 0]
-            c["pos_ids"][slot] = small["pos_ids"][0]
-            c["pos"][slot] = small["pos"][0]
-            self._tok[slot, 0] = first[0]
-            self._active[slot] = _Slot(request=req, cap=cap)
+            logits, small = self.model.prefill(toks, max_len=self.max_len,
+                                               full_logits=self.paged)
+            if self.paged:
+                first = torch.argmax(logits[0, n - 1], dim=-1)
+                dest, trow = self._plan_pages(slot, t, n, cap)
+                self._reserved[slot] = need
+                self._reserved_total += need
+                self._insert(slot, small, first, n, dest, trow)
+            else:
+                first = torch.argmax(logits[0, -1], dim=-1)
+                self._insert(slot, small, first, n, None, None)
+            self._active[slot] = _Slot(request=req, cap=cap, n=n)
+            if self.paged:
+                self._refresh_page_stats()
             self.stats["prefills"] += 1
 
+    # -- decode ------------------------------------------------------------
     def step(self) -> bool:
         """Admit waiting requests, run one fused decode chunk, retire
         finished slots. Returns False when fully drained."""
         self._admit()
         if not self._active:
             return bool(self._queue)
+        if self.paged:
+            self._ensure_writable()
+            self._refresh_page_stats()
         eos = -1 if self.eos_id is None else int(self.eos_id)
         (self.cache, self._tok, self._gen, done, n_valid, toks,
          failed) = self._generate(self.cache, self._tok, self._gen, eos)
@@ -208,6 +486,17 @@ class ServeEngine:
                 error: Optional[str] = None) -> None:
         st = self._active.pop(slot)
         self._free.append(slot)
+        self._reserved_total -= self._reserved.pop(slot, 0)
+        if self.paged:
+            for phys in self._host_table[slot]:
+                if phys:
+                    self._alloc.decref(int(phys))
+            self._host_table[slot] = TRASH_PAGE
+            # the retired slot rides the fused chunks until reused: its
+            # writes must land on the trash page, never in a page the
+            # allocator may hand to another slot
+            self._set_table_row(slot, TRASH_PAGE)
+            self._refresh_page_stats()
         self.stats["tokens_out"] += len(st.produced)
         if finish == "error":
             self._error(st.request.uid, st.produced, ErrorReason.NAN_LOGITS,
@@ -224,9 +513,11 @@ class ServeEngine:
         t0 = time.perf_counter()
         while self.step():
             pass
-        self.stats["wall_seconds"] += time.perf_counter() - t0
-        self.stats["tokens_per_second"] = self.stats["tokens_out"] / max(
-            self.stats["wall_seconds"], 1e-9)
-        self.stats["dispatches_per_token"] = (
-            self.stats["decode_dispatches"] / max(self.stats["tokens_out"], 1))
+        s = self.stats
+        s["wall_seconds"] += time.perf_counter() - t0
+        s["tokens_per_second"] = s["tokens_out"] / max(s["wall_seconds"], 1e-9)
+        s["dispatches_per_token"] = (s["decode_dispatches"]
+                                     / max(s["tokens_out"], 1))
+        s["kv_bytes_per_token"] = (s["kv_hbm_bytes_peak"]
+                                   / max(s["tokens_out"], 1))
         return self.completions

@@ -6,16 +6,21 @@ Two decode engines share one pre-sized cache:
   * ``loop``  — one ``decode_step`` and one host sync per generated token;
   * ``fused`` — ``make_generate_step``: ``chunk`` decode steps per host sync.
 
-Greedy tokens of the two are identical. Runs on the card unless asked for
-the CPU:
+Greedy tokens of the two are identical. The KV cache layout is explicit:
+``kv_quant`` (``off|int8|int4|auto``, the Proteus narrow-value cache) and
+``page_size`` (0 = contiguous ring, else the paged cache with prefix
+sharing); the reference reads them from ``REPRO_KV_QUANT`` /
+``REPRO_KV_PAGES``. Runs on the card unless asked for the CPU:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch pimref-100m \\
-      [--mode batch|queue] [--device cuda|cpu] [--smoke]
+      [--mode batch|queue] [--kv-quant int8] [--kv-page-size 16] \\
+      [--device cuda|cpu] [--smoke]
 """
 from __future__ import annotations
 
 import argparse
 import time
+from dataclasses import fields
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -23,6 +28,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ALL_IDS, ModelConfig, get_config
+from repro_torch.kernels.common import KV_QUANT_MODES
 from repro_torch.launch.engine import Request, ServeEngine
 from repro_torch.launch.steps import make_generate_step, sample_tokens
 from repro_torch.models import build_model, init_params, load_jax_params
@@ -34,13 +40,15 @@ def _sync(dev: torch.device) -> None:
 
 
 def load_model(arch: str, *, smoke: bool, seed: int, device,
-               cfg: Optional[ModelConfig] = None, params=None):
+               cfg: Optional[ModelConfig] = None, params=None,
+               kv_quant: str = "off", page_size: int = 0):
     """Build the model for ``arch`` (or ``cfg``) on ``device`` with the
     port's own init from ``seed``, or with ``params``: the reference's
-    parameter tree as numpy arrays (see ``models/bridge.py``)."""
+    parameter tree as numpy arrays (see ``models/bridge.py``); it serves
+    from the KV layout ``kv_quant`` / ``page_size``."""
     dev = resolve_device(device)
     cfg = cfg or get_config(arch, smoke=smoke)
-    model = build_model(cfg, dev)
+    model = build_model(cfg, dev, kv_quant=kv_quant, page_size=page_size)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
         model.load_state_dict(init_params(cfg, gen, dev))
@@ -49,26 +57,43 @@ def load_model(arch: str, *, smoke: bool, seed: int, device,
     return model
 
 
-def _clone(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    return {k: v.clone() for k, v in cache.items()}
+def _clone(x):
+    """A copy of a cache (a dict of tensors and KV leaves)."""
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    return type(x)(*(_clone(getattr(x, f.name)) for f in fields(x)))
+
+
+def _model(model, arch, *, smoke, seed, device, cfg, params, kv_quant,
+           page_size):
+    """``model`` in the asked KV layout (weights shared), or a new one."""
+    if model is None:
+        return load_model(arch, smoke=smoke, seed=seed, device=device,
+                          cfg=cfg, params=params, kv_quant=kv_quant,
+                          page_size=page_size)
+    return model.with_kv_layout(kv_quant, page_size)
 
 
 def serve(arch: str = "pimref-100m", *, smoke: bool = True, batch: int = 4,
           prompt_len: int = 32, gen: int = 16, seed: int = 0,
           engine: str = "fused", chunk: int = 8, temperature: float = 0.0,
           top_k: int = 0, device="cuda", cfg: Optional[ModelConfig] = None,
-          params=None, model=None) -> Dict[str, Any]:
-    """Prefill a synthetic batch, then decode ``gen`` tokens per sequence.
+          params=None, model=None, kv_quant: str = "off",
+          page_size: int = 0) -> Dict[str, Any]:
+    """Prefill a synthetic batch, then decode ``gen`` tokens per sequence
+    from a KV cache laid out as ``kv_quant`` / ``page_size`` say.
 
     Returns the tokens with timing and dispatch counts: ``prefills`` and
     ``decode_steps`` count every ``model.prefill`` / ``model.decode_step``
     call, the untimed warmup of the decode engine included. ``model`` reuses
-    an already built model.
+    the weights of an already built model.
     """
     assert engine in ("fused", "loop"), engine
-    if model is None:
-        model = load_model(arch, smoke=smoke, seed=seed, device=device,
-                           cfg=cfg, params=params)
+    model = _model(model, arch, smoke=smoke, seed=seed, device=device,
+                   cfg=cfg, params=params, kv_quant=kv_quant,
+                   page_size=page_size)
     dev, cfg = model.device, model.cfg
     max_len = prompt_len + gen
     generate = make_generate_step(model, chunk=chunk, temperature=temperature,
@@ -139,29 +164,37 @@ def make_queue_engine(arch: str = "pimref-100m", *, smoke: bool = True,
                       chunk: int = 8, seed: int = 0, temperature: float = 0.0,
                       top_k: int = 0, eos_id: Optional[int] = None,
                       device="cuda", cfg: Optional[ModelConfig] = None,
-                      params=None, model=None) -> ServeEngine:
-    """A fresh :class:`ServeEngine` for ``arch`` (contiguous KV layout)."""
-    if model is None:
-        model = load_model(arch, smoke=smoke, seed=seed, device=device,
-                           cfg=cfg, params=params)
+                      params=None, model=None, kv_quant: str = "off",
+                      page_size: int = 0,
+                      page_pool_pages: Optional[int] = None) -> ServeEngine:
+    """A fresh :class:`ServeEngine` for ``arch`` over the KV layout
+    ``kv_quant`` / ``page_size`` (``page_pool_pages`` sizes the paged
+    pool)."""
+    model = _model(model, arch, smoke=smoke, seed=seed, device=device,
+                   cfg=cfg, params=params, kv_quant=kv_quant,
+                   page_size=page_size)
     return ServeEngine(model, slots=slots, prompt_len=prompt_len, max_new=gen,
                        chunk=chunk, eos_id=eos_id, temperature=temperature,
-                       top_k=top_k, seed=seed)
+                       top_k=top_k, seed=seed,
+                       page_pool_pages=page_pool_pages)
 
 
 def synth_requests(arch: str = "pimref-100m", *, smoke: bool = True,
                    requests: int = 10, prompt_len: int = 32, gen: int = 16,
-                   seed: int = 0,
+                   seed: int = 0, shared_prefix: int = 0,
                    cfg: Optional[ModelConfig] = None) -> List[Request]:
     """The synthetic mixed-length request stream of queue mode (the same
-    stream as the reference's for the same arguments, without its shared
-    prefix and repeat options)."""
+    stream as the reference's for the same arguments, without its repeat
+    option). ``shared_prefix > 0`` gives every request the same first
+    tokens (a common system prompt), which the paged cache shares."""
     cfg = cfg or get_config(arch, smoke=smoke)
     rng = np.random.default_rng(seed)
+    prefix = rng.integers(1, cfg.vocab_size, shared_prefix).astype(np.int32)
     reqs = []
     for i in range(requests):
-        n = int(rng.integers(4, prompt_len + 1))
+        n = int(rng.integers(max(4, shared_prefix + 1), prompt_len + 1))
         toks = rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+        toks[:shared_prefix] = prefix
         reqs.append(Request(
             uid=i, tokens=toks,
             max_new_tokens=int(rng.integers(max(gen // 2, 1), gen + 1))))
@@ -172,15 +205,20 @@ def serve_queue(arch: str = "pimref-100m", *, smoke: bool = True,
                 slots: int = 4, requests: int = 10, prompt_len: int = 32,
                 gen: int = 16, chunk: int = 8, seed: int = 0,
                 temperature: float = 0.0, top_k: int = 0,
+                shared_prefix: int = 0, kv_quant: str = "off",
+                page_size: int = 0, page_pool_pages: Optional[int] = None,
                 device="cuda") -> ServeEngine:
     """Continuous batching: drain the synthetic request stream through a
     :class:`ServeEngine`; returns the drained engine."""
     eng = make_queue_engine(arch, smoke=smoke, slots=slots,
                             prompt_len=prompt_len, gen=gen, chunk=chunk,
                             seed=seed, temperature=temperature, top_k=top_k,
-                            device=device)
+                            device=device, kv_quant=kv_quant,
+                            page_size=page_size,
+                            page_pool_pages=page_pool_pages)
     eng.run(synth_requests(arch, smoke=smoke, requests=requests,
-                           prompt_len=prompt_len, gen=gen, seed=seed))
+                           prompt_len=prompt_len, gen=gen, seed=seed,
+                           shared_prefix=shared_prefix))
     return eng
 
 
@@ -201,24 +239,45 @@ def main() -> None:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kv-quant", default="off", choices=list(KV_QUANT_MODES),
+                    help="Proteus-quantized KV cache: int8 / int4 codes with "
+                    "per-row fp32 scales, or auto (grid picked per tensor)")
+    ap.add_argument("--kv-page-size", type=int, default=0,
+                    help="paged KV cache with this many tokens per page "
+                    "(0 = contiguous per-slot ring)")
+    ap.add_argument("--page-pool-pages", type=int, default=None,
+                    help="queue mode: physical pages of the paged pool "
+                    "(default slots * pages per slot)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="queue mode: give every request the same first N "
+                    "tokens (exercises paged prefix sharing)")
     args = ap.parse_args()
+    layout = dict(kv_quant=args.kv_quant, page_size=args.kv_page_size)
     if args.mode == "queue":
         eng = serve_queue(args.arch, smoke=args.smoke, slots=args.slots,
                           requests=args.requests, prompt_len=args.prompt_len,
                           gen=args.gen, chunk=args.chunk, seed=args.seed,
                           temperature=args.temperature, top_k=args.top_k,
-                          device=args.device)
+                          shared_prefix=args.shared_prefix,
+                          page_pool_pages=args.page_pool_pages,
+                          device=args.device, **layout)
         s = eng.stats
         print(f"device={eng.device} {len(eng.completions)} requests, "
               f"{s['tokens_out']} tokens in {s['wall_seconds']:.3f}s "
               f"({s['tokens_per_second']:.1f} tok/s, "
               f"{s['dispatches_per_token']:.3f} dispatches/token, "
               f"{s['prefills']} prefills)")
+        print(f"kv: {s['kv_hbm_bytes_peak'] / 1e6:.2f} MB peak "
+              f"({s['kv_bytes_per_token']:.0f} B/token"
+              + (f", {s['kv_pages_peak']} pages peak, "
+                 f"{s['prefix_hits']} prefix hits" if eng.paged else "")
+              + ")")
         return
     out = serve(args.arch, smoke=args.smoke, batch=args.batch,
                 prompt_len=args.prompt_len, gen=args.gen, chunk=args.chunk,
                 engine=args.engine, temperature=args.temperature,
-                top_k=args.top_k, seed=args.seed, device=args.device)
+                top_k=args.top_k, seed=args.seed, device=args.device,
+                **layout)
     print(f"device={out['device']} engine={args.engine}  prefill: "
           f"{out['prefill_s'] * 1e3:.2f}ms  decode: "
           f"{out['decode_s_per_tok'] * 1e3:.3f}ms/tok  "

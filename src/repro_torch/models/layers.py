@@ -3,23 +3,33 @@
 
 ``chunked_attention`` is the single attention entry point of the dense
 decoder. It routes a full causal sequence (prefill) to the flash-attention
-forward kernel and every positional call (decode against the ring KV cache)
-to the split-KV decode kernel. Which implementation runs follows the device
-of the tensors: CUDA kernels on the card, their plain PyTorch versions on
-the CPU. There is no backend knob.
+forward kernel and every positional call (decode against the KV cache) to
+the split-KV decode kernel of the cache's layout: contiguous ring, Proteus
+int8/int4 codes (:class:`QKVCache`), pages (:class:`PagedKVCache`), or
+quantized pages. Which implementation runs follows the device of the
+tensors: CUDA kernels on the card, their plain PyTorch versions on the CPU.
+There is no backend knob, and the layout comes from explicit ``mode`` /
+``page_size`` arguments, not from the environment.
 
-The ring-cache writes update the cache in place (the reference returns new
+The cache writes update the cache in place (the reference returns new
 arrays); callers own the cache they pass.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from dataclasses import dataclass
+from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.proteus import required_bits_float
+from repro_torch.kernels.common import check_kv_quant, pack_int4
 from repro_torch.kernels.flash_attention.ops import (flash_attention_gqa_fwd,
-                                                     flash_decode)
+                                                     flash_decode,
+                                                     flash_decode_paged,
+                                                     flash_decode_paged_quant,
+                                                     flash_decode_quant)
+from repro_torch.kernels.flash_attention.ref import dequant_rows, gather_pages
 
 # ---------------------------------------------------------------------------
 # Basic ops
@@ -117,6 +127,272 @@ def ring_position_ids(batch: int, total: int, cache_len: int,
     return ids[None].repeat(batch, 1)
 
 
+# ---------------------------------------------------------------------------
+# Proteus-quantized KV cache (kv_quant = off | int8 | int4 | auto)
+#
+# Decode streams the whole KV cache once per generated token, so its bytes
+# set the per-token time. K/V rows are stored as block-scaled int8 codes
+# (int4: two codes per byte) with one fp32 scale per (slot, kv head) row
+# (block = head_dim); the decode kernel dequantizes in fp32 after the load.
+# ``auto`` keeps int8 storage and picks the grid per tensor from
+# ``required_bits_float``: uniform-magnitude tensors take the int4 grid,
+# spiky ones the int8 grid.
+# ---------------------------------------------------------------------------
+# auto mode's error target (per-element error vs the block's mean |x|):
+# the loosest target at which the int4 grid is ever chosen while
+# gaussian-crest rows still take the int8 grid
+KV_QUANT_RTOL = 0.1
+
+# worst |output| deviation vs the bf16 cache for unit-normal q/k/v
+KV_ERROR_BUDGET = {"int8": 0.05, "int4": 0.25, "auto": 0.05}
+
+
+@dataclass
+class QKVCache:
+    """Quantized KV-cache leaf: ``codes`` int8 ``(..., T, H, Dc)`` with
+    ``Dc = D`` (int8/auto) or ``D // 2`` (nibble-packed int4), ``scale``
+    fp32 ``(..., T, H)``."""
+
+    codes: torch.Tensor
+    scale: torch.Tensor
+
+    @property
+    def kv_len(self) -> int:
+        return self.codes.shape[-3]
+
+    @property
+    def num_heads(self) -> int:
+        return self.codes.shape[-2]
+
+    def __getitem__(self, i) -> "QKVCache":
+        return QKVCache(self.codes[i], self.scale[i])
+
+
+def _kv_qmax(x: torch.Tensor, mode: str):
+    if mode == "int8":
+        return 127.0
+    if mode == "int4":
+        return 7.0
+    # auto: one grid for the whole tensor, from its worst head_dim row; a
+    # 0-d device tensor, so choosing costs no host sync
+    bits = required_bits_float(x, block=x.shape[-1], rtol=KV_QUANT_RTOL)
+    return torch.where(bits <= 4, 7.0, 127.0)
+
+
+def kv_quantize(x: torch.Tensor, mode: str) -> QKVCache:
+    """Symmetric per-row quantization of ``x`` (..., T, H, D): round half to
+    even, clip to [-qmax - 1, qmax]; an all-zero row gets scale 1."""
+    xf = x.float()
+    qmax = _kv_qmax(xf, check_kv_quant(mode))
+    maxabs = xf.abs().amax(dim=-1)
+    scale = torch.where(maxabs == 0, torch.ones_like(maxabs), maxabs / qmax)
+    codes = torch.clamp(torch.round(xf / scale[..., None]), -qmax - 1, qmax)
+    codes = codes.to(torch.int8)
+    if mode == "int4":
+        codes = pack_int4(codes)
+    return QKVCache(codes, scale)
+
+
+def kv_dequantize(qkv: QKVCache, head_dim: int,
+                  dtype=torch.float32) -> torch.Tensor:
+    """``codes * scale`` in fp32 (the decode kernels' arithmetic), cast to
+    ``dtype``."""
+    return dequant_rows(qkv.codes, qkv.scale, head_dim).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache (page_size > 0, block-table layout)
+#
+# One pool of fixed-size pages per leaf plus a per-slot int32 page table, so
+# device memory committed to KV follows the tokens held, not slots x
+# max_len. Physical page 0 is the trash page: unused and retired table rows
+# point there, their writes land there, and its rows are always read
+# masked.
+# ---------------------------------------------------------------------------
+TRASH_PAGE = 0
+
+
+@dataclass
+class PagedKVCache:
+    """Paged KV-cache leaf: ``pages`` is the pool, a tensor
+    ``(..., P, ps, H, D)`` or a :class:`QKVCache` of pooled codes and
+    scales, and ``table`` int32 ``(..., B, NP)`` maps each slot's logical
+    page to a pool row (0 = trash page). Leading dims (layers) are shared by
+    pool and table."""
+
+    pages: Union[torch.Tensor, QKVCache]
+    table: torch.Tensor
+
+    @property
+    def _pool(self) -> torch.Tensor:
+        return (self.pages.codes if isinstance(self.pages, QKVCache)
+                else self.pages)
+
+    @property
+    def page_size(self) -> int:
+        return self._pool.shape[-3]
+
+    @property
+    def num_pages(self) -> int:
+        """Physical pool capacity P (the trash page included)."""
+        return self._pool.shape[-4]
+
+    @property
+    def kv_len(self) -> int:
+        """Logical per-slot capacity T = NP * page_size."""
+        return self.table.shape[-1] * self.page_size
+
+    @property
+    def num_heads(self) -> int:
+        return self._pool.shape[-2]
+
+    def __getitem__(self, i) -> "PagedKVCache":
+        return PagedKVCache(self.pages[i], self.table[i])
+
+
+KVLeaf = Union[torch.Tensor, QKVCache, PagedKVCache]
+
+
+def aligned_cache_len(n: int, page_size: int = 0) -> int:
+    """``n`` rounded up to a whole number of pages (identity when not
+    paged), so that the ring slot ``pos % T`` maps onto logical pages."""
+    return n if page_size <= 0 else -(-n // page_size) * page_size
+
+
+def _identity_table(batch: int, n_pages: int, lead: Tuple[int, ...] = (),
+                    device=None) -> torch.Tensor:
+    """Slot b's logical page i -> pool row 1 + b * NP + i (row 0 stays the
+    trash page)."""
+    t = (1 + torch.arange(batch * n_pages, dtype=torch.int32,
+                          device=device)).reshape(batch, n_pages)
+    return t.expand(lead + (batch, n_pages)).contiguous()
+
+
+def paged_from_ring(ring: torch.Tensor, page_size: int,
+                    mode: str = "off") -> PagedKVCache:
+    """A ring cache ``(B, T, H, D)`` as a :class:`PagedKVCache`: slot b's
+    pages at pool rows 1 + b * NP .. with the identity table."""
+    B, T = ring.shape[:2]
+    npg = T // page_size
+    q = ring if check_kv_quant(mode) == "off" else kv_quantize(ring, mode)
+
+    def to_pool(x):                     # (B, T, ...) -> (1 + B*NP, ps, ...)
+        px = x.reshape((B * npg, page_size) + tuple(x.shape[2:]))
+        return torch.cat([torch.zeros_like(px[:1]), px])
+
+    pages = (QKVCache(to_pool(q.codes), to_pool(q.scale))
+             if isinstance(q, QKVCache) else to_pool(q))
+    return PagedKVCache(pages, _identity_table(B, npg, device=ring.device))
+
+
+def paged_gather(cache: PagedKVCache) -> Union[torch.Tensor, QKVCache]:
+    """The dense ``(B, T, H, D)`` layout (a tensor or a :class:`QKVCache`)
+    of a paged cache, gathered through its table."""
+    def g(pool):
+        return gather_pages(pool, cache.table).transpose(1, 2)
+
+    if isinstance(cache.pages, QKVCache):
+        return QKVCache(g(cache.pages.codes), g(cache.pages.scale))
+    return g(cache.pages)
+
+
+def kv_zeros(shape: Tuple[int, ...], dtype, mode: str,
+             device=None) -> Union[torch.Tensor, QKVCache]:
+    """Zeros of logical shape ``(..., H, D)``: a tensor, or codes and
+    scales."""
+    if check_kv_quant(mode) == "off":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    dc = shape[-1] // 2 if mode == "int4" else shape[-1]
+    return QKVCache(
+        torch.zeros(shape[:-1] + (dc,), dtype=torch.int8, device=device),
+        torch.zeros(shape[:-1], dtype=torch.float32, device=device))
+
+
+def kv_cache_init(shape: Tuple[int, ...], dtype, mode: str = "off",
+                  page_size: int = 0, device=None) -> KVLeaf:
+    """Zeros KV-cache leaf of logical shape ``(..., B, T, H, D)``: a tensor
+    or a :class:`QKVCache`, wrapped in a :class:`PagedKVCache` (identity
+    table, one more page for the trash page) when ``page_size > 0``."""
+    if page_size > 0:
+        lead, (B, T, H, D) = tuple(shape[:-4]), tuple(shape[-4:])
+        if T % page_size:
+            raise ValueError(f"paged cache_len {T} is not a multiple of page "
+                             f"size {page_size}; size it with "
+                             "aligned_cache_len")
+        npg = T // page_size
+        pages = kv_zeros(lead + (B * npg + 1, page_size, H, D), dtype, mode,
+                         device)
+        return PagedKVCache(pages, _identity_table(B, npg, lead, device))
+    return kv_zeros(tuple(shape), dtype, mode, device)
+
+
+def kv_cache_store(k: torch.Tensor, total: int, cache_len: int,
+                   mode: str = "off", page_size: int = 0) -> KVLeaf:
+    """Prefill store: ring-place, then quantize and/or page."""
+    ring = ring_cache_store(k, total, cache_len)
+    if page_size > 0:
+        return paged_from_ring(ring, page_size, mode)
+    return ring if check_kv_quant(mode) == "off" else kv_quantize(ring, mode)
+
+
+def kv_cache_update(cache: KVLeaf, new: torch.Tensor, slot: torch.Tensor,
+                    mode: str = "off") -> KVLeaf:
+    """Write ``new`` (B, S, H, D) at ring slots ``slot`` ((B,) for S == 1,
+    or (B, S)), in place: quantized row-wise first when the cache holds
+    codes; through the table into ``pool[table[b, slot // ps], slot % ps]``
+    when it is paged (rows whose table entry is the trash page collide
+    there harmlessly). Returns ``cache``."""
+    if isinstance(cache, PagedKVCache):
+        ps = cache.page_size
+        s = slot.long()
+        if s.dim() == 1:
+            s = s[:, None]
+        b = torch.arange(cache.table.shape[-2], device=s.device)[:, None]
+        phys = cache.table[b, s // ps].long()         # (B, S)
+        off = s % ps
+        pages = cache.pages
+        if isinstance(pages, QKVCache):
+            q = kv_quantize(new, mode)
+            pages.codes[phys, off] = q.codes
+            pages.scale[phys, off] = q.scale
+        else:
+            pages[phys, off] = new.to(pages.dtype)
+        return cache
+    if isinstance(cache, QKVCache):
+        q = kv_quantize(new, mode)
+        ring_cache_update(cache.codes, q.codes, slot)
+        ring_cache_update(cache.scale, q.scale, slot)
+        return cache
+    return ring_cache_update(cache, new, slot)
+
+
+def kv_cache_len(cache: KVLeaf) -> int:
+    """Logical per-slot capacity T of a (stacked, quantized, paged) leaf."""
+    if isinstance(cache, PagedKVCache):
+        return cache.kv_len
+    return (cache.codes if isinstance(cache, QKVCache) else cache).shape[-3]
+
+
+def kv_cast(cache: KVLeaf, dtype) -> KVLeaf:
+    """``cache.to(dtype)`` for a tensor; codes and scales pass unchanged
+    (the decode kernels read them directly); into the pool when paged."""
+    if isinstance(cache, PagedKVCache):
+        return PagedKVCache(kv_cast(cache.pages, dtype), cache.table)
+    return cache if isinstance(cache, QKVCache) else cache.to(dtype)
+
+
+def stack_kv(leaves: List[KVLeaf]) -> KVLeaf:
+    """Stack per-layer leaves of one structure along a new leading axis."""
+    first = leaves[0]
+    if isinstance(first, PagedKVCache):
+        return PagedKVCache(stack_kv([l.pages for l in leaves]),
+                            torch.stack([l.table for l in leaves]))
+    if isinstance(first, QKVCache):
+        return QKVCache(torch.stack([l.codes for l in leaves]),
+                        torch.stack([l.scale for l in leaves]))
+    return torch.stack(leaves)
+
+
 def _decode_positions(q_offset, kv_positions, kv_valid_len, B: int, S: int,
                       T: int, device):
     """Per-sequence (B, S) q positions and (B, T) kv positions for the decode
@@ -139,8 +415,8 @@ def _decode_positions(q_offset, kv_positions, kv_valid_len, B: int, S: int,
 
 def chunked_attention(
     q: torch.Tensor,                    # (B, S, Hq, D)
-    k: torch.Tensor,                    # (B, T, Hkv, D)
-    v: torch.Tensor,                    # (B, T, Hkv, D)
+    k: KVLeaf,                          # (B, T, Hkv, D), QKVCache or paged
+    v: KVLeaf,                          # the same structure as k
     *,
     causal: bool = True,
     window: int = 0,
@@ -149,20 +425,33 @@ def chunked_attention(
     kv_valid_len=None,
     attn_softcap: float = 0.0,
 ) -> torch.Tensor:
-    """Attention with online softmax over contiguous k/v. A full sequence
-    from position 0 (prefill) goes to the flash-attention forward kernel;
-    every positional call (decode) goes to the split-KV decode kernel."""
-    if not (isinstance(k, torch.Tensor) and isinstance(v, torch.Tensor)):
-        raise NotImplementedError(
-            "quantized or paged k/v caches are ported in a later slice")
+    """Attention with online softmax. A full sequence from position 0 over
+    plain k/v (prefill) goes to the flash-attention forward kernel; every
+    positional call (decode) goes to the split-KV decode kernel of the
+    cache's layout, which reads codes, scales and pages as they are stored."""
+    if not isinstance(k, (torch.Tensor, QKVCache, PagedKVCache)):
+        raise TypeError(f"unsupported KV cache leaf {type(k).__name__}")
+    if type(k) is not type(v):
+        raise TypeError(f"k is a {type(k).__name__}, v a {type(v).__name__}")
     B, S, _, _ = q.shape
-    T = k.shape[1]
-    if (kv_positions is None and kv_valid_len is None and S > 1
+    T = kv_cache_len(k)
+    dense_kv = isinstance(k, torch.Tensor)
+    if (dense_kv and kv_positions is None and kv_valid_len is None and S > 1
             and isinstance(q_offset, int) and q_offset == 0):
         out, _ = flash_attention_gqa_fwd(q, k, v, causal=causal, window=window,
                                          softcap=attn_softcap)
         return out
     q_pos, kv_pos = _decode_positions(q_offset, kv_positions, kv_valid_len,
                                       B, S, T, q.device)
-    return flash_decode(q, k, v, q_pos, kv_pos, causal=causal, window=window,
-                        softcap=attn_softcap)
+    kw = dict(causal=causal, window=window, softcap=attn_softcap)
+    if isinstance(k, PagedKVCache):
+        if isinstance(k.pages, QKVCache):
+            return flash_decode_paged_quant(
+                q, k.pages.codes, k.pages.scale, v.pages.codes, v.pages.scale,
+                k.table, q_pos, kv_pos, **kw)
+        return flash_decode_paged(q, k.pages, v.pages, k.table, q_pos, kv_pos,
+                                  **kw)
+    if isinstance(k, QKVCache):
+        return flash_decode_quant(q, k.codes, k.scale, v.codes, v.scale,
+                                  q_pos, kv_pos, **kw)
+    return flash_decode(q, k, v, q_pos, kv_pos, **kw)

@@ -10,26 +10,36 @@ Serving uses a pre-sized ring KV cache:
     decode_step(cache, tokens) -> (logits, cache)   # cache updated in place
     init_cache(batch, max_len) -> cache
 
-The cache is a dict: ``k``/``v`` ``(L, B, T, Hkv, D)`` in compute dtype,
-``pos_ids`` ``(B, T)`` int32 (-1 = empty slot) and ``pos`` ``(B,)`` int32.
+The cache is a dict: ``k``/``v`` ``(L, B, T, Hkv, D)``, ``pos_ids``
+``(B, T)`` int32 (-1 = empty slot) and ``pos`` ``(B,)`` int32. The model's
+``kv_quant`` (``off|int8|int4|auto``) and ``page_size`` (0 = contiguous)
+choose how ``k``/``v`` are held: compute-dtype tensors, a ``QKVCache`` of
+int8 codes and fp32 scales, or a ``PagedKVCache`` (pools ``(L, P, ps, Hkv,
+D)`` of either kind and tables ``(L, B, NP)``; the reference's
+``REPRO_KV_QUANT`` / ``REPRO_KV_PAGES`` knobs).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import copy
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import (chunked_attention, dense, gated_mlp,
-                                       ring_cache_store, ring_cache_update,
-                                       ring_position_ids, rms_norm, rope)
+from repro_torch.kernels.common import check_kv_quant
+from repro_torch.models.layers import (aligned_cache_len, chunked_attention,
+                                       dense, gated_mlp, kv_cache_init,
+                                       kv_cache_len, kv_cache_store,
+                                       kv_cache_update, kv_cast,
+                                       ring_cache_update, ring_position_ids,
+                                       rms_norm, rope, stack_kv)
 from repro_torch.models.module import (attn_param_specs, block_specs,
                                        mlp_param_specs, param_specs,
                                        torch_dtype)
 
-Cache = Dict[str, torch.Tensor]
+Cache = Dict[str, Any]
 
 
 def _add_params(module: nn.Module, specs, device) -> None:
@@ -58,15 +68,21 @@ class Block(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """Dense decoder LM on one device (``"cuda"`` by default)."""
+    """Dense decoder LM on one device (``"cuda"`` by default), serving from
+    a KV cache laid out as ``kv_quant`` and ``page_size`` say."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda", *,
+                 kv_quant: str = "off", page_size: int = 0):
         super().__init__()
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r} is ported in a later slice")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.kv_quant = check_kv_quant(kv_quant)
+        if page_size < 0:
+            raise ValueError(f"page_size {page_size}: expected >= 0")
+        self.page_size = int(page_size)
         self.cdtype = torch_dtype(cfg.compute_dtype)
         specs = param_specs(cfg)
         top = {k: s for k, s in specs.items() if not k.startswith("blocks.")}
@@ -74,6 +90,17 @@ class TransformerLM(nn.Module):
         self.blocks = nn.ModuleList(Block(cfg, self.device)
                                     for _ in range(cfg.num_layers))
         self._cast: Dict[int, Tuple[int, int, torch.Tensor]] = {}
+
+    def with_kv_layout(self, kv_quant: str = "off",
+                       page_size: int = 0) -> "TransformerLM":
+        """This model (weights shared, not copied) serving from another KV
+        layout."""
+        if (kv_quant, page_size) == (self.kv_quant, self.page_size):
+            return self
+        other = copy.copy(self)
+        other.kv_quant = check_kv_quant(kv_quant)
+        other.page_size = int(page_size)
+        return other
 
     # -- weights in compute dtype (cast once, recast after an in-place load) --
     def _w(self, p: torch.Tensor) -> torch.Tensor:
@@ -130,19 +157,24 @@ class TransformerLM(nn.Module):
 
     # -- serving -----------------------------------------------------------
     def cache_len(self, max_len: int) -> int:
+        """Ring slots per sequence: ``max_len`` (the window for sliding
+        attention), rounded up to whole pages when paged."""
         cfg = self.cfg
         if cfg.attention_kind == "sliding" and cfg.sliding_window > 0:
-            return min(max_len, cfg.sliding_window)
-        return max_len
+            max_len = min(max_len, cfg.sliding_window)
+        return aligned_cache_len(max_len, self.page_size)
 
     def init_cache(self, batch: int, max_len: int) -> Cache:
         cfg = self.cfg
         T = self.cache_len(max_len)
         kv = (cfg.num_layers, batch, T, cfg.num_kv_heads, cfg.resolved_head_dim)
         dev = self.device
+
+        def leaf():
+            return kv_cache_init(kv, self.cdtype, self.kv_quant,
+                                 self.page_size, dev)
         return {
-            "k": torch.zeros(kv, dtype=self.cdtype, device=dev),
-            "v": torch.zeros(kv, dtype=self.cdtype, device=dev),
+            "k": leaf(), "v": leaf(),
             "pos_ids": torch.full((batch, T), -1, dtype=torch.int32, device=dev),
             "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
         }
@@ -158,16 +190,20 @@ class TransformerLM(nn.Module):
         T = self.cache_len(max(max_len or S, S))
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
         ks, vs = [], []
+
+        def store(t):
+            return kv_cache_store(t.to(self.cdtype), S, T, self.kv_quant,
+                                  self.page_size)
         for blk in self.blocks:
             xn = rms_norm(x, blk.ln1, self.cfg.norm_eps)
             q, k, v = self._qkv(blk, xn, positions)
             o = chunked_attention(q, k, v, causal=True, window=self.window)
             x = self._finish_block(blk, x, o)
-            ks.append(ring_cache_store(k.to(self.cdtype), S, T))
-            vs.append(ring_cache_store(v.to(self.cdtype), S, T))
+            ks.append(store(k))
+            vs.append(store(v))
         logits = self._logits(x if full_logits else x[:, -1:])
         cache = {
-            "k": torch.stack(ks), "v": torch.stack(vs),
+            "k": stack_kv(ks), "v": stack_kv(vs),
             "pos_ids": ring_position_ids(B, S, T, x.device),
             "pos": torch.full((B,), S, dtype=torch.int32, device=x.device),
         }
@@ -183,7 +219,7 @@ class TransformerLM(nn.Module):
         S = tokens.shape[1]
         x = self._embed(tokens)
         pos = cache["pos"]
-        T = cache["k"].shape[2]
+        T = kv_cache_len(cache["k"])
         block_pos = pos[:, None] + torch.arange(S, dtype=pos.dtype,
                                                 device=pos.device)
         slot = block_pos % T
@@ -192,9 +228,9 @@ class TransformerLM(nn.Module):
         for i, blk in enumerate(blocks):
             xn = rms_norm(x, blk.ln1, self.cfg.norm_eps)
             q, k, v = self._qkv(blk, xn, block_pos)
-            ck = ring_cache_update(cache["k"][i], k, slot)
-            cv = ring_cache_update(cache["v"][i], v, slot)
-            o = chunked_attention(q, ck.to(x.dtype), cv.to(x.dtype),
+            ck = kv_cache_update(cache["k"][i], k, slot, self.kv_quant)
+            cv = kv_cache_update(cache["v"][i], v, slot, self.kv_quant)
+            o = chunked_attention(q, kv_cast(ck, x.dtype), kv_cast(cv, x.dtype),
                                   causal=True, window=self.window,
                                   q_offset=pos, kv_positions=cache["pos_ids"])
             x = self._finish_block(blk, x, o)
@@ -202,7 +238,9 @@ class TransformerLM(nn.Module):
         return self._logits(x), cache
 
 
-def build_model(cfg: ModelConfig, device="cuda") -> TransformerLM:
+def build_model(cfg: ModelConfig, device="cuda", *, kv_quant: str = "off",
+                page_size: int = 0) -> TransformerLM:
     if cfg.family == "dense":
-        return TransformerLM(cfg, device)
+        return TransformerLM(cfg, device, kv_quant=kv_quant,
+                             page_size=page_size)
     raise NotImplementedError(f"family {cfg.family!r} is ported in a later slice")

@@ -12,6 +12,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attention import kernel as jk  # noqa: E402
 from repro.kernels.flash_attention import ops as jops  # noqa: E402
+from repro.models import layers as jl  # noqa: E402
 from repro.models.layers import ring_position_ids  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as tk  # noqa: E402
@@ -150,6 +151,85 @@ def test_plain_versions_agree():
 
 
 # ---------------------------------------------------------------------------
+# decode over Proteus codes and pages: ops.flash_decode_quant, _paged and
+# _paged_quant against the reference's interpret-mode kernels
+# ---------------------------------------------------------------------------
+def _codes(rng, shape, mode):
+    """Reference-quantized K/V: numpy codes (..., Dc) and scales (...)."""
+    q = jl.kv_quantize(jnp.asarray(_np(rng, *shape)), mode)
+    return np.array(q.codes), np.array(q.scale)
+
+
+def _table(rng, B, NP, kp, ps):
+    """A permuted table over 1 + B * NP pages: slot 1 shares slot 0's first
+    page, and slot 0's pages that hold no position sit on the trash page."""
+    table = (rng.permutation(B * NP) + 1).astype(np.int32).reshape(B, NP)
+    table[1, 0] = table[0, 0]
+    table[0][(kp[0].reshape(NP, ps) < 0).all(axis=1)] = 0
+    return table
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+@pytest.mark.parametrize("S,G,window,cap", [(1, 1, 0, 0.0), (4, 2, 10, 0.0),
+                                            (1, 4, 0, 5.0)])
+def test_decode_quant_matches_reference(mode, S, G, window, cap):
+    rng = np.random.default_rng(S * 5 + G + window)
+    B, Hkv, D, T = 4, 2, 16, 40
+    q = _np(rng, B, S, Hkv * G, D)
+    (kc, ks), (vc, vs) = (_codes(rng, (B, T, Hkv, D), mode) for _ in range(2))
+    qp, kp = _ring([3, 17, 39, 61], S, T)
+    kw = dict(causal=True, window=window, softcap=cap)
+    want = jops.flash_decode_quant(
+        *(jnp.asarray(a) for a in (q, kc, ks, vc, vs, qp, kp)), block_k=16,
+        interpret=True, **kw)
+    got = tops.flash_decode_quant(*_t(q, kc, ks, vc, vs, qp, kp), **kw)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("mode", ["off", "int8", "int4"])
+@pytest.mark.parametrize("S,G,window,cap", [(1, 2, 0, 0.0), (4, 1, 12, 5.0)])
+def test_decode_paged_matches_reference(mode, S, G, window, cap):
+    """Pools read through a permuted table with a shared page and trash
+    rows; the paged plain version also equals the dense one on the gathered
+    pages."""
+    rng = np.random.default_rng(S + G + len(mode))
+    B, Hkv, D, ps, NP = 3, 2, 16, 8, 4
+    P, T = 1 + B * NP, NP * ps
+    q = _np(rng, B, S, Hkv * G, D)
+    qp, kp = _ring([2, 20, 40], S, T)
+    table = _table(rng, B, NP, kp, ps)
+    kw = dict(causal=True, window=window, softcap=cap)
+    if mode == "off":
+        pools = (_np(rng, P, ps, Hkv, D), _np(rng, P, ps, Hkv, D))
+        jfn, tfn = jops.flash_decode_paged, tops.flash_decode_paged
+    else:
+        pools = (_codes(rng, (P, ps, Hkv, D), mode)
+                 + _codes(rng, (P, ps, Hkv, D), mode))
+        jfn, tfn = jops.flash_decode_paged_quant, tops.flash_decode_paged_quant
+    want = jfn(*(jnp.asarray(a) for a in (q, *pools, table, qp, kp)),
+               interpret=True, **kw)
+    got = tfn(*_t(q, *pools, table, qp, kp), **kw)
+    _close(got, want)
+    gathered = [ref.gather_pages(p, torch.from_numpy(table)).transpose(1, 2)
+                for p in _t(*pools)]
+    dense = (tops.flash_decode(_t(q)[0], *gathered, *_t(qp, kp), **kw)
+             if mode == "off" else
+             tops.flash_decode_quant(_t(q)[0], *gathered, *_t(qp, kp), **kw))
+    assert torch.equal(got, dense)
+
+
+def test_dequant_rows_in_fp32():
+    """Codes dequantize in fp32 whatever q's dtype, as _dequant_rows does."""
+    rng = np.random.default_rng(14)
+    kc, ks = _codes(rng, (1, 2, 5, 16), "int4")
+    d = ref.dequant_rows(*_t(kc, ks), 16)
+    assert d.dtype == torch.float32
+    np.testing.assert_array_equal(
+        d.numpy(), np.asarray(jl.kv_dequantize(
+            jl.QKVCache(jnp.asarray(kc), jnp.asarray(ks)), 16, jnp.float32)))
+
+
+# ---------------------------------------------------------------------------
 # wrappers: checks, counters, splits
 # ---------------------------------------------------------------------------
 def test_cpu_path_launches_nothing():
@@ -160,7 +240,62 @@ def test_cpu_path_launches_nothing():
     tops.flash_attention_gqa_fwd(q, k, v)
     qp, kp = _t(*_ring([4], 1, 5))
     tops.flash_decode(q[:, :1], k, v, qp, kp)
+    codes, scale = torch.zeros(1, 5, 2, 8, dtype=torch.int8), torch.ones(1, 5, 2)
+    tops.flash_decode_quant(q[:, :1], codes, scale, codes, scale, qp, kp)
+    table = torch.ones(1, 1, dtype=torch.int32)
+    pool = torch.zeros(2, 5, 2, 16)
+    tops.flash_decode_paged(q[:, :1], pool, pool, table, qp, kp)
+    tops.flash_decode_paged_quant(q[:, :1], codes[:1].expand(2, -1, -1, -1),
+                                  scale.expand(2, -1, -1),
+                                  codes[:1].expand(2, -1, -1, -1),
+                                  scale.expand(2, -1, -1), table, qp, kp)
     assert tk.LAUNCHES == before
+
+
+def test_layout_wrappers_reject_bad_operands():
+    q = torch.zeros(1, 2, 1, 1, 16)
+    qp, kp = torch.zeros(1, 1, dtype=torch.int32), torch.zeros(
+        1, 8, dtype=torch.int32)
+    codes, scale = torch.zeros(1, 2, 8, 16, dtype=torch.int8), torch.ones(1, 2, 8)
+    with pytest.raises(TypeError, match="int8"):
+        tk.flash_decode_quant_fwd(q, codes.float(), scale, codes.float(),
+                                  scale, qp, kp)
+    with pytest.raises(TypeError, match="float32"):
+        tk.flash_decode_quant_fwd(q, codes, scale.double(), codes,
+                                  scale.double(), qp, kp)
+    with pytest.raises(ValueError, match="code width"):
+        tk.flash_decode_quant_fwd(q, codes[..., :5], scale, codes[..., :5],
+                                  scale, qp, kp)
+    with pytest.raises(ValueError, match="scales"):
+        tk.flash_decode_quant_fwd(q, codes, scale[:, :1], codes, scale[:, :1],
+                                  qp, kp)
+    pool = torch.zeros(3, 4, 2, 16)
+    table = torch.ones(1, 2, dtype=torch.int32)
+    with pytest.raises(TypeError, match="int32"):
+        tk.flash_decode_paged_fwd(q, pool, pool, table.long(), qp, kp)
+    with pytest.raises(ValueError, match="positions"):
+        tk.flash_decode_paged_fwd(q, pool, pool, table[:, :1], qp, kp)
+    with pytest.raises(ValueError, match="disagree"):
+        tk.flash_decode_paged_fwd(q, pool[..., :1, :], pool[..., :1, :],
+                                  table, qp, kp)
+    with pytest.raises(ValueError, match="code width"):
+        tk.flash_decode_paged_quant_fwd(
+            q, pool.to(torch.int8)[..., :3], pool[..., 0],
+            pool.to(torch.int8)[..., :3], pool[..., 0], table, qp, kp)
+
+
+@pytest.mark.parametrize("ps,match", [(4, "page size"), (8, "no kernel")])
+def test_paged_wrapper_on_other_device(ps, match):
+    """Off the CPU the paged kernels take page sizes 8, 16, 32 and 64 only,
+    and a tensor that is not on the CPU never takes the plain version."""
+    meta = dict(device="meta")
+    q = torch.zeros(1, 2, 1, 1, 64, **meta)
+    pool = torch.zeros(3, ps, 2, 64, **meta)
+    table = torch.zeros(1, 2, dtype=torch.int32, **meta)
+    qp = torch.zeros(1, 1, dtype=torch.int32, **meta)
+    kp = torch.zeros(1, 2 * ps, dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match=match):
+        tk.flash_decode_paged_fwd(q, pool, pool, table, qp, kp)
 
 
 @pytest.mark.parametrize("fn", [tk.flash_attention_fwd, tk.flash_decode_fwd])

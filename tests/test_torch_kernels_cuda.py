@@ -13,7 +13,8 @@ torch.set_num_threads(2)
 
 from repro_torch.kernels.flash_attention import kernel as tk  # noqa: E402
 from repro_torch.kernels.flash_attention import ref  # noqa: E402
-from repro_torch.models.layers import ring_position_ids  # noqa: E402
+from repro_torch.models.layers import (kv_quantize,  # noqa: E402
+                                       ring_position_ids)
 
 # fp32: summation order only; bf16: one rounding of the output
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -80,6 +81,81 @@ def test_decode_kernel(cuda, dtype, S, G, D):
     assert tk.LAUNCHES["flash_decode_fwd"] == n + 2
     assert torch.equal(o, again)                 # deterministic combine
     assert _err(o, ref.flash_decode_fwd_ref(q, k, v, qp, kp)) <= TOL[dtype]
+
+
+def _ring(depths, S, T, dev):
+    qp = torch.stack([torch.arange(d, d + S, dtype=torch.int32)
+                      for d in depths]).to(dev)
+    kp = torch.cat([ring_position_ids(1, d + S, T) for d in depths]).to(dev)
+    return qp, kp
+
+
+def _table(gen, kp, ps):
+    """A permuted table over 1 + B * NP pages; slot 1 shares slot 0's first
+    page; slot 0's pages that hold no position sit on the trash page 0."""
+    B, T = kp.shape
+    NP = T // ps
+    table = (torch.randperm(B * NP, generator=gen, device=kp.device) + 1
+             ).reshape(B, NP).to(torch.int32)
+    table[1, 0] = table[0, 0]
+    table[0][(kp[0].reshape(NP, ps) < 0).all(dim=-1)] = 0
+    return table.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,G,D,ps,window,cap", [
+    (1, 1, 64, 16, 0, 0.0), (4, 4, 128, 8, 100, 30.0), (2, 2, 64, 32, 0, 10.0),
+    (1, 1, 128, 64, 0, 0.0)])
+def test_layout_decode_kernels(cuda, dtype, S, G, D, ps, window, cap):
+    """The quantized, paged and paged-quant decode kernels against their
+    plain versions, and bitwise against the dense / quant kernels on the
+    pages gathered through the table."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    B, H, T = 8, 12, 576
+    depths = [17, 100, 511, 575, 300, 572, 40, 700]     # the last wraps
+    qp, kp = _ring(depths, S, T, cuda)
+    table = _table(gen, kp, ps)
+    P = 1 + B * (T // ps)
+    q = _randn(gen, (B, H, G, S, D), dtype, cuda)
+    kw = dict(causal=True, window=window, softcap=cap)
+    gather = ref.gather_pages
+    kpool, vpool = (_randn(gen, (P, ps, H, D), dtype, cuda) for _ in range(2))
+    n = dict(tk.LAUNCHES)
+    o = tk.flash_decode_paged_fwd(q, kpool, vpool, table, qp, kp, **kw)
+    assert _err(o, ref.flash_decode_paged_fwd_ref(q, kpool, vpool, table, qp,
+                                                  kp, **kw)) <= TOL[dtype]
+    assert torch.equal(o, tk.flash_decode_fwd(q, gather(kpool, table),
+                                              gather(vpool, table), qp, kp,
+                                              **kw))
+    for mode in ("int8", "int4"):
+        kq, vq = (kv_quantize(_randn(gen, (P, ps, H, D), torch.float32, cuda),
+                              mode) for _ in range(2))
+        pq = (kq.codes, kq.scale, vq.codes, vq.scale)
+        o = tk.flash_decode_paged_quant_fwd(q, *pq, table, qp, kp, **kw)
+        assert _err(o, ref.flash_decode_paged_quant_fwd_ref(
+            q, *pq, table, qp, kp, **kw)) <= TOL[dtype]
+        gq = tuple(gather(x, table) for x in pq)
+        oq = tk.flash_decode_quant_fwd(q, *gq, qp, kp, **kw)
+        assert torch.equal(o, oq)
+        assert _err(oq, ref.flash_decode_quant_fwd_ref(q, *gq, qp, kp, **kw)
+                    ) <= TOL[dtype]
+    torch.cuda.synchronize()
+    assert {k: tk.LAUNCHES[k] - n[k] for k in n} == {
+        "flash_attention_fwd": 0, "flash_decode_fwd": 1,
+        "flash_decode_quant_fwd": 2, "flash_decode_paged_fwd": 1,
+        "flash_decode_paged_quant_fwd": 2}
+
+
+@pytest.mark.cuda
+def test_paged_kernels_reject_other_page_sizes(cuda):
+    q = torch.zeros(1, 1, 1, 1, 64, device=cuda)
+    pool = torch.zeros(3, 4, 1, 64, device=cuda)
+    table = torch.ones(1, 2, dtype=torch.int32, device=cuda)
+    qp = torch.zeros(1, 1, dtype=torch.int32, device=cuda)
+    kp = torch.zeros(1, 8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="page size"):
+        tk.flash_decode_paged_fwd(q, pool, pool, table, qp, kp)
 
 
 @pytest.mark.cuda

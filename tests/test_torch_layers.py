@@ -152,5 +152,5 @@ def test_chunked_attention_decode_dispatch(S):
 
 def test_chunked_attention_rejects_non_tensor_cache():
     q = torch.zeros(1, 1, 2, 16)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(TypeError, match="unsupported KV cache leaf"):
         tl.chunked_attention(q, object(), object(), q_offset=0)
