@@ -22,7 +22,18 @@ Runs on one NVIDIA GPU; exits non-zero without one. Phases:
    prefix on 8 slots, contiguous, paged and paged int8: one completion per
    request, prefix sharing, every page back in the pool at the end;
 7. profile: ``torch.profiler`` over batch-mode serving (prefill and three
-   fused chunks): the device's busy share and the kernels by device time.
+   fused chunks): the device's busy share and the kernels by device time;
+8. serve_griffin: ``recurrentgemma-2b`` at full width and depth (random
+   weights from ``--seed``), batch 8 x prompt 512 x 64 new tokens and one
+   long request (batch 2 x prompt 2100 x 32, past the local window of
+   2048, so the ring wraps): fused == loop tokens, and exact launches: per
+   prefill 8 of the prefill kernel (attention layers) and 18 of the RG-LRU
+   kernel (recurrent layers), per decode step 8 of the decode kernel;
+   then a profile of its serving;
+9. engine_griffin: 16 mixed-length requests drained through 8 slots;
+10. parity_griffin: card vs CPU fp32 logits and caches at full width with
+   the depth cut to 5 layers (one group and the two trailing recurrent
+   layers), prefill 64 plus 8 decode steps.
 
 The second-to-last line is a JSON object of per-kernel numbers, the last is
 ``{"ok": true, "device": {...}}``. Any failure raises.
@@ -45,7 +56,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-PHASES = ("device", "build", "kernels", "serve", "engine", "profile", "parity")
+PHASES = ("device", "build", "kernels", "serve", "engine", "profile", "parity",
+          "serve_griffin", "engine_griffin", "parity_griffin")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -55,7 +67,19 @@ PARITY_ATOL = 1e-3                  # fp32 logits, card vs CPU
 # one code step moves the element by max|row| / 127, the int8 grid's own
 # resolution, so the logits are held to the grid's error, not to fp32 noise
 PARITY_INT8_ATOL = 2e-2
+# Griffin, fp32 card vs CPU: a_t close to 1 makes sqrt(1 - a_t^2) turn
+# one-ulp differences of exp / sigmoid into ~1e-5 relative differences of
+# the RG-LRU input, so caches and states are held to 1e-3 of their largest
+# |value| (the CPU tests' limit against the reference); logits (about 0.1
+# at full width, soft-capped at 30) to the dense phase's 1e-3
+PARITY_GRIFFIN_ATOL = 1e-3
+PARITY_GRIFFIN_REL = 1e-3
+GRIFFIN_PARITY_LAYERS = 5          # one (r, r, a) group + 2 trailing r
+# RG-LRU kernel vs its plain loop: the same rounded multiply and add in the
+# same order, so 0 is expected; |h| stays below ~3 for these inputs
+RGLRU_TOL = 1e-6
 KERNEL_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+SOURCES = {"rglru_scan": "src/repro_torch/kernels/rglru/csrc/rglru.cu"}
 REPLACES = {
     "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:126",
     "flash_decode_fwd": "src/repro/kernels/flash_attention/kernel.py:174",
@@ -63,6 +87,7 @@ REPLACES = {
     "flash_decode_paged_fwd": "src/repro/kernels/flash_attention/kernel.py:359",
     "flash_decode_paged_quant_fwd":
         "src/repro/kernels/flash_attention/kernel.py:443",
+    "rglru_scan": "src/repro/kernels/rglru/kernel.py:44",
 }
 # the serving layouts: (kv_quant, page_size, the decode kernel of each step)
 LAYOUTS = {
@@ -78,9 +103,11 @@ MAIN_LAYOUT = {"flash_attention_fwd": "contiguous",
                "flash_decode_fwd": "contiguous",
                "flash_decode_quant_fwd": "int8",
                "flash_decode_paged_fwd": "paged16",
-               "flash_decode_paged_quant_fwd": "paged16_int8"}
+               "flash_decode_paged_quant_fwd": "paged16_int8",
+               "rglru_scan": "griffin"}
 NO_LIBRARY = ("no single PyTorch call computes attention over quantized "
               "codes or through a page table")
+NO_LIBRARY_RGLRU = "no single PyTorch call computes a linear recurrence"
 DEVICE = "cuda"
 
 
@@ -333,6 +360,149 @@ def phase_kernels(seed: int) -> dict:
         f"sdpa {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
         f"{flops:.3e} FLOP); splits {fk.decode_splits(B, H, T)}")
     rows.update(kernels_kv_layouts(gen))
+    rows.update(kernels_griffin(gen))
+    return rows
+
+
+def kernels_griffin(gen) -> dict:
+    """recurrentgemma-2b's kernels: the RG-LRU recurrence against its plain
+    loop at the prefill shape (B 8, T 512, D 2560 fp32) and at edge shapes,
+    with its device times; the prefill and decode kernels at head_dim 256
+    with one kv head for ten q heads, against their plain versions across
+    the local window of 2048 and a wrapped ring, with device times at the
+    serving shapes (B 8, prompt 512, ring of 576)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.kernels.rglru import rglru_scan, rglru_scan_ref
+
+    def ab(B, T, D):
+        a = 0.7 + 0.299 * torch.rand((B, T, D), generator=gen, device=DEVICE)
+        return a, 0.1 * randn(gen, (B, T, D), torch.float32)
+
+    B, T, D = 8, 512, 2560
+    for shape in ((B, T, D), (2, 1, D), (2, 3, D), (1, 1000, 100), (1, 17, 100),
+                  (3, 5, 2500)):
+        a, b = ab(*shape)
+        h = rglru_scan(a, b)
+        e = _check(f"rglru_scan B{shape[0]} T{shape[1]} D{shape[2]} fp32", h,
+                   rglru_scan_ref(a, b), RGLRU_TOL)
+        if shape == (B, T, D):
+            rglru_err = e
+            log("kernels", "rglru_scan main shape bitwise equal to the plain "
+                f"loop: {torch.equal(h, rglru_scan_ref(a, b))}")
+    n_sets = n_sets_for(2 * B * T * D * 4)
+    sets = [ab(B, T, D) for _ in range(n_sets)]
+    t_k = device_ms(lambda i: rglru_scan(*sets[i]), n_sets, 20)
+    t_p = device_ms(lambda i: rglru_scan_ref(*sets[i]), n_sets, 2)
+    del sets
+    nbytes = 3 * B * T * D * 4
+    b_ms, b_by = bound_ms(nbytes, 2.0 * B * T * D, torch.float32)
+    rows = {"rglru_scan": dict(max_abs_err=rglru_err, ms=t_k, plain_ms=t_p,
+                               bound_ms=b_ms, bound_by=b_by, library_ms=None)}
+    log("kernels", f"rglru_scan times (B8 T512 D2560 fp32): kernel "
+        f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{nbytes} B, {2 * B * T * D:.3e} FLOP; "
+        f"{nbytes / (t_k * 1e-3) / 1e12:.3f} TB/s); library: none "
+        f"({NO_LIBRARY_RGLRU})")
+
+    # -- head_dim 256, MQA: checks across the window and a wrapped ring ------
+    G, Dh, W = 10, 256, 2048
+    for dt in (torch.float32, torch.bfloat16):
+        S = 3072
+        q5 = randn(gen, (2, 1, G, S, Dh), dt)
+        k4, v4 = (randn(gen, (2, 1, S, Dh), dt) for _ in range(2))
+        pos = torch.arange(S, dtype=torch.int32, device=DEVICE).repeat(2, 1)
+        qp = pos.clone()
+        qp[1, :7] = -1
+        o, l = fk.flash_attention_fwd(q5, k4, v4, qp, pos, causal=True,
+                                      window=W)
+        ro, rl = ref.flash_attention_fwd_ref(q5, k4, v4, qp, pos, causal=True,
+                                             window=W)
+        name = f"prefill Hkv1 G10 S=T=3072 D256 window 2048 {str(dt)[6:]}"
+        _check(name, o, ro, TOL[dt])
+        _check(name, l, rl, TOL[dt], "lse")
+        del q5, k4, v4, o, l, ro, rl
+        for S in (1, 2):
+            q5 = randn(gen, (4, 1, G, S, Dh), dt)
+            k4, v4 = (randn(gen, (4, 1, W, Dh), dt) for _ in range(2))
+            qp, kp = ring_positions([100, 2047, 2100, 5000], S, W)
+            _check(f"decode Hkv1 G10 S{S} T2048 D256 window 2048 wrapped "
+                   f"ring {str(dt)[6:]}",
+                   fk.flash_decode_fwd(q5, k4, v4, qp, kp, causal=True,
+                                       window=W),
+                   ref.flash_decode_fwd_ref(q5, k4, v4, qp, kp, causal=True,
+                                            window=W), TOL[dt])
+
+    # -- head_dim 256 at the serving shapes: bf16, model layout --------------
+    dt, S = torch.bfloat16, 512
+    q = randn(gen, (B, S, G, Dh), dt)
+    k, v = (randn(gen, (B, S, 1, Dh), dt) for _ in range(2))
+    out, lse = ops.flash_attention_gqa_fwd(q, k, v, causal=True, window=W)
+    pos = torch.arange(S, dtype=torch.int32, device=DEVICE).expand(B, S)
+    split = lambda x: x.reshape(B, S, 1, G, Dh).permute(0, 2, 3, 1, 4)
+    r_out, _ = ref.flash_attention_fwd_ref(
+        split(q), k.transpose(1, 2), v.transpose(1, 2), pos, pos, causal=True,
+        window=W)
+    _check("prefill B8 Hkv1 G10 S=T=512 D256 bf16 (model layout)", out,
+           r_out.permute(0, 3, 1, 2, 4).reshape(B, S, G, Dh), TOL[dt])
+    n_sets = n_sets_for(q.nbytes + k.nbytes + v.nbytes)
+    sets = [(randn(gen, (B, S, G, Dh), dt), randn(gen, (B, S, 1, Dh), dt),
+             randn(gen, (B, S, 1, Dh), dt)) for _ in range(n_sets)]
+    t_k = device_ms(lambda i: ops.flash_attention_gqa_fwd(
+        *sets[i], causal=True, window=W), n_sets, 20)
+    sets5 = [(split(a), b.transpose(1, 2), c.transpose(1, 2))
+             for a, b, c in sets]
+    t_p = device_ms(lambda i: ref.flash_attention_fwd_ref(
+        *sets5[i], pos, pos, causal=True, window=W), n_sets, 4)
+    sets4 = [(a.transpose(1, 2), b.transpose(1, 2).expand(B, G, S, Dh),
+              c.transpose(1, 2).expand(B, G, S, Dh)) for a, b, c in sets]
+    t_l = device_ms(lambda i: F.scaled_dot_product_attention(
+        *sets4[i], is_causal=True), n_sets, 20)
+    del sets, sets4, sets5
+    nbytes = 2 * q.nbytes + k.nbytes + v.nbytes + lse.nbytes + 2 * pos.nbytes
+    flops = 4.0 * Dh * G * visible_pairs(pos, pos, True, W)
+    b_ms, b_by = bound_ms(nbytes, flops, dt)
+    log("kernels", f"prefill D256 times (B8 Hkv1 G10 S=T=512 bf16): kernel "
+        f"{t_k:.4f} ms, plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {flops:.3e} FLOP)")
+
+    T = 576
+    qp, kp = ring_positions([575 - 8 * b for b in range(B)], 1, T)
+    q = randn(gen, (B, 1, G, Dh), dt)
+    k, v = (randn(gen, (B, T, 1, Dh), dt) for _ in range(2))
+    to5 = lambda x: x.reshape(B, 1, 1, G, Dh).permute(0, 2, 3, 1, 4)
+    _check("decode B8 Hkv1 G10 T576 S1 D256 bf16 (model layout)",
+           ops.flash_decode(q, k, v, qp, kp, window=W),
+           ref.flash_decode_fwd_ref(to5(q), k.transpose(1, 2),
+                                    v.transpose(1, 2), qp, kp, window=W
+                                    ).permute(0, 3, 1, 2, 4
+                                              ).reshape(B, 1, G, Dh), TOL[dt])
+    n_sets = n_sets_for(2 * B * T * Dh * 2)
+    sets = [(randn(gen, (B, 1, G, Dh), dt), randn(gen, (B, T, 1, Dh), dt),
+             randn(gen, (B, T, 1, Dh), dt)) for _ in range(n_sets)]
+    t_k = device_ms(lambda i: ops.flash_decode(*sets[i], qp, kp, window=W),
+                    n_sets, 50)
+    sets5 = [(to5(a), b.transpose(1, 2), c.transpose(1, 2))
+             for a, b, c in sets]
+    t_p = device_ms(lambda i: ref.flash_decode_fwd_ref(*sets5[i], qp, kp,
+                                                       window=W), n_sets, 10)
+    from repro_torch.kernels.flash_attention.ref import visible_mask
+    mask = visible_mask(qp, kp, causal=True, window=W)[:, None]
+    sets4 = [(a.transpose(1, 2), b.transpose(1, 2).expand(B, G, T, Dh),
+              c.transpose(1, 2).expand(B, G, T, Dh)) for a, b, c in sets]
+    t_l = device_ms(lambda i: F.scaled_dot_product_attention(
+        *sets4[i], attn_mask=mask), n_sets, 50)
+    del sets, sets4, sets5
+    valid_rows = int((kp >= 0).sum())
+    nbytes = (2 * 2 * valid_rows * Dh + 2 * B * G * Dh * 2 + qp.nbytes
+              + kp.nbytes)
+    flops = 4.0 * Dh * G * visible_pairs(qp, kp, True, W)
+    b_ms, b_by = bound_ms(nbytes, flops, dt)
+    log("kernels", f"decode D256 times (B8 Hkv1 G10 T576 S1 bf16): kernel "
+        f"{t_k:.4f} ms, plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {flops:.3e} FLOP); splits "
+        f"{fk.decode_splits(B, 1, T)}")
     return rows
 
 
@@ -487,23 +657,42 @@ def kernels_kv_layouts(gen) -> dict:
     return rows
 
 
+def _counters() -> list:
+    """The launch counters of every kernel module."""
+    from repro_torch.kernels.flash_attention import LAUNCHES
+    from repro_torch.kernels.rglru import LAUNCHES as RGLRU_LAUNCHES
+    return [LAUNCHES, RGLRU_LAUNCHES]
+
+
 def _reset():
-    from repro_torch.kernels.flash_attention import LAUNCHES
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counter in _counters():
+        for name in counter:
+            counter[name] = 0
 
 
-def _check_launches(phase, n_layers, prefills, decode_steps,
+def _layer_counts(cfg) -> tuple:
+    """(attention layers, RG-LRU layers) of a model."""
+    if cfg.family == "hybrid":
+        n_attn = cfg.num_layers // 3
+        return n_attn, cfg.num_layers - n_attn
+    return cfg.num_layers, 0
+
+
+def _check_launches(phase, cfg, prefills, decode_steps,
                     decode_kernel="flash_decode_fwd") -> dict:
-    """Every prefill launched the prefill kernel and every decode step the
-    layout's decode kernel, once per layer; no other kernel ran."""
-    from repro_torch.kernels.flash_attention import LAUNCHES
-    got = dict(LAUNCHES)
-    want = dict.fromkeys(LAUNCHES, 0)
-    want["flash_attention_fwd"] = n_layers * prefills
-    want[decode_kernel] = n_layers * decode_steps
-    log(phase, f"launches {got} (want {want}: {n_layers} layers x "
-        f"{prefills} prefills / {decode_steps} decode steps)")
+    """Every prefill launched the prefill kernel once per attention layer
+    and the RG-LRU kernel once per recurrent layer, every (one-token)
+    decode step the layout's decode kernel once per attention layer; no
+    other kernel ran."""
+    got = {n: c for counter in _counters() for n, c in counter.items()}
+    n_attn, n_rec = _layer_counts(cfg)
+    want = dict.fromkeys(got, 0)
+    want["flash_attention_fwd"] = n_attn * prefills
+    want[decode_kernel] = n_attn * decode_steps
+    want["rglru_scan"] = n_rec * prefills
+    log(phase, f"launches {got} (want {want}: {n_attn} attention + {n_rec} "
+        f"recurrent layers x {prefills} prefills / {decode_steps} decode "
+        "steps)")
     if got != want:
         raise AssertionError(f"{phase}: launches {got} != {want}")
     return got
@@ -512,40 +701,12 @@ def _check_launches(phase, n_layers, prefills, decode_steps,
 def phase_serve(model, smi: str) -> dict:
     """Batch serving in every KV layout; returns the launches of each
     layout's fused run."""
-    from repro_torch.launch.serve import serve
-    cfg = model.cfg
-    kw = dict(batch=8, prompt_len=512, gen=64, chunk=8, seed=0)
-    launches = {}
-    for layout, (kv_quant, page_size, decode_kernel) in LAYOUTS.items():
-        lk = dict(kw, kv_quant=kv_quant, page_size=page_size)
-        serve(model=model, engine="fused", **{**lk, "gen": 8})  # first calls
-        runs = {}
-        for engine in ("fused", "loop"):
-            _reset()
-            out = serve(model=model, engine=engine, **lk)
-            got = _check_launches(f"serve/{layout}/{engine}", cfg.num_layers,
-                                  out["prefills"], out["decode_steps"],
-                                  decode_kernel)
-            if engine == "fused":
-                launches[layout] = got
-            toks = out["tokens"]
-            if toks.shape != (kw["batch"], kw["gen"]) or toks.min() < 0 \
-                    or toks.max() >= cfg.vocab_size:
-                raise AssertionError(f"serve/{layout}/{engine}: bad tokens "
-                                     f"{toks.shape} [{toks.min()}, "
-                                     f"{toks.max()}]")
-            log(f"serve/{layout}/{engine}", f"{smi}: prefill "
-                f"{out['prefill_s'] * 1e3:.3f} ms (B=8 x 512), decode "
-                f"{out['decode_s_per_tok'] * 1e3:.4f} ms/token-step, "
-                f"{out['throughput_tok_s']:.1f} tokens/s, "
-                f"{out['dispatches']} host syncs")
-            runs[engine] = out
-        same = np.array_equal(runs["fused"]["tokens"], runs["loop"]["tokens"])
-        log(f"serve/{layout}", f"fused == loop tokens: {same}")
-        if not same:
-            raise AssertionError(f"{layout}: fused and loop greedy tokens "
-                                 "differ")
-    return launches
+    return {layout: _serve_pair(model, smi, f"serve/{layout}", decode_kernel,
+                                batch=8, prompt_len=512, gen=64, chunk=8,
+                                seed=0, kv_quant=kv_quant,
+                                page_size=page_size)
+            for layout, (kv_quant, page_size, decode_kernel)
+            in LAYOUTS.items()}
 
 
 def _cache_diff(cc, cg):
@@ -618,7 +779,7 @@ def _drain(eng, reqs, label, decode_kernel) -> dict:
     comps = eng.run(list(reqs))
     torch.cuda.synchronize()
     s = eng.stats
-    _check_launches(label, cfg.num_layers, s["prefills"], s["decode_steps"],
+    _check_launches(label, cfg, s["prefills"], s["decode_steps"],
                     decode_kernel)
     by_uid = {}
     for c in comps:
@@ -676,7 +837,128 @@ def phase_engine(model, seed: int) -> None:
         for k, v in per_token.items()))
 
 
-def phase_profile(model, smi: str) -> None:
+def _serve_pair(model, smi, label, decode_kernel="flash_decode_fwd",
+                **kw) -> dict:
+    """Batch serving with the fused and the per-token engine after a short
+    warm-up run: exact launches, tokens in range, fused == loop; returns
+    the fused run's launches."""
+    from repro_torch.launch.serve import serve
+    cfg = model.cfg
+    serve(model=model, engine="fused", **{**kw, "gen": 8})   # first calls
+    runs, launches = {}, None
+    for engine in ("fused", "loop"):
+        _reset()
+        out = serve(model=model, engine=engine, **kw)
+        got = _check_launches(f"{label}/{engine}", cfg, out["prefills"],
+                              out["decode_steps"], decode_kernel)
+        if engine == "fused":
+            launches = got
+        toks = out["tokens"]
+        if toks.shape != (kw["batch"], kw["gen"]) or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"{label}/{engine}: bad tokens {toks.shape} "
+                                 f"[{toks.min()}, {toks.max()}]")
+        log(f"{label}/{engine}", f"{smi}: prefill "
+            f"{out['prefill_s'] * 1e3:.3f} ms (B={kw['batch']} x "
+            f"{kw['prompt_len']}), decode "
+            f"{out['decode_s_per_tok'] * 1e3:.4f} ms/token-step, "
+            f"{out['throughput_tok_s']:.1f} tokens/s, "
+            f"{out['dispatches']} host syncs")
+        runs[engine] = out
+    same = np.array_equal(runs["fused"]["tokens"], runs["loop"]["tokens"])
+    log(label, f"fused == loop tokens: {same}")
+    if not same:
+        raise AssertionError(f"{label}: fused and loop greedy tokens differ")
+    return launches
+
+
+def phase_serve_griffin(model, smi: str) -> dict:
+    """recurrentgemma-2b batch serving at B 8 x 512 + 64, then one long
+    request (B 2 x 2100 + 32) whose prompt crosses the local window, so the
+    prefill keeps the last 2048 positions and every decode write wraps the
+    ring. Returns the launches of the first fused run."""
+    launches = _serve_pair(model, smi, "serve_griffin", batch=8,
+                           prompt_len=512, gen=64, chunk=8, seed=0)
+    W = model.cfg.local_window
+    if model.cache_len(2100 + 32) != W:
+        raise AssertionError(f"long request: ring of "
+                             f"{model.cache_len(2132)} slots, not {W}")
+    _serve_pair(model, smi, "serve_griffin/long", batch=2, prompt_len=2100,
+                gen=32, chunk=8, seed=1)
+    return launches
+
+
+def phase_engine_griffin(model, seed: int) -> None:
+    """16 mixed-length requests through 8 slots of one contiguous cache."""
+    from repro_torch.launch.serve import make_queue_engine, synth_requests
+    reqs = synth_requests(cfg=model.cfg, requests=16, prompt_len=256, gen=64,
+                          seed=seed)
+    eng = make_queue_engine(model=model, slots=8, prompt_len=256, gen=64,
+                            chunk=8, seed=seed)
+    _drain(eng, reqs, "engine_griffin", "flash_decode_fwd")
+
+
+def _rel_err(c, g) -> float:
+    """max |CPU - card| over max |CPU| (at least 1)."""
+    return ((c - g.cpu()).abs().max() / c.abs().max().clamp(min=1)).item()
+
+
+def phase_parity_griffin(seed: int) -> None:
+    """recurrentgemma-2b at full width, depth cut to 5 layers, fp32: logits
+    of a 64-token prefill and 8 decode steps, and the caches, card vs
+    CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import GriffinLM, init_params
+    full = get_config("recurrentgemma-2b")
+    cfg = full.replace(num_layers=GRIFFIN_PARITY_LAYERS,
+                       compute_dtype="float32")
+    print(f"parity_griffin depth cut: {full.name} {full.num_layers} -> "
+          f"{cfg.num_layers} layers (one (rec, rec, local attention) group "
+          "+ 2 trailing rec), full width d_model 2560, 10 q / 1 kv heads x "
+          "256, d_ff 7680, vocab 256000, fp32", flush=True)
+    state = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    cpu = GriffinLM(cfg, device="cpu")
+    cpu.load_state_dict(state)
+    gpu = GriffinLM(cfg, device=DEVICE)
+    gpu.load_state_dict(state)
+    del state
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64))
+                              .astype(np.int32))
+    feed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8))
+                            .astype(np.int32))
+    lc, cc = cpu.prefill(prompt, max_len=72)
+    lg, cg = gpu.prefill(prompt.to(DEVICE), max_len=72)
+    pairs = [(lc, lg)]
+    for i in range(feed.shape[1]):
+        lc, cc = cpu.decode_step(cc, feed[:, i:i + 1])
+        lg, cg = gpu.decode_step(cg, feed[:, i:i + 1].to(DEVICE))
+        pairs.append((lc, lg))
+    errs = [(c - g.cpu()).abs().max().item() for c, g in pairs]
+    agree = np.mean([float((c.argmax(-1) == g.cpu().argmax(-1)).all())
+                     for c, g in pairs])
+    leaves = {f"{n}.{m}": (cc[n][m], cg[n][m]) for n in ("rec1", "rec2")
+              for m in ("h", "conv")}
+    leaves.update({f"tail.{i}.{m}": (t[m], cg["tail"][i][m])
+                   for i, t in enumerate(cc["tail"]) for m in ("h", "conv")})
+    leaves.update({n: (cc[n], cg[n]) for n in ("k", "v")})
+    rel = {n: _rel_err(c, g) for n, (c, g) in leaves.items()}
+    same_pos = all(torch.equal(cc[n], cg[n].cpu()) for n in ("pos_ids", "pos"))
+    log("parity_griffin", f"fp32 logits card vs CPU, prefill 64 + 8 decode "
+        f"steps: max_abs_err per call {['%.2e' % e for e in errs]} (tol "
+        f"{PARITY_GRIFFIN_ATOL:.0e}), logit scale "
+        f"{pairs[0][0].abs().max().item():.3e}, top-1 agreement {agree:.3f}; "
+        f"cache error / max |value| "
+        f"{ {n: float('%.2e' % e) for n, e in rel.items()} } (tol "
+        f"{PARITY_GRIFFIN_REL:.0e}); positions equal {same_pos}")
+    if max(errs) > PARITY_GRIFFIN_ATOL or max(rel.values()) > \
+            PARITY_GRIFFIN_REL or not same_pos:
+        raise AssertionError(f"parity_griffin: card vs CPU differ: logits "
+                             f"{max(errs)}, cache {max(rel.values())}, "
+                             f"positions equal {same_pos}")
+
+
+def phase_profile(model, smi: str, label: str = "profile") -> None:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import serve
     kw = dict(model=model, engine="fused", batch=8, prompt_len=512, gen=16,
@@ -694,12 +976,12 @@ def phase_profile(model, smi: str) -> None:
             and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kern)
     launches = sum(e.count for e in kern)
-    log("profile", f"{smi}: serve B=8 prompt 512, prefill + 3 chunks of 8: "
-        f"wall {wall * 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
-        f"({busy_us / 1e4 / wall:.1f}% busy), {launches} kernel launches "
-        f"of {len(kern)} kernels")
+    log(label, f"{smi}: {model.cfg.name} serve B=8 prompt 512, prefill + 3 "
+        f"chunks of 8: wall {wall * 1e3:.3f} ms, device busy "
+        f"{busy_us / 1e3:.3f} ms ({busy_us / 1e4 / wall:.1f}% busy), "
+        f"{launches} kernel launches of {len(kern)} kernels")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
-        log("profile", f"  {e.self_device_time_total / 1e3:9.3f} ms "
+        log(label, f"  {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:6d}x  {e.key[:90]}")
 
 
@@ -739,8 +1021,31 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "parity" in phases:
         phase_parity(args.seed)
+    if {"serve_griffin", "engine_griffin"} & set(phases):
+        from repro_torch.launch.serve import load_model
+        t0 = time.perf_counter()
+        model = load_model("recurrentgemma-2b", smoke=False, seed=args.seed,
+                           device="cuda")
+        torch.cuda.synchronize()
+        n = sum(p.numel() for p in model.parameters())
+        log("serve_griffin", f"recurrentgemma-2b full width and depth: {n} "
+            f"params ({model.cfg.num_layers} layers), compute "
+            f"{model.cfg.compute_dtype}, built in "
+            f"{time.perf_counter() - t0:.2f}s; device memory "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+        if "serve_griffin" in phases:
+            launches["griffin"] = phase_serve_griffin(model, smi)
+            if "profile" in phases:
+                phase_profile(model, smi, "profile_griffin")
+        if "engine_griffin" in phases:
+            phase_engine_griffin(model, args.seed)
+        del model
+        torch.cuda.empty_cache()
+    if "parity_griffin" in phases:
+        phase_parity_griffin(args.seed)
 
-    kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCE,
+    kernels = [dict(name=name, route="cuda",
+                    source=SOURCES.get(name, KERNEL_SOURCE),
                     replaces=REPLACES[name],
                     launches=launches.get(MAIN_LAYOUT[name], {}).get(name),
                     **rows.get(name, {})) for name in REPLACES]

@@ -89,8 +89,11 @@ class ShapeConfig:
 
 
 def param_count(cfg: ModelConfig) -> int:
-    """Analytic parameter count of a dense decoder (embedding + blocks +
-    head), as the reference counts it: the final norm's scale is left out."""
+    """Analytic parameter count (embedding + blocks + head) as the reference
+    counts it for the ported families: every layer is counted as an
+    attention block with a gated MLP (the hybrid family too), the head is
+    counted unless ``tie_embeddings``, and the final norm's scale is left
+    out."""
     d, h = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     attn = d * (nq * h) + 2 * d * (nkv * h) + (nq * h) * d

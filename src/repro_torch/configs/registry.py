@@ -10,6 +10,7 @@ from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES: Dict[str, str] = {
     "pimref-100m": "repro_torch.configs.pimref_100m",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
 
 ALL_IDS = tuple(_ARCH_MODULES)

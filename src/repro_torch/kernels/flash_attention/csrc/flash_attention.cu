@@ -49,6 +49,16 @@
 // This first version multiplies with fp32 FMA loops and loads codes a byte
 // at a time; tensor cores (mma/wgmma), 16-byte loads and TMA pipelines are
 // later work.
+//
+// Head dims: 64 and 128 for every kernel; 256 (recurrentgemma's local
+// attention) for the prefill kernel and the decode kernel over values held
+// contiguously. At D 256 the fp32 staging of q and of one 64-row K and V
+// tile takes 217,344 bytes of shared memory in prefill (64 q rows) and
+// 143,872 bytes in decode (8 q rows), within the 232,448 a block may use,
+// so a D-256 prefill block runs alone on its SM. With MQA (one kv head, G
+// q heads) a prefill block packs G heads x 64 / G positions, and decode
+// walks the G * S query rows 8 at a time, reading each K/V split once per
+// 8 rows.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -609,14 +619,17 @@ int repro_flash_attention_fwd(
   if (is_bf16) {
     if (D == 64) return launch_fwd<__nv_bfloat16, 64>(p, out, lse, st);
     if (D == 128) return launch_fwd<__nv_bfloat16, 128>(p, out, lse, st);
+    if (D == 256) return launch_fwd<__nv_bfloat16, 256>(p, out, lse, st);
   } else {
     if (D == 64) return launch_fwd<float, 64>(p, out, lse, st);
     if (D == 128) return launch_fwd<float, 128>(p, out, lse, st);
+    if (D == 256) return launch_fwd<float, 256>(p, out, lse, st);
   }
   return cudaErrorInvalidValue;
 }
 
-// Decode over any cache layout. q (B, Hkv, G, S, D) by element strides. k/v
+// Decode over any cache layout (D 256: values, contiguous, only). q
+// (B, Hkv, G, S, D) by element strides. k/v
 // hold values of q's dtype (code_bits 0), int8 codes (8) or nibble-packed
 // int4 codes (4, D / 2 bytes a row), by element strides (ks_*/vs_*) over
 // (B, Hkv, T) rows, or over (page, Hkv, row in page) when page_size > 0;
@@ -650,6 +663,13 @@ int repro_flash_decode_fwd(
   w.n_split = n_split;
   w.split_len = split_len;
   const bool paged = page_size > 0;
+  if (D == 256) {  // contiguous values only
+    if (code_bits != 0 || paged) return cudaErrorInvalidValue;
+    return is_bf16
+        ? launch_decode<__nv_bfloat16, 256,
+                        KVSource<Values<__nv_bfloat16>, false>>(p, w, st)
+        : launch_decode<float, 256, KVSource<Values<float>, false>>(p, w, st);
+  }
   if (is_bf16) {
     if (D == 64) return dispatch_decode<__nv_bfloat16, 64>(p, w, code_bits, paged, st);
     if (D == 128) return dispatch_decode<__nv_bfloat16, 128>(p, w, code_bits, paged, st);

@@ -17,7 +17,9 @@ their argument layouts:
   ``(P, ps, Hkv, Dc)`` and scale pools ``(P, ps, Hkv)`` through the table.
 
 ``q_positions`` ``(B, S)`` and ``kv_positions`` ``(B, T)`` (``T = NP * ps``
-when paged) are int32, -1 = masked. The CUDA source is
+when paged) are int32, -1 = masked. Head dims: 64, 128 and 256 for the
+prefill kernel and the contiguous decode kernel, 64 and 128 for decode over
+codes or pages. The CUDA source is
 ``csrc/flash_attention.cu``; the four decode wrappers launch one kernel that
 differs only in how it fetches a K/V row, so the paged kernels equal the
 dense and quantized ones on the gathered pages bit for bit.
@@ -53,7 +55,10 @@ LAUNCHES: Dict[str, int] = {
     "flash_decode_quant_fwd": 0, "flash_decode_paged_fwd": 0,
     "flash_decode_paged_quant_fwd": 0,
 }
-KERNEL_HEAD_DIMS = (64, 128)
+# head_dims of the prefill kernel and of decode over values held
+# contiguously; decode over codes or pages takes LAYOUT_HEAD_DIMS
+KERNEL_HEAD_DIMS = (64, 128, 256)
+LAYOUT_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_PAGE_SIZES = (8, 16, 32, 64)
 # decode split-KV: aim for this many blocks per launch (2 per SM on 132 SMs)
@@ -144,13 +149,14 @@ def _check_table(table, B) -> int:
     return table.shape[1]
 
 
-def _check_cuda(q, D, operands=(), ints=()) -> None:
+def _check_cuda(q, D, operands=(), ints=(),
+                head_dims=KERNEL_HEAD_DIMS) -> None:
     """What the kernels take: a CUDA q of a kernel dtype and head_dim,
     operands with a contiguous last axis, contiguous int32 index arrays."""
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {D}: the CUDA kernels take {KERNEL_HEAD_DIMS}")
+    if D not in head_dims:
+        raise ValueError(f"head_dim {D}: this CUDA kernel takes {head_dims}")
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"dtype {q.dtype}: the CUDA kernels take {KERNEL_DTYPES}")
     for name, t in (("q", q),) + tuple(operands):
@@ -224,7 +230,9 @@ def _launch_decode(name: str, q, k, v, k_scale, v_scale, table, q_positions,
     ints = [("q_positions", q_positions), ("kv_positions", kv_positions)]
     if paged:
         ints.append(("table", table))
-    _check_cuda(q, D, (("k", k), ("v", v)), ints)
+    _check_cuda(q, D, (("k", k), ("v", v)), ints,
+                KERNEL_HEAD_DIMS if code_bits == 0 and not paged
+                else LAYOUT_HEAD_DIMS)
     lib = _lib()
     n_split, split_len = decode_splits(B, H, T)
     R = G * S

@@ -10,9 +10,11 @@ prompt at batch 1 each. Every request ends in exactly one completion:
 
 The cache is laid out as the model says (``kv_quant``, ``page_size``):
 
-* contiguous (ring per slot, values or Proteus codes and scales): each
-  prompt is left-padded to the ``prompt_len`` bucket and its cache rows are
-  copied into the slot's rows;
+* contiguous (ring per slot, values or Proteus codes and scales, and the
+  hybrid family's recurrent states): each prompt is left-padded to the
+  ``prompt_len`` bucket, the pads run through the model like tokens, and
+  the prefill cache's rows are copied into the slot's rows along each
+  leaf's batch axis (``model.cache_batch_axes()``);
 * paged: fixed-size pages live in one pool per leaf and each slot holds a
   page table. Prompts are right-padded, prefilled with every position's
   logits, and the first token is read at the true prompt end. A host-side
@@ -156,12 +158,28 @@ def _pools(pages) -> List[torch.Tensor]:
         else [pages]
 
 
+def _put_rows(big, small, axis, slot: int) -> None:
+    """Copy batch row 0 of every leaf of the cache ``small`` into row
+    ``slot`` of the same leaf of ``big``; ``axis`` is a tree of the caches'
+    structure that gives each leaf's batch axis."""
+    if isinstance(big, dict):
+        for name in big:
+            _put_rows(big[name], small[name], axis[name], slot)
+    elif isinstance(big, list):
+        for b, s, a in zip(big, small, axis):
+            _put_rows(b, s, a, slot)
+    else:
+        for b, s in zip(_pools(big), _pools(small)):
+            b.select(axis, slot).copy_(s.select(axis, 0))
+
+
 class ServeEngine:
     """Slot-based continuous batching over :func:`make_generate_step`.
 
     Args:
-      model: a ``TransformerLM``; the engine runs on its device and serves
-        from the KV layout of its ``kv_quant`` and ``page_size``.
+      model: a ``TransformerLM`` or ``GriffinLM``; the engine runs on its
+        device and serves from the KV layout of its ``kv_quant`` and
+        ``page_size``.
       slots: concurrently decoded sequences (cache batch rows).
       prompt_len: prompt bucket (longer prompts are rejected).
       max_new: per-request generation cap; the cache holds
@@ -224,6 +242,7 @@ class ServeEngine:
         else:
             self.cache = model.init_cache(slots, self.max_len)
             self.cache["pos_ids"].zero_()
+            self._batch_axes = model.cache_batch_axes()
         self._tok = torch.zeros((slots, 1), dtype=torch.int32,
                                 device=self.device)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -375,10 +394,10 @@ class ServeEngine:
     # -- admission ---------------------------------------------------------
     def _insert(self, slot: int, small, first: torch.Tensor, n: int,
                 dest: Optional[np.ndarray], trow: Optional[np.ndarray]) -> None:
-        """Copy a batch-1 prefill cache into slot ``slot``: its rows
-        (contiguous), or its owned pages into the pool rows ``dest`` plus the
-        slot's table row (paged; pages resolved by sharing and unclaimed
-        tails are not written)."""
+        """Copy a batch-1 prefill cache into slot ``slot``: its rows along
+        each leaf's batch axis (contiguous), or its owned pages into the
+        pool rows ``dest`` plus the slot's table row (paged; pages resolved
+        by sharing and unclaimed tails are not written)."""
         c = self.cache
         if self.paged:
             own = np.nonzero(dest)[0]
@@ -390,12 +409,9 @@ class ServeEngine:
                     pool[:, dst] = spool[:, src]
             self._set_table_row(slot, torch.from_numpy(trow).to(self.device))
             c["pos"][slot] = n      # decode resumes at the true prompt end
+            c["pos_ids"][slot] = small["pos_ids"][0]
         else:
-            for name in ("k", "v"):
-                for big, row in zip(_pools(c[name]), _pools(small[name])):
-                    big[:, slot] = row[:, 0]
-            c["pos"][slot] = small["pos"][0]
-        c["pos_ids"][slot] = small["pos_ids"][0]
+            _put_rows(c, small, self._batch_axes, slot)
         self._tok[slot, 0] = first
 
     def _admit(self) -> None:

@@ -10,7 +10,10 @@ Greedy tokens of the two are identical. The KV cache layout is explicit:
 ``kv_quant`` (``off|int8|int4|auto``, the Proteus narrow-value cache) and
 ``page_size`` (0 = contiguous ring, else the paged cache with prefix
 sharing); the reference reads them from ``REPRO_KV_QUANT`` /
-``REPRO_KV_PAGES``. Runs on the card unless asked for the CPU:
+``REPRO_KV_PAGES``. ``--arch`` names a ported model: ``pimref-100m``
+(dense, every KV layout) or ``recurrentgemma-2b`` (hybrid Griffin,
+contiguous KV only; the layout flags raise for it). Runs on the card
+unless asked for the CPU:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch pimref-100m \\
       [--mode batch|queue] [--kv-quant int8] [--kv-page-size 16] \\
@@ -58,9 +61,11 @@ def load_model(arch: str, *, smoke: bool, seed: int, device,
 
 
 def _clone(x):
-    """A copy of a cache (a dict of tensors and KV leaves)."""
+    """A copy of a cache (dicts and lists of tensors and KV leaves)."""
     if isinstance(x, dict):
         return {k: _clone(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_clone(v) for v in x]
     if isinstance(x, torch.Tensor):
         return x.clone()
     return type(x)(*(_clone(getattr(x, f.name)) for f in fields(x)))

@@ -2,8 +2,10 @@
 
 ``load_jax_params(model, np_params)`` takes the reference's parameter tree
 as numpy arrays (the caller runs ``tree_map(np.asarray, params)`` on the
-reference side), unrolls the layer-stacked ``blocks`` ``[L, ...]`` into
-``blocks.<i>.*`` and copies every array into the parameter of the same name.
+reference side), unrolls the layer-stacked ``blocks`` ``[L, ...]`` (dense)
+and ``groups`` ``[G, ...]`` (hybrid) into ``blocks.<i>.*`` /
+``groups.<g>.*``, spells list entries (the hybrid ``tail``) as
+``tail.<i>.*``, and copies every array into the parameter of the same name.
 Layouts are kept as they are (``w_q`` (d, h, e), ``w_o`` (h, e, d), ``head``
 (d, V)). A missing, extra or misshaped key raises.
 """
@@ -15,29 +17,38 @@ import numpy as np
 import torch
 
 
+# top-level keys whose leaves carry a leading layer (or group) axis
+STACKED = ("blocks", "groups")
+
+
 def flatten_params(np_params: Dict[str, Any]) -> Dict[str, np.ndarray]:
-    """Nested reference tree -> flat ``name -> array`` with blocks unrolled."""
+    """Nested reference tree -> flat ``name -> array`` with the stacked
+    axes unrolled and list entries numbered."""
     flat: Dict[str, np.ndarray] = {}
 
     def walk(prefix: str, node: Any, out: Dict[str, np.ndarray]) -> None:
         if isinstance(node, dict):
-            for k, v in node.items():
-                walk(f"{prefix}.{k}" if prefix else str(k), v, out)
+            items = node.items()
+        elif isinstance(node, (list, tuple)):
+            items = enumerate(node)
         else:
             out[prefix] = np.asarray(node)
+            return
+        for k, v in items:
+            walk(f"{prefix}.{k}" if prefix else str(k), v, out)
 
     for key, node in np_params.items():
-        if key != "blocks":
+        if key not in STACKED:
             walk(str(key), node, flat)
             continue
         stacked: Dict[str, np.ndarray] = {}
         walk("", node, stacked)
         depths = {a.shape[0] for a in stacked.values()}
         if len(depths) != 1:
-            raise ValueError(f"blocks have unequal layer axes: {depths}")
+            raise ValueError(f"{key} have unequal layer axes: {depths}")
         for name, arr in stacked.items():
             for i in range(arr.shape[0]):
-                flat[f"blocks.{i}.{name}"] = arr[i]
+                flat[f"{key}.{i}.{name}"] = arr[i]
     return flat
 
 

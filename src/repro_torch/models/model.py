@@ -17,6 +17,11 @@ choose how ``k``/``v`` are held: compute-dtype tensors, a ``QKVCache`` of
 int8 codes and fp32 scales, or a ``PagedKVCache`` (pools ``(L, P, ps, Hkv,
 D)`` of either kind and tables ``(L, B, NP)``; the reference's
 ``REPRO_KV_QUANT`` / ``REPRO_KV_PAGES`` knobs).
+
+``ServingLM`` holds what every family shares (device, KV layout, the
+cached weight casts); ``qkv`` and ``attn_out`` are the attention
+projections the hybrid family's ``GriffinLM`` uses too, and
+``build_model`` picks the family.
 """
 from __future__ import annotations
 
@@ -67,16 +72,28 @@ class Block(nn.Module):
         self.mlp = _Group(mlp_param_specs(cfg, dtype), device)
 
 
-class TransformerLM(nn.Module):
-    """Dense decoder LM on one device (``"cuda"`` by default), serving from
-    a KV cache laid out as ``kv_quant`` and ``page_size`` say."""
+def qkv(cfg: ModelConfig, p, xn: torch.Tensor, positions: torch.Tensor):
+    """q, k, v (B, S, H, D) of the normed input, rope applied to q and k.
+    ``p`` maps ``w_q``/``w_k``/``w_v`` to weights in compute dtype."""
+    q = dense(xn, p["w_q"], "bsd,dhe->bshe")
+    k = dense(xn, p["w_k"], "bsd,dhe->bshe")
+    v = dense(xn, p["w_v"], "bsd,dhe->bshe")
+    theta = cfg.rope_theta
+    return rope(q, positions, theta), rope(k, positions, theta), v
+
+
+def attn_out(p, o: torch.Tensor) -> torch.Tensor:
+    return dense(o, p["w_o"], "bshe,hed->bsd")
+
+
+class ServingLM(nn.Module):
+    """What the model families share: the device, the KV layout, the
+    top-level parameters of ``param_specs`` and the compute-dtype weight
+    copies."""
 
     def __init__(self, cfg: ModelConfig, device="cuda", *,
                  kv_quant: str = "off", page_size: int = 0):
         super().__init__()
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r} is ported in a later slice")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.kv_quant = check_kv_quant(kv_quant)
@@ -84,15 +101,11 @@ class TransformerLM(nn.Module):
             raise ValueError(f"page_size {page_size}: expected >= 0")
         self.page_size = int(page_size)
         self.cdtype = torch_dtype(cfg.compute_dtype)
-        specs = param_specs(cfg)
-        top = {k: s for k, s in specs.items() if not k.startswith("blocks.")}
-        _add_params(self, top, self.device)
-        self.blocks = nn.ModuleList(Block(cfg, self.device)
-                                    for _ in range(cfg.num_layers))
+        _add_params(self, {k: s for k, s in param_specs(cfg).items()
+                           if "." not in k}, self.device)
         self._cast: Dict[int, Tuple[int, int, torch.Tensor]] = {}
 
-    def with_kv_layout(self, kv_quant: str = "off",
-                       page_size: int = 0) -> "TransformerLM":
+    def with_kv_layout(self, kv_quant: str = "off", page_size: int = 0):
         """This model (weights shared, not copied) serving from another KV
         layout."""
         if (kv_quant, page_size) == (self.kv_quant, self.page_size):
@@ -112,28 +125,43 @@ class TransformerLM(nn.Module):
             self._cast[id(p)] = hit
         return hit[2]
 
+    def _ws(self, group: nn.Module) -> Dict[str, torch.Tensor]:
+        """The group's own weights in compute dtype, by name."""
+        return {n: self._w(t) for n, t in group.named_parameters(recurse=False)}
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self._w(self.embed)[tokens.long()]
+
+    def _mlp_residual(self, blk: nn.Module, h: torch.Tensor) -> torch.Tensor:
+        xn2 = rms_norm(h, blk.ln2, self.cfg.norm_eps)
+        m = self._ws(blk.mlp)
+        return h + gated_mlp(xn2, m["wi_gate"], m["wi_up"], m["wo"])
+
+
+class TransformerLM(ServingLM):
+    """Dense decoder LM on one device (``"cuda"`` by default), serving from
+    a KV cache laid out as ``kv_quant`` and ``page_size`` say."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda", *,
+                 kv_quant: str = "off", page_size: int = 0):
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is ported in a later slice")
+        super().__init__(cfg, device, kv_quant=kv_quant, page_size=page_size)
+        self.blocks = nn.ModuleList(Block(cfg, self.device)
+                                    for _ in range(cfg.num_layers))
+
     @property
     def window(self) -> int:
         cfg = self.cfg
         return cfg.sliding_window if cfg.attention_kind == "sliding" else 0
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self._w(self.embed)[tokens.long()]
-
     def _qkv(self, blk: Block, xn: torch.Tensor, positions: torch.Tensor):
-        a, theta = blk.attn, self.cfg.rope_theta
-        q = dense(xn, self._w(a.w_q), "bsd,dhe->bshe")
-        k = dense(xn, self._w(a.w_k), "bsd,dhe->bshe")
-        v = dense(xn, self._w(a.w_v), "bsd,dhe->bshe")
-        return rope(q, positions, theta), rope(k, positions, theta), v
+        return qkv(self.cfg, self._ws(blk.attn), xn, positions)
 
     def _finish_block(self, blk: Block, h: torch.Tensor,
                       o: torch.Tensor) -> torch.Tensor:
-        h = h + dense(o, self._w(blk.attn.w_o), "bshe,hed->bsd")
-        xn2 = rms_norm(h, blk.ln2, self.cfg.norm_eps)
-        m = blk.mlp
-        return h + gated_mlp(xn2, self._w(m.wi_gate), self._w(m.wi_up),
-                             self._w(m.wo))
+        return self._mlp_residual(blk, h + attn_out(self._ws(blk.attn), o))
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
@@ -237,10 +265,21 @@ class TransformerLM(nn.Module):
         cache["pos"] = pos + S
         return self._logits(x), cache
 
+    def cache_batch_axes(self) -> Cache:
+        """The batch axis of every leaf of a contiguous cache (a QKVCache's
+        codes and scales share one), the counterpart of the reference's
+        ``cache_logical_axes``; the paged engine writes pages through the
+        table instead."""
+        return {"k": 1, "v": 1, "pos_ids": 0, "pos": 0}
+
 
 def build_model(cfg: ModelConfig, device="cuda", *, kv_quant: str = "off",
-                page_size: int = 0) -> TransformerLM:
+                page_size: int = 0) -> ServingLM:
     if cfg.family == "dense":
         return TransformerLM(cfg, device, kv_quant=kv_quant,
                              page_size=page_size)
+    if cfg.family == "hybrid":
+        # recurrent_lm builds on this module
+        from repro_torch.models.recurrent_lm import GriffinLM
+        return GriffinLM(cfg, device, kv_quant=kv_quant, page_size=page_size)
     raise NotImplementedError(f"family {cfg.family!r} is ported in a later slice")

@@ -1,12 +1,16 @@
-"""Parameter specs and initialisation of the dense decoder (counterpart:
-``repro/models/module.py`` and the spec functions of ``repro/models/model.py``).
+"""Parameter specs and initialisation (counterpart: ``repro/models/module.py``
+and the spec functions of ``repro/models/model.py``).
 
-Names follow the reference's parameter keys, flattened with dots and with
-the stacked ``blocks`` axis unrolled: ``embed``, ``final_norm``, ``head``,
-``blocks.<i>.ln1``, ``blocks.<i>.attn.w_q``, ``blocks.<i>.mlp.wi_gate``, ...
+Names follow the reference's parameter keys, flattened with dots, with the
+stacked ``blocks`` / ``groups`` axis unrolled and list indices spelled out:
+``embed``, ``final_norm``, ``head``, ``blocks.<i>.attn.w_q``, ... (dense);
+``groups.<g>.rec1.rec.w_x``, ``groups.<g>.attn.attn.w_q``,
+``tail.<i>.mlp.wo``, ... (hybrid, specs in ``recurrent_lm.py``).
 
 ``init_params`` is the port's own initialisation (it does not reproduce
-``jax.random``): norm scales are ones, every other weight is
+``jax.random``) with the reference's init kinds: ``ones``, ``zeros``,
+``rglru_lambda`` (``logit(u)``, ``u ~ U[0.9, 0.999]``, so that the RG-LRU's
+decay ``sigmoid(lam)`` starts where Griffin starts it) and
 ``normal / sqrt(fan_in)`` with fan-in read off the axis the reference names
 for it (``w_o``: the heads axis, all others: axis 0) of the per-layer shape.
 The reference applies the same axis to its layer-stacked shape, where axis 0
@@ -31,7 +35,8 @@ def torch_dtype(name: str) -> torch.dtype:
 class ParamSpec(NamedTuple):
     shape: Tuple[int, ...]
     dtype: torch.dtype
-    init: Tuple = ("normal",)      # ("normal"[, fan_in_axis]) | ("ones",)
+    init: Tuple = ("normal",)      # ("normal"[, fan_in_axis]) | ("ones",) |
+    #                                ("zeros",) | ("rglru_lambda",)
 
 
 def attn_param_specs(cfg: ModelConfig, dtype) -> Dict[str, ParamSpec]:
@@ -66,7 +71,12 @@ def block_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
-    """Flat ``name -> ParamSpec`` of a dense decoder, in a fixed order."""
+    """Flat ``name -> ParamSpec`` of the model of ``cfg``, in a fixed
+    order."""
+    if cfg.family == "hybrid":
+        # the family's module imports this one
+        from repro_torch.models.recurrent_lm import griffin_param_specs
+        return griffin_param_specs(cfg)
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is ported in a later slice")
@@ -85,6 +95,14 @@ def init_tensor(s: ParamSpec, generator: torch.Generator) -> torch.Tensor:
     dev = generator.device
     if s.init[0] == "ones":
         return torch.ones(s.shape, dtype=s.dtype, device=dev)
+    if s.init[0] == "zeros":
+        return torch.zeros(s.shape, dtype=s.dtype, device=dev)
+    if s.init[0] == "rglru_lambda":
+        # RG-LRU lambda: a = sigmoid(lam) uniform in [0.9, 0.999] (Griffin
+        # section 2.4), stored as logit(u)
+        u = 0.9 + 0.099 * torch.rand(s.shape, generator=generator,
+                                     dtype=torch.float32, device=dev)
+        return (torch.log(u) - torch.log1p(-u)).to(s.dtype)
     if s.init[0] == "normal":
         fan_axis = s.init[1] if len(s.init) > 1 else 0
         scale = 1.0 / math.sqrt(max(s.shape[fan_axis], 1))
@@ -96,7 +114,7 @@ def init_tensor(s: ParamSpec, generator: torch.Generator) -> torch.Tensor:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device) -> Dict[str, torch.Tensor]:
-    """A state dict for ``TransformerLM(cfg)``, drawn in spec order from
+    """A state dict for ``build_model(cfg)``, drawn in spec order from
     ``generator`` and placed on ``device``."""
     return {name: init_tensor(s, generator).to(device)
             for name, s in param_specs(cfg).items()}

@@ -1,0 +1,295 @@
+"""Griffin / RecurrentGemma LM, the hybrid family (counterpart:
+``repro/models/recurrent_lm.py``, ``GriffinLM``).
+
+Layers follow the pattern (recurrent, recurrent, local attention) over
+``num_layers // 3`` groups, then the remaining layers as trailing recurrent
+layers. A recurrent layer is the RG-LRU block of ``rglru.py`` plus a gated
+MLP; an attention layer is local MQA over a window of ``local_window``
+positions plus a gated MLP. Logits come from the tied embedding, soft-capped
+at ``logit_softcap``. Parameter names carry the reference's keys with the
+stacked group axis unrolled: ``groups.<g>.rec1.rec.w_x``,
+``groups.<g>.attn.attn.w_q``, ``tail.<i>.mlp.wo``, ...
+
+Serving keeps a cache with an O(1) recurrent state per layer and a ring KV
+cache of ``min(max_len, local_window)`` slots per attention layer:
+
+    rec1 / rec2  {"h": (G, B, D) fp32, "conv": (G, B, W-1, D)}
+    k / v        (G, B, T, Hkv, D) in compute dtype
+    tail         [{"h": (B, D) fp32, "conv": (B, W-1, D)}, ...]
+    pos_ids      (B, T) int32, -1 = empty slot
+    pos          (B,) int32
+
+Prefill runs each recurrence through the RG-LRU kernel and each attention
+layer through the flash prefill kernel; a one-token decode step updates the
+recurrent states elementwise and reads the ring through the decode kernel.
+The KV cache is contiguous here: quantized and paged KV for this family
+come in a later slice.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import (aligned_cache_len, chunked_attention,
+                                       dense, kv_cache_store,
+                                       kv_cache_update, ring_cache_update,
+                                       ring_position_ids, rms_norm)
+from repro_torch.models.model import (Block, ServingLM, _add_params, _Group,
+                                      attn_out, qkv)
+from repro_torch.models.module import (ParamSpec, block_specs,
+                                       mlp_param_specs, torch_dtype)
+from repro_torch.models.rglru import (init_rglru_state, recurrent_block,
+                                      rglru_param_specs)
+
+Cache = Dict[str, Any]
+
+
+def rec_layer_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    dtype = torch_dtype(cfg.param_dtype)
+    norm = ParamSpec((cfg.d_model,), torch.float32, ("ones",))
+    specs = {"ln1": norm}
+    specs.update({f"rec.{k}": s
+                  for k, s in rglru_param_specs(cfg, dtype).items()})
+    specs["ln2"] = norm
+    specs.update({f"mlp.{k}": s
+                  for k, s in mlp_param_specs(cfg, dtype).items()})
+    return specs
+
+
+def griffin_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    """Flat ``name -> ParamSpec`` of ``GriffinLM(cfg)``, in a fixed order."""
+    dtype = torch_dtype(cfg.param_dtype)
+    n_groups = cfg.num_layers // 3
+    specs = {"embed": ParamSpec((cfg.vocab_size, cfg.d_model), dtype)}
+    layer = {"rec1": rec_layer_specs(cfg), "rec2": rec_layer_specs(cfg),
+             "attn": block_specs(cfg)}
+    for g in range(n_groups):
+        for name, sub in layer.items():
+            specs.update({f"groups.{g}.{name}.{k}": s for k, s in sub.items()})
+    for i in range(cfg.num_layers - 3 * n_groups):
+        specs.update({f"tail.{i}.{k}": s
+                      for k, s in rec_layer_specs(cfg).items()})
+    specs["final_norm"] = ParamSpec((cfg.d_model,), torch.float32, ("ones",))
+    return specs
+
+
+class RecLayer(nn.Module):
+    """ln1, rec.{w_gate, w_x, conv_w, conv_b, lam, w_input_gate,
+    w_rec_gate, w_out}, ln2, mlp.{wi_gate, wi_up, wo}."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        dtype = torch_dtype(cfg.param_dtype)
+        specs = rec_layer_specs(cfg)
+        _add_params(self, {k: specs[k] for k in ("ln1", "ln2")}, device)
+        self.rec = _Group(rglru_param_specs(cfg, dtype), device)
+        self.mlp = _Group(mlp_param_specs(cfg, dtype), device)
+
+
+class GriffinGroup(nn.Module):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.rec1 = RecLayer(cfg, device)
+        self.rec2 = RecLayer(cfg, device)
+        self.attn = Block(cfg, device)
+
+
+class GriffinLM(ServingLM):
+    """Hybrid RG-LRU / local-attention LM on one device (``"cuda"`` by
+    default), serving from the contiguous KV cache."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda", *,
+                 kv_quant: str = "off", page_size: int = 0):
+        if cfg.family != "hybrid":
+            raise ValueError(f"GriffinLM is the hybrid family, not "
+                             f"{cfg.family!r}")
+        self._check_layout(kv_quant, page_size)
+        super().__init__(cfg, device, kv_quant=kv_quant, page_size=page_size)
+        self.n_groups = cfg.num_layers // 3
+        self.n_tail = cfg.num_layers - 3 * self.n_groups
+        self.groups = nn.ModuleList(GriffinGroup(cfg, self.device)
+                                    for _ in range(self.n_groups))
+        self.tail = nn.ModuleList(RecLayer(cfg, self.device)
+                                  for _ in range(self.n_tail))
+
+    @staticmethod
+    def _check_layout(kv_quant: str, page_size: int) -> None:
+        if kv_quant != "off" or page_size != 0:
+            raise NotImplementedError(
+                f"GriffinLM with kv_quant={kv_quant!r}, page_size="
+                f"{page_size}: the hybrid family serves from the contiguous "
+                "KV cache; quantized and paged KV come in a later slice")
+
+    def with_kv_layout(self, kv_quant: str = "off",
+                       page_size: int = 0) -> "GriffinLM":
+        self._check_layout(kv_quant, page_size)
+        return self
+
+    # -- layers --------------------------------------------------------------
+    def _rec_params(self, layer: RecLayer) -> Dict[str, torch.Tensor]:
+        """The RG-LRU weights in compute dtype; ``lam`` stays fp32, as the
+        reference reads it."""
+        return {n: t if n == "lam" else self._w(t)
+                for n, t in layer.rec.named_parameters(recurse=False)}
+
+    def _rec_layer(self, layer: RecLayer, x: torch.Tensor, state=None):
+        cfg = self.cfg
+        y, new_state = recurrent_block(cfg, self._rec_params(layer),
+                                       rms_norm(x, layer.ln1, cfg.norm_eps),
+                                       state)
+        return self._mlp_residual(layer, x + y), new_state
+
+    def _attn_qkv(self, blk: Block, x: torch.Tensor, positions: torch.Tensor):
+        xn = rms_norm(x, blk.ln1, self.cfg.norm_eps)
+        return qkv(self.cfg, self._ws(blk.attn), xn, positions)
+
+    def _attn_finish(self, blk: Block, x: torch.Tensor,
+                     o: torch.Tensor) -> torch.Tensor:
+        return self._mlp_residual(blk, x + attn_out(self._ws(blk.attn), o))
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Tied-embedding logits, soft-capped as the reference caps them:
+        tanh in fp32, cast back, then scaled in the logits' dtype."""
+        cfg = self.cfg
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        logits = dense(x, self._w(self.embed).T, "bsd,dv->bsv")
+        cap = cfg.logit_softcap
+        if cap > 0:
+            logits = cap * torch.tanh(logits.float() / cap).to(logits.dtype)
+        return logits
+
+    # -- full-sequence forward -------------------------------------------------
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """(B, S) tokens -> (B, S, V) logits."""
+        x = self._embed(tokens)
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        window = self.cfg.local_window
+        for g in self.groups:
+            x, _ = self._rec_layer(g.rec1, x)
+            x, _ = self._rec_layer(g.rec2, x)
+            q, k, v = self._attn_qkv(g.attn, x, positions)
+            o = chunked_attention(q, k, v, causal=True, window=window)
+            x = self._attn_finish(g.attn, x, o)
+        for layer in self.tail:
+            x, _ = self._rec_layer(layer, x)
+        return self._logits(x)
+
+    # -- serving ---------------------------------------------------------------
+    def cache_len(self, max_len: int) -> int:
+        """Ring slots per sequence: the local window bounds the KV cache."""
+        return aligned_cache_len(min(max_len, self.cfg.local_window))
+
+    def _rec_state_zero(self, batch: int, lead=()) -> Dict[str, torch.Tensor]:
+        st = init_rglru_state(self.cfg, batch, self.cdtype, self.device)
+        return {k: v.expand(lead + v.shape).contiguous()
+                for k, v in st.items()}
+
+    def init_cache(self, batch: int, max_len: int) -> Cache:
+        cfg = self.cfg
+        T = self.cache_len(max_len)
+        G, dev = self.n_groups, self.device
+        kv = (G, batch, T, cfg.num_kv_heads, cfg.resolved_head_dim)
+        return {
+            "rec1": self._rec_state_zero(batch, (G,)),
+            "rec2": self._rec_state_zero(batch, (G,)),
+            "k": torch.zeros(kv, dtype=self.cdtype, device=dev),
+            "v": torch.zeros(kv, dtype=self.cdtype, device=dev),
+            "tail": [self._rec_state_zero(batch) for _ in range(self.n_tail)],
+            "pos_ids": torch.full((batch, T), -1, dtype=torch.int32,
+                                  device=dev),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+        }
+
+    def cache_batch_axes(self) -> Cache:
+        """The batch axis of every cache leaf, the counterpart of the
+        reference's ``cache_logical_axes``."""
+        rec = {"h": 1, "conv": 1}
+        return {"rec1": rec, "rec2": rec, "k": 1, "v": 1,
+                "tail": [{"h": 0, "conv": 0} for _ in range(self.n_tail)],
+                "pos_ids": 0, "pos": 0}
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None,
+                full_logits: bool = False) -> Tuple[torch.Tensor, Cache]:
+        """Run the prompt (B, S) from zero state; return last-token logits
+        (B, 1, V) (every position with ``full_logits``) and the cache sized
+        for ``max_len`` positions: the recurrent states after the prompt
+        and the last ``cache_len(max_len)`` positions of K/V in the ring."""
+        x = self._embed(tokens)
+        B, S, _ = x.shape
+        T = self.cache_len(max(max_len or S, S))
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        window = self.cfg.local_window
+        s1, s2, ks, vs = [], [], [], []
+        for g in self.groups:
+            x, st = self._rec_layer(g.rec1, x)
+            s1.append(st)
+            x, st = self._rec_layer(g.rec2, x)
+            s2.append(st)
+            q, k, v = self._attn_qkv(g.attn, x, positions)
+            o = chunked_attention(q, k, v, causal=True, window=window)
+            x = self._attn_finish(g.attn, x, o)
+            ks.append(kv_cache_store(k.to(self.cdtype), S, T))
+            vs.append(kv_cache_store(v.to(self.cdtype), S, T))
+        tail = []
+        for layer in self.tail:
+            x, st = self._rec_layer(layer, x)
+            tail.append({n: t.contiguous() for n, t in st.items()})
+        logits = self._logits(x if full_logits else x[:, -1:])
+
+        def stack(states):
+            return {n: torch.stack([st[n] for st in states]) for n in ("h", "conv")}
+        cache = {
+            "rec1": stack(s1), "rec2": stack(s2),
+            "k": torch.stack(ks), "v": torch.stack(vs), "tail": tail,
+            "pos_ids": ring_position_ids(B, S, T, x.device),
+            "pos": torch.full((B,), S, dtype=torch.int32, device=x.device),
+        }
+        return logits, cache
+
+    def _rec_step(self, layer: RecLayer, x: torch.Tensor,
+                  state: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One recurrent layer from ``state`` (views into the cache), which
+        is overwritten with the new state."""
+        x, new = self._rec_layer(layer, x, state)
+        for n in ("h", "conv"):
+            state[n].copy_(new[n])
+        return x
+
+    @torch.no_grad()
+    def decode_step(self, cache: Cache,
+                    tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+        """tokens (B, S): append S tokens per row at per-slot positions
+        ``cache["pos"]`` and return their logits (B, S, V). S == 1 steps the
+        recurrences elementwise; S > 1 runs them through the RG-LRU kernel
+        from the cached state. Updates ``cache`` in place."""
+        S = tokens.shape[1]
+        x = self._embed(tokens)
+        pos = cache["pos"]
+        T = cache["k"].shape[2]
+        block_pos = pos[:, None] + torch.arange(S, dtype=pos.dtype,
+                                                device=pos.device)
+        slot = block_pos % T
+        ring_cache_update(cache["pos_ids"], block_pos, slot)
+        window = self.cfg.local_window
+        for i, g in enumerate(self.groups):
+            x = self._rec_step(g.rec1, x, {n: t[i] for n, t in
+                                           cache["rec1"].items()})
+            x = self._rec_step(g.rec2, x, {n: t[i] for n, t in
+                                           cache["rec2"].items()})
+            q, k, v = self._attn_qkv(g.attn, x, block_pos)
+            ck = kv_cache_update(cache["k"][i], k, slot)
+            cv = kv_cache_update(cache["v"][i], v, slot)
+            o = chunked_attention(q, ck.to(x.dtype), cv.to(x.dtype),
+                                  causal=True, window=window, q_offset=pos,
+                                  kv_positions=cache["pos_ids"])
+            x = self._attn_finish(g.attn, x, o)
+        for layer, st in zip(self.tail, cache["tail"]):
+            x = self._rec_step(layer, x, st)
+        cache["pos"] = pos + S
+        return self._logits(x), cache

@@ -13,6 +13,8 @@ torch.set_num_threads(2)
 
 from repro_torch.kernels.flash_attention import kernel as tk  # noqa: E402
 from repro_torch.kernels.flash_attention import ref  # noqa: E402
+from repro_torch.kernels.rglru import kernel as rk  # noqa: E402
+from repro_torch.kernels.rglru import rglru_scan, rglru_scan_ref  # noqa: E402
 from repro_torch.models.layers import (kv_quantize,  # noqa: E402
                                        ring_position_ids)
 
@@ -167,3 +169,86 @@ def test_kernels_reject_other_head_dims(cuda):
     for fn in (tk.flash_attention_fwd, tk.flash_decode_fwd):
         with pytest.raises(ValueError, match="head_dim"):
             fn(q, k, k, qp, kp)
+
+
+# ---------------------------------------------------------------------------
+# head_dim 256 with MQA (recurrentgemma's local attention)
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,window", [(3072, 2048), (77, 0)])
+def test_prefill_kernel_d256_mqa_window(cuda, dtype, S, window):
+    """One kv head, G = 10 q heads, D 256: a long prompt that the local
+    window cuts, and a short ragged one."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = _randn(gen, (1, 1, 10, S, 256), dtype, cuda)
+    k = _randn(gen, (1, 1, S, 256), dtype, cuda)
+    v = _randn(gen, (1, 1, S, 256), dtype, cuda)
+    pos = torch.arange(S, dtype=torch.int32, device=cuda)[None]
+    kw = dict(causal=True, window=window, softcap=0.0)
+    o, lse = tk.flash_attention_fwd(q, k, v, pos, pos, **kw)
+    ro, rl = ref.flash_attention_fwd_ref(q, k, v, pos, pos, **kw)
+    assert _err(o, ro) <= TOL[dtype]
+    assert _err(lse, rl) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 2])
+def test_decode_kernel_d256_mqa_wrapped_ring(cuda, dtype, S):
+    """A ring of 2048 slots under a window of 2048, slots at depths short of
+    it, at it and past it (wrapped), G = 10 q heads on one kv head."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    B, T = 4, 2048
+    q = _randn(gen, (B, 1, 10, S, 256), dtype, cuda)
+    k = _randn(gen, (B, 1, T, 256), dtype, cuda)
+    v = _randn(gen, (B, 1, T, 256), dtype, cuda)
+    qp, kp = _ring([100, 2047, 2100, 5000], S, T, cuda)
+    kw = dict(causal=True, window=2048)
+    o = tk.flash_decode_fwd(q, k, v, qp, kp, **kw)
+    assert _err(o, ref.flash_decode_fwd_ref(q, k, v, qp, kp, **kw)
+                ) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_layout_kernels_reject_head_dim_256(cuda):
+    """Codes and pages stay at head_dim 64 / 128."""
+    q = torch.zeros(1, 1, 1, 1, 256, device=cuda)
+    codes = torch.zeros(1, 1, 64, 256, dtype=torch.int8, device=cuda)
+    scale = torch.ones(1, 1, 64, device=cuda)
+    qp = torch.zeros(1, 1, dtype=torch.int32, device=cuda)
+    kp = torch.zeros(1, 64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        tk.flash_decode_quant_fwd(q, codes, scale, codes, scale, qp, kp)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU recurrence
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D", [(8, 512, 2560), (1, 1, 64), (2, 3, 100),
+                                   (1, 1000, 100), (3, 17, 2560)])
+def test_rglru_kernel(cuda, B, T, D):
+    """Against the plain sequential loop on the card: the kernel repeats its
+    rounded multiply and add in the same order, so the results agree to
+    within 1e-6 (0 is expected) with |h| below ~3."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a = 0.7 + 0.299 * torch.rand((B, T, D), generator=gen, device=cuda)
+    b = 0.1 * torch.randn((B, T, D), generator=gen, device=cuda)
+    n = rk.LAUNCHES["rglru_scan"]
+    h = rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["rglru_scan"] == n + 1
+    assert h.dtype == torch.float32 and h.shape == (B, T, D)
+    assert _err(h, rglru_scan_ref(a, b)) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_rglru_kernel_rejects_what_it_does_not_take(cuda):
+    a = torch.rand(2, 8, 64, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        rk.rglru_scan_kernel(a.bfloat16(), a.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        rk.rglru_scan_kernel(a.transpose(1, 2), a.transpose(1, 2))
+    with pytest.raises(ValueError, match="card"):
+        rk.rglru_scan_kernel(a.cpu(), a)

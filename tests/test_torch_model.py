@@ -88,7 +88,7 @@ def test_config_copy_matches_reference(smoke):
 
 
 def test_registry_knows_only_ported_archs():
-    assert tconfigs.ALL_IDS == ("pimref-100m",)
+    assert tconfigs.ALL_IDS == ("pimref-100m", "recurrentgemma-2b")
     with pytest.raises(KeyError, match="not yet ported"):
         tconfigs.get_config("mixtral-8x7b")
 

@@ -1,0 +1,190 @@
+"""The port's RG-LRU recurrence (repro_torch.kernels.rglru and
+repro_torch.models.rglru) against the JAX reference, in fp32 on the CPU:
+the plain version of the recurrence kernel against the reference's
+associative-scan oracle and its Pallas kernel in interpret mode, the
+folding of an initial state, the gates, the causal conv and the recurrent
+block with and without a carried state. Inputs are seeded numpy."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config  # noqa: E402
+from repro.kernels.rglru import rglru_scan as jrglru_kernel  # noqa: E402
+from repro.kernels.rglru import rglru_scan_ref as jrglru_ref  # noqa: E402
+from repro.models import rglru as jr  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.kernels.rglru import (LAUNCHES, rglru_scan,  # noqa: E402
+                                       rglru_scan_kernel, rglru_scan_ref)
+from repro_torch.models import rglru as tr  # noqa: E402
+
+# the recurrence in fp32: the sequential loop and the associative scan
+# round in another order; |h| stays below ~3 for these inputs
+SCAN_ATOL = 1e-5
+# the block: a_t close to 1 makes sqrt(1 - a_t^2) turn one-ulp differences
+# between XLA's and PyTorch's exp / sigmoid into ~1e-5 relative
+# differences of the gated input
+BLOCK_RTOL, BLOCK_ATOL = 1e-4, 1e-5
+
+
+def _ab(seed, B, T, D):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.7, 0.999, (B, T, D)).astype(np.float32)
+    b = (rng.standard_normal((B, T, D)) * 0.1).astype(np.float32)
+    return a, b
+
+
+@pytest.mark.parametrize("B,T,D,bt", [(1, 256, 64, 128), (2, 512, 128, 128),
+                                      (1, 128, 256, 64)])
+def test_plain_scan_matches_reference_and_interpret_kernel(B, T, D, bt):
+    a, b = _ab(0, B, T, D)
+    got = rglru_scan(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    want = np.asarray(jrglru_ref(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_allclose(got, want, atol=SCAN_ATOL, rtol=0)
+    kern = np.asarray(jrglru_kernel(jnp.asarray(a), jnp.asarray(b),
+                                    block_t=bt, interpret=True))
+    np.testing.assert_allclose(got, kern, atol=SCAN_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("B,T,D", [(1, 1, 64), (2, 3, 100), (1, 1000, 100)])
+def test_plain_scan_edge_shapes(B, T, D):
+    """T 1, T odd, D off any block multiple: against the associative scan,
+    and bit for bit against the elementwise update written out."""
+    a, b = _ab(1, B, T, D)
+    got = rglru_scan_ref(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jrglru_ref(jnp.asarray(a), jnp.asarray(b))),
+        atol=SCAN_ATOL, rtol=0)
+    h = np.zeros((B, D), np.float32)
+    want = np.empty_like(b)
+    for t in range(T):
+        h = a[:, t] * h + b[:, t]
+        want[:, t] = h
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_kernel_wrapper_takes_only_card_tensors():
+    """The CUDA wrapper raises for tensors on the CPU (ops dispatches those
+    to the plain version) and for mismatched shapes; it counts nothing."""
+    a = torch.rand(2, 5, 8)
+    n = LAUNCHES["rglru_scan"]
+    with pytest.raises(ValueError, match="card"):
+        rglru_scan_kernel(a, a)
+    with pytest.raises(ValueError, match="one shape"):
+        rglru_scan_kernel(a, a[:, :4])
+    assert LAUNCHES["rglru_scan"] == n
+    torch.testing.assert_close(rglru_scan(a, a), rglru_scan_ref(a, a),
+                               atol=0, rtol=0)
+    assert LAUNCHES["rglru_scan"] == n
+
+
+@pytest.fixture(scope="module")
+def cfgs():
+    jcfg = get_config("recurrentgemma-2b", smoke=True).replace(
+        compute_dtype="float32")
+    tcfg = tconfigs.get_config("recurrentgemma-2b", smoke=True).replace(
+        compute_dtype="float32")
+    return jcfg, tcfg
+
+
+def _params(tcfg, seed=0):
+    """RG-LRU block weights from numpy: normal / sqrt(fan_in), lam the
+    logit of U[0.9, 0.999], a non-zero conv bias."""
+    rng = np.random.default_rng(seed)
+    p = {k: (rng.standard_normal(s.shape) / np.sqrt(s.shape[0])
+             ).astype(np.float32)
+         for k, s in tr.rglru_param_specs(tcfg, torch.float32).items()}
+    u = rng.uniform(0.9, 0.999, tcfg.d_model)
+    p["lam"] = (np.log(u) - np.log1p(-u)).astype(np.float32)
+    return ({k: jnp.asarray(v) for k, v in p.items()},
+            {k: torch.from_numpy(v) for k, v in p.items()})
+
+
+def _x(seed, shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _close(t, j):
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=BLOCK_RTOL,
+                               atol=BLOCK_ATOL)
+
+
+def test_gates_match(cfgs):
+    jcfg, tcfg = cfgs
+    jp, tp = _params(tcfg)
+    xb = _x(2, (2, 9, tcfg.d_model))
+    jl, jb = jr._gates(jcfg, jp, jnp.asarray(xb))
+    tl, tb = tr._gates(tcfg, tp, torch.from_numpy(xb))
+    _close(tl, jl)
+    _close(tb, jb)
+
+
+@pytest.mark.parametrize("S", [1, 7])
+def test_scan_folds_initial_state(cfgs, S):
+    """h0 folds into b[:, 0]: the scan from h0 matches the reference's, and
+    a prefix then the rest from its state matches one scan over the whole."""
+    jcfg, tcfg = cfgs
+    jp, tp = _params(tcfg)
+    xb = _x(3, (2, 12 + S, tcfg.d_model))
+    h0 = _x(4, (2, tcfg.d_model))
+    jy, jh = jr.rglru_scan(jcfg, jp, jnp.asarray(xb), jnp.asarray(h0))
+    ty, th = tr.rglru_scan(tcfg, tp, torch.from_numpy(xb),
+                           torch.from_numpy(h0))
+    _close(ty, jy)
+    _close(th, jh)
+    assert th.dtype == torch.float32
+    whole, h_whole = tr.rglru_scan(tcfg, tp, torch.from_numpy(xb))
+    y1, h1 = tr.rglru_scan(tcfg, tp, torch.from_numpy(xb[:, :12]))
+    y2, h2 = tr.rglru_scan(tcfg, tp, torch.from_numpy(xb[:, 12:]), h1)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), whole, atol=SCAN_ATOL,
+                               rtol=0)
+    torch.testing.assert_close(h2, h_whole, atol=SCAN_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("S,with_state", [(6, False), (1, True), (5, True)])
+def test_causal_conv_matches(cfgs, S, with_state):
+    _, tcfg = cfgs
+    jp, tp = _params(tcfg)
+    x = _x(5, (2, S, tcfg.d_model))
+    st = _x(6, (2, tcfg.conv_width - 1, tcfg.d_model)) if with_state else None
+    jo, js = jr.causal_conv(jnp.asarray(x), jp["conv_w"], jp["conv_b"],
+                            None if st is None else jnp.asarray(st))
+    to, ts = tr.causal_conv(torch.from_numpy(x), tp["conv_w"], tp["conv_b"],
+                            None if st is None else torch.from_numpy(st))
+    # the same fp32 products summed in the same order
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("S,with_state", [(9, False), (1, True), (6, True)])
+def test_recurrent_block_matches(cfgs, S, with_state):
+    """No state (prefill), a one-token step and an S > 1 block from a
+    carried state: output and new state."""
+    jcfg, tcfg = cfgs
+    jp, tp = _params(tcfg)
+    x = _x(7, (2, S, tcfg.d_model))
+    jst = tst = None
+    if with_state:
+        h = _x(8, (2, tcfg.d_model))
+        conv = _x(9, (2, tcfg.conv_width - 1, tcfg.d_model))
+        jst = {"h": jnp.asarray(h), "conv": jnp.asarray(conv)}
+        tst = {"h": torch.from_numpy(h), "conv": torch.from_numpy(conv)}
+    jo, js = jr.recurrent_block(jcfg, jp, jnp.asarray(x), jst)
+    to, ts = tr.recurrent_block(tcfg, tp, torch.from_numpy(x), tst)
+    _close(to, jo)
+    _close(ts["h"], js["h"])
+    _close(ts["conv"], js["conv"])
+
+
+def test_init_rglru_state_matches(cfgs):
+    jcfg, tcfg = cfgs
+    j = jr.init_rglru_state(jcfg, 3)
+    t = tr.init_rglru_state(tcfg, 3)
+    for n in ("h", "conv"):
+        assert tuple(t[n].shape) == j[n].shape
+        assert str(t[n].dtype).split(".")[-1] == str(j[n].dtype)
+        assert not t[n].any()

@@ -250,8 +250,9 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """Every repro_torch module and chip_smoke.py's imports load without
-    jax or the reference package."""
+    """Every repro_torch module (the Griffin model and the RG-LRU kernel
+    among them) and chip_smoke.py's imports load without jax or the
+    reference package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -259,6 +260,11 @@ def test_port_imports_no_jax_and_no_reference():
         "    importlib.import_module(m.name)\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
+        "new = ('repro_torch.models.recurrent_lm', 'repro_torch.models.rglru',\n"
+        "       'repro_torch.kernels.rglru.kernel', 'repro_torch.kernels.rglru.ops',\n"
+        "       'repro_torch.kernels.rglru.ref',\n"
+        "       'repro_torch.configs.recurrentgemma_2b')\n"
+        "assert all(n in sys.modules for n in new), new\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(len(sys.modules), bad)\n"
