@@ -35,6 +35,19 @@ Runs on one NVIDIA GPU; exits non-zero without one. Phases:
    the depth cut to 5 layers (one group and the two trailing recurrent
    layers), prefill 64 plus 8 decode steps.
 
+Phase ``proteus`` runs after ``parity`` and before the Griffin phases: the
+Proteus library's entry points on full-width ``pimref-100m`` (random
+weights from ``--seed``): ``quant_matmul`` over every projection weight
+quantized to int8 and to int4 codes (x 4096 rows, a batch-8 x 512
+prefill), against its plain version and against x @ W within the format
+error, and at recurrentgemma-2b's MLP shapes; ``required_bits`` over the
+whole parameter vector as int16-grid codes and over an edge sweep, bitwise
+against its plain version; ``pack_int4`` / ``unpack_int4`` over the
+vector's int4 codes, bitwise, with an exact round trip; the
+``flash_attention_bh`` adapter at BH 96 (8 x 12 heads), S = T = 512 and
+500, causal, window 0 and 128, bf16 and fp32. Exact launch counts, then
+device times at the path's shapes.
+
 The second-to-last line is a JSON object of per-kernel numbers, the last is
 ``{"ok": true, "device": {...}}``. Any failure raises.
 
@@ -57,7 +70,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("device", "build", "kernels", "serve", "engine", "profile", "parity",
-          "serve_griffin", "engine_griffin", "parity_griffin")
+          "proteus", "serve_griffin", "engine_griffin", "parity_griffin")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -78,8 +91,29 @@ GRIFFIN_PARITY_LAYERS = 5          # one (r, r, a) group + 2 trailing r
 # RG-LRU kernel vs its plain loop: the same rounded multiply and add in the
 # same order, so 0 is expected; |h| stays below ~3 for these inputs
 RGLRU_TOL = 1e-6
+# quant_matmul against its plain version: fp32 summation order (the
+# kernel scales each k-block's partial sum, the plain version each code),
+# the reference test's tolerance; against x @ W: the format error of the
+# reference test, relative to the largest |x @ W|
+QMM_ATOL, QMM_RTOL = 1e-3, 1e-4
+QMM_FORMAT_ERR = {8: 0.02, 4: 0.25}
+QMM_ROWS = 4096                    # batch 8 x prompt 512
+QMM_BLOCK_K = 128
+# timed shapes (M, K, N) beside pimref's wi_up (M QMM_ROWS): the MLP of
+# recurrentgemma-2b at prefill and at a decode step, random weights
+QMM_SHAPES = {"recurrentgemma-2b MLP prefill": (4096, 2560, 7680),
+              "recurrentgemma-2b MLP decode": (8, 2560, 7680)}
+INT16_MAX = 32767                  # bench_proteus_precision's code grid
+BH_SHAPE = (96, 64)                # (B * H, D): 8 x 12 heads of 64
+BH_LENGTHS = (512, 500)
+BH_WINDOWS = (0, 128)
 KERNEL_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
-SOURCES = {"rglru_scan": "src/repro_torch/kernels/rglru/csrc/rglru.cu"}
+NV_SOURCE = "src/repro_torch/kernels/narrow_value/csrc/narrow_value.cu"
+SOURCES = {"rglru_scan": "src/repro_torch/kernels/rglru/csrc/rglru.cu",
+           "quant_matmul":
+               "src/repro_torch/kernels/quant_matmul/csrc/quant_matmul.cu",
+           "required_bits": NV_SOURCE, "pack_int4": NV_SOURCE,
+           "unpack_int4": NV_SOURCE}
 REPLACES = {
     "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:126",
     "flash_decode_fwd": "src/repro/kernels/flash_attention/kernel.py:174",
@@ -88,6 +122,11 @@ REPLACES = {
     "flash_decode_paged_quant_fwd":
         "src/repro/kernels/flash_attention/kernel.py:443",
     "rglru_scan": "src/repro/kernels/rglru/kernel.py:44",
+    "flash_attention_bh": "src/repro/kernels/flash_attention/kernel.py:504",
+    "quant_matmul": "src/repro/kernels/quant_matmul/kernel.py:43",
+    "required_bits": "src/repro/kernels/narrow_value/kernel.py:30",
+    "pack_int4": "src/repro/kernels/narrow_value/kernel.py:62",
+    "unpack_int4": "src/repro/kernels/narrow_value/kernel.py:79",
 }
 # the serving layouts: (kv_quant, page_size, the decode kernel of each step)
 LAYOUTS = {
@@ -104,10 +143,16 @@ MAIN_LAYOUT = {"flash_attention_fwd": "contiguous",
                "flash_decode_quant_fwd": "int8",
                "flash_decode_paged_fwd": "paged16",
                "flash_decode_paged_quant_fwd": "paged16_int8",
-               "rglru_scan": "griffin"}
+               "rglru_scan": "griffin", "flash_attention_bh": "proteus",
+               "quant_matmul": "proteus", "required_bits": "proteus",
+               "pack_int4": "proteus", "unpack_int4": "proteus"}
 NO_LIBRARY = ("no single PyTorch call computes attention over quantized "
               "codes or through a page table")
 NO_LIBRARY_RGLRU = "no single PyTorch call computes a linear recurrence"
+NO_LIBRARY_NARROW = {
+    "required_bits": "no single PyTorch call computes a per-block width",
+    "pack_int4": "no single PyTorch call packs nibbles",
+    "unpack_int4": "no single PyTorch call unpacks nibbles"}
 DEVICE = "cuda"
 
 
@@ -231,10 +276,10 @@ def phase_build() -> None:
                 log("build", "  " + line.strip())
 
 
-def _check(name, got, want, tol, what="out"):
+def _check(name, got, want, tol, what="out", phase="kernels"):
     err = (got.float() - want.float()).abs().max().item() if got.numel() else 0.0
     ok = err <= tol
-    log("kernels", f"{name} {what}: max_abs_err={err:.3e} (tol {tol:.0e}) "
+    log(phase, f"{name} {what}: max_abs_err={err:.3e} (tol {tol:.0e}) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} {what}: max abs err {err} > {tol}")
@@ -506,9 +551,9 @@ def kernels_griffin(gen) -> dict:
     return rows
 
 
-def _identical(name, got, want) -> None:
+def _identical(name, got, want, phase="kernels") -> None:
     same = torch.equal(got, want)
-    log("kernels", f"{name}: bitwise identical {same}")
+    log(phase, f"{name}: bitwise identical {same}")
     if not same:
         raise AssertionError(f"{name}: not bitwise identical")
 
@@ -660,8 +705,10 @@ def kernels_kv_layouts(gen) -> dict:
 def _counters() -> list:
     """The launch counters of every kernel module."""
     from repro_torch.kernels.flash_attention import LAUNCHES
+    from repro_torch.kernels.narrow_value import LAUNCHES as NV_LAUNCHES
+    from repro_torch.kernels.quant_matmul import LAUNCHES as QMM_LAUNCHES
     from repro_torch.kernels.rglru import LAUNCHES as RGLRU_LAUNCHES
-    return [LAUNCHES, RGLRU_LAUNCHES]
+    return [LAUNCHES, RGLRU_LAUNCHES, NV_LAUNCHES, QMM_LAUNCHES]
 
 
 def _reset():
@@ -985,6 +1032,278 @@ def phase_profile(model, smi: str, label: str = "profile") -> None:
             f"{e.count:6d}x  {e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# Proteus: the quantized matmul, narrow values, int4 packing, the adapter
+# ---------------------------------------------------------------------------
+def _projections(model) -> dict:
+    """Every projection weight of a dense model as a (K, N) matrix: q / k / v
+    (d, H * Dh), out (H * Dh, d), gate / up (d, F), down (F, d)."""
+    out = {}
+    for name, p in model.state_dict().items():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("w_q", "w_k", "w_v"):
+            out[name] = p.reshape(p.shape[0], -1)
+        elif leaf == "w_o":
+            out[name] = p.reshape(-1, p.shape[-1])
+        elif leaf in ("wi_gate", "wi_up", "wo"):
+            out[name] = p
+    return out
+
+
+def _qmm_check(name, got, want) -> float:
+    """|got - want| <= QMM_ATOL + QMM_RTOL |want| everywhere; returns the
+    max abs error."""
+    err = (got - want).abs()
+    excess = (err - QMM_RTOL * want.abs()).max().item()
+    if excess > QMM_ATOL:
+        raise AssertionError(f"quant_matmul {name}: |kernel - plain| exceeds "
+                             f"{QMM_ATOL} + {QMM_RTOL} |plain| by {excess}")
+    return err.max().item()
+
+
+def _edge_sweep(block: int) -> torch.Tensor:
+    """One edge value per block among zeros: 0, +-1, +-(2^k - 1), +-2^k,
+    +-(2^k + 1) for k <= 30, INT32_MAX, INT32_MIN."""
+    mags = {0, 1} | {v for k in range(31) for v in (2 ** k - 1, 2 ** k,
+                                                    2 ** k + 1)}
+    vals = sorted(mags | {-m for m in mags} | {2 ** 31 - 1, -2 ** 31})
+    x = torch.zeros(len(vals), block, dtype=torch.int64)
+    x[:, block // 2] = torch.tensor(vals, dtype=torch.int64)
+    return x.reshape(-1).to(torch.int32).to(DEVICE)
+
+
+def _proteus_drive(model, gen) -> tuple:
+    """The Proteus entry points once each where the path calls them, every
+    result checked; returns (max errors by kernel, calls by kernel, the
+    timed quant_matmul shapes, the parameter vector's int16-grid codes)."""
+    from repro_torch.core import proteus
+    from repro_torch.kernels import narrow_value as nv
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref
+    errs, calls = {}, dict.fromkeys(REPLACES, 0)
+
+    # -- quant_matmul: every projection weight as int8 and int4 codes -------
+    weights = _projections(model)
+    xs, worst = {}, {}
+    for name, w in weights.items():
+        K, N = w.shape
+        if K not in xs:
+            xs[K] = randn(gen, (QMM_ROWS, K), torch.float32)
+        x = xs[K]
+        exact = x @ w
+        for bits in (8, 4):
+            codes, scales = qm.quantize_weights(w, block_k=QMM_BLOCK_K,
+                                                bits=bits)
+            got = qm.quant_matmul(x, codes, scales, block_k=QMM_BLOCK_K)
+            calls["quant_matmul"] += 1
+            e = _qmm_check(f"{name} int{bits}", got,
+                           qm.quant_matmul_ref(x, codes, scales))
+            fmt = ((got - exact).abs().max() / exact.abs().max()).item()
+            if not fmt < QMM_FORMAT_ERR[bits]:
+                raise AssertionError(f"quant_matmul {name} int{bits}: format "
+                                     f"error {fmt} >= {QMM_FORMAT_ERR[bits]}")
+            key = (name.rsplit(".", 1)[-1], tuple(w.shape), bits)
+            we, wf = worst.get(key, (0.0, 0.0))
+            worst[key] = (max(we, e), max(wf, fmt))
+    for (leaf, shape, bits), (e, fmt) in worst.items():
+        log("proteus", f"quant_matmul {leaf} {shape} int{bits} x "
+            f"({QMM_ROWS}, {shape[0]}) fp32, {model.cfg.num_layers} layers: "
+            f"max |kernel - plain| {e:.3e} (tol {QMM_ATOL:.0e} + "
+            f"{QMM_RTOL:.0e} |plain|), format error vs x @ W {fmt:.4f} "
+            f"(< {QMM_FORMAT_ERR[bits]})")
+    del xs
+    w_up = next(w for n, w in weights.items() if n.endswith("mlp.wi_up"))
+    shapes = {f"{model.cfg.name} wi_up": ((QMM_ROWS,) + tuple(w_up.shape),
+                                          w_up)}
+    for label, (M, K, N) in QMM_SHAPES.items():
+        shapes[label] = ((M, K, N), randn(gen, (K, N), torch.float32)
+                         / math.sqrt(K))
+    timed = {}
+    for label, ((M, K, N), w) in shapes.items():
+        codes, scales = qm.quantize_weights(w, block_k=QMM_BLOCK_K, bits=8)
+        x = randn(gen, (M, K), torch.float32)
+        got = qm.quant_matmul(x, codes, scales, block_k=QMM_BLOCK_K)
+        calls["quant_matmul"] += 1
+        e = _qmm_check(label, got, qm.quant_matmul_ref(x, codes, scales))
+        if not timed:
+            errs["quant_matmul"] = max(e, max(v[0] for v in worst.values()))
+        timed[label] = ((M, K, N), w)
+        log("proteus", f"quant_matmul {label} (M {M}, K {K}, N {N}) int8: "
+            f"max |kernel - plain| {e:.3e}")
+
+    # -- required_bits: the parameter vector at int16 granularity, edges ----
+    flat = torch.cat([p.detach().reshape(-1).float()
+                      for p in model.parameters()])
+    pad = (-flat.numel()) % 256
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    mx = flat.abs().max().clamp(min=1e-20)
+    codes32 = torch.round(flat / mx * INT16_MAX).to(torch.int32)
+    widths = nv.required_bits(codes32, 256)
+    calls["required_bits"] += 1
+    _identical(f"required_bits over {flat.numel()} int16-grid codes "
+               f"({pad} zeros of padding)", widths,
+               nv.required_bits_ref(codes32, 256), "proteus")
+    edges = _edge_sweep(256)
+    edge_w = nv.required_bits(edges, 256)
+    calls["required_bits"] += 1
+    _identical(f"required_bits edge sweep ({edges.numel() // 256} blocks)",
+               edge_w, nv.required_bits_ref(edges, 256), "proteus")
+    log("proteus", "required_bits edge widths (value: bits) " + ", ".join(
+        f"{v}: {b}" for v, b in zip(edges.reshape(-1, 256)[:, 128].tolist(),
+                                    edge_w.tolist())
+        if v in (0, 1, 2 ** 21 + 1, 2 ** 23, 2 ** 24 + 1, 2 ** 31 - 1,
+                 -2 ** 31)))
+    wf = widths.float()
+    pct = {q: torch.quantile(wf, q / 100).item() for q in (25, 50, 75, 95)}
+    log("proteus", f"{model.cfg.name} weights as int16-grid codes, "
+        f"{widths.numel()} blocks of 256: required bits "
+        + ", ".join(f"p{q} {v:g}" for q, v in pct.items())
+        + f" of 16; blocks <= 8 bits {(widths <= 8).float().mean().item():.6f}")
+    errs["required_bits"] = 0.0
+
+    # -- pack_int4 / unpack_int4 over the vector's int4 codes ---------------
+    qt = proteus.quantize(flat, bits=4, block=256)
+    c4 = qt.values.reshape(-1)
+    pad4 = (-c4.numel()) % 512
+    if pad4:
+        c4 = torch.cat([c4, c4.new_zeros(pad4)])
+    packed = nv.pack_int4(c4)
+    calls["pack_int4"] += 1
+    _identical(f"pack_int4 over {c4.numel()} int4 codes ({pad4} zeros of "
+               "padding)", packed, nv.pack_int4_ref(c4), "proteus")
+    unpacked = nv.unpack_int4(packed)
+    calls["unpack_int4"] += 1
+    _identical(f"unpack_int4 over {packed.numel()} bytes", unpacked,
+               nv.unpack_int4_ref(packed), "proteus")
+    _identical("int4 round trip unpack(pack(codes)) == codes", unpacked, c4,
+               "proteus")
+    errs["pack_int4"] = errs["unpack_int4"] = 0.0
+
+    # -- flash_attention_bh at 8 x 12 heads of 64 ---------------------------
+    BH, D = BH_SHAPE
+    for dt in (torch.bfloat16, torch.float32):
+        for S in BH_LENGTHS:
+            for window in BH_WINDOWS:
+                q, k, v = (randn(gen, (BH, S, D), dt) for _ in range(3))
+                o = fk.flash_attention_bh(q, k, v, causal=True, window=window)
+                calls["flash_attention_bh"] += 1
+                e = _check(f"flash_attention_bh BH{BH} S=T={S} D{D} causal "
+                           f"window {window} {str(dt)[6:]}", o,
+                           ref.attention_ref_bh(q, k, v, causal=True,
+                                                window=window), TOL[dt],
+                           phase="proteus")
+                if (dt, S, window) == (torch.bfloat16, BH_LENGTHS[0], 0):
+                    errs["flash_attention_bh"] = e
+    return errs, calls, timed, codes32, c4, packed
+
+
+def phase_proteus(model, seed: int) -> tuple:
+    """The Proteus library on the card; returns (rows, launches) of its
+    kernels."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import narrow_value as nv
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    _reset()
+    errs, calls, timed, codes32, c4, packed = _proteus_drive(model, gen)
+    torch.cuda.synchronize()
+    got = {n: c for counter in _counters() for n, c in counter.items()}
+    want = dict.fromkeys(got, 0)
+    want.update({n: calls[n] for n in ("quant_matmul", "required_bits",
+                                       "pack_int4", "unpack_int4",
+                                       "flash_attention_bh")})
+    want["flash_attention_fwd"] = calls["flash_attention_bh"]
+    log("proteus", f"launches {got} (want {want}: one per call, the adapter's "
+        "through the prefill kernel)")
+    if got != want:
+        raise AssertionError(f"proteus: launches {got} != {want}")
+    launches = {n: got[n] for n in ("quant_matmul", "required_bits",
+                                    "pack_int4", "unpack_int4",
+                                    "flash_attention_bh")}
+    rows = {}
+
+    # -- device times -------------------------------------------------------
+    for i, (label, ((M, K, N), w)) in enumerate(timed.items()):
+        codes, scales = qm.quantize_weights(w, block_k=QMM_BLOCK_K, bits=8)
+        n_sets = n_sets_for(M * K * 4 + codes.nbytes)
+        sets = [(randn(gen, (M, K), torch.float32),) for _ in range(n_sets)]
+        iters = 5 if M * K * N > 1e10 else 20
+        t_k = device_ms(lambda j: qm.quant_matmul(
+            sets[j][0], codes, scales, block_k=QMM_BLOCK_K), n_sets, iters)
+        t_p = device_ms(lambda j: qm.quant_matmul_ref(sets[j][0], codes,
+                                                      scales), n_sets, iters)
+        w_deq = qm.dequantize_ref(codes, scales)
+        t_l = device_ms(lambda j: torch.matmul(sets[j][0], w_deq), n_sets,
+                        iters)
+        del sets, w_deq
+        nbytes = M * K * 4 + codes.nbytes + scales.nbytes + M * N * 4
+        flops = 2.0 * M * N * K
+        b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
+        log("proteus", f"quant_matmul times, {label} (M {M}, K {K}, N {N}, "
+            f"x fp32, int8 codes, block_k {QMM_BLOCK_K}): kernel {t_k:.4f} "
+            f"ms ({flops / t_k / 1e9:.2f} TFLOP/s), plain {t_p:.4f} ms, "
+            f"torch.matmul on the pre-dequantized fp32 weight {t_l:.4f} ms "
+            f"(4x the weight bytes, no scales; a yardstick, not a port), "
+            f"bound {b_ms:.4f} ms ({b_by}: {nbytes} B, {flops:.3e} FLOP)")
+        if i == 0:
+            rows["quant_matmul"] = dict(
+                max_abs_err=errs["quant_matmul"], ms=t_k, plain_ms=t_p,
+                bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+
+    narrow = {
+        # name: (kernel call, plain call, input, bytes in + out)
+        "required_bits": (lambda t: nv.required_bits(t, 256),
+                          lambda t: nv.required_bits_ref(t, 256), codes32,
+                          codes32.nbytes + codes32.numel() // 256 * 4),
+        "pack_int4": (nv.pack_int4, nv.pack_int4_ref, c4,
+                      c4.nbytes + c4.numel() // 2),
+        "unpack_int4": (nv.unpack_int4, nv.unpack_int4_ref, packed,
+                        packed.nbytes + 2 * packed.numel()),
+    }
+    for name, (kern, plain, t, nbytes) in narrow.items():
+        n_sets = n_sets_for(t.nbytes)
+        sets = [t] + [t.clone() for _ in range(n_sets - 1)]
+        t_k = device_ms(lambda j: kern(sets[j]), n_sets, 20)
+        t_p = device_ms(lambda j: plain(sets[j]), n_sets, 5)
+        del sets
+        b_ms, b_by = bound_ms(nbytes, 0.0, torch.float32)
+        rows[name] = dict(max_abs_err=errs[name], ms=t_k, plain_ms=t_p,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        log("proteus", f"{name} times ({t.numel()} {str(t.dtype)[6:]} in): "
+            f"kernel {t_k:.4f} ms ({nbytes / (t_k * 1e-3) / 1e12:.3f} TB/s), "
+            f"plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B); "
+            f"library: none ({NO_LIBRARY_NARROW[name]})")
+
+    BH, D = BH_SHAPE
+    S, dt = BH_LENGTHS[0], torch.bfloat16
+    n_sets = n_sets_for(3 * BH * S * D * 2)
+    sets = [tuple(randn(gen, (BH, S, D), dt) for _ in range(3))
+            for _ in range(n_sets)]
+    t_k = device_ms(lambda j: fk.flash_attention_bh(*sets[j], causal=True),
+                    n_sets, 20)
+    t_p = device_ms(lambda j: ref.attention_ref_bh(*sets[j], causal=True),
+                    n_sets, 4)
+    # as (1, BH, S, D): SDPA takes its flash backend for 4-D inputs only
+    t_l = device_ms(lambda j: F.scaled_dot_product_attention(
+        *(t[None] for t in sets[j]), is_causal=True), n_sets, 20)
+    del sets
+    pos = torch.arange(S, dtype=torch.int32, device=DEVICE)[None]
+    nbytes = 4 * BH * S * D * 2
+    flops = 4.0 * D * BH * visible_pairs(pos, pos, True, 0)
+    b_ms, b_by = bound_ms(nbytes, flops, dt)
+    rows["flash_attention_bh"] = dict(
+        max_abs_err=errs["flash_attention_bh"], ms=t_k, plain_ms=t_p,
+        bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+    log("proteus", f"flash_attention_bh times (BH {BH}, S=T={S}, D {D}, bf16, "
+        f"causal): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, sdpa {t_l:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, {flops:.3e} FLOP)")
+    return rows, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1021,6 +1340,14 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "parity" in phases:
         phase_parity(args.seed)
+    if "proteus" in phases:
+        from repro_torch.launch.serve import load_model
+        model = load_model("pimref-100m", smoke=False, seed=args.seed,
+                           device=DEVICE)
+        p_rows, launches["proteus"] = phase_proteus(model, args.seed)
+        rows.update(p_rows)
+        del model
+        torch.cuda.empty_cache()
     if {"serve_griffin", "engine_griffin"} & set(phases):
         from repro_torch.launch.serve import load_model
         t0 = time.perf_counter()

@@ -14,7 +14,10 @@ their argument layouts:
   ``(P, ps, Hkv, D)`` read through a table ``(B, NP)`` int32 (page 0 is the
   trash page);
 * ``flash_decode_paged_quant_fwd`` (``kernel.py:443``): code pools
-  ``(P, ps, Hkv, Dc)`` and scale pools ``(P, ps, Hkv)`` through the table.
+  ``(P, ps, Hkv, Dc)`` and scale pools ``(P, ps, Hkv)`` through the table;
+* ``flash_attention_bh`` (``kernel.py:504``): the ``(BH, S, D)``
+  multi-head adapter, no kernel of its own: it launches the prefill kernel
+  with ``Hkv = BH`` and ``G = 1``.
 
 ``q_positions`` ``(B, S)`` and ``kv_positions`` ``(B, T)`` (``T = NP * ps``
 when paged) are int32, -1 = masked. Head dims: 64, 128 and 256 for the
@@ -53,7 +56,7 @@ from repro_torch.kernels.flash_attention.ref import (
 LAUNCHES: Dict[str, int] = {
     "flash_attention_fwd": 0, "flash_decode_fwd": 0,
     "flash_decode_quant_fwd": 0, "flash_decode_paged_fwd": 0,
-    "flash_decode_paged_quant_fwd": 0,
+    "flash_decode_paged_quant_fwd": 0, "flash_attention_bh": 0,
 }
 # head_dims of the prefill kernel and of decode over values held
 # contiguously; decode over codes or pages takes LAYOUT_HEAD_DIMS
@@ -362,3 +365,26 @@ def flash_decode_paged_quant_fwd(q: torch.Tensor, k_codes: torch.Tensor,
     return _launch_decode("flash_decode_paged_quant_fwd", q, k_codes, v_codes,
                           k_scale, v_scale, table, q_positions, kv_positions,
                           T=NP * ps, code_bits=bits, page_size=ps, **kw)
+
+
+def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q (BH, S, D), k/v (BH, T, D) -> (BH, S, D) in q's dtype: every row
+    of BH one head, q at positions 0..S-1 and k/v at 0..T-1. The reference
+    pads S and T to its blocks and marks the padding -1; the prefill kernel
+    takes any S and T, so nothing is padded and no position is -1.
+    ``LAUNCHES["flash_attention_bh"]`` counts the calls that launched the
+    prefill kernel (which counts its own launch too)."""
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
+        raise ValueError(f"expected q (BH, S, D) and k/v (BH, T, D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    BH, S, _ = q.shape
+    T = k.shape[1]
+    q_pos = torch.arange(S, dtype=torch.int32, device=q.device).repeat(BH, 1)
+    kv_pos = torch.arange(T, dtype=torch.int32, device=q.device).repeat(BH, 1)
+    out, _ = flash_attention_fwd(q[:, None, None], k[:, None], v[:, None],
+                                 q_pos, kv_pos, causal=causal, window=window)
+    if q.device.type != "cpu":
+        LAUNCHES["flash_attention_bh"] += 1
+    return out[:, 0, 0]

@@ -16,11 +16,13 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.flash_attention.kernel import (
-    flash_attention_fwd, flash_decode_fwd, flash_decode_paged_fwd,
-    flash_decode_paged_quant_fwd, flash_decode_quant_fwd)
+    flash_attention_bh, flash_attention_fwd, flash_decode_fwd,
+    flash_decode_paged_fwd, flash_decode_paged_quant_fwd,
+    flash_decode_quant_fwd)
 
 __all__ = ["flash_attention_gqa_fwd", "flash_decode", "flash_decode_quant",
-           "flash_decode_paged", "flash_decode_paged_quant"]
+           "flash_decode_paged", "flash_decode_paged_quant",
+           "flash_attention_bh"]
 
 
 def _default_positions(B: int, n: int, device) -> torch.Tensor:

@@ -74,6 +74,27 @@ def flash_decode_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    softcap)[0]
 
 
+def attention_ref_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q (BH, S, D), k/v (BH, T, D) -> (BH, S, D) in q's dtype: quadratic
+    softmax attention in fp32, q at positions 0..S-1 and k/v at 0..T-1
+    (counterpart: ``repro/kernels/flash_attention/ref.py``
+    ``attention_ref_bh``)."""
+    BH, S, D = q.shape
+    T = k.shape[1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(D)
+    qp = torch.arange(S, device=q.device)[:, None]
+    kp = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kp <= qp)
+    if window > 0:
+        mask = mask & (kp > qp - window)
+    s = torch.where(mask[None], s, torch.full_like(s, NEG_INF))
+    p = torch.where(mask[None], torch.softmax(s, dim=-1), torch.zeros_like(s))
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
 def dequant_rows(codes: torch.Tensor, scale: torch.Tensor,
                  d: int) -> torch.Tensor:
     """Codes (..., Dc) int8 and per-row scales (...) fp32 -> (..., d) fp32,

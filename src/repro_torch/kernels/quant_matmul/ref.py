@@ -1,0 +1,49 @@
+"""Plain PyTorch versions of the block-scaled quantized matmul (counterpart:
+``repro/kernels/quant_matmul/ref.py``): quantize weights per (k-block,
+column), dequantize, and ``x @ dequantize(codes, scales)`` in fp32.
+
+``torch.round`` rounds half to even, as ``jnp.round`` does, so the codes
+equal the reference's. The scales equal those of the reference's public
+``quantize_weights``, which is jitted: XLA turns its ``maxabs / qmax`` into
+a product with the fp32 reciprocal of ``qmax``, so the port multiplies too
+(the reference's unjitted oracle divides, and differs from it in the last
+bit of some scales). The CUDA kernel applies each k-block's scale to its
+fp32 partial sum instead of to each code, as the TPU kernel does: the two
+differ by summation-order noise only. ``ops.quant_matmul`` calls
+``quant_matmul_ref`` for tensors on the CPU; ``chip_smoke.py`` holds the
+kernel against it on the card.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def quantize_weights_ref(w: torch.Tensor, block_k: int = 128,
+                         bits: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """w (K, N) -> (codes int8 (K, N), scales fp32 (K // block_k, N))."""
+    K, N = w.shape
+    if K % block_k:
+        raise ValueError(f"K {K} is not a multiple of block_k {block_k}")
+    qmax = float(2 ** (bits - 1) - 1)
+    wb = w.reshape(K // block_k, block_k, N).float()
+    maxabs = wb.abs().amax(dim=1)                          # (nkb, N)
+    scale = torch.where(maxabs == 0, torch.ones_like(maxabs),
+                        maxabs * (1.0 / qmax))
+    codes = torch.clamp(torch.round(wb / scale[:, None, :]), -qmax - 1, qmax)
+    return codes.reshape(K, N).to(torch.int8), scale
+
+
+def dequantize_ref(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """codes (K, N) int8, scales (nkb, N) fp32 -> (K, N) fp32."""
+    K, N = codes.shape
+    nkb = scales.shape[0]
+    cb = codes.reshape(nkb, K // nkb, N).float()
+    return (cb * scales[:, None, :]).reshape(K, N)
+
+
+def quant_matmul_ref(x: torch.Tensor, codes: torch.Tensor,
+                     scales: torch.Tensor) -> torch.Tensor:
+    """x (M, K) float @ dequantized (K, N) -> (M, N) fp32."""
+    return x.float() @ dequantize_ref(codes, scales)

@@ -12,6 +12,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attention import kernel as jk  # noqa: E402
 from repro.kernels.flash_attention import ops as jops  # noqa: E402
+from repro.kernels.flash_attention import ref as jref  # noqa: E402
 from repro.models import layers as jl  # noqa: E402
 from repro.models.layers import ring_position_ids  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -148,6 +149,54 @@ def test_plain_versions_agree():
     args = _t(q, k, v, qp, kp)
     assert torch.equal(ref.flash_decode_fwd_ref(*args),
                        ref.flash_attention_fwd_ref(*args)[0])
+
+
+# ---------------------------------------------------------------------------
+# flash_attention_bh: the (BH, S, D) adapter onto the prefill kernel
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("S,T", [(13, 13), (19, 7), (30, 45), (100, 100),
+                                 (1, 21)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 9)])
+def test_flash_attention_bh_matches_reference(S, T, causal, window):
+    """Odd S and T: the reference pads to its blocks and slices, the port
+    runs the prefill path on the exact lengths."""
+    rng = np.random.default_rng(S * 100 + T + window)
+    q, k, v = _np(rng, 3, S, 32), _np(rng, 3, T, 32), _np(rng, 3, T, 32)
+    kw = dict(causal=causal, window=window)
+    got = tk.flash_attention_bh(*_t(q, k, v), **kw)
+    assert got.shape == (3, S, 32) and got.dtype == torch.float32
+    _close(got, jk.flash_attention_bh(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), block_q=8, block_k=8,
+                                      interpret=True, **kw))
+    want = jref.attention_ref_bh(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), **kw)
+    _close(got, want)
+    _close(ref.attention_ref_bh(*_t(q, k, v), **kw), want)
+
+
+def test_flash_attention_bh_bf16_and_launches():
+    """bf16 in, bf16 out (one rounding of the fp32 result); the CPU path
+    launches nothing and the ops module re-exports the adapter."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(_np(rng, 2, 33, 16)).bfloat16()
+               for _ in range(3))
+    before = dict(tk.LAUNCHES)
+    got = tops.flash_attention_bh(q, k, v, causal=True, window=0)
+    assert tk.LAUNCHES == before and got.dtype == torch.bfloat16
+    want = jref.attention_ref_bh(*(jnp.asarray(t.float().numpy()).astype(
+        jnp.bfloat16) for t in (q, k, v)), causal=True)
+    _close(got, np.asarray(want, np.float32), atol=2e-2)
+
+
+def test_flash_attention_bh_rejects_bad_shapes():
+    q = torch.zeros(2, 5, 16)
+    with pytest.raises(ValueError):
+        tk.flash_attention_bh(q, q[:1], q[:1])          # BH differ
+    with pytest.raises(ValueError):
+        tk.flash_attention_bh(q[None], q, q)             # not (BH, S, D)
+    with pytest.raises(ValueError, match="no kernel"):
+        m = torch.zeros(2, 5, 64, device="meta")
+        tk.flash_attention_bh(m, m, m)
 
 
 # ---------------------------------------------------------------------------

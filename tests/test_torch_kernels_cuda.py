@@ -13,6 +13,8 @@ torch.set_num_threads(2)
 
 from repro_torch.kernels.flash_attention import kernel as tk  # noqa: E402
 from repro_torch.kernels.flash_attention import ref  # noqa: E402
+from repro_torch.kernels import narrow_value as nv  # noqa: E402
+from repro_torch.kernels import quant_matmul as qm  # noqa: E402
 from repro_torch.kernels.rglru import kernel as rk  # noqa: E402
 from repro_torch.kernels.rglru import rglru_scan, rglru_scan_ref  # noqa: E402
 from repro_torch.models.layers import (kv_quantize,  # noqa: E402
@@ -146,7 +148,7 @@ def test_layout_decode_kernels(cuda, dtype, S, G, D, ps, window, cap):
     assert {k: tk.LAUNCHES[k] - n[k] for k in n} == {
         "flash_attention_fwd": 0, "flash_decode_fwd": 1,
         "flash_decode_quant_fwd": 2, "flash_decode_paged_fwd": 1,
-        "flash_decode_paged_quant_fwd": 2}
+        "flash_decode_paged_quant_fwd": 2, "flash_attention_bh": 0}
 
 
 @pytest.mark.cuda
@@ -252,3 +254,141 @@ def test_rglru_kernel_rejects_what_it_does_not_take(cuda):
         rk.rglru_scan_kernel(a.transpose(1, 2), a.transpose(1, 2))
     with pytest.raises(ValueError, match="card"):
         rk.rglru_scan_kernel(a.cpu(), a)
+
+
+# ---------------------------------------------------------------------------
+# the Proteus kernels: narrow-value widths, int4 packing, quantized matmul,
+# and the (BH, S, D) attention adapter
+# ---------------------------------------------------------------------------
+def _edge_blocks(block, dev):
+    """One edge value per block (0, +-1, +-(2^k - 1), +-2^k, +-(2^k + 1)
+    for k <= 30, INT32_MAX, INT32_MIN) among zeros."""
+    mags = {0, 1} | {v for k in range(31) for v in (2 ** k - 1, 2 ** k,
+                                                    2 ** k + 1)}
+    vals = sorted(mags | {-m for m in mags} | {2 ** 31 - 1, -2 ** 31})
+    x = torch.zeros(len(vals), block, dtype=torch.int64)
+    x[:, block // 3] = torch.tensor(vals, dtype=torch.int64)
+    return x.reshape(-1).to(torch.int32).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [256, 128, 100])
+def test_required_bits_kernel(cuda, block):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    n_blocks = 4099
+    x = torch.randint(-2 ** 31, 2 ** 31 - 1, (n_blocks, block),
+                      generator=gen, device=cuda, dtype=torch.int32)
+    shift = torch.randint(0, 32, (n_blocks, 1), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    x = (x >> shift).reshape(-1)
+    n = nv.LAUNCHES["required_bits"]
+    for t in (x, _edge_blocks(block, cuda)):
+        got = nv.required_bits(t, block)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32
+        assert torch.equal(got, nv.required_bits_ref(t, block))
+    # a base that is not 16-byte aligned takes the 4-byte loads
+    big = torch.cat([x.new_zeros(1), x])
+    assert torch.equal(nv.required_bits(big[1:], block),
+                       nv.required_bits_ref(x, block))
+    assert nv.LAUNCHES["required_bits"] == n + 3
+
+
+@pytest.mark.cuda
+def test_required_bits_kernel_every_int32_magnitude(cuda):
+    """Blocks of one element holding every fp32 value an int32 magnitude can
+    take: the kernel equals the plain version (and so the reference)."""
+    parts = [torch.arange(0, 1 << 24, dtype=torch.int64, device=cuda)]
+    for k in range(24, 31):
+        parts.append(torch.arange(1 << k, 1 << (k + 1), 1 << (k - 23),
+                                  dtype=torch.int64, device=cuda))
+    m = torch.cat(parts)
+    x = torch.cat([m.to(torch.int32), torch.tensor(
+        [-2 ** 31], dtype=torch.int32, device=cuda)])
+    got = nv.required_bits(x, 1)
+    assert torch.equal(got, nv.required_bits_ref(x, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [512, 1 << 20, 6, 100, 4096 + 512])
+def test_int4_pack_unpack_kernels(cuda, n):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    v = torch.randint(-128, 128, (n + 1,), generator=gen, device=cuda,
+                      dtype=torch.int32).to(torch.int8)
+    for codes in (v[:n], v[1:]):                  # aligned, then not
+        before = dict(nv.LAUNCHES)
+        p = nv.pack_int4(codes)
+        assert torch.equal(p, nv.pack_int4_ref(codes))
+        u = nv.unpack_int4(p)
+        assert torch.equal(u, nv.unpack_int4_ref(p))
+        assert torch.equal(nv.unpack_int4(nv.pack_int4(
+            ((codes.int() + 8) % 16 - 8).to(torch.int8))),
+            ((codes.int() + 8) % 16 - 8).to(torch.int8))
+        torch.cuda.synchronize()
+        assert nv.LAUNCHES["pack_int4"] == before["pack_int4"] + 2
+        assert nv.LAUNCHES["unpack_int4"] == before["unpack_int4"] + 2
+
+
+@pytest.mark.cuda
+def test_narrow_value_kernels_reject_what_they_do_not_take(cuda):
+    with pytest.raises(TypeError):
+        nv.required_bits(torch.zeros(512, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError):
+        nv.pack_int4(torch.zeros(1000, dtype=torch.int8, device=cuda))
+    with pytest.raises(ValueError):
+        nv.unpack_int4(torch.zeros(300, dtype=torch.int8, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        nv.pack_int4(torch.zeros(1024, dtype=torch.int8, device=cuda)[::2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,block_k", [(128, 128, 128, 128),
+                                           (256, 512, 128, 128),
+                                           (128, 384, 256, 128),
+                                           (8, 2560, 7680, 128),
+                                           (64, 768, 3072, 64),
+                                           (100, 96, 40, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_matmul_kernel(cuda, M, K, N, block_k, dtype, bits):
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = _randn(gen, (M, K), dtype, cuda)
+    w = _randn(gen, (K, N), torch.float32, cuda)
+    codes, scales = qm.quantize_weights(w, block_k=block_k, bits=bits)
+    n = qm.LAUNCHES["quant_matmul"]
+    got = qm.quant_matmul(x, codes, scales, block_m=min(128, M),
+                          block_n=min(128, N), block_k=block_k)
+    torch.cuda.synchronize()
+    assert qm.LAUNCHES["quant_matmul"] == n + 1
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    want = qm.quant_matmul_ref(x, codes, scales)
+    assert torch.allclose(got, want, atol=1e-3, rtol=1e-4), _err(got, want)
+
+
+@pytest.mark.cuda
+def test_quant_matmul_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros(128, 128, device=cuda)
+    codes = torch.zeros(128, 128, dtype=torch.int8, device=cuda)
+    scales = torch.ones(1, 128, device=cuda)
+    with pytest.raises(TypeError):
+        qm.quant_matmul_kernel(x.double(), codes, scales)
+    with pytest.raises(ValueError, match="contiguous"):
+        qm.quant_matmul_kernel(x.t(), codes, scales)
+    with pytest.raises(ValueError, match="on the card"):
+        qm.quant_matmul_kernel(x, codes.cpu(), scales)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,window", [(512, 0), (500, 128), (77, 0)])
+def test_flash_attention_bh(cuda, dtype, S, window):
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (_randn(gen, (24, S, 64), dtype, cuda) for _ in range(3))
+    n = dict(tk.LAUNCHES)
+    o = tk.flash_attention_bh(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == q.shape
+    assert tk.LAUNCHES["flash_attention_bh"] == n["flash_attention_bh"] + 1
+    assert tk.LAUNCHES["flash_attention_fwd"] == n["flash_attention_fwd"] + 1
+    assert _err(o, ref.attention_ref_bh(q, k, v, causal=True,
+                                        window=window)) <= TOL[dtype]

@@ -250,7 +250,8 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """Every repro_torch module (the Griffin model and the RG-LRU kernel
+    """Every repro_torch module (the Griffin model, the RG-LRU kernel, the
+    narrow-value and quantized-matmul kernels and the Proteus host layer
     among them) and chip_smoke.py's imports load without jax or the
     reference package."""
     code = (
@@ -263,7 +264,16 @@ def test_port_imports_no_jax_and_no_reference():
         "new = ('repro_torch.models.recurrent_lm', 'repro_torch.models.rglru',\n"
         "       'repro_torch.kernels.rglru.kernel', 'repro_torch.kernels.rglru.ops',\n"
         "       'repro_torch.kernels.rglru.ref',\n"
-        "       'repro_torch.configs.recurrentgemma_2b')\n"
+        "       'repro_torch.configs.recurrentgemma_2b',\n"
+        "       'repro_torch.kernels.narrow_value.kernel',\n"
+        "       'repro_torch.kernels.narrow_value.ops',\n"
+        "       'repro_torch.kernels.narrow_value.ref',\n"
+        "       'repro_torch.kernels.quant_matmul.kernel',\n"
+        "       'repro_torch.kernels.quant_matmul.ops',\n"
+        "       'repro_torch.kernels.quant_matmul.ref',\n"
+        "       'repro_torch.core.proteus')\n"
+        "from repro_torch.kernels.flash_attention import (attention_ref_bh,\n"
+        "    flash_attention_bh)\n"
         "assert all(n in sys.modules for n in new), new\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
