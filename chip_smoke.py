@@ -7,14 +7,24 @@ Runs on one NVIDIA GPU; exits non-zero without one. Phases:
 2. build: every CUDA kernel source of the port, one nvcc each, in parallel;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the main path's shapes and at synthetic edge cases, with the
-   tolerance stated; device times of kernel, plain version and the PyTorch
-   library call computing the same function;
+   tolerance stated (the bf16 prefill route: 2e-2, every element within
+   its two roundings by design, lse 1e-4); device times of kernel, plain
+   version and the PyTorch library call computing the same function. The
+   prefill kernel's bf16 route (the tensor-core kernel) is timed at three
+   shapes, each a row of the JSON line: pimref's (B 8, H 12, S = T = 512,
+   D 64), Griffin's (``flash_attention_fwd_d256``: B 8, one kv head for ten
+   q heads of 256, S = T = 512) and Griffin's long prompt
+   (``flash_attention_fwd_d256_long``: B 2, S = T = 2100, window 2048),
+   each through ``ops.flash_attention_gqa_fwd`` as a model calls it, with
+   the kernel call alone logged beside; its fp32 route at pimref's shape is
+   timed and logged;
 4. serve: ``pimref-100m`` at full width, batch-mode ``serve()`` with the
    fused and the per-token engine, in every KV layout (contiguous, Proteus
    int8 / int4 / auto codes, pages of 16, pages of 16 holding int8 codes);
    greedy tokens of the two engines must be identical and every prefill /
    decode step must have launched the prefill kernel and the layout's
-   decode kernel once per layer, and no other;
+   decode kernel once per layer, and no other (the prefill kernel's fp32
+   route none: the serving path is bf16);
 5. card vs CPU: the same fp32 weights on the card (kernels) and on the CPU
    (plain path), prefill plus teacher-forced decode steps, logits compared,
    through the contiguous, the paged and the int8 cache;
@@ -74,6 +84,11 @@ PHASES = ("device", "build", "kernels", "serve", "engine", "profile", "parity",
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the bf16 prefill route, beside TOL's 2e-2: every element of out within
+# ref.bf16_route_limit (its two roundings by design: one output ulp,
+# 2^-7 |plain|, and p rounded to bf16 before p @ v, 2^-8 of sum p |v| / l),
+# and lse, which comes from the fp32 scores, within 1e-4
+BF16_LSE_TOL = 1e-4
 PARITY_ATOL = 1e-3                  # fp32 logits, card vs CPU
 # int8 cache: a K/V element that lands on a rounding boundary may take the
 # neighbouring code on one side (the card's fp32 sums run in another order);
@@ -108,14 +123,23 @@ BH_SHAPE = (96, 64)                # (B * H, D): 8 x 12 heads of 64
 BH_LENGTHS = (512, 500)
 BH_WINDOWS = (0, 128)
 KERNEL_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+PREFILL_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_prefill.cu"
 NV_SOURCE = "src/repro_torch/kernels/narrow_value/csrc/narrow_value.cu"
-SOURCES = {"rglru_scan": "src/repro_torch/kernels/rglru/csrc/rglru.cu",
+SOURCES = {"flash_attention_fwd": PREFILL_SOURCE,
+           "flash_attention_fwd_d256": PREFILL_SOURCE,
+           "flash_attention_fwd_d256_long": PREFILL_SOURCE,
+           "flash_attention_bh": PREFILL_SOURCE,
+           "rglru_scan": "src/repro_torch/kernels/rglru/csrc/rglru.cu",
            "quant_matmul":
                "src/repro_torch/kernels/quant_matmul/csrc/quant_matmul.cu",
            "required_bits": NV_SOURCE, "pack_int4": NV_SOURCE,
            "unpack_int4": NV_SOURCE}
 REPLACES = {
     "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:126",
+    "flash_attention_fwd_d256":
+        "src/repro/kernels/flash_attention/kernel.py:126",
+    "flash_attention_fwd_d256_long":
+        "src/repro/kernels/flash_attention/kernel.py:126",
     "flash_decode_fwd": "src/repro/kernels/flash_attention/kernel.py:174",
     "flash_decode_quant_fwd": "src/repro/kernels/flash_attention/kernel.py:262",
     "flash_decode_paged_fwd": "src/repro/kernels/flash_attention/kernel.py:359",
@@ -139,6 +163,8 @@ LAYOUTS = {
 }
 # the layout whose serve run gives each kernel's launches in the JSON line
 MAIN_LAYOUT = {"flash_attention_fwd": "contiguous",
+               "flash_attention_fwd_d256": "griffin",
+               "flash_attention_fwd_d256_long": "griffin_long",
                "flash_decode_fwd": "contiguous",
                "flash_decode_quant_fwd": "int8",
                "flash_decode_paged_fwd": "paged16",
@@ -146,6 +172,10 @@ MAIN_LAYOUT = {"flash_attention_fwd": "contiguous",
                "rglru_scan": "griffin", "flash_attention_bh": "proteus",
                "quant_matmul": "proteus", "required_bits": "proteus",
                "pack_int4": "proteus", "unpack_int4": "proteus"}
+# rows whose launches are another row's counter: the prefill kernel at the
+# Griffin shapes
+COUNTER = {"flash_attention_fwd_d256": "flash_attention_fwd",
+           "flash_attention_fwd_d256_long": "flash_attention_fwd"}
 NO_LIBRARY = ("no single PyTorch call computes attention over quantized "
               "codes or through a page table")
 NO_LIBRARY_RGLRU = "no single PyTorch call computes a linear recurrence"
@@ -286,6 +316,34 @@ def _check(name, got, want, tol, what="out", phase="kernels"):
     return err
 
 
+def _abs_v_out(q5, k4, v4, qp, kp, **kw):
+    """The plain version's fp32 output with v replaced by |v|: the sum of
+    p |v| / l that ref.bf16_route_limit takes."""
+    from repro_torch.kernels.flash_attention import ref
+    return ref.flash_attention_fwd_ref(q5.float(), k4, v4.abs(), qp, kp,
+                                       **kw)[0]
+
+
+def _check_bf16(name, got, want, abs_v_out, lse=None, want_lse=None,
+                phase="kernels"):
+    """The bf16 prefill route against its plain version: out within TOL's
+    2e-2 and every element within ref.bf16_route_limit, lse within
+    BF16_LSE_TOL. Returns out's max abs error."""
+    from repro_torch.kernels.flash_attention import ref
+    err = _check(name, got, want, TOL[torch.bfloat16], phase=phase)
+    ratio = ((got.float() - want.float()).abs()
+             / ref.bf16_route_limit(want, abs_v_out)).max().item() \
+        if got.numel() else 0.0
+    ok = ratio <= 1.0
+    log(phase, f"{name} out: max err / per-element limit {ratio:.3f} "
+        f"(2^-7 |plain| + 2^-8 sum p|v|/l) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} out: err / per-element limit {ratio}")
+    if lse is not None:
+        _check(name, lse, want_lse, BF16_LSE_TOL, "lse", phase)
+    return err
+
+
 def phase_kernels(seed: int) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -300,18 +358,21 @@ def phase_kernels(seed: int) -> dict:
     out, lse = ops.flash_attention_gqa_fwd(q, k, v, causal=True)
     pos = torch.arange(S, dtype=torch.int32, device=DEVICE).expand(B, S)
     split = lambda x: x.reshape(B, S, H, 1, D).permute(0, 2, 3, 1, 4)
-    r_out, r_lse = ref.flash_attention_fwd_ref(
-        split(q), k.transpose(1, 2), v.transpose(1, 2), pos, pos, causal=True)
-    err = _check("prefill B8 H12 S=T=512 D64 bf16", out,
-                 r_out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D), TOL[dt])
-    _check("prefill B8 H12 S=T=512 D64 bf16", lse, r_lse, TOL[dt], "lse")
+    args5 = (split(q), k.transpose(1, 2), v.transpose(1, 2), pos, pos)
+    r_out, r_lse = ref.flash_attention_fwd_ref(*args5, causal=True)
+    to4 = lambda x: x.permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
+    err = _check_bf16("prefill B8 H12 S=T=512 D64 bf16", out, to4(r_out),
+                      to4(_abs_v_out(*args5, causal=True)), lse, r_lse)
     n_sets = n_sets_for(4 * q.nbytes)
     sets = [[randn(gen, (B, S, H, D), dt) for _ in range(3)]
             for _ in range(n_sets)]
-    t_k = device_ms(lambda i: ops.flash_attention_gqa_fwd(*sets[i]),
-                    n_sets, 20)
     sets5 = [(split(a), b.transpose(1, 2), c.transpose(1, 2))
              for a, b, c in sets]
+    posc = pos.contiguous()
+    t_k = device_ms(lambda i: fk.flash_attention_fwd(*sets5[i], posc, posc),
+                    n_sets, 20)
+    t_ops = device_ms(lambda i: ops.flash_attention_gqa_fwd(*sets[i]),
+                      n_sets, 20)
     t_p = device_ms(lambda i: ref.flash_attention_fwd_ref(
         *sets5[i], pos, pos, causal=True), n_sets, 4)
     sets4 = [tuple(x.transpose(1, 2).contiguous() for x in s) for s in sets]
@@ -321,12 +382,27 @@ def phase_kernels(seed: int) -> dict:
     nbytes = 4 * q.nbytes + lse.nbytes + 2 * pos.nbytes
     flops = 4.0 * D * H * visible_pairs(pos, pos, True, 0)
     b_ms, b_by = bound_ms(nbytes, flops, dt)
-    rows["flash_attention_fwd"] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p,
-                                       bound_ms=b_ms, bound_by=b_by,
-                                       library_ms=t_l)
-    log("kernels", f"prefill times: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-        f"sdpa {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
-        f"{flops:.3e} FLOP)")
+    rows["flash_attention_fwd"] = dict(max_abs_err=err, ms=t_ops,
+                                       plain_ms=t_p, bound_ms=b_ms,
+                                       bound_by=b_by, library_ms=t_l)
+    log("kernels", f"prefill times: kernel {t_ops:.4f} ms (through "
+        f"ops.flash_attention_gqa_fwd, which builds the positions, as PR 14 "
+        f"timed it; the kernel call alone, positions made once: "
+        f"{t_k:.4f} ms), plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {flops:.3e} FLOP)")
+    # the fp32 route (the FMA kernel) at the same shape, for the record
+    n_sets = n_sets_for(8 * q.nbytes)
+    sets5 = [(split(randn(gen, (B, S, H, D), torch.float32)),
+              *(randn(gen, (B, S, H, D), torch.float32).transpose(1, 2)
+                for _ in range(2))) for _ in range(n_sets)]
+    t_32 = device_ms(lambda i: fk.flash_attention_fwd(*sets5[i], posc, posc),
+                     n_sets, 5)
+    del sets5
+    nbytes = 8 * q.nbytes + lse.nbytes + 2 * pos.nbytes
+    b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
+    log("kernels", f"prefill fp32 route (FMA kernel) times (B8 H12 S=T=512 "
+        f"D64 fp32): kernel {t_32:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{nbytes} B, {flops:.3e} FLOP at 67 TFLOP/s)")
 
     # -- prefill edge cases (kernel layout): G=4, D=128, odd S/T, window,
     #    softcap, -1 q rows and kv slots; out and lse ---------------------
@@ -344,8 +420,12 @@ def phase_kernels(seed: int) -> dict:
         o, l = fk.flash_attention_fwd(q5, k4, v4, qp, kp, **kw)
         ro, rl = ref.flash_attention_fwd_ref(q5, k4, v4, qp, kp, **kw)
         name = f"prefill G4 D128 S77 T203 window softcap -1 {str(dt)[6:]}"
-        _check(name, o, ro, TOL[dt])
-        _check(name, l, rl, TOL[dt], "lse")
+        if dt == torch.bfloat16:
+            _check_bf16(name, o, ro, _abs_v_out(q5, k4, v4, qp, kp, **kw),
+                        l, rl)
+        else:
+            _check(name, o, ro, TOL[dt])
+            _check(name, l, rl, TOL[dt], "lse")
 
     # -- decode: mixed per-slot depths, -1 ring slots, S in {1, 4} ---------
     B, H, T, D = 8, 12, 576, 64
@@ -465,8 +545,12 @@ def kernels_griffin(gen) -> dict:
         ro, rl = ref.flash_attention_fwd_ref(q5, k4, v4, qp, pos, causal=True,
                                              window=W)
         name = f"prefill Hkv1 G10 S=T=3072 D256 window 2048 {str(dt)[6:]}"
-        _check(name, o, ro, TOL[dt])
-        _check(name, l, rl, TOL[dt], "lse")
+        if dt == torch.bfloat16:
+            _check_bf16(name, o, ro, _abs_v_out(q5, k4, v4, qp, pos,
+                                                causal=True, window=W), l, rl)
+        else:
+            _check(name, o, ro, TOL[dt])
+            _check(name, l, rl, TOL[dt], "lse")
         del q5, k4, v4, o, l, ro, rl
         for S in (1, 2):
             q5 = randn(gen, (4, 1, G, S, Dh), dt)
@@ -486,18 +570,23 @@ def kernels_griffin(gen) -> dict:
     out, lse = ops.flash_attention_gqa_fwd(q, k, v, causal=True, window=W)
     pos = torch.arange(S, dtype=torch.int32, device=DEVICE).expand(B, S)
     split = lambda x: x.reshape(B, S, 1, G, Dh).permute(0, 2, 3, 1, 4)
-    r_out, _ = ref.flash_attention_fwd_ref(
-        split(q), k.transpose(1, 2), v.transpose(1, 2), pos, pos, causal=True,
-        window=W)
-    _check("prefill B8 Hkv1 G10 S=T=512 D256 bf16 (model layout)", out,
-           r_out.permute(0, 3, 1, 2, 4).reshape(B, S, G, Dh), TOL[dt])
+    args5 = (split(q), k.transpose(1, 2), v.transpose(1, 2), pos, pos)
+    r_out, r_lse = ref.flash_attention_fwd_ref(*args5, causal=True, window=W)
+    to4 = lambda x: x.permute(0, 3, 1, 2, 4).reshape(B, S, G, Dh)
+    d256_err = _check_bf16(
+        "prefill B8 Hkv1 G10 S=T=512 D256 bf16 (model layout)", out,
+        to4(r_out), to4(_abs_v_out(*args5, causal=True, window=W)), lse,
+        r_lse)
     n_sets = n_sets_for(q.nbytes + k.nbytes + v.nbytes)
     sets = [(randn(gen, (B, S, G, Dh), dt), randn(gen, (B, S, 1, Dh), dt),
              randn(gen, (B, S, 1, Dh), dt)) for _ in range(n_sets)]
-    t_k = device_ms(lambda i: ops.flash_attention_gqa_fwd(
-        *sets[i], causal=True, window=W), n_sets, 20)
     sets5 = [(split(a), b.transpose(1, 2), c.transpose(1, 2))
              for a, b, c in sets]
+    posc = pos.contiguous()
+    t_k = device_ms(lambda i: fk.flash_attention_fwd(
+        *sets5[i], posc, posc, causal=True, window=W), n_sets, 20)
+    t_ops = device_ms(lambda i: ops.flash_attention_gqa_fwd(
+        *sets[i], causal=True, window=W), n_sets, 20)
     t_p = device_ms(lambda i: ref.flash_attention_fwd_ref(
         *sets5[i], pos, pos, causal=True, window=W), n_sets, 4)
     sets4 = [(a.transpose(1, 2), b.transpose(1, 2).expand(B, G, S, Dh),
@@ -508,9 +597,14 @@ def kernels_griffin(gen) -> dict:
     nbytes = 2 * q.nbytes + k.nbytes + v.nbytes + lse.nbytes + 2 * pos.nbytes
     flops = 4.0 * Dh * G * visible_pairs(pos, pos, True, W)
     b_ms, b_by = bound_ms(nbytes, flops, dt)
+    rows["flash_attention_fwd_d256"] = dict(
+        max_abs_err=d256_err, ms=t_ops, plain_ms=t_p, bound_ms=b_ms,
+        bound_by=b_by, library_ms=t_l)
     log("kernels", f"prefill D256 times (B8 Hkv1 G10 S=T=512 bf16): kernel "
-        f"{t_k:.4f} ms, plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound "
+        f"{t_ops:.4f} ms (through ops, as PR 14 timed it; the kernel call "
+        f"alone: {t_k:.4f} ms), plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {flops:.3e} FLOP)")
+    rows["flash_attention_fwd_d256_long"] = kernels_griffin_long(gen)
 
     T = 576
     qp, kp = ring_positions([575 - 8 * b for b in range(B)], 1, T)
@@ -549,6 +643,63 @@ def kernels_griffin(gen) -> dict:
         f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {flops:.3e} FLOP); splits "
         f"{fk.decode_splits(B, 1, T)}")
     return rows
+
+
+def kernels_griffin_long(gen) -> dict:
+    """The prefill kernel at Griffin's long prompt: B 2 x S = T = 2100, one
+    kv head for ten q heads of 256, a local window of 2048 that the prompt
+    crosses; against its plain version, then device times beside SDPA with
+    an explicit boolean mask (the row's library time: it computes the same
+    function) and, logged beside it, with ``is_causal=True`` (its flash
+    backend, which ignores the window and so does slightly more work).
+    Returns the row."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops, ref
+    B, S, G, Dh, W, dt = 2, 2100, 10, 256, 2048, torch.bfloat16
+    q = randn(gen, (B, S, G, Dh), dt)
+    k, v = (randn(gen, (B, S, 1, Dh), dt) for _ in range(2))
+    out, lse = ops.flash_attention_gqa_fwd(q, k, v, causal=True, window=W)
+    pos = torch.arange(S, dtype=torch.int32, device=DEVICE).expand(B, S)
+    split = lambda x: x.reshape(B, S, 1, G, Dh).permute(0, 2, 3, 1, 4)
+    args5 = (split(q), k.transpose(1, 2), v.transpose(1, 2), pos, pos)
+    r_out, r_lse = ref.flash_attention_fwd_ref(*args5, causal=True, window=W)
+    to4 = lambda x: x.permute(0, 3, 1, 2, 4).reshape(B, S, G, Dh)
+    err = _check_bf16(
+        "prefill B2 Hkv1 G10 S=T=2100 D256 window 2048 bf16 (model layout)",
+        out, to4(r_out), to4(_abs_v_out(*args5, causal=True, window=W)), lse,
+        r_lse)
+    del r_out, r_lse
+    n_sets = n_sets_for(q.nbytes + k.nbytes + v.nbytes)
+    sets = [(randn(gen, (B, S, G, Dh), dt), randn(gen, (B, S, 1, Dh), dt),
+             randn(gen, (B, S, 1, Dh), dt)) for _ in range(n_sets)]
+    sets5 = [(split(a), b.transpose(1, 2), c.transpose(1, 2))
+             for a, b, c in sets]
+    posc = pos.contiguous()
+    t_k = device_ms(lambda i: fk.flash_attention_fwd(
+        *sets5[i], posc, posc, causal=True, window=W), n_sets, 10)
+    t_ops = device_ms(lambda i: ops.flash_attention_gqa_fwd(
+        *sets[i], causal=True, window=W), n_sets, 10)
+    t_p = device_ms(lambda i: ref.flash_attention_fwd_ref(
+        *sets5[i], pos, pos, causal=True, window=W), n_sets, 2)
+    mask = ref.visible_mask(pos, pos, causal=True, window=W)[:, None]
+    sets4 = [(a.transpose(1, 2), b.transpose(1, 2).expand(B, G, S, Dh),
+              c.transpose(1, 2).expand(B, G, S, Dh)) for a, b, c in sets]
+    t_l = device_ms(lambda i: F.scaled_dot_product_attention(
+        *sets4[i], attn_mask=mask), n_sets, 10)
+    t_c = device_ms(lambda i: F.scaled_dot_product_attention(
+        *sets4[i], is_causal=True), n_sets, 10)
+    del sets, sets4, sets5
+    nbytes = 2 * q.nbytes + k.nbytes + v.nbytes + lse.nbytes + 2 * pos.nbytes
+    flops = 4.0 * Dh * G * visible_pairs(pos, pos, True, W)
+    b_ms, b_by = bound_ms(nbytes, flops, dt)
+    log("kernels", f"prefill D256 long times (B2 Hkv1 G10 S=T=2100 window "
+        f"2048 bf16): kernel {t_ops:.4f} ms (through ops; the kernel call "
+        f"alone: {t_k:.4f} ms), plain {t_p:.4f} ms, sdpa (bool mask) "
+        f"{t_l:.4f} ms, sdpa is_causal=True (no window) {t_c:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {flops:.3e} FLOP)")
+    return dict(max_abs_err=err, ms=t_ops, plain_ms=t_p, bound_ms=b_ms,
+                bound_by=b_by, library_ms=t_l)
 
 
 def _identical(name, got, want, phase="kernels") -> None:
@@ -923,16 +1074,16 @@ def phase_serve_griffin(model, smi: str) -> dict:
     """recurrentgemma-2b batch serving at B 8 x 512 + 64, then one long
     request (B 2 x 2100 + 32) whose prompt crosses the local window, so the
     prefill keeps the last 2048 positions and every decode write wraps the
-    ring. Returns the launches of the first fused run."""
+    ring. Returns the launches of the two fused runs."""
     launches = _serve_pair(model, smi, "serve_griffin", batch=8,
                            prompt_len=512, gen=64, chunk=8, seed=0)
     W = model.cfg.local_window
     if model.cache_len(2100 + 32) != W:
         raise AssertionError(f"long request: ring of "
                              f"{model.cache_len(2132)} slots, not {W}")
-    _serve_pair(model, smi, "serve_griffin/long", batch=2, prompt_len=2100,
-                gen=32, chunk=8, seed=1)
-    return launches
+    long = _serve_pair(model, smi, "serve_griffin/long", batch=2,
+                       prompt_len=2100, gen=32, chunk=8, seed=1)
+    return launches, long
 
 
 def phase_engine_griffin(model, seed: int) -> None:
@@ -1027,7 +1178,9 @@ def phase_profile(model, smi: str, label: str = "profile") -> None:
         f"chunks of 8: wall {wall * 1e3:.3f} ms, device busy "
         f"{busy_us / 1e3:.3f} ms ({busy_us / 1e4 / wall:.1f}% busy), "
         f"{launches} kernel launches of {len(kern)} kernels")
-    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
+    ranked = sorted(kern, key=lambda e: -e.self_device_time_total)
+    # the top twelve, and every attention kernel of the port
+    for e in ranked[:12] + [e for e in ranked[12:] if "flash_" in e.key]:
         log(label, f"  {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:6d}x  {e.key[:90]}")
 
@@ -1082,6 +1235,7 @@ def _proteus_drive(model, gen) -> tuple:
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ref
     errs, calls = {}, dict.fromkeys(REPLACES, 0)
+    calls["flash_attention_fwd_fp32"] = 0
 
     # -- quant_matmul: every projection weight as int8 and int4 codes -------
     weights = _projections(model)
@@ -1189,11 +1343,17 @@ def _proteus_drive(model, gen) -> tuple:
                 q, k, v = (randn(gen, (BH, S, D), dt) for _ in range(3))
                 o = fk.flash_attention_bh(q, k, v, causal=True, window=window)
                 calls["flash_attention_bh"] += 1
-                e = _check(f"flash_attention_bh BH{BH} S=T={S} D{D} causal "
-                           f"window {window} {str(dt)[6:]}", o,
-                           ref.attention_ref_bh(q, k, v, causal=True,
-                                                window=window), TOL[dt],
-                           phase="proteus")
+                calls["flash_attention_fwd_fp32"] += dt == torch.float32
+                name = (f"flash_attention_bh BH{BH} S=T={S} D{D} causal "
+                        f"window {window} {str(dt)[6:]}")
+                want = ref.attention_ref_bh(q, k, v, causal=True,
+                                            window=window)
+                if dt == torch.bfloat16:
+                    e = _check_bf16(name, o, want, ref.attention_ref_bh(
+                        q.float(), k, v.abs(), causal=True, window=window),
+                        phase="proteus")
+                else:
+                    e = _check(name, o, want, TOL[dt], phase="proteus")
                 if (dt, S, window) == (torch.bfloat16, BH_LENGTHS[0], 0):
                     errs["flash_attention_bh"] = e
     return errs, calls, timed, codes32, c4, packed
@@ -1217,8 +1377,10 @@ def phase_proteus(model, seed: int) -> tuple:
                                        "pack_int4", "unpack_int4",
                                        "flash_attention_bh")})
     want["flash_attention_fwd"] = calls["flash_attention_bh"]
+    want["flash_attention_fwd_fp32"] = calls["flash_attention_fwd_fp32"]
     log("proteus", f"launches {got} (want {want}: one per call, the adapter's "
-        "through the prefill kernel)")
+        "through the prefill kernel, its fp32 calls through the fp32 "
+        "route)")
     if got != want:
         raise AssertionError(f"proteus: launches {got} != {want}")
     launches = {n: got[n] for n in ("quant_matmul", "required_bits",
@@ -1361,7 +1523,8 @@ def main() -> int:
             f"{time.perf_counter() - t0:.2f}s; device memory "
             f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
         if "serve_griffin" in phases:
-            launches["griffin"] = phase_serve_griffin(model, smi)
+            launches["griffin"], launches["griffin_long"] = \
+                phase_serve_griffin(model, smi)
             if "profile" in phases:
                 phase_profile(model, smi, "profile_griffin")
         if "engine_griffin" in phases:
@@ -1374,7 +1537,8 @@ def main() -> int:
     kernels = [dict(name=name, route="cuda",
                     source=SOURCES.get(name, KERNEL_SOURCE),
                     replaces=REPLACES[name],
-                    launches=launches.get(MAIN_LAYOUT[name], {}).get(name),
+                    launches=launches.get(MAIN_LAYOUT[name], {}).get(
+                        COUNTER.get(name, name)),
                     **rows.get(name, {})) for name in REPLACES]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,12 @@
-// Flash attention for Hopper (sm_90a): prefill forward and split-KV decode
-// over every KV-cache layout of the serving engine.
+// Flash attention for Hopper (sm_90a): the fp32 prefill forward and the
+// split-KV decode over every KV-cache layout of the serving engine.
 //
 // Replaces the TPU kernels of src/repro/kernels/flash_attention/kernel.py:
-//   * flash_attention_fwd (prefill; body _flash_kernel, _tile_update)
-//       -> repro_flash_attention_fwd / flash_fwd_kernel
+//   * flash_attention_fwd (prefill; body _flash_kernel, _tile_update), fp32
+//     inputs -> repro_flash_attention_fwd / flash_fwd_kernel. bf16 prefill
+//     runs on the tensor-core kernel of flash_prefill.cu; this one is the
+//     fp32 route, which the fp32 parity checks hold to 2e-5 (TF32 products
+//     would not meet that);
 //   * flash_decode_fwd (decode over the contiguous ring cache)
 //   * flash_decode_quant_fwd (decode over int8 / nibble-packed int4 codes
 //     with per-row fp32 scales; _dequant_rows)
@@ -46,9 +49,8 @@
 //     fixed order (no atomics: results are bitwise reproducible);
 //   * a paged tile resolves one pool address per row (a 64-row tile spans
 //     64 / page_size pages), staged in shared memory beside the positions.
-// This first version multiplies with fp32 FMA loops and loads codes a byte
-// at a time; tensor cores (mma/wgmma), 16-byte loads and TMA pipelines are
-// later work.
+// Both products are fp32 FMA loops over the staged tiles and codes load a
+// byte at a time: what holds the decode kernels back (ROADMAP B).
 //
 // Head dims: 64 and 128 for every kernel; 256 (recurrentgemma's local
 // attention) for the prefill kernel and the decode kernel over values held
@@ -600,15 +602,16 @@ const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// q (B, Hkv, G, S, D), k/v (B, Hkv, T, D) by element strides; out contiguous
-// (B, Hkv, G, S, D) in q's dtype; lse contiguous (B, Hkv, G, S) fp32.
+// fp32 prefill (bf16 prefill is repro_flash_prefill_bf16 of
+// flash_prefill.cu). q (B, Hkv, G, S, D), k/v (B, Hkv, T, D) by element
+// strides; out contiguous (B, Hkv, G, S, D); lse contiguous (B, Hkv, G, S).
 int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* qpos,
     const void* kpos, void* out, void* lse, long long qs_b, long long qs_h,
     long long qs_g, long long qs_s, long long ks_b, long long ks_h, long long ks_t,
     long long vs_b, long long vs_h, long long vs_t, int B, int H, int G, int S,
-    int T, int D, int is_bf16, int causal, int window, float softcap,
-    float scale, void* stream) {
+    int T, int D, int causal, int window, float softcap, float scale,
+    void* stream) {
   const Params p = make_params(
       q, operand(k, nullptr, ks_b, ks_h, ks_t, 0, 0, 0),
       operand(v, nullptr, vs_b, vs_h, vs_t, 0, 0, 0), qpos, kpos, nullptr,
@@ -616,15 +619,9 @@ int repro_flash_attention_fwd(
       scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || H == 0 || G == 0 || S == 0) return cudaSuccess;
-  if (is_bf16) {
-    if (D == 64) return launch_fwd<__nv_bfloat16, 64>(p, out, lse, st);
-    if (D == 128) return launch_fwd<__nv_bfloat16, 128>(p, out, lse, st);
-    if (D == 256) return launch_fwd<__nv_bfloat16, 256>(p, out, lse, st);
-  } else {
-    if (D == 64) return launch_fwd<float, 64>(p, out, lse, st);
-    if (D == 128) return launch_fwd<float, 128>(p, out, lse, st);
-    if (D == 256) return launch_fwd<float, 256>(p, out, lse, st);
-  }
+  if (D == 64) return launch_fwd<float, 64>(p, out, lse, st);
+  if (D == 128) return launch_fwd<float, 128>(p, out, lse, st);
+  if (D == 256) return launch_fwd<float, 256>(p, out, lse, st);
   return cudaErrorInvalidValue;
 }
 

@@ -22,29 +22,45 @@ their argument layouts:
 ``q_positions`` ``(B, S)`` and ``kv_positions`` ``(B, T)`` (``T = NP * ps``
 when paged) are int32, -1 = masked. Head dims: 64, 128 and 256 for the
 prefill kernel and the contiguous decode kernel, 64 and 128 for decode over
-codes or pages. The CUDA source is
-``csrc/flash_attention.cu``; the four decode wrappers launch one kernel that
-differs only in how it fetches a K/V row, so the paged kernels equal the
-dense and quantized ones on the gathered pages bit for bit.
+codes or pages.
+
+The prefill kernel has two routes, chosen by q's dtype (there is no knob):
+
+* bf16: ``csrc/flash_prefill.cu``, a tensor-core kernel (``wgmma``, bf16
+  operands, fp32 accumulators and softmax; p is rounded to bf16 before
+  ``p @ v``). A block holds 128 query rows, ``GG`` heads x ``BQ``
+  positions of one kv head, as :func:`prefill_plan` lays them out. Every
+  pointer and row stride of q, k and v must be 16-byte aligned; anything
+  else raises ``ValueError``, it never takes the fp32 route;
+* fp32: ``flash_fwd_kernel`` of ``csrc/flash_attention.cu``, fp32 FMA
+  loops over staged tiles, which the fp32 parity checks hold to 2e-5.
+
+``csrc/flash_attention.cu`` also holds the decode kernels; the four decode
+wrappers launch one kernel that differs only in how it fetches a K/V row,
+so the paged kernels equal the dense and quantized ones on the gathered
+pages bit for bit.
 
 Bound on the H100: bytes. At the serving shapes the kernels stream q and the
 K/V operands once (decode: the whole cache per launch, as codes where the
-cache holds codes), far below the ~295 bf16 operations per byte where the
-tensor cores would become the limit. The kernels keep scores in shared
-memory, read each K/V tile once per kv head, skip fully masked tiles, and
-split the decode kv axis over blocks so the cache stream occupies every SM.
+cache holds codes), below the ~295 bf16 operations per byte where the
+tensor cores would become the limit (prefill at head_dim 256 comes within
+25% of it, and passes it at Griffin's long prompt). The kernels keep scores on chip, read each K/V tile once per
+block of all G heads of a kv head, skip fully masked tiles, and split the
+decode kv axis over blocks so the cache stream occupies every SM.
 
 Selection is by the device of the inputs: CPU tensors go to the plain
 versions in ``ref.py``; CUDA tensors launch the kernels or raise. Inputs may
 be strided views with a contiguous last axis (the model passes its
 ``(B, T, Hkv, D)`` cache transposed, without a copy). ``LAUNCHES`` counts
-kernel launches, one per wrapper call that launches.
+kernel launches, one per wrapper call that launches;
+``flash_attention_fwd`` counts both prefill routes and
+``flash_attention_fwd_fp32`` the fp32 one alone.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -54,7 +70,8 @@ from repro_torch.kernels.flash_attention.ref import (
     flash_decode_paged_quant_fwd_ref, flash_decode_quant_fwd_ref)
 
 LAUNCHES: Dict[str, int] = {
-    "flash_attention_fwd": 0, "flash_decode_fwd": 0,
+    "flash_attention_fwd": 0, "flash_attention_fwd_fp32": 0,
+    "flash_decode_fwd": 0,
     "flash_decode_quant_fwd": 0, "flash_decode_paged_fwd": 0,
     "flash_decode_paged_quant_fwd": 0, "flash_attention_bh": 0,
 }
@@ -64,6 +81,10 @@ KERNEL_HEAD_DIMS = (64, 128, 256)
 LAYOUT_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_PAGE_SIZES = (8, 16, 32, 64)
+# the bf16 prefill kernel: query rows per block, and the byte alignment of
+# every pointer and row stride of q, k and v (its 16-byte copies)
+PREFILL_BLOCK_ROWS = 128
+PREFILL_ALIGN = 16
 # decode split-KV: aim for this many blocks per launch (2 per SM on 132 SMs)
 DECODE_TARGET_BLOCKS = 264
 DECODE_SPLIT_MULTIPLE = 64        # the kernel's kv tile
@@ -74,6 +95,7 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _MASK = [_I, _I, _F, _F, _P]      # causal, window, softcap, scale, stream
 _bound = False
+_prefill_bound = False
 
 
 def _lib() -> ctypes.CDLL:
@@ -81,7 +103,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.library("flash_attention")
     if not _bound:
         lib.repro_flash_attention_fwd.argtypes = ([_P] * 7 + [_L] * 10
-                                                  + [_I] * 7 + _MASK)
+                                                  + [_I] * 6 + _MASK)
         lib.repro_flash_attention_fwd.restype = _I
         # 12 pointers, 4 q + 3 x 4 operand strides, B H G S T D is_bf16
         # code_bits n_pages page_size n_split split_len
@@ -90,6 +112,46 @@ def _lib() -> ctypes.CDLL:
         lib.repro_flash_decode_fwd.restype = _I
         _bound = True
     return lib
+
+
+def _prefill_lib() -> ctypes.CDLL:
+    global _prefill_bound
+    lib = build.library("flash_prefill")
+    if not _prefill_bound:
+        # repro_flash_attention_fwd's arguments, then the plan's GG BQ
+        # groups blocks
+        lib.repro_flash_prefill_bf16.argtypes = ([_P] * 7 + [_L] * 10
+                                                 + [_I] * 10 + _MASK)
+        lib.repro_flash_prefill_bf16.restype = _I
+        _prefill_bound = True
+    return lib
+
+
+class PrefillPlan(NamedTuple):
+    """How the bf16 prefill kernel lays G query heads x S positions of one
+    kv head over blocks of ``PREFILL_BLOCK_ROWS`` rows: block ``x`` of
+    ``blocks`` takes heads ``gg * GG .. gg * GG + GG - 1`` at positions
+    ``qt * BQ .. qt * BQ + BQ - 1``, with ``gg = x % groups`` and the q
+    tiles in reverse (``qt = blocks // groups - 1 - x // groups``: the
+    blocks with the most causal work start first); row ``r`` of it holds
+    head ``gg * GG + r // BQ`` at position ``qt * BQ + r % BQ``
+    (``block_row`` in ``csrc/flash_prefill.cu``). Rows past G, past S or
+    past ``GG * BQ`` are unused. The kernel takes all four fields: it
+    launches ``blocks`` blocks per kv head and refuses a plan that leaves a
+    row uncovered or a block empty."""
+    GG: int
+    BQ: int
+    groups: int
+    blocks: int
+
+
+def prefill_plan(G: int, S: int) -> PrefillPlan:
+    """All G heads of a kv head in one block where they fit (GG = G up to
+    128), with as many positions as fill the block's 128 rows."""
+    GG = min(G, PREFILL_BLOCK_ROWS)
+    BQ = PREFILL_BLOCK_ROWS // GG
+    groups = -(-G // GG)
+    return PrefillPlan(GG, BQ, groups, -(-S // BQ) * groups)
 
 
 def _same_device(*ts) -> None:
@@ -175,13 +237,29 @@ def _mask_args(causal, window, softcap, D):
             torch.cuda.current_stream().cuda_stream]
 
 
+def _check_aligned(operands) -> None:
+    """The bf16 prefill kernel copies 16-byte chunks: every pointer, and
+    the stride of every axis longer than one but the last, must be a
+    multiple of 16 bytes."""
+    for name, t in operands:
+        step = PREFILL_ALIGN // t.element_size()
+        if t.data_ptr() % PREFILL_ALIGN or any(
+                st % step for n, st in zip(t.shape[:-1], t.stride()[:-1])
+                if n > 1):
+            raise ValueError(
+                f"{name}: the bf16 prefill kernel needs a {PREFILL_ALIGN}-byte "
+                f"aligned pointer and row strides; got pointer "
+                f"{t.data_ptr():#x}, strides {t.stride()}")
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_positions: torch.Tensor, kv_positions: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         softcap: float = 0.0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prefill kernel: returns (out (B, Hkv, G, S, D) in q's dtype,
-    lse (B, Hkv, G, S) fp32). Any S and T."""
+    lse (B, Hkv, G, S) fp32). Any S and T. bf16 runs on the tensor-core
+    kernel, fp32 on the FMA kernel."""
     B, H, G, S, T, D = _check(q, k, v, q_positions, kv_positions)
     if q.device.type == "cpu":
         return flash_attention_fwd_ref(q, k, v, q_positions, kv_positions,
@@ -189,17 +267,27 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        softcap=softcap)
     _check_cuda(q, D, (("k", k), ("v", v)),
                 (("q_positions", q_positions), ("kv_positions", kv_positions)))
-    lib = _lib()
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _check_aligned((("q", q), ("k", k), ("v", v)))
     out = torch.empty((B, H, G, S, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, G, S), dtype=torch.float32, device=q.device)
-    err = lib.repro_flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
-        kv_positions.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        *q.stride()[:4], *k.stride()[:3], *v.stride()[:3],
-        B, H, G, S, T, D, int(q.dtype == torch.bfloat16),
-        *_mask_args(causal, window, softcap, D))
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
+            kv_positions.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            *q.stride()[:4], *k.stride()[:3], *v.stride()[:3],
+            B, H, G, S, T, D]
+    mask = _mask_args(causal, window, softcap, D)
+    if bf16:
+        lib = _prefill_lib()
+        plan = prefill_plan(G, S)
+        err = lib.repro_flash_prefill_bf16(*args, *plan, *mask)
+    else:
+        lib = _lib()
+        err = lib.repro_flash_attention_fwd(*args, *mask)
     build.check(lib, err, "flash_attention_fwd")
     LAUNCHES["flash_attention_fwd"] += 1
+    if not bf16:
+        LAUNCHES["flash_attention_fwd_fp32"] += 1
     return out, lse
 
 

@@ -95,6 +95,20 @@ def attention_ref_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
 
 
+def bf16_route_limit(want: torch.Tensor,
+                     abs_v_out: torch.Tensor) -> torch.Tensor:
+    """Per-element limit of the bf16 prefill kernel's out against the plain
+    version's ``want`` (bf16) on the same inputs. ``abs_v_out`` is the plain
+    version's fp32 output with v replaced by |v|, i.e. sum_i p_i |v_i| / l.
+    Two roundings differ by design: out is rounded to bf16 on both sides
+    (at most one ulp apart, 2^-7 |want|), and the kernel rounds p to bf16
+    before p @ v (at most 2^-8 of sum_i p_i |v_i| / l). Each term gets a
+    further 2^-7 for its own rounding, and 1e-5 covers the order of the
+    fp32 sums."""
+    return ((1 + 2.0 ** -7) * (2.0 ** -7 * want.float().abs()
+                                + 2.0 ** -8 * abs_v_out.float()) + 1e-5)
+
+
 def dequant_rows(codes: torch.Tensor, scale: torch.Tensor,
                  d: int) -> torch.Tensor:
     """Codes (..., Dc) int8 and per-row scales (...) fp32 -> (..., d) fp32,

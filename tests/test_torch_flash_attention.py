@@ -104,6 +104,133 @@ def test_prefill_kernel_layout_masked_rows_and_slots():
 
 
 # ---------------------------------------------------------------------------
+# the bf16 prefill route (csrc/flash_prefill.cu): its block plan, and a plain
+# emulation of its rounding held against the reference
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 10, 12, 64, 100])
+@pytest.mark.parametrize("S", [1, 7, 12, 77, 512, 2100])
+def test_prefill_plan_covers_every_row_once(G, S):
+    """Every (query head, position) of a kv head falls in exactly one block
+    row, and no block holds more than 128 rows."""
+    plan = tk.prefill_plan(G, S)
+    assert 1 <= plan.GG * plan.BQ <= tk.PREFILL_BLOCK_ROWS
+    nq = plan.blocks // plan.groups
+    seen = {}
+    for x in range(plan.blocks):            # the kernel's block_row
+        qt, gg = nq - 1 - x // plan.groups, x % plan.groups
+        rows = [(gg * plan.GG + gl, qt * plan.BQ + sl)
+                for gl, sl in (divmod(r, plan.BQ)
+                               for r in range(tk.PREFILL_BLOCK_ROWS))
+                if gl < plan.GG]
+        rows = [(g, s) for g, s in rows if g < G and s < S]
+        assert 0 < len(rows) <= tk.PREFILL_BLOCK_ROWS
+        for gs in rows:
+            seen[gs] = seen.get(gs, 0) + 1
+    assert seen == {(g, s): 1 for g in range(G) for s in range(S)}
+
+
+def _emulate_bf16_prefill(q, k, v, qp, kp, *, causal, window, softcap, BK):
+    """The bf16 kernel's arithmetic in plain torch: kv tiles of BK rows, q.k
+    in fp32 from the bf16 operands, the online softmax in fp32, p rounded to
+    bf16 before p @ v, l summed from the fp32 p. Returns fp32 (out, lse)
+    before the output's rounding."""
+    B, H, G, S, D = q.shape
+    T = k.shape[2]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    mask = ref.visible_mask(qp, kp, causal=causal, window=window)[:, None,
+                                                                 None]
+    m = torch.full((B, H, G, S), ref.NEG_INF)
+    l = torch.zeros(B, H, G, S)
+    acc = torch.zeros(B, H, G, S, D)
+    for t0 in range(0, T, BK):
+        s = torch.einsum("bhgsd,bhtd->bhgst", qf, kf[:, :, t0:t0 + BK]) \
+            / np.sqrt(np.float32(D))
+        if softcap > 0:
+            s = softcap * torch.tanh(s / softcap)
+        s = torch.where(mask[..., t0:t0 + BK], s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        safe = torch.where(m_new <= ref.NEG_INF / 2, 0.0, m_new)
+        alpha = torch.where(m <= ref.NEG_INF / 2, 0.0, torch.exp(m - safe))
+        p = torch.exp(s - safe[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgst,bhtd->bhgsd", p.bfloat16().float(), vf[:, :, t0:t0 + BK])
+        m = m_new
+    lsafe = torch.where(l == 0, 1.0, l)
+    lse = torch.where(m <= ref.NEG_INF / 2, ref.NEG_INF, m + torch.log(lsafe))
+    return acc / lsafe[..., None], lse
+
+
+@pytest.mark.parametrize("D,BK", [(64, 128), (128, 128), (256, 64)])
+@pytest.mark.parametrize("G,S,T,window,cap", [
+    (1, 40, 300, 0, 0.0), (4, 23, 150, 48, 20.0), (10, 12, 90, 0, 0.0)])
+def test_bf16_prefill_rounding_within_quarter_of_limit(D, BK, G, S, T,
+                                                       window, cap):
+    """Rounding p to bf16 before p @ v (the tensor-core kernel's one
+    difference from the reference's fp32 products) moves out by at most a
+    quarter of the card's 2e-2 bf16 limit, against the reference's Pallas
+    kernel in interpret mode and the port's plain version on the same bf16
+    inputs; lse does not move. Rounded to bf16, the emulation stays within
+    the limit of the reference kernel run on bf16 inputs, and within the
+    per-element limit (``ref.bf16_route_limit``) and the lse limit of 1e-4
+    that the card holds the kernel to against the plain version."""
+    rng = np.random.default_rng(D + G * 7 + S)
+    B, H = 2, 2
+    q, k, v = (torch.from_numpy(_np(rng, *shape)).bfloat16() for shape in
+               ((B, H, G, S, D), (B, H, T, D), (B, H, T, D)))
+    qp = np.tile(np.arange(S, dtype=np.int32) + T - S, (B, 1))
+    qp[1, :3] = -1
+    kp = np.tile(np.arange(T, dtype=np.int32), (B, 1))
+    kp[1, ::3] = -1
+    kw = dict(causal=True, window=window, softcap=cap)
+    qpt, kpt = _t(qp, kp)
+    eo, el = _emulate_bf16_prefill(q, k, v, qpt, kpt, BK=BK, **kw)
+    f32 = [jnp.asarray(t.float().numpy()) for t in (q, k, v)]
+    jo, jl = jk.flash_attention_fwd(*f32, jnp.asarray(qp), jnp.asarray(kp),
+                                    block_q=S, block_k=T, interpret=True,
+                                    **kw)
+    limit = 2e-2 / 4
+    _close(eo, jo, atol=limit)
+    _close(el, jl, atol=limit)
+    po, pl = ref.flash_attention_fwd_ref(q.float(), k.float(), v.float(),
+                                         qpt, kpt, **kw)
+    _close(eo, po.numpy(), atol=limit)
+    _close(el, pl.numpy(), atol=limit)
+    jo16, _ = jk.flash_attention_fwd(
+        *(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+          for t in (q, k, v)), jnp.asarray(qp), jnp.asarray(kp),
+        block_q=S, block_k=T, interpret=True, **kw)
+    _close(eo.bfloat16(), np.asarray(jo16, np.float32), atol=2e-2)
+    want, _ = ref.flash_attention_fwd_ref(q, k, v, qpt, kpt, **kw)
+    abs_v_out, _ = ref.flash_attention_fwd_ref(q.float(), k, v.abs(), qpt,
+                                               kpt, **kw)
+    assert bool(((eo.bfloat16().float() - want.float()).abs()
+                 <= ref.bf16_route_limit(want, abs_v_out)).all())
+    _close(el, pl.numpy(), atol=1e-4)
+
+
+def test_bf16_route_limits_catch_a_window_off_by_one():
+    """The bf16 limits are tight enough to see a kernel that drops one key
+    per row: the emulation with its window one short, against the plain
+    version with the full window, leaves the lse limit of 1e-4 and the
+    per-element out limit."""
+    rng = np.random.default_rng(5)
+    B, H, G, S, D, W = 1, 2, 2, 300, 64, 256
+    q, k, v = (torch.from_numpy(_np(rng, *shape)).bfloat16() for shape in
+               ((B, H, G, S, D), (B, H, S, D), (B, H, S, D)))
+    pos, = _t(np.arange(S, dtype=np.int32)[None])
+    eo, el = _emulate_bf16_prefill(q, k, v, pos, pos, causal=True,
+                                   window=W - 1, softcap=0.0, BK=128)
+    want, lse = ref.flash_attention_fwd_ref(q, k, v, pos, pos, causal=True,
+                                            window=W)
+    abs_v_out, _ = ref.flash_attention_fwd_ref(q.float(), k, v.abs(), pos,
+                                               pos, causal=True, window=W)
+    assert float((el - lse).abs().max()) > 1e-4
+    assert not bool(((eo.bfloat16().float() - want.float()).abs()
+                     <= ref.bf16_route_limit(want, abs_v_out)).all())
+
+
+# ---------------------------------------------------------------------------
 # decode: ops.flash_decode against the ring cache
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("S", [1, 4])

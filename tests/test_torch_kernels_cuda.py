@@ -22,6 +22,10 @@ from repro_torch.models.layers import (kv_quantize,  # noqa: E402
 
 # fp32: summation order only; bf16: one rounding of the output
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the bf16 prefill route, beside TOL's 2e-2: every element of out within
+# ref.bf16_route_limit (one output ulp, and p rounded to bf16 before p @ v),
+# and lse, which comes from the fp32 scores, within 1e-4
+BF16_LSE_TOL = 1e-4
 
 
 @pytest.fixture
@@ -38,6 +42,28 @@ def _randn(gen, shape, dtype, dev):
 
 def _err(a, b):
     return (a.float() - b.float()).abs().max().item()
+
+
+def _assert_bf16_route(o, ro, abs_v_out, lse=None, rl=None):
+    assert _err(o, ro) <= TOL[torch.bfloat16]
+    assert bool(((o.float() - ro.float()).abs()
+                 <= ref.bf16_route_limit(ro, abs_v_out)).all())
+    if lse is not None:
+        assert _err(lse, rl) <= BF16_LSE_TOL
+
+
+def _assert_prefill(dtype, o, lse, q, k, v, qp, kp, **kw):
+    """The prefill kernel's out and lse against the plain version on the
+    same kernel-layout inputs, at the dtype's limits; returns the plain
+    version's (out, lse)."""
+    ro, rl = ref.flash_attention_fwd_ref(q, k, v, qp, kp, **kw)
+    if dtype == torch.bfloat16:
+        _assert_bf16_route(o, ro, ref.flash_attention_fwd_ref(
+            q.float(), k, v.abs(), qp, kp, **kw)[0], lse, rl)
+    else:
+        assert _err(o, ro) <= TOL[dtype]
+        assert _err(lse, rl) <= TOL[dtype]
+    return ro, rl
 
 
 @pytest.mark.cuda
@@ -59,10 +85,155 @@ def test_prefill_kernel(cuda, dtype, G, S, T, D, window, cap):
     o, lse = tk.flash_attention_fwd(q, k, v, qp, kp, **kw)
     torch.cuda.synchronize()
     assert tk.LAUNCHES["flash_attention_fwd"] == n + 1
-    ro, rl = ref.flash_attention_fwd_ref(q, k, v, qp, kp, **kw)
     assert o.dtype == dtype and lse.dtype == torch.float32
-    assert _err(o, ro) <= TOL[dtype]
-    assert _err(lse, rl) <= TOL[dtype]
+    _assert_prefill(dtype, o, lse, q, k, v, qp, kp, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the two prefill routes: bf16 on the tensor-core kernel (flash_prefill.cu),
+# fp32 on the FMA kernel (flash_attention.cu)
+# ---------------------------------------------------------------------------
+def _prefill_case(gen, dev, B, H, G, S, T, D, dtype, shift=None):
+    """Inputs of one prefill case: q positions T - S .. T - 1 (or + shift),
+    batch row 1 with its first S // 4 q rows and every third kv slot at
+    -1."""
+    q = _randn(gen, (B, H, G, S, D), dtype, dev)
+    k = _randn(gen, (B, H, T, D), dtype, dev)
+    v = _randn(gen, (B, H, T, D), dtype, dev)
+    qp = (torch.arange(S, dtype=torch.int32, device=dev)
+          + (T - S if shift is None else shift)).repeat(B, 1)
+    kp = torch.arange(T, dtype=torch.int32, device=dev).repeat(B, 1)
+    if B > 1:
+        qp[1, :S // 4] = -1
+        kp[1, ::3] = -1
+    return q, k, v, qp, kp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G,S,T,window,cap", [
+    (1, 77, 203, 0, 0.0),          # ragged: neither BQ nor BK divides S, T
+    (2, 1, 33, 0, 0.0),
+    (4, 77, 203, 48, 20.0),        # window and softcap
+    (10, 100, 150, 0, 0.0),        # 120 of a block's 128 rows used
+    (3, 3072, 3072, 2048, 0.0),    # a window the prompt crosses
+    (1, 8, 33000, 0, 0.0),         # more kv tiles than one scan holds
+])
+def test_prefill_bf16_tensor_core_route(cuda, D, G, S, T, window, cap):
+    """bf16 prefill on the wgmma kernel against the plain version (fp32
+    products; the kernel rounds p to bf16 before p @ v): out within 2e-2
+    and every element within its two roundings, lse within 1e-4; -1 q rows
+    give out 0 and lse -1e30; the fp32 route is not launched."""
+    gen = torch.Generator(device=cuda).manual_seed(D + G + S)
+    B = 1 if S > 1000 else 2
+    q, k, v, qp, kp = _prefill_case(gen, cuda, B, 2, G, S, T, D,
+                                    torch.bfloat16)
+    kw = dict(causal=True, window=window, softcap=cap)
+    n = dict(tk.LAUNCHES)
+    o, lse = tk.flash_attention_fwd(q, k, v, qp, kp, **kw)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["flash_attention_fwd"] == n["flash_attention_fwd"] + 1
+    assert tk.LAUNCHES["flash_attention_fwd_fp32"] == \
+        n["flash_attention_fwd_fp32"]
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    _assert_prefill(torch.bfloat16, o, lse, q, k, v, qp, kp, **kw)
+    if B > 1 and S >= 4:
+        assert float(o[1, :, :, :S // 4].abs().max()) == 0.0
+        assert float(lse[1, :, :, :S // 4].max()) == float(
+            torch.tensor(ref.NEG_INF, dtype=torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G,causal", [(1, True), (3, True), (2, False)])
+def test_prefill_bf16_masked_rows_in_unmasked_tiles(cuda, D, G, causal):
+    """q rows at -1 among valid ones, with no kv slot at -1: the kernel
+    skips the mask on tiles where every pair of a valid row is visible, so
+    the -1 rows ride through them and must still come out 0 with lse
+    -1e30."""
+    gen = torch.Generator(device=cuda).manual_seed(D + G)
+    B, S = 2, 400
+    q, k, v, qp, kp = _prefill_case(gen, cuda, B, 2, G, S, S, D,
+                                    torch.bfloat16)
+    kp = torch.arange(S, dtype=torch.int32, device=cuda).repeat(B, 1)
+    qp = torch.arange(S, dtype=torch.int32, device=cuda).repeat(B, 1)
+    dead = [200, 201, 202, 390, 399]
+    qp[1, dead] = -1
+    kw = dict(causal=causal, window=0, softcap=0.0)
+    o, lse = tk.flash_attention_fwd(q, k, v, qp, kp, **kw)
+    _assert_prefill(torch.bfloat16, o, lse, q, k, v, qp, kp, **kw)
+    assert float(o[1, :, :, dead].abs().max()) == 0.0
+    assert float(lse[1, :, :, dead].max()) == float(
+        torch.tensor(ref.NEG_INF, dtype=torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_prefill_bf16_model_layout_and_adapter(cuda, D):
+    """Strided views as the model passes them ((B, S, H, D) projections
+    transposed), and the flash_attention_bh adapter, on the bf16 route."""
+    from repro_torch.kernels.flash_attention import ops
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    B, S, Hkv, G = 2, 130, 2, 3
+    q = _randn(gen, (B, S, Hkv * G, D), torch.bfloat16, cuda)
+    k, v = (_randn(gen, (B, S, Hkv, D), torch.bfloat16, cuda)
+            for _ in range(2))
+    out, lse = ops.flash_attention_gqa_fwd(q, k, v, causal=True)
+    pos = torch.arange(S, dtype=torch.int32, device=cuda).repeat(B, 1)
+    q5 = q.reshape(B, S, Hkv, G, D).permute(0, 2, 3, 1, 4)
+    _assert_prefill(torch.bfloat16,
+                    out.reshape(B, S, Hkv, G, D).permute(0, 2, 3, 1, 4), lse,
+                    q5, k.transpose(1, 2), v.transpose(1, 2), pos, pos)
+    qb, kb, vb = (_randn(gen, (6, 200, D), torch.bfloat16, cuda)
+                  for _ in range(3))
+    n = dict(tk.LAUNCHES)
+    o = tk.flash_attention_bh(qb, kb, vb, causal=True, window=64)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["flash_attention_fwd_fp32"] == \
+        n["flash_attention_fwd_fp32"]
+    _assert_bf16_route(
+        o, ref.attention_ref_bh(qb, kb, vb, causal=True, window=64),
+        ref.attention_ref_bh(qb.float(), kb, vb.abs(), causal=True,
+                             window=64))
+
+
+@pytest.mark.cuda
+def test_prefill_bf16_rejects_misaligned_views(cuda):
+    """The bf16 route copies 16-byte chunks: a view one element off its row
+    start, or rows 65 elements apart, raise ValueError; neither falls back
+    to the fp32 route."""
+    q = torch.zeros(1, 1, 1, 4, 65, dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros(1, 1, 8, 64, dtype=torch.bfloat16, device=cuda)
+    qp = torch.arange(4, dtype=torch.int32, device=cuda)[None]
+    kp = torch.arange(8, dtype=torch.int32, device=cuda)[None]
+    n = dict(tk.LAUNCHES)
+    for bad in (q[..., 1:], q[..., :64]):
+        with pytest.raises(ValueError, match="aligned"):
+            tk.flash_attention_fwd(bad, k, k, qp, kp)
+    kbad = torch.zeros(1, 1, 8, 65, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        tk.flash_attention_fwd(q[..., :64].contiguous(), kbad[..., 1:], k,
+                               qp, kp)
+    assert tk.LAUNCHES == n
+
+
+@pytest.mark.cuda
+def test_prefill_fp32_route(cuda):
+    """fp32 prefill stays on the FMA kernel: its route counter moves, and
+    it is within 2e-5 of the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v, qp, kp = _prefill_case(gen, cuda, 2, 3, 4, 77, 203, 64,
+                                    torch.float32)
+    kw = dict(causal=True, window=48, softcap=20.0)
+    n = dict(tk.LAUNCHES)
+    o, lse = tk.flash_attention_fwd(q, k, v, qp, kp, **kw)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["flash_attention_fwd_fp32"] == \
+        n["flash_attention_fwd_fp32"] + 1
+    assert tk.LAUNCHES["flash_attention_fwd"] == n["flash_attention_fwd"] + 1
+    ro, rl = ref.flash_attention_fwd_ref(q, k, v, qp, kp, **kw)
+    assert _err(o, ro) <= TOL[torch.float32]
+    assert _err(lse, rl) <= TOL[torch.float32]
 
 
 @pytest.mark.cuda
@@ -146,7 +317,8 @@ def test_layout_decode_kernels(cuda, dtype, S, G, D, ps, window, cap):
                     ) <= TOL[dtype]
     torch.cuda.synchronize()
     assert {k: tk.LAUNCHES[k] - n[k] for k in n} == {
-        "flash_attention_fwd": 0, "flash_decode_fwd": 1,
+        "flash_attention_fwd": 0, "flash_attention_fwd_fp32": 0,
+        "flash_decode_fwd": 1,
         "flash_decode_quant_fwd": 2, "flash_decode_paged_fwd": 1,
         "flash_decode_paged_quant_fwd": 2, "flash_attention_bh": 0}
 
@@ -189,9 +361,7 @@ def test_prefill_kernel_d256_mqa_window(cuda, dtype, S, window):
     pos = torch.arange(S, dtype=torch.int32, device=cuda)[None]
     kw = dict(causal=True, window=window, softcap=0.0)
     o, lse = tk.flash_attention_fwd(q, k, v, pos, pos, **kw)
-    ro, rl = ref.flash_attention_fwd_ref(q, k, v, pos, pos, **kw)
-    assert _err(o, ro) <= TOL[dtype]
-    assert _err(lse, rl) <= TOL[dtype]
+    _assert_prefill(dtype, o, lse, q, k, v, pos, pos, **kw)
 
 
 @pytest.mark.cuda
@@ -390,5 +560,9 @@ def test_flash_attention_bh(cuda, dtype, S, window):
     assert o.dtype == dtype and o.shape == q.shape
     assert tk.LAUNCHES["flash_attention_bh"] == n["flash_attention_bh"] + 1
     assert tk.LAUNCHES["flash_attention_fwd"] == n["flash_attention_fwd"] + 1
-    assert _err(o, ref.attention_ref_bh(q, k, v, causal=True,
-                                        window=window)) <= TOL[dtype]
+    want = ref.attention_ref_bh(q, k, v, causal=True, window=window)
+    if dtype == torch.bfloat16:
+        _assert_bf16_route(o, want, ref.attention_ref_bh(
+            q.float(), k, v.abs(), causal=True, window=window))
+    else:
+        assert _err(o, want) <= TOL[dtype]
