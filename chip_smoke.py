@@ -17,7 +17,11 @@ Runs on one NVIDIA GPU; exits non-zero without one. Phases:
    (``flash_attention_fwd_d256_long``: B 2, S = T = 2100, window 2048),
    each through ``ops.flash_attention_gqa_fwd`` as a model calls it, with
    the kernel call alone logged beside; its fp32 route at pimref's shape is
-   timed and logged;
+   timed and logged. The decode kernel (``csrc/flash_decode.cu``) is timed
+   at pimref's step (B 8, H 12, T 576, S 1, D 64; and over int8 codes,
+   pages of 16 and both) and at Griffin's (``flash_decode_fwd_d256``: B 8,
+   one kv head for ten q heads of 256, T 576), each through ``ops`` as a
+   model calls it; its layouts are also checked at head_dim 256;
 4. serve: ``pimref-100m`` at full width, batch-mode ``serve()`` with the
    fused and the per-token engine, in every KV layout (contiguous, Proteus
    int8 / int4 / auto codes, pages of 16, pages of 16 holding int8 codes);
@@ -122,13 +126,18 @@ INT16_MAX = 32767                  # bench_proteus_precision's code grid
 BH_SHAPE = (96, 64)                # (B * H, D): 8 x 12 heads of 64
 BH_LENGTHS = (512, 500)
 BH_WINDOWS = (0, 128)
-KERNEL_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+DECODE_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_decode.cu"
 PREFILL_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_prefill.cu"
 NV_SOURCE = "src/repro_torch/kernels/narrow_value/csrc/narrow_value.cu"
 SOURCES = {"flash_attention_fwd": PREFILL_SOURCE,
            "flash_attention_fwd_d256": PREFILL_SOURCE,
            "flash_attention_fwd_d256_long": PREFILL_SOURCE,
            "flash_attention_bh": PREFILL_SOURCE,
+           "flash_decode_fwd": DECODE_SOURCE,
+           "flash_decode_fwd_d256": DECODE_SOURCE,
+           "flash_decode_quant_fwd": DECODE_SOURCE,
+           "flash_decode_paged_fwd": DECODE_SOURCE,
+           "flash_decode_paged_quant_fwd": DECODE_SOURCE,
            "rglru_scan": "src/repro_torch/kernels/rglru/csrc/rglru.cu",
            "quant_matmul":
                "src/repro_torch/kernels/quant_matmul/csrc/quant_matmul.cu",
@@ -141,6 +150,7 @@ REPLACES = {
     "flash_attention_fwd_d256_long":
         "src/repro/kernels/flash_attention/kernel.py:126",
     "flash_decode_fwd": "src/repro/kernels/flash_attention/kernel.py:174",
+    "flash_decode_fwd_d256": "src/repro/kernels/flash_attention/kernel.py:174",
     "flash_decode_quant_fwd": "src/repro/kernels/flash_attention/kernel.py:262",
     "flash_decode_paged_fwd": "src/repro/kernels/flash_attention/kernel.py:359",
     "flash_decode_paged_quant_fwd":
@@ -166,16 +176,18 @@ MAIN_LAYOUT = {"flash_attention_fwd": "contiguous",
                "flash_attention_fwd_d256": "griffin",
                "flash_attention_fwd_d256_long": "griffin_long",
                "flash_decode_fwd": "contiguous",
+               "flash_decode_fwd_d256": "griffin",
                "flash_decode_quant_fwd": "int8",
                "flash_decode_paged_fwd": "paged16",
                "flash_decode_paged_quant_fwd": "paged16_int8",
                "rglru_scan": "griffin", "flash_attention_bh": "proteus",
                "quant_matmul": "proteus", "required_bits": "proteus",
                "pack_int4": "proteus", "unpack_int4": "proteus"}
-# rows whose launches are another row's counter: the prefill kernel at the
-# Griffin shapes
+# rows whose launches are another row's counter: the prefill and decode
+# kernels at the Griffin shapes
 COUNTER = {"flash_attention_fwd_d256": "flash_attention_fwd",
-           "flash_attention_fwd_d256_long": "flash_attention_fwd"}
+           "flash_attention_fwd_d256_long": "flash_attention_fwd",
+           "flash_decode_fwd_d256": "flash_decode_fwd"}
 NO_LIBRARY = ("no single PyTorch call computes attention over quantized "
               "codes or through a page table")
 NO_LIBRARY_RGLRU = "no single PyTorch call computes a linear recurrence"
@@ -483,7 +495,7 @@ def phase_kernels(seed: int) -> dict:
                                     library_ms=t_l)
     log("kernels", f"decode times: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
         f"sdpa {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
-        f"{flops:.3e} FLOP); splits {fk.decode_splits(B, H, T)}")
+        f"{flops:.3e} FLOP); plan {fk.decode_plan(B, H, S, T)}")
     rows.update(kernels_kv_layouts(gen))
     rows.update(kernels_griffin(gen))
     return rows
@@ -495,7 +507,8 @@ def kernels_griffin(gen) -> dict:
     with its device times; the prefill and decode kernels at head_dim 256
     with one kv head for ten q heads, against their plain versions across
     the local window of 2048 and a wrapped ring, with device times at the
-    serving shapes (B 8, prompt 512, ring of 576)."""
+    serving shapes (B 8, prompt 512, ring of 576); the quantized and paged
+    decode layouts at head_dim 256 with their bitwise identities."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ops, ref
@@ -611,12 +624,13 @@ def kernels_griffin(gen) -> dict:
     q = randn(gen, (B, 1, G, Dh), dt)
     k, v = (randn(gen, (B, T, 1, Dh), dt) for _ in range(2))
     to5 = lambda x: x.reshape(B, 1, 1, G, Dh).permute(0, 2, 3, 1, 4)
-    _check("decode B8 Hkv1 G10 T576 S1 D256 bf16 (model layout)",
-           ops.flash_decode(q, k, v, qp, kp, window=W),
-           ref.flash_decode_fwd_ref(to5(q), k.transpose(1, 2),
-                                    v.transpose(1, 2), qp, kp, window=W
-                                    ).permute(0, 3, 1, 2, 4
-                                              ).reshape(B, 1, G, Dh), TOL[dt])
+    d256_dec_err = _check(
+        "decode B8 Hkv1 G10 T576 S1 D256 bf16 (model layout)",
+        ops.flash_decode(q, k, v, qp, kp, window=W),
+        ref.flash_decode_fwd_ref(to5(q), k.transpose(1, 2), v.transpose(1, 2),
+                                 qp, kp, window=W
+                                 ).permute(0, 3, 1, 2, 4).reshape(B, 1, G, Dh),
+        TOL[dt])
     n_sets = n_sets_for(2 * B * T * Dh * 2)
     sets = [(randn(gen, (B, 1, G, Dh), dt), randn(gen, (B, T, 1, Dh), dt),
              randn(gen, (B, T, 1, Dh), dt)) for _ in range(n_sets)]
@@ -638,10 +652,20 @@ def kernels_griffin(gen) -> dict:
               + kp.nbytes)
     flops = 4.0 * Dh * G * visible_pairs(qp, kp, True, W)
     b_ms, b_by = bound_ms(nbytes, flops, dt)
+    rows["flash_decode_fwd_d256"] = dict(
+        max_abs_err=d256_dec_err, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+        bound_by=b_by, library_ms=t_l)
     log("kernels", f"decode D256 times (B8 Hkv1 G10 T576 S1 bf16): kernel "
         f"{t_k:.4f} ms, plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {flops:.3e} FLOP); splits "
-        f"{fk.decode_splits(B, 1, T)}")
+        f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {flops:.3e} FLOP); plan "
+        f"{fk.decode_plan(B, 1, G, T)}")
+    # the layout kernels at head_dim 256 (one kv head, ten q heads, the
+    # window), paged == dense and paged-quant == quant bit for bit
+    for dt in (torch.bfloat16, torch.float32):
+        _check_layouts_case(gen, dt, 4, 1, G, 1, 576, Dh, 16,
+                            [100, 575, 2100, 40],
+                            dict(causal=True, window=W, softcap=0.0),
+                            share=2)
     return rows
 
 
@@ -1534,8 +1558,7 @@ def main() -> int:
     if "parity_griffin" in phases:
         phase_parity_griffin(args.seed)
 
-    kernels = [dict(name=name, route="cuda",
-                    source=SOURCES.get(name, KERNEL_SOURCE),
+    kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name],
                     launches=launches.get(MAIN_LAYOUT[name], {}).get(
                         COUNTER.get(name, name)),

@@ -1,70 +1,42 @@
-// Flash attention for Hopper (sm_90a): the fp32 prefill forward and the
-// split-KV decode over every KV-cache layout of the serving engine.
+// Flash attention for Hopper (sm_90a): the fp32 prefill forward.
 //
-// Replaces the TPU kernels of src/repro/kernels/flash_attention/kernel.py:
-//   * flash_attention_fwd (prefill; body _flash_kernel, _tile_update), fp32
-//     inputs -> repro_flash_attention_fwd / flash_fwd_kernel. bf16 prefill
-//     runs on the tensor-core kernel of flash_prefill.cu; this one is the
-//     fp32 route, which the fp32 parity checks hold to 2e-5 (TF32 products
-//     would not meet that);
-//   * flash_decode_fwd (decode over the contiguous ring cache)
-//   * flash_decode_quant_fwd (decode over int8 / nibble-packed int4 codes
-//     with per-row fp32 scales; _dequant_rows)
-//   * flash_decode_paged_fwd (decode over a page pool through a per-slot
-//     page table; page 0 is the trash page)
-//   * flash_decode_paged_quant_fwd (both)
-//       -> repro_flash_decode_fwd / flash_decode_partial_kernel<KVSource>
-//          + flash_decode_combine_kernel
-// The four decode kernels are one kernel: only the fetch of a K/V row
-// differs (the KVSource policy of Tile::run), so the splits, the online
-// softmax and the combine are shared, and a paged launch is bitwise equal to
-// a contiguous launch on the gathered pages.
+// Replaces the TPU kernel flash_attention_fwd of
+// src/repro/kernels/flash_attention/kernel.py (prefill; body _flash_kernel,
+// _tile_update) for fp32 inputs -> repro_flash_attention_fwd /
+// flash_fwd_kernel. bf16 prefill runs on the tensor-core kernel of
+// flash_prefill.cu and decode on flash_decode.cu; this is the fp32 route,
+// which the fp32 parity checks hold to 2e-5 (TF32 products would not meet
+// that).
 //
 // Semantics (the masking rule of _tile_update): s = (q.k) * scale, optional
 // softcap s = cap * tanh(s / cap); a (q, kv) pair is visible iff
 // kp >= 0 && qp >= 0 && (!causal || kp <= qp) && (window <= 0 || kp > qp - window).
 // Online softmax in fp32 with the fully-masked-row guard; l == 0 gives an
-// output of 0 and lse = -1e30, otherwise lse = m + log(l). Output has q's
-// dtype. Codes are dequantized in fp32 (code * scale) whatever q's dtype.
-// Any S and T: the ragged edges are masked here, nothing is padded. q and the
-// K/V operands may be strided views (last dim contiguous), so the model's
-// (B, T, Hkv, D) cache layout and the (P, ps, Hkv, D) page pools are read in
-// place without a copy.
+// output of 0 and lse = -1e30, otherwise lse = m + log(l). Any S and T: the
+// ragged edges are masked here, nothing is padded. q and k/v may be strided
+// views (last dim contiguous), so the model's (B, T, Hkv, D) layout is read
+// in place without a copy.
 //
-// Bound on the H100: at the serving shapes every kernel does far fewer
-// operations than bytes would allow, so the floor is the bytes of q, K/V
-// (codes, scales, table) and out over 3.35 TB/s (decode: the K/V cache
-// stream, ~14 MB per launch at B=8, T=576, Hkv=12, D=64 in bf16, half that in
-// int8 codes, a quarter in int4). What the design does about it:
+// Bound on the H100: at pimref's shape (B 8, H 12, S = T = 512, D 64) the
+// bytes of q, k, v, out and lse over 3.35 TB/s, with the fp32 FMA work over
+// 67 TFLOP/s close behind. What the design does about it:
 //   * each K/V tile is read from device memory once per block and staged in
 //     shared memory in fp32, where every q row of the block reuses it (all G
 //     query heads of a kv head ride in one block, so GQA reads K/V once per
-//     kv head); codes are read as stored (1 or 1/2 byte per element) and
-//     dequantized while staged;
+//     kv head);
 //   * scores and probabilities never leave shared memory;
 //   * tiles whose (q, kv) pairs are all masked are skipped before K/V load
-//     (dead ring slots, trash-page rows, the upper causal triangle);
-//   * decode splits the kv axis over blocks (flash-decoding) so B*Hkv*n_split
-//     blocks fill the 132 SMs, and a second pass merges the partials in a
-//     fixed order (no atomics: results are bitwise reproducible);
-//   * a paged tile resolves one pool address per row (a 64-row tile spans
-//     64 / page_size pages), staged in shared memory beside the positions.
-// Both products are fp32 FMA loops over the staged tiles and codes load a
-// byte at a time: what holds the decode kernels back (ROADMAP B).
+//     (the upper causal triangle, tiles left of the window, -1 slots).
+// Both products are fp32 FMA loops over the staged tiles with seven block
+// barriers per 64-row tile: what holds it back. It runs on no bf16 serving
+// path; the fp32 parity phases use it.
 //
-// Head dims: 64 and 128 for every kernel; 256 (recurrentgemma's local
-// attention) for the prefill kernel and the decode kernel over values held
-// contiguously. At D 256 the fp32 staging of q and of one 64-row K and V
-// tile takes 217,344 bytes of shared memory in prefill (64 q rows) and
-// 143,872 bytes in decode (8 q rows), within the 232,448 a block may use,
-// so a D-256 prefill block runs alone on its SM. With MQA (one kv head, G
-// q heads) a prefill block packs G heads x 64 / G positions, and decode
-// walks the G * S query rows 8 at a time, reading each K/V split once per
-// 8 rows.
+// Head dims 64, 128 and 256. At D 256 the fp32 staging of 64 q rows and of
+// one 64-row K and V tile takes 216,832 bytes of shared memory, within the
+// 232,448 a block may use, so a D-256 block runs alone on its SM. With MQA
+// (one kv head, G q heads) a block packs G heads x 64 / G positions.
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
-#include <stdint.h>
 
 namespace {
 
@@ -73,34 +45,22 @@ constexpr float kNegInf = -1e30f;
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
-// One K or V operand: values or int8 codes, and for codes one fp32 scale per
-// row, by element strides. In a paged operand "b" walks the pool's pages and
-// "t" the rows inside a page.
+// One K or V operand (B, Hkv, T, D) by element strides.
 struct KVOperand {
   const void* data;
-  const float* scale;
-  long long s_b, s_h, s_t;     // data
-  long long c_b, c_h, c_t;     // scale
+  long long s_b, s_h, s_t;
 };
 
 struct Params {
   const void* q;
   KVOperand k, v;
   const int* qpos;    // (B, S)
-  const int* kpos;    // (B, T), logical positions
-  const int* table;   // (B, n_pages) pool rows of a paged operand
+  const int* kpos;    // (B, T)
   long long qs_b, qs_h, qs_g, qs_s;  // element strides of q (B, Hkv, G, S, D)
   int B, H, G, S, T;
-  int n_pages, page_size;
   int causal, window;
   float softcap, scale;
 };
@@ -111,37 +71,6 @@ __device__ __forceinline__ bool visible(int qp, int kp, int causal, int window) 
   if (window > 0) m = m && (kp > qp - window);
   return m;
 }
-
-// How element d of a K/V row at element offset `off` becomes fp32.
-template <typename T>
-struct Values {
-  static constexpr bool kScaled = false;
-  __device__ static float at(const void* base, long long off, int d) {
-    return to_f32(static_cast<const T*>(base)[off + d]);
-  }
-};
-struct Int8Codes {               // times the row's scale
-  static constexpr bool kScaled = true;
-  __device__ static float at(const void* base, long long off, int d) {
-    return static_cast<float>(static_cast<const int8_t*>(base)[off + d]);
-  }
-};
-struct Int4Codes {               // element 2i in the low nibble, 2i+1 high
-  static constexpr bool kScaled = true;
-  __device__ static float at(const void* base, long long off, int d) {
-    const int byte = static_cast<const uint8_t*>(base)[off + (d >> 1)];
-    const int nib = (d & 1) ? (byte >> 4) : (byte & 0xF);
-    return static_cast<float>((nib ^ 8) - 8);       // sign-extend 4 bits
-  }
-};
-
-// The K/V fetch policy of Tile::run: element decoding, and whether logical
-// row t of slot b lives at (b, t) or at (table[b, t / ps], t % ps).
-template <class Codes, bool PAGED>
-struct KVSource {
-  using C = Codes;
-  static constexpr bool kPaged = PAGED;
-};
 
 // One block: ROWS query rows staged in shared memory against a stream of
 // BK-row K/V tiles. 256 threads laid out TY x TX for the score tile and the
@@ -170,16 +99,14 @@ struct Tile {
   static constexpr int kA = kL + ROWS;
   static constexpr int kKp = kA + ROWS;
   static constexpr int kQp = kKp + BK;
-  static constexpr int kKsc = kQp + ROWS;
-  static constexpr int kVsc = kKsc + BK;
-  static constexpr int kWords = kVsc + BK;
+  static constexpr int kWords = kQp + ROWS;
   static constexpr size_t kOffBytes = ((kWords * 4 + 15) / 16) * 16;
   static constexpr size_t kSmemBytes =
       kOffBytes + (ROWS + 2 * BK) * sizeof(long long);
 
   struct Smem {
     float* q; float* k; float* v; float* p; float* m; float* l; float* a;
-    int* kp; int* qp; float* ksc; float* vsc;
+    int* kp; int* qp;
     long long* rowoff; long long* koff; long long* voff;
     __device__ explicit Smem(unsigned char* raw) {
       float* f = reinterpret_cast<float*>(raw);
@@ -187,7 +114,6 @@ struct Tile {
       m = f + kM; l = f + kL; a = f + kA;
       kp = reinterpret_cast<int*>(f + kKp);
       qp = reinterpret_cast<int*>(f + kQp);
-      ksc = f + kKsc; vsc = f + kVsc;
       rowoff = reinterpret_cast<long long*>(raw + kOffBytes);
       koff = rowoff + ROWS;
       voff = koff + BK;
@@ -211,10 +137,8 @@ struct Tile {
   }
 
   // Online softmax of the staged rows over logical kv rows [t_begin, t_end).
-  template <class Src>
   __device__ static void run(const Params& p, int b, int h, int t_begin,
                              int t_end, const Smem& sm, float (&acc)[RPT][DPT]) {
-    using C = typename Src::C;
     const int tid = threadIdx.x;
     const int ty = tid / TX, tx = tid % TX;
     const int* kpos = p.kpos + static_cast<long long>(b) * p.T;
@@ -235,23 +159,12 @@ struct Tile {
                          p.window);
       if (!__syncthreads_or(any)) continue;
 
-      // where each kv row of the tile lives (one page lookup per row), and
-      // its scales
+      // where each kv row of the tile lives
       for (int c = tid; c < BK; c += kThreads) {
-        const int t = t0 + c;
+        const long long t = t0 + c;
         if (t >= t_end) continue;
-        long long pb = b;
-        int r = t;
-        if constexpr (Src::kPaged) {
-          pb = p.table[static_cast<long long>(b) * p.n_pages + t / p.page_size];
-          r = t % p.page_size;
-        }
-        sm.koff[c] = pb * p.k.s_b + h * p.k.s_h + r * p.k.s_t;
-        sm.voff[c] = pb * p.v.s_b + h * p.v.s_h + r * p.v.s_t;
-        if constexpr (C::kScaled) {
-          sm.ksc[c] = p.k.scale[pb * p.k.c_b + h * p.k.c_h + r * p.k.c_t];
-          sm.vsc[c] = p.v.scale[pb * p.v.c_b + h * p.v.c_h + r * p.v.c_t];
-        }
+        sm.koff[c] = b * p.k.s_b + h * p.k.s_h + t * p.k.s_t;
+        sm.voff[c] = b * p.v.s_b + h * p.v.s_h + t * p.v.s_t;
       }
       __syncthreads();
 
@@ -259,12 +172,8 @@ struct Tile {
         const int c = idx / D, d = idx % D;
         float kv = 0.f, vv = 0.f;
         if (t0 + c < t_end) {
-          kv = C::at(p.k.data, sm.koff[c], d);
-          vv = C::at(p.v.data, sm.voff[c], d);
-          if constexpr (C::kScaled) {
-            kv *= sm.ksc[c];
-            vv *= sm.vsc[c];
-          }
+          kv = to_f32(static_cast<const T*>(p.k.data)[sm.koff[c] + d]);
+          vv = to_f32(static_cast<const T*>(p.v.data)[sm.voff[c] + d]);
         }
         sm.k[c * DP + d] = kv;
         sm.v[c * DP + d] = vv;
@@ -393,7 +302,7 @@ flash_fwd_kernel(Params p, T* __restrict__ out, float* __restrict__ lse) {
   for (int i = 0; i < TL::RPT; ++i)
 #pragma unroll
     for (int j = 0; j < TL::DPT; ++j) acc[i][j] = 0.f;
-  TL::template run<KVSource<Values<T>, false>>(p, b, h, 0, p.T, sm, acc);
+  TL::run(p, b, h, 0, p.T, sm, acc);
 
   const int ty = threadIdx.x / TL::TX, tx = threadIdx.x % TL::TX;
 #pragma unroll
@@ -412,90 +321,6 @@ flash_fwd_kernel(Params p, T* __restrict__ out, float* __restrict__ lse) {
       lse[orow] = m <= kNegInf * 0.5f ? kNegInf : m + logf(lsafe);
     }
   }
-}
-
-// ---------------------------------------------------------------------------
-// Decode (flash-decoding): grid (n_split, Hkv, B). Each block takes all G*S
-// query rows of its kv head, 8 rows at a time, against logical kv rows
-// [split * split_len, (split + 1) * split_len), and writes partial
-// (m, l, acc) for the combine pass.
-// ---------------------------------------------------------------------------
-constexpr int kDecodeRows = 8;
-template <typename T, int D>
-using DecodeTile = Tile<T, D, kDecodeRows, 64, 8>;
-
-template <typename T, int D, class Src>
-__global__ void __launch_bounds__(kThreads)
-flash_decode_partial_kernel(Params p, int split_len, float* __restrict__ pm,
-                            float* __restrict__ pl, float* __restrict__ pacc) {
-  using TL = DecodeTile<T, D>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const typename TL::Smem sm(smem_raw);
-  const int b = blockIdx.z, h = blockIdx.y, split = blockIdx.x;
-  const int n_split = gridDim.x;
-  const int R = p.G * p.S;
-  const int t_begin = split * split_len;
-  const int t_end = min(p.T, t_begin + split_len);
-  const int ty = threadIdx.x / TL::TX, tx = threadIdx.x % TL::TX;
-
-  for (int rt = 0; rt < R; rt += kDecodeRows) {
-    for (int r = threadIdx.x; r < kDecodeRows; r += kThreads) {
-      const int row = rt + r;
-      const bool ok = row < R;
-      const int g = ok ? row / p.S : 0, s = ok ? row % p.S : 0;
-      sm.rowoff[r] = ok ? b * p.qs_b + h * p.qs_h + g * p.qs_g + s * p.qs_s : -1;
-      sm.qp[r] = ok ? p.qpos[static_cast<long long>(b) * p.S + s] : -1;
-    }
-    __syncthreads();
-    TL::load_q(p, sm);
-
-    float acc[TL::RPT][TL::DPT];
-#pragma unroll
-    for (int i = 0; i < TL::RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < TL::DPT; ++j) acc[i][j] = 0.f;
-    TL::template run<Src>(p, b, h, t_begin, t_end, sm, acc);
-
-#pragma unroll
-    for (int i = 0; i < TL::RPT; ++i) {
-      const int r = ty + 8 * i;
-      const int row = rt + r;
-      if (row >= R) continue;
-      const long long base =
-          ((static_cast<long long>(b) * p.H + h) * n_split + split) * R + row;
-#pragma unroll
-      for (int j = 0; j < TL::DPT; ++j) pacc[base * D + tx + TL::TX * j] = acc[i][j];
-      if (tx == 0) {
-        pm[base] = sm.m[r];
-        pl[base] = sm.l[r];
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Merge the n_split partials of one q row through their max, in split order.
-template <typename T>
-__global__ void flash_decode_combine_kernel(const float* __restrict__ pm,
-                                            const float* __restrict__ pl,
-                                            const float* __restrict__ pacc,
-                                            T* __restrict__ out, int R,
-                                            int n_split, int D) {
-  const long long row = blockIdx.x;          // (b * H + h) * R + r
-  const long long bh = row / R, r = row % R;
-  const int d = threadIdx.x;
-  float M = kNegInf;
-  for (int sp = 0; sp < n_split; ++sp) M = fmaxf(M, pm[(bh * n_split + sp) * R + r]);
-  const float safe = M <= kNegInf * 0.5f ? 0.f : M;
-  float L = 0.f, a = 0.f;
-  for (int sp = 0; sp < n_split; ++sp) {
-    const long long idx = (bh * n_split + sp) * R + r;
-    const float m = pm[idx];
-    const float w = m <= kNegInf * 0.5f ? 0.f : expf(m - safe);
-    L += pl[idx] * w;
-    a += pacc[idx * D + d] * w;
-  }
-  out[row * D + d] = from_f32<T>(a / (L == 0.f ? 1.f : L));
 }
 
 template <typename K>
@@ -522,76 +347,12 @@ cudaError_t launch_fwd(const Params& p, void* out, void* lse, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-struct Scratch {
-  void* out;
-  float* pm; float* pl; float* pacc;
-  int n_split, split_len;
-};
-
-template <typename T, int D, class Src>
-cudaError_t launch_decode(const Params& p, const Scratch& w, cudaStream_t st) {
-  using TL = DecodeTile<T, D>;
-  static bool ready = false;
-  if (!ready) {
-    cudaError_t e = allow_smem(flash_decode_partial_kernel<T, D, Src>, TL::kSmemBytes);
-    if (e != cudaSuccess) return e;
-    ready = true;
-  }
-  dim3 grid(w.n_split, p.H, p.B);
-  flash_decode_partial_kernel<T, D, Src><<<grid, kThreads, TL::kSmemBytes, st>>>(
-      p, w.split_len, w.pm, w.pl, w.pacc);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const int R = p.G * p.S;
-  flash_decode_combine_kernel<T><<<p.B * p.H * R, D, 0, st>>>(
-      w.pm, w.pl, w.pacc, static_cast<T*>(w.out), R, w.n_split, D);
-  return cudaGetLastError();
-}
-
-// The decode instantiation for K/V held as values of q's type (bits 0),
-// int8 codes (8) or int4 codes (4), contiguous or paged.
-template <typename T, int D>
-cudaError_t dispatch_decode(const Params& p, const Scratch& w, int bits,
-                            bool paged, cudaStream_t st) {
-  if (bits == 0)
-    return paged ? launch_decode<T, D, KVSource<Values<T>, true>>(p, w, st)
-                 : launch_decode<T, D, KVSource<Values<T>, false>>(p, w, st);
-  if (bits == 8)
-    return paged ? launch_decode<T, D, KVSource<Int8Codes, true>>(p, w, st)
-                 : launch_decode<T, D, KVSource<Int8Codes, false>>(p, w, st);
-  if (bits == 4)
-    return paged ? launch_decode<T, D, KVSource<Int4Codes, true>>(p, w, st)
-                 : launch_decode<T, D, KVSource<Int4Codes, false>>(p, w, st);
-  return cudaErrorInvalidValue;
-}
-
-KVOperand operand(const void* data, const void* scale, long long s_b,
-                  long long s_h, long long s_t, long long c_b, long long c_h,
-                  long long c_t) {
+KVOperand operand(const void* data, long long s_b, long long s_h,
+                  long long s_t) {
   KVOperand o;
   o.data = data;
-  o.scale = static_cast<const float*>(scale);
   o.s_b = s_b; o.s_h = s_h; o.s_t = s_t;
-  o.c_b = c_b; o.c_h = c_h; o.c_t = c_t;
   return o;
-}
-
-Params make_params(const void* q, const KVOperand& k, const KVOperand& v,
-                   const void* qpos, const void* kpos, const void* table,
-                   long long qs_b, long long qs_h, long long qs_g, long long qs_s,
-                   int B, int H, int G, int S, int T, int n_pages,
-                   int page_size, int causal, int window, float softcap,
-                   float scale) {
-  Params p;
-  p.q = q; p.k = k; p.v = v;
-  p.qpos = static_cast<const int*>(qpos);
-  p.kpos = static_cast<const int*>(kpos);
-  p.table = static_cast<const int*>(table);
-  p.qs_b = qs_b; p.qs_h = qs_h; p.qs_g = qs_g; p.qs_s = qs_s;
-  p.B = B; p.H = H; p.G = G; p.S = S; p.T = T;
-  p.n_pages = n_pages; p.page_size = page_size;
-  p.causal = causal; p.window = window; p.softcap = softcap; p.scale = scale;
-  return p;
 }
 
 }  // namespace
@@ -612,68 +373,20 @@ int repro_flash_attention_fwd(
     long long vs_b, long long vs_h, long long vs_t, int B, int H, int G, int S,
     int T, int D, int causal, int window, float softcap, float scale,
     void* stream) {
-  const Params p = make_params(
-      q, operand(k, nullptr, ks_b, ks_h, ks_t, 0, 0, 0),
-      operand(v, nullptr, vs_b, vs_h, vs_t, 0, 0, 0), qpos, kpos, nullptr,
-      qs_b, qs_h, qs_g, qs_s, B, H, G, S, T, 0, 0, causal, window, softcap,
-      scale);
+  Params p;
+  p.q = q;
+  p.k = operand(k, ks_b, ks_h, ks_t);
+  p.v = operand(v, vs_b, vs_h, vs_t);
+  p.qpos = static_cast<const int*>(qpos);
+  p.kpos = static_cast<const int*>(kpos);
+  p.qs_b = qs_b; p.qs_h = qs_h; p.qs_g = qs_g; p.qs_s = qs_s;
+  p.B = B; p.H = H; p.G = G; p.S = S; p.T = T;
+  p.causal = causal; p.window = window; p.softcap = softcap; p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || H == 0 || G == 0 || S == 0) return cudaSuccess;
   if (D == 64) return launch_fwd<float, 64>(p, out, lse, st);
   if (D == 128) return launch_fwd<float, 128>(p, out, lse, st);
   if (D == 256) return launch_fwd<float, 256>(p, out, lse, st);
-  return cudaErrorInvalidValue;
-}
-
-// Decode over any cache layout (D 256: values, contiguous, only). q
-// (B, Hkv, G, S, D) by element strides. k/v
-// hold values of q's dtype (code_bits 0), int8 codes (8) or nibble-packed
-// int4 codes (4, D / 2 bytes a row), by element strides (ks_*/vs_*) over
-// (B, Hkv, T) rows, or over (page, Hkv, row in page) when page_size > 0;
-// codes carry fp32 scales by the strides kc_*/vc_* of the same axes. table
-// (B, n_pages) int32 pool rows when paged. qpos (B, S), kpos (B, T) logical.
-// out contiguous (B, Hkv, G, S, D) in q's dtype; pm/pl (B, Hkv, n_split, G*S)
-// and pacc (B, Hkv, n_split, G*S, D) fp32 are scratch from the caller.
-int repro_flash_decode_fwd(
-    const void* q, const void* k, const void* v, const void* kscale,
-    const void* vscale, const void* table, const void* qpos, const void* kpos,
-    void* out, void* pm, void* pl, void* pacc, long long qs_b, long long qs_h,
-    long long qs_g, long long qs_s, long long ks_b, long long ks_h,
-    long long ks_t, long long vs_b, long long vs_h, long long vs_t,
-    long long kc_b, long long kc_h, long long kc_t, long long vc_b,
-    long long vc_h, long long vc_t, int B, int H, int G, int S, int T, int D,
-    int is_bf16, int code_bits, int n_pages, int page_size, int n_split,
-    int split_len, int causal, int window, float softcap, float scale,
-    void* stream) {
-  const Params p = make_params(
-      q, operand(k, kscale, ks_b, ks_h, ks_t, kc_b, kc_h, kc_t),
-      operand(v, vscale, vs_b, vs_h, vs_t, vc_b, vc_h, vc_t), qpos, kpos,
-      table, qs_b, qs_h, qs_g, qs_s, B, H, G, S, T, n_pages, page_size,
-      causal, window, softcap, scale);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B == 0 || H == 0 || G == 0 || S == 0) return cudaSuccess;
-  Scratch w;
-  w.out = out;
-  w.pm = static_cast<float*>(pm);
-  w.pl = static_cast<float*>(pl);
-  w.pacc = static_cast<float*>(pacc);
-  w.n_split = n_split;
-  w.split_len = split_len;
-  const bool paged = page_size > 0;
-  if (D == 256) {  // contiguous values only
-    if (code_bits != 0 || paged) return cudaErrorInvalidValue;
-    return is_bf16
-        ? launch_decode<__nv_bfloat16, 256,
-                        KVSource<Values<__nv_bfloat16>, false>>(p, w, st)
-        : launch_decode<float, 256, KVSource<Values<float>, false>>(p, w, st);
-  }
-  if (is_bf16) {
-    if (D == 64) return dispatch_decode<__nv_bfloat16, 64>(p, w, code_bits, paged, st);
-    if (D == 128) return dispatch_decode<__nv_bfloat16, 128>(p, w, code_bits, paged, st);
-  } else {
-    if (D == 64) return dispatch_decode<float, 64>(p, w, code_bits, paged, st);
-    if (D == 128) return dispatch_decode<float, 128>(p, w, code_bits, paged, st);
-  }
   return cudaErrorInvalidValue;
 }
 

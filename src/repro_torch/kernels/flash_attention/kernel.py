@@ -20,9 +20,8 @@ their argument layouts:
   with ``Hkv = BH`` and ``G = 1``.
 
 ``q_positions`` ``(B, S)`` and ``kv_positions`` ``(B, T)`` (``T = NP * ps``
-when paged) are int32, -1 = masked. Head dims: 64, 128 and 256 for the
-prefill kernel and the contiguous decode kernel, 64 and 128 for decode over
-codes or pages.
+when paged) are int32, -1 = masked. Head dims 64, 128 and 256 for every
+kernel and layout.
 
 The prefill kernel has two routes, chosen by q's dtype (there is no knob):
 
@@ -35,18 +34,21 @@ The prefill kernel has two routes, chosen by q's dtype (there is no knob):
 * fp32: ``flash_fwd_kernel`` of ``csrc/flash_attention.cu``, fp32 FMA
   loops over staged tiles, which the fp32 parity checks hold to 2e-5.
 
-``csrc/flash_attention.cu`` also holds the decode kernels; the four decode
-wrappers launch one kernel that differs only in how it fetches a K/V row,
-so the paged kernels equal the dense and quantized ones on the gathered
-pages bit for bit.
+The four decode wrappers launch one streaming kernel,
+``csrc/flash_decode.cu``, that differs only in how it finds and decodes a
+K/V row, so the paged kernels equal the dense and quantized ones on the
+gathered pages bit for bit. :func:`decode_plan` lays the q rows and the kv
+axis over its one-warp blocks. Every K/V pointer and row stride must be
+16-byte aligned; anything else raises ``ValueError``.
 
 Bound on the H100: bytes. At the serving shapes the kernels stream q and the
-K/V operands once (decode: the whole cache per launch, as codes where the
-cache holds codes), below the ~295 bf16 operations per byte where the
-tensor cores would become the limit (prefill at head_dim 256 comes within
-25% of it, and passes it at Griffin's long prompt). The kernels keep scores on chip, read each K/V tile once per
-block of all G heads of a kv head, skip fully masked tiles, and split the
-decode kv axis over blocks so the cache stream occupies every SM.
+K/V operands once (decode: the visible cache rows per launch, as codes
+where the cache holds codes), below the ~295 bf16 operations per byte where
+the tensor cores would become the limit (prefill at head_dim 256 comes
+within 25% of it, and passes it at Griffin's long prompt). The kernels keep
+scores on chip, read each K/V tile once per block of all G heads of a kv
+head, skip masked tiles (prefill) or rows (decode), and split the decode kv
+axis over blocks so the cache stream occupies every SM.
 
 Selection is by the device of the inputs: CPU tensors go to the plain
 versions in ``ref.py``; CUDA tensors launch the kernels or raise. Inputs may
@@ -75,19 +77,22 @@ LAUNCHES: Dict[str, int] = {
     "flash_decode_quant_fwd": 0, "flash_decode_paged_fwd": 0,
     "flash_decode_paged_quant_fwd": 0, "flash_attention_bh": 0,
 }
-# head_dims of the prefill kernel and of decode over values held
-# contiguously; decode over codes or pages takes LAYOUT_HEAD_DIMS
 KERNEL_HEAD_DIMS = (64, 128, 256)
-LAYOUT_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_PAGE_SIZES = (8, 16, 32, 64)
-# the bf16 prefill kernel: query rows per block, and the byte alignment of
-# every pointer and row stride of q, k and v (its 16-byte copies)
+# the bf16 prefill kernel's query rows per block
 PREFILL_BLOCK_ROWS = 128
-PREFILL_ALIGN = 16
-# decode split-KV: aim for this many blocks per launch (2 per SM on 132 SMs)
-DECODE_TARGET_BLOCKS = 264
-DECODE_SPLIT_MULTIPLE = 64        # the kernel's kv tile
+# the byte alignment of every pointer and row stride that the bf16 prefill
+# kernel (q, k, v) and the decode kernel (k, v) copy in 16-byte chunks
+COPY_ALIGN = 16
+# decode: the q-row counts a block is built for (csrc/flash_decode.cu NR);
+# aim for this many one-warp blocks per launch (8 per SM on 132 SMs); a
+# split is a whole number of the kernel's largest ring stage (16 rows of
+# int4 codes at D 64) and at most DECODE_MAX_SPLIT rows
+DECODE_ROWS = (1, 2, 4)
+DECODE_TARGET_BLOCKS = 1056
+DECODE_SPLIT_MULTIPLE = 16
+DECODE_MAX_SPLIT = 256
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -96,6 +101,7 @@ _F = ctypes.c_float
 _MASK = [_I, _I, _F, _F, _P]      # causal, window, softcap, scale, stream
 _bound = False
 _prefill_bound = False
+_decode_bound = False
 
 
 def _lib() -> ctypes.CDLL:
@@ -105,12 +111,21 @@ def _lib() -> ctypes.CDLL:
         lib.repro_flash_attention_fwd.argtypes = ([_P] * 7 + [_L] * 10
                                                   + [_I] * 6 + _MASK)
         lib.repro_flash_attention_fwd.restype = _I
-        # 12 pointers, 4 q + 3 x 4 operand strides, B H G S T D is_bf16
-        # code_bits n_pages page_size n_split split_len
-        lib.repro_flash_decode_fwd.argtypes = ([_P] * 12 + [_L] * 16
-                                               + [_I] * 12 + _MASK)
-        lib.repro_flash_decode_fwd.restype = _I
         _bound = True
+    return lib
+
+
+def _decode_lib() -> ctypes.CDLL:
+    global _decode_bound
+    lib = build.library("flash_decode")
+    if not _decode_bound:
+        # 12 pointers, 4 q + 3 x 4 operand strides, B H G S T D is_bf16
+        # code_bits n_pages page_size, then the plan's rows groups n_split
+        # split_len
+        lib.repro_flash_decode.argtypes = ([_P] * 12 + [_L] * 16
+                                           + [_I] * 14 + _MASK)
+        lib.repro_flash_decode.restype = _I
+        _decode_bound = True
     return lib
 
 
@@ -214,14 +229,14 @@ def _check_table(table, B) -> int:
     return table.shape[1]
 
 
-def _check_cuda(q, D, operands=(), ints=(),
-                head_dims=KERNEL_HEAD_DIMS) -> None:
+def _check_cuda(q, D, operands=(), ints=()) -> None:
     """What the kernels take: a CUDA q of a kernel dtype and head_dim,
     operands with a contiguous last axis, contiguous int32 index arrays."""
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    if D not in head_dims:
-        raise ValueError(f"head_dim {D}: this CUDA kernel takes {head_dims}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {D}: the CUDA kernels take "
+                         f"{KERNEL_HEAD_DIMS}")
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"dtype {q.dtype}: the CUDA kernels take {KERNEL_DTYPES}")
     for name, t in (("q", q),) + tuple(operands):
@@ -237,17 +252,17 @@ def _mask_args(causal, window, softcap, D):
             torch.cuda.current_stream().cuda_stream]
 
 
-def _check_aligned(operands) -> None:
-    """The bf16 prefill kernel copies 16-byte chunks: every pointer, and
-    the stride of every axis longer than one but the last, must be a
-    multiple of 16 bytes."""
+def _check_aligned(operands, kernel: str) -> None:
+    """``kernel`` copies 16-byte chunks: every pointer, and the stride of
+    every axis longer than one but the last, must be a multiple of 16
+    bytes."""
     for name, t in operands:
-        step = PREFILL_ALIGN // t.element_size()
-        if t.data_ptr() % PREFILL_ALIGN or any(
+        step = COPY_ALIGN // t.element_size()
+        if t.data_ptr() % COPY_ALIGN or any(
                 st % step for n, st in zip(t.shape[:-1], t.stride()[:-1])
                 if n > 1):
             raise ValueError(
-                f"{name}: the bf16 prefill kernel needs a {PREFILL_ALIGN}-byte "
+                f"{name}: the {kernel} kernel needs a {COPY_ALIGN}-byte "
                 f"aligned pointer and row strides; got pointer "
                 f"{t.data_ptr():#x}, strides {t.stride()}")
 
@@ -269,7 +284,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 (("q_positions", q_positions), ("kv_positions", kv_positions)))
     bf16 = q.dtype == torch.bfloat16
     if bf16:
-        _check_aligned((("q", q), ("k", k), ("v", v)))
+        _check_aligned((("q", q), ("k", k), ("v", v)), "bf16 prefill")
     out = torch.empty((B, H, G, S, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, G, S), dtype=torch.float32, device=q.device)
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
@@ -291,15 +306,41 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
-def decode_splits(B: int, H: int, T: int) -> Tuple[int, int]:
-    """(n_split, split_len) for the decode kernel: enough kv splits that
-    B * H * n_split blocks fill the card, each a whole number of kv tiles.
-    A function of the shapes only, so every call at one shape sums in the
-    same order (and a paged call in the order of a contiguous one)."""
-    want = max(1, -(-DECODE_TARGET_BLOCKS // max(B * H, 1)))
+class DecodePlan(NamedTuple):
+    """How the decode kernel lays one launch over its one-warp blocks: the
+    R = G * S q rows of a kv head in ``groups`` groups of ``rows`` (group
+    ``rg`` takes rows ``rg * rows .. rg * rows + rows - 1``, those past R
+    unused), and the kv axis in ``n_split`` splits of ``split_len`` rows
+    (split ``x`` takes ``x * split_len .. x * split_len + split_len - 1``,
+    those past T unused). Block ``(x, h * groups + rg, b)`` takes one
+    split of one group of slot b, kv head h."""
+    rows: int
+    groups: int
+    n_split: int
+    split_len: int
+
+
+def decode_splits(B: int, H: int, T: int, groups: int = 1) -> Tuple[int, int]:
+    """(n_split, split_len): enough kv splits that B * H * groups * n_split
+    blocks reach ``DECODE_TARGET_BLOCKS`` where T allows, each a whole
+    number of ``DECODE_SPLIT_MULTIPLE`` rows and at most
+    ``DECODE_MAX_SPLIT``. A function of the shapes only, so every call at
+    one shape sums in the same order (and a paged call in the order of a
+    contiguous one)."""
+    want = max(1, -(-DECODE_TARGET_BLOCKS // max(B * H * groups, 1)))
     split_len = -(-max(T, 1) // want)
     split_len = -(-split_len // DECODE_SPLIT_MULTIPLE) * DECODE_SPLIT_MULTIPLE
+    split_len = min(split_len, DECODE_MAX_SPLIT)
     return -(-max(T, 1) // split_len), split_len
+
+
+def decode_plan(B: int, H: int, R: int, T: int) -> DecodePlan:
+    """The smallest of ``DECODE_ROWS`` that holds all R q rows of a kv head
+    (else groups of the largest), and :func:`decode_splits` for that many
+    groups."""
+    rows = next((n for n in DECODE_ROWS if n >= R), DECODE_ROWS[-1])
+    groups = -(-max(R, 1) // rows)
+    return DecodePlan(rows, groups, *decode_splits(B, H, T, groups))
 
 
 def _rows3(x: torch.Tensor, paged: bool):
@@ -321,30 +362,33 @@ def _launch_decode(name: str, q, k, v, k_scale, v_scale, table, q_positions,
     ints = [("q_positions", q_positions), ("kv_positions", kv_positions)]
     if paged:
         ints.append(("table", table))
-    _check_cuda(q, D, (("k", k), ("v", v)), ints,
-                KERNEL_HEAD_DIMS if code_bits == 0 and not paged
-                else LAYOUT_HEAD_DIMS)
-    lib = _lib()
-    n_split, split_len = decode_splits(B, H, T)
+    _check_cuda(q, D, (("k", k), ("v", v)), ints)
+    _check_aligned((("k", k), ("v", v)), "decode")
+    lib = _decode_lib()
+    plan = decode_plan(B, H, G * S, T)
     R = G * S
     out = torch.empty((B, H, G, S, D), dtype=q.dtype, device=q.device)
-    pm = torch.empty((B, H, n_split, R), dtype=torch.float32, device=q.device)
-    pl = torch.empty_like(pm)
-    pacc = torch.empty((B, H, n_split, R, D), dtype=torch.float32,
-                       device=q.device)
+    scratch = [None] * 3
+    if plan.n_split > 1:
+        pm = torch.empty((B, H, plan.n_split, R), dtype=torch.float32,
+                         device=q.device)
+        pacc = torch.empty((B, H, plan.n_split, R, D), dtype=torch.float32,
+                           device=q.device)
+        scratch = [pm.data_ptr(), torch.empty_like(pm).data_ptr(),
+                   pacc.data_ptr()]
     scaled = code_bits > 0
-    err = lib.repro_flash_decode_fwd(
+    err = lib.repro_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if scaled else None,
         v_scale.data_ptr() if scaled else None,
         table.data_ptr() if paged else None,
         q_positions.data_ptr(), kv_positions.data_ptr(), out.data_ptr(),
-        pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(),
+        *scratch,
         *q.stride()[:4], *_rows3(k, paged), *_rows3(v, paged),
         *(_rows3(k_scale, paged) if scaled else (0, 0, 0)),
         *(_rows3(v_scale, paged) if scaled else (0, 0, 0)),
         B, H, G, S, T, D, int(q.dtype == torch.bfloat16), code_bits,
-        table.shape[1] if paged else 0, page_size, n_split, split_len,
+        table.shape[1] if paged else 0, page_size, *plan,
         *_mask_args(causal, window, softcap, D))
     build.check(lib, err, name)
     LAUNCHES[name] += 1

@@ -394,6 +394,45 @@ def test_decode_paged_matches_reference(mode, S, G, window, cap):
     assert torch.equal(got, dense)
 
 
+@pytest.mark.parametrize("layout,mode", [
+    ("dense", "int8"), ("dense", "int4"), ("paged", "off"), ("paged", "int8"),
+    ("paged", "int4")])
+def test_decode_layouts_head_dim_256_match_reference(layout, mode):
+    """Griffin's attention shape (one kv head, ten q heads of 256, S 1)
+    over codes and pages, which the CUDA kernels take at head_dim 256: the
+    plain versions against the reference kernels in interpret mode, within
+    ATOL (fp32, summation order)."""
+    rng = np.random.default_rng(len(layout) + len(mode))
+    B, Hkv, G, D, ps, NP = 2, 1, 10, 256, 8, 3
+    T = NP * ps
+    q = _np(rng, B, 1, Hkv * G, D)
+    qp, kp = _ring([5, 30], 1, T)
+    kw = dict(causal=True, window=16, softcap=0.0)
+    if layout == "dense":
+        ops = (_codes(rng, (B, T, Hkv, D), mode)
+               + _codes(rng, (B, T, Hkv, D), mode))
+        want = jops.flash_decode_quant(
+            *(jnp.asarray(a) for a in (q, *ops, qp, kp)), block_k=8,
+            interpret=True, **kw)
+        got = tops.flash_decode_quant(*_t(q, *ops, qp, kp), **kw)
+    else:
+        P = 1 + B * NP
+        table = _table(rng, B, NP, kp, ps)
+        if mode == "off":
+            ops = (_np(rng, P, ps, Hkv, D), _np(rng, P, ps, Hkv, D))
+            jfn, tfn = jops.flash_decode_paged, tops.flash_decode_paged
+        else:
+            ops = (_codes(rng, (P, ps, Hkv, D), mode)
+                   + _codes(rng, (P, ps, Hkv, D), mode))
+            jfn = jops.flash_decode_paged_quant
+            tfn = tops.flash_decode_paged_quant
+        want = jfn(*(jnp.asarray(a) for a in (q, *ops, table, qp, kp)),
+                   interpret=True, **kw)
+        got = tfn(*_t(q, *ops, table, qp, kp), **kw)
+    assert got.shape == (B, 1, Hkv * G, D)
+    _close(got, want)
+
+
 def test_dequant_rows_in_fp32():
     """Codes dequantize in fp32 whatever q's dtype, as _dequant_rows does."""
     rng = np.random.default_rng(14)
@@ -500,12 +539,45 @@ def test_wrapper_on_other_device_raises(fn):
 
 
 @pytest.mark.parametrize("B,H,T", [(8, 12, 576), (1, 1, 1), (4, 4, 40),
-                                   (1, 12, 4096), (64, 12, 300)])
+                                   (1, 12, 4096), (64, 12, 300),
+                                   (8, 1, 576), (1, 1, 33000)])
 def test_decode_splits_cover_t(B, H, T):
     n_split, split_len = tk.decode_splits(B, H, T)
     assert split_len % tk.DECODE_SPLIT_MULTIPLE == 0
+    assert split_len <= tk.DECODE_MAX_SPLIT
     assert (n_split - 1) * split_len < T <= n_split * split_len
     assert tk.decode_splits(B, H, T) == (n_split, split_len)
+
+
+@pytest.mark.parametrize("B,H,R,T", [(8, 12, 1, 576), (8, 1, 10, 576)])
+def test_decode_plan_fills_the_card(B, H, R, T):
+    """pimref's decode step (B 8, Hkv 12, one q row) and Griffin's (B 8,
+    one kv head, ten q heads): at least one block per SM of the H100's 132
+    from the slots, kv heads and splits alone."""
+    plan = tk.decode_plan(B, H, R, T)
+    assert B * H * plan.n_split >= 132
+
+
+@pytest.mark.parametrize("B,H,R,T", [
+    (8, 12, 1, 576), (8, 1, 10, 576), (8, 12, 4, 576), (3, 2, 16, 300),
+    (2, 2, 40, 13), (1, 1, 2, 1), (64, 12, 1, 300), (4, 1, 20, 2048),
+    (1, 1, 1, 33000)])
+def test_decode_plan_covers_every_row_once(B, H, R, T):
+    """The blocks of a plan take every q row and every kv row of a slot and
+    kv head exactly once, and every block has a q row and a kv row; the
+    row count is one the kernel is built for."""
+    plan = tk.decode_plan(B, H, R, T)
+    assert plan.rows in tk.DECODE_ROWS
+    q_rows = [rg * plan.rows + r for rg in range(plan.groups)
+              for r in range(plan.rows) if rg * plan.rows + r < R]
+    assert sorted(q_rows) == list(range(R))
+    assert all(rg * plan.rows < R for rg in range(plan.groups))
+    kv_rows = [x * plan.split_len + t for x in range(plan.n_split)
+               for t in range(plan.split_len) if x * plan.split_len + t < T]
+    assert sorted(kv_rows) == list(range(T))
+    assert all(x * plan.split_len < T for x in range(plan.n_split))
+    assert plan.split_len <= tk.DECODE_MAX_SPLIT
+    assert tk.decode_plan(B, H, R, T) == plan
 
 
 def test_build_finds_sources_and_names_missing_nvcc(monkeypatch, tmp_path):

@@ -384,14 +384,118 @@ def test_decode_kernel_d256_mqa_wrapped_ring(cuda, dtype, S):
 
 @pytest.mark.cuda
 def test_layout_kernels_reject_head_dim_256(cuda):
-    """Codes and pages stay at head_dim 64 / 128."""
-    q = torch.zeros(1, 1, 1, 1, 256, device=cuda)
-    codes = torch.zeros(1, 1, 64, 256, dtype=torch.int8, device=cuda)
+    """The layout kernels take head_dim 256 now (test_decode_streaming_*);
+    they still refuse a head_dim outside 64 / 128 / 256, here 80."""
+    q = torch.zeros(1, 1, 1, 1, 80, device=cuda)
+    codes = torch.zeros(1, 1, 64, 80, dtype=torch.int8, device=cuda)
     scale = torch.ones(1, 1, 64, device=cuda)
     qp = torch.zeros(1, 1, dtype=torch.int32, device=cuda)
     kp = torch.zeros(1, 64, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         tk.flash_decode_quant_fwd(q, codes, scale, codes, scale, qp, kp)
+    pool = torch.zeros(3, 16, 1, 80, device=cuda)
+    table = torch.ones(1, 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        tk.flash_decode_paged_fwd(q, pool, pool, table, qp, kp)
+
+
+# ---------------------------------------------------------------------------
+# the streaming decode kernel (csrc/flash_decode.cu) at every instantiation:
+# q dtype x head_dim x K/V source (values, int8, int4; contiguous, paged) x
+# q rows a block (1, 2, 4)
+# ---------------------------------------------------------------------------
+_DECODE_CASES = [
+    # G, S, pages, page size, window, softcap, T not a whole number of pages
+    (1, 1, 36, 16, 0, 0.0, 577),      # R 1: pimref's step
+    (2, 1, 20, 32, 0, 10.0, 577),     # R 2
+    (1, 4, 40, 8, 100, 30.0, 300),    # R 4
+    (10, 1, 9, 64, 0, 0.0, 577),      # R 10: Griffin's heads, three groups
+    (4, 4, 10, 32, 48, 20.0, 300),    # R 16
+    (10, 4, 2, 8, 0, 0.0, 13),        # R 40, ten groups; one split
+]
+
+
+def _decode_sources(gen, dev, dtype, lead, D):
+    """K/V of every source over rows ``lead``: values of ``dtype``, and
+    int8 and int4 codes with their scales."""
+    out = {"values": tuple(_randn(gen, lead + (D,), dtype, dev)
+                           for _ in range(2))}
+    for mode in ("int8", "int4"):
+        kq, vq = (kv_quantize(_randn(gen, lead + (D,), torch.float32, dev),
+                              mode) for _ in range(2))
+        out[mode] = (kq.codes, kq.scale, vq.codes, vq.scale)
+    return out
+
+
+def _decode_call(src, q, ops, qp, kp, table=None, **kw):
+    """(kernel out, plain out) of one source, contiguous or through the
+    table."""
+    if table is None:
+        if src == "values":
+            return (tk.flash_decode_fwd(q, *ops, qp, kp, **kw),
+                    ref.flash_decode_fwd_ref(q, *ops, qp, kp, **kw))
+        return (tk.flash_decode_quant_fwd(q, *ops, qp, kp, **kw),
+                ref.flash_decode_quant_fwd_ref(q, *ops, qp, kp, **kw))
+    if src == "values":
+        return (tk.flash_decode_paged_fwd(q, *ops, table, qp, kp, **kw),
+                ref.flash_decode_paged_fwd_ref(q, *ops, table, qp, kp, **kw))
+    return (tk.flash_decode_paged_quant_fwd(q, *ops, table, qp, kp, **kw),
+            ref.flash_decode_paged_quant_fwd_ref(q, *ops, table, qp, kp,
+                                                 **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G,S,NP,ps,window,cap,T_odd", _DECODE_CASES)
+def test_decode_streaming_kernel(cuda, dtype, D, G, S, NP, ps, window, cap,
+                                 T_odd):
+    """Every source against its plain version (fp32 2e-5, bf16 2e-2);
+    paged == dense and paged-quant == quant on the gathered pages bit for
+    bit; a T that is no whole number of pages or ring stages; slot 0 with
+    every kv row at -1 gives 0; two calls are equal."""
+    gen = torch.Generator(device=cuda).manual_seed(D + 10 * G + S)
+    B, H = 4, 2
+    T = NP * ps
+    kw = dict(causal=True, window=window, softcap=cap)
+    q = _randn(gen, (B, H, G, S, D), dtype, cuda)
+    gather = ref.gather_pages
+    for T_kv in (T, T_odd):
+        qp, kp = _ring([5, 17, T_kv - 1, T_kv + 50], S, T_kv, cuda)
+        kp[0] = -1                                # slot 0: nothing cached
+        paged = T_kv == T
+        lead = (1 + B * NP, ps, H) if paged else (B, H, T_kv)
+        table = _table(gen, kp, ps) if paged else None
+        for src, ops in _decode_sources(gen, cuda, dtype, lead, D).items():
+            o, want = _decode_call(src, q, ops, qp, kp, table, **kw)
+            assert o.dtype == dtype and o.shape == q.shape
+            assert _err(o, want) <= TOL[dtype], (src, paged)
+            assert float(o[0].abs().max()) == 0.0
+            assert torch.equal(o, _decode_call(src, q, ops, qp, kp, table,
+                                               **kw)[0])
+            if paged:
+                dense = tuple(gather(x, table) for x in ops)
+                assert torch.equal(o, _decode_call(src, q, dense, qp, kp,
+                                                   **kw)[0]), src
+    if T <= tk.DECODE_SPLIT_MULTIPLE:             # the kernel writes out itself
+        assert tk.decode_plan(B, H, G * S, T).n_split == 1
+        assert tk.decode_plan(B, H, G * S, T_odd).n_split == 1
+
+
+@pytest.mark.cuda
+def test_decode_kernel_rejects_misaligned_rows(cuda):
+    """The decode kernel copies 16-byte chunks of K/V rows: a view one
+    element off its row start raises ValueError, as does a row stride that
+    is no multiple of 16 bytes."""
+    q = torch.zeros(1, 1, 1, 1, 64, dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros(1, 1, 8, 65, dtype=torch.bfloat16, device=cuda)
+    qp = torch.zeros(1, 1, dtype=torch.int32, device=cuda)
+    kp = torch.zeros(1, 8, dtype=torch.int32, device=cuda)
+    n = dict(tk.LAUNCHES)
+    for bad in (k[..., 1:], k[..., :64]):
+        with pytest.raises(ValueError, match="aligned"):
+            tk.flash_decode_fwd(q, bad, bad, qp, kp)
+    assert tk.LAUNCHES == n
 
 
 # ---------------------------------------------------------------------------
