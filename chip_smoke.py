@@ -17,7 +17,11 @@ Runs on one NVIDIA GPU; exits non-zero without one. Phases:
    (``flash_attention_fwd_d256_long``: B 2, S = T = 2100, window 2048),
    each through ``ops.flash_attention_gqa_fwd`` as a model calls it, with
    the kernel call alone logged beside; its fp32 route at pimref's shape is
-   timed and logged. The decode kernel (``csrc/flash_decode.cu``) is timed
+   checked and timed beside SDPA on fp32 inputs (row
+   ``flash_attention_fwd_fp32``). The RG-LRU kernel is checked bit for bit
+   against its loop at eight shapes and timed at Griffin's prefill (B 8 x
+   T 512) and long prompt (``rglru_scan_long``: B 2 x T 2100). The decode
+   kernel (``csrc/flash_decode.cu``) is timed
    at pimref's step (B 8, H 12, T 576, S 1, D 64; and over int8 codes,
    pages of 16 and both) and at Griffin's (``flash_decode_fwd_d256``: B 8,
    one kv head for ten q heads of 256, T 576), each through ``ops`` as a
@@ -54,7 +58,13 @@ Proteus library's entry points on full-width ``pimref-100m`` (random
 weights from ``--seed``): ``quant_matmul`` over every projection weight
 quantized to int8 and to int4 codes (x 4096 rows, a batch-8 x 512
 prefill), against its plain version and against x @ W within the format
-error, and at recurrentgemma-2b's MLP shapes; ``required_bits`` over the
+error, and at recurrentgemma-2b's MLP shapes; then timed at four shapes,
+each a row of the JSON line (pimref's wi_up with fp32 and bf16 x,
+recurrentgemma-2b's MLP at prefill and at a decode step), every input of
+the kernel and of the ``torch.matmul`` yardstick cycled through full
+copies past the L2, each shape's two calls bitwise equal, its bound that
+of the route the kernel runs (bf16 tensor-core passes) with the fp32
+CUDA-core bound logged beside; ``required_bits`` over the
 whole parameter vector as int16-grid codes and over an edge sweep, bitwise
 against its plain version; ``pack_int4`` / ``unpack_int4`` over the
 vector's int4 codes, bitwise, with an exact round trip; the
@@ -120,8 +130,12 @@ QMM_ROWS = 4096                    # batch 8 x prompt 512
 QMM_BLOCK_K = 128
 # timed shapes (M, K, N) beside pimref's wi_up (M QMM_ROWS): the MLP of
 # recurrentgemma-2b at prefill and at a decode step, random weights
-QMM_SHAPES = {"recurrentgemma-2b MLP prefill": (4096, 2560, 7680),
-              "recurrentgemma-2b MLP decode": (8, 2560, 7680)}
+QMM_SHAPES = {"quant_matmul_griffin": (4096, 2560, 7680),
+              "quant_matmul_decode": (8, 2560, 7680)}
+QMM_LABELS = {"quant_matmul": "pimref-100m wi_up",
+              "quant_matmul_bf16": "pimref-100m wi_up, bf16 x",
+              "quant_matmul_griffin": "recurrentgemma-2b MLP prefill",
+              "quant_matmul_decode": "recurrentgemma-2b MLP decode"}
 INT16_MAX = 32767                  # bench_proteus_precision's code grid
 BH_SHAPE = (96, 64)                # (B * H, D): 8 x 12 heads of 64
 BH_LENGTHS = (512, 500)
@@ -129,6 +143,8 @@ BH_WINDOWS = (0, 128)
 DECODE_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_decode.cu"
 PREFILL_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_prefill.cu"
 NV_SOURCE = "src/repro_torch/kernels/narrow_value/csrc/narrow_value.cu"
+RGLRU_SOURCE = "src/repro_torch/kernels/rglru/csrc/rglru.cu"
+QMM_SOURCE = "src/repro_torch/kernels/quant_matmul/csrc/quant_matmul.cu"
 SOURCES = {"flash_attention_fwd": PREFILL_SOURCE,
            "flash_attention_fwd_d256": PREFILL_SOURCE,
            "flash_attention_fwd_d256_long": PREFILL_SOURCE,
@@ -138,9 +154,12 @@ SOURCES = {"flash_attention_fwd": PREFILL_SOURCE,
            "flash_decode_quant_fwd": DECODE_SOURCE,
            "flash_decode_paged_fwd": DECODE_SOURCE,
            "flash_decode_paged_quant_fwd": DECODE_SOURCE,
-           "rglru_scan": "src/repro_torch/kernels/rglru/csrc/rglru.cu",
-           "quant_matmul":
-               "src/repro_torch/kernels/quant_matmul/csrc/quant_matmul.cu",
+           "flash_attention_fwd_fp32":
+               "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+           "rglru_scan": RGLRU_SOURCE, "rglru_scan_long": RGLRU_SOURCE,
+           "quant_matmul": QMM_SOURCE, "quant_matmul_bf16": QMM_SOURCE,
+           "quant_matmul_griffin": QMM_SOURCE,
+           "quant_matmul_decode": QMM_SOURCE,
            "required_bits": NV_SOURCE, "pack_int4": NV_SOURCE,
            "unpack_int4": NV_SOURCE}
 REPLACES = {
@@ -155,9 +174,15 @@ REPLACES = {
     "flash_decode_paged_fwd": "src/repro/kernels/flash_attention/kernel.py:359",
     "flash_decode_paged_quant_fwd":
         "src/repro/kernels/flash_attention/kernel.py:443",
+    "flash_attention_fwd_fp32":
+        "src/repro/kernels/flash_attention/kernel.py:126",
     "rglru_scan": "src/repro/kernels/rglru/kernel.py:44",
+    "rglru_scan_long": "src/repro/kernels/rglru/kernel.py:44",
     "flash_attention_bh": "src/repro/kernels/flash_attention/kernel.py:504",
     "quant_matmul": "src/repro/kernels/quant_matmul/kernel.py:43",
+    "quant_matmul_bf16": "src/repro/kernels/quant_matmul/kernel.py:43",
+    "quant_matmul_griffin": "src/repro/kernels/quant_matmul/kernel.py:43",
+    "quant_matmul_decode": "src/repro/kernels/quant_matmul/kernel.py:43",
     "required_bits": "src/repro/kernels/narrow_value/kernel.py:30",
     "pack_int4": "src/repro/kernels/narrow_value/kernel.py:62",
     "unpack_int4": "src/repro/kernels/narrow_value/kernel.py:79",
@@ -180,14 +205,23 @@ MAIN_LAYOUT = {"flash_attention_fwd": "contiguous",
                "flash_decode_quant_fwd": "int8",
                "flash_decode_paged_fwd": "paged16",
                "flash_decode_paged_quant_fwd": "paged16_int8",
-               "rglru_scan": "griffin", "flash_attention_bh": "proteus",
-               "quant_matmul": "proteus", "required_bits": "proteus",
+               "flash_attention_fwd_fp32": "contiguous",
+               "rglru_scan": "griffin", "rglru_scan_long": "griffin_long",
+               "flash_attention_bh": "proteus",
+               "quant_matmul": "proteus", "quant_matmul_bf16": "proteus",
+               "quant_matmul_griffin": "proteus",
+               "quant_matmul_decode": "proteus", "required_bits": "proteus",
                "pack_int4": "proteus", "unpack_int4": "proteus"}
 # rows whose launches are another row's counter: the prefill and decode
-# kernels at the Griffin shapes
+# kernels at the Griffin shapes, the RG-LRU kernel at the long prompt, the
+# quantized matmul at its other timed shapes
 COUNTER = {"flash_attention_fwd_d256": "flash_attention_fwd",
            "flash_attention_fwd_d256_long": "flash_attention_fwd",
-           "flash_decode_fwd_d256": "flash_decode_fwd"}
+           "flash_decode_fwd_d256": "flash_decode_fwd",
+           "rglru_scan_long": "rglru_scan",
+           "quant_matmul_bf16": "quant_matmul",
+           "quant_matmul_griffin": "quant_matmul",
+           "quant_matmul_decode": "quant_matmul"}
 NO_LIBRARY = ("no single PyTorch call computes attention over quantized "
               "codes or through a page table")
 NO_LIBRARY_RGLRU = "no single PyTorch call computes a linear recurrence"
@@ -402,19 +436,38 @@ def phase_kernels(seed: int) -> dict:
         f"timed it; the kernel call alone, positions made once: "
         f"{t_k:.4f} ms), plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {flops:.3e} FLOP)")
-    # the fp32 route (the FMA kernel) at the same shape, for the record
+    # the fp32 route (the FMA kernel) at the same shape: checked, timed
+    # beside SDPA on fp32 inputs, its own row (no serving path runs it)
     n_sets = n_sets_for(8 * q.nbytes)
     sets5 = [(split(randn(gen, (B, S, H, D), torch.float32)),
               *(randn(gen, (B, S, H, D), torch.float32).transpose(1, 2)
                 for _ in range(2))) for _ in range(n_sets)]
+    o32, l32 = fk.flash_attention_fwd(*sets5[0], posc, posc)
+    r32, rl32 = ref.flash_attention_fwd_ref(*sets5[0], pos, pos, causal=True)
+    err32 = _check("prefill B8 H12 S=T=512 D64 fp32 route", o32, r32,
+                   TOL[torch.float32])
+    _check("prefill B8 H12 S=T=512 D64 fp32 route", l32, rl32,
+           TOL[torch.float32], "lse")
+    del o32, l32, r32, rl32
     t_32 = device_ms(lambda i: fk.flash_attention_fwd(*sets5[i], posc, posc),
                      n_sets, 5)
-    del sets5
+    t_32p = device_ms(lambda i: ref.flash_attention_fwd_ref(
+        *sets5[i], pos, pos, causal=True), n_sets, 2)
+    sets4 = [tuple(x.permute(0, 1, 3, 2, 4).reshape(B, H, S, D)
+                   if x.dim() == 5 else x.contiguous() for x in s5)
+             for s5 in sets5]
+    t_32l = device_ms(lambda i: F.scaled_dot_product_attention(
+        *sets4[i], is_causal=True), n_sets, 5)
+    del sets4, sets5
     nbytes = 8 * q.nbytes + lse.nbytes + 2 * pos.nbytes
     b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
+    rows["flash_attention_fwd_fp32"] = dict(
+        max_abs_err=err32, ms=t_32, plain_ms=t_32p, bound_ms=b_ms,
+        bound_by=b_by, library_ms=t_32l)
     log("kernels", f"prefill fp32 route (FMA kernel) times (B8 H12 S=T=512 "
-        f"D64 fp32): kernel {t_32:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-        f"{nbytes} B, {flops:.3e} FLOP at 67 TFLOP/s)")
+        f"D64 fp32): kernel {t_32:.4f} ms, plain {t_32p:.4f} ms, sdpa fp32 "
+        f"{t_32l:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
+        f"{flops:.3e} FLOP at 67 TFLOP/s)")
 
     # -- prefill edge cases (kernel layout): G=4, D=128, odd S/T, window,
     #    softcap, -1 q rows and kv slots; out and lse ---------------------
@@ -513,36 +566,42 @@ def kernels_griffin(gen) -> dict:
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ops, ref
     from repro_torch.kernels.rglru import rglru_scan, rglru_scan_ref
+    from repro_torch.kernels.rglru.kernel import plan as rglru_plan
 
     def ab(B, T, D):
         a = 0.7 + 0.299 * torch.rand((B, T, D), generator=gen, device=DEVICE)
         return a, 0.1 * randn(gen, (B, T, D), torch.float32)
 
     B, T, D = 8, 512, 2560
-    for shape in ((B, T, D), (2, 1, D), (2, 3, D), (1, 1000, 100), (1, 17, 100),
-                  (3, 5, 2500)):
+    rglru_errs = {}
+    for shape in ((B, T, D), (2, 2100, D), (2, 1, D), (2, 3, D),
+                  (1, 1000, 100), (1, 17, 100), (3, 5, 2500), (1, 2100, 99)):
         a, b = ab(*shape)
         h = rglru_scan(a, b)
-        e = _check(f"rglru_scan B{shape[0]} T{shape[1]} D{shape[2]} fp32", h,
-                   rglru_scan_ref(a, b), RGLRU_TOL)
-        if shape == (B, T, D):
-            rglru_err = e
-            log("kernels", "rglru_scan main shape bitwise equal to the plain "
-                f"loop: {torch.equal(h, rglru_scan_ref(a, b))}")
-    n_sets = n_sets_for(2 * B * T * D * 4)
-    sets = [ab(B, T, D) for _ in range(n_sets)]
-    t_k = device_ms(lambda i: rglru_scan(*sets[i]), n_sets, 20)
-    t_p = device_ms(lambda i: rglru_scan_ref(*sets[i]), n_sets, 2)
-    del sets
-    nbytes = 3 * B * T * D * 4
-    b_ms, b_by = bound_ms(nbytes, 2.0 * B * T * D, torch.float32)
-    rows = {"rglru_scan": dict(max_abs_err=rglru_err, ms=t_k, plain_ms=t_p,
-                               bound_ms=b_ms, bound_by=b_by, library_ms=None)}
-    log("kernels", f"rglru_scan times (B8 T512 D2560 fp32): kernel "
-        f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-        f"{nbytes} B, {2 * B * T * D:.3e} FLOP; "
-        f"{nbytes / (t_k * 1e-3) / 1e12:.3f} TB/s); library: none "
-        f"({NO_LIBRARY_RGLRU})")
+        want = rglru_scan_ref(a, b)
+        name = f"rglru_scan B{shape[0]} T{shape[1]} D{shape[2]} fp32"
+        rglru_errs[shape] = _check(name, h, want, RGLRU_TOL)
+        _identical(f"{name} == the plain loop", h, want)
+        _identical(f"{name}: two calls", rglru_scan(a, b), h)
+    rows = {}
+    for row, (Bt, Tt) in (("rglru_scan", (B, T)),
+                          ("rglru_scan_long", (2, 2100))):
+        n_sets = n_sets_for(2 * Bt * Tt * D * 4)
+        sets = [ab(Bt, Tt, D) for _ in range(n_sets)]
+        t_k = device_ms(lambda i: rglru_scan(*sets[i]), n_sets, 20)
+        t_p = device_ms(lambda i: rglru_scan_ref(*sets[i]), n_sets, 2)
+        del sets
+        nbytes = 3 * Bt * Tt * D * 4
+        b_ms, b_by = bound_ms(nbytes, 2.0 * Bt * Tt * D, torch.float32)
+        rows[row] = dict(max_abs_err=rglru_errs[(Bt, Tt, D)], ms=t_k,
+                         plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None)
+        log("kernels", f"rglru_scan times (B{Bt} T{Tt} D{D} fp32, {n_sets} "
+            f"input sets): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {2 * Bt * Tt * D:.3e} FLOP; "
+            f"{nbytes / (t_k * 1e-3) / 1e12:.3f} TB/s, {b_ms / t_k:.1%} of "
+            f"the bound); library: none ({NO_LIBRARY_RGLRU}); plan "
+            f"{rglru_plan(Bt, Tt, D)}")
 
     # -- head_dim 256, MQA: checks across the window and a wrapped ring ------
     G, Dh, W = 10, 256, 2048
@@ -1203,8 +1262,9 @@ def phase_profile(model, smi: str, label: str = "profile") -> None:
         f"{busy_us / 1e3:.3f} ms ({busy_us / 1e4 / wall:.1f}% busy), "
         f"{launches} kernel launches of {len(kern)} kernels")
     ranked = sorted(kern, key=lambda e: -e.self_device_time_total)
-    # the top twelve, and every attention kernel of the port
-    for e in ranked[:12] + [e for e in ranked[12:] if "flash_" in e.key]:
+    # the top twelve, and every attention and RG-LRU kernel of the port
+    for e in ranked[:12] + [e for e in ranked[12:]
+                            if "flash_" in e.key or "rglru_" in e.key]:
         log(label, f"  {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:6d}x  {e.key[:90]}")
 
@@ -1292,23 +1352,25 @@ def _proteus_drive(model, gen) -> tuple:
             f"(< {QMM_FORMAT_ERR[bits]})")
     del xs
     w_up = next(w for n, w in weights.items() if n.endswith("mlp.wi_up"))
-    shapes = {f"{model.cfg.name} wi_up": ((QMM_ROWS,) + tuple(w_up.shape),
-                                          w_up)}
-    for label, (M, K, N) in QMM_SHAPES.items():
-        shapes[label] = ((M, K, N), randn(gen, (K, N), torch.float32)
-                         / math.sqrt(K))
+    shape_up = (QMM_ROWS,) + tuple(w_up.shape)
+    shapes = {"quant_matmul": (shape_up, w_up, torch.float32),
+              "quant_matmul_bf16": (shape_up, w_up, torch.bfloat16)}
+    for row, (M, K, N) in QMM_SHAPES.items():
+        shapes[row] = ((M, K, N), randn(gen, (K, N), torch.float32)
+                       / math.sqrt(K), torch.float32)
     timed = {}
-    for label, ((M, K, N), w) in shapes.items():
+    for row, ((M, K, N), w, xdt) in shapes.items():
         codes, scales = qm.quantize_weights(w, block_k=QMM_BLOCK_K, bits=8)
-        x = randn(gen, (M, K), torch.float32)
+        x = randn(gen, (M, K), xdt)
         got = qm.quant_matmul(x, codes, scales, block_k=QMM_BLOCK_K)
         calls["quant_matmul"] += 1
-        e = _qmm_check(label, got, qm.quant_matmul_ref(x, codes, scales))
-        if not timed:
-            errs["quant_matmul"] = max(e, max(v[0] for v in worst.values()))
-        timed[label] = ((M, K, N), w)
-        log("proteus", f"quant_matmul {label} (M {M}, K {K}, N {N}) int8: "
-            f"max |kernel - plain| {e:.3e}")
+        e = _qmm_check(row, got, qm.quant_matmul_ref(x, codes, scales))
+        errs[row] = e
+        if row == "quant_matmul":
+            errs[row] = max(e, max(v[0] for v in worst.values()))
+        timed[row] = ((M, K, N), w, xdt)
+        log("proteus", f"quant_matmul {QMM_LABELS[row]} (M {M}, K {K}, N "
+            f"{N}, x {str(xdt)[6:]}) int8: max |kernel - plain| {e:.3e}")
 
     # -- required_bits: the parameter vector at int16 granularity, edges ----
     flat = torch.cat([p.detach().reshape(-1).float()
@@ -1412,33 +1474,55 @@ def phase_proteus(model, seed: int) -> tuple:
                                     "flash_attention_bh")}
     rows = {}
 
-    # -- device times -------------------------------------------------------
-    for i, (label, ((M, K, N), w)) in enumerate(timed.items()):
-        codes, scales = qm.quantize_weights(w, block_k=QMM_BLOCK_K, bits=8)
-        n_sets = n_sets_for(M * K * 4 + codes.nbytes)
-        sets = [(randn(gen, (M, K), torch.float32),) for _ in range(n_sets)]
+    # -- device times: every input of the kernel (x, codes, scales) and of
+    #    the yardstick (x, the dequantized fp32 weight) cycles through
+    #    n_sets full copies, so none of them is read from the L2 ----------
+    for row, ((M, K, N), w, xdt) in timed.items():
+        esize = torch.tensor([], dtype=xdt).element_size()
+        nkb = K // QMM_BLOCK_K
+        n_sets = n_sets_for(M * K * esize + K * N + nkb * N * 4)
+        sets = []
+        for j in range(n_sets):
+            wj = w if j == 0 else randn(gen, (K, N), torch.float32) / math.sqrt(K)
+            sets.append((randn(gen, (M, K), xdt),
+                         *qm.quantize_weights(wj, block_k=QMM_BLOCK_K,
+                                              bits=8)))
+        x0, c0, s0 = sets[0]
+        first = qm.quant_matmul(x0, c0, s0, block_k=QMM_BLOCK_K)
+        again = qm.quant_matmul(x0, c0, s0, block_k=QMM_BLOCK_K)
+        _identical(f"quant_matmul {QMM_LABELS[row]}: two calls on the same "
+                   "inputs", again, first, "proteus")
+        del first, again
         iters = 5 if M * K * N > 1e10 else 20
         t_k = device_ms(lambda j: qm.quant_matmul(
-            sets[j][0], codes, scales, block_k=QMM_BLOCK_K), n_sets, iters)
-        t_p = device_ms(lambda j: qm.quant_matmul_ref(sets[j][0], codes,
-                                                      scales), n_sets, iters)
-        w_deq = qm.dequantize_ref(codes, scales)
-        t_l = device_ms(lambda j: torch.matmul(sets[j][0], w_deq), n_sets,
+            *sets[j], block_k=QMM_BLOCK_K), n_sets, iters)
+        t_p = device_ms(lambda j: qm.quant_matmul_ref(*sets[j]), n_sets,
                         iters)
-        del sets, w_deq
-        nbytes = M * K * 4 + codes.nbytes + scales.nbytes + M * N * 4
+        # fp32 x and weight built before the timing: only the product is
+        # timed
+        lib = [(x.float(), qm.dequantize_ref(c, sc)) for x, c, sc in sets]
+        t_l = device_ms(lambda j: torch.matmul(*lib[j]), n_sets, iters)
+        del sets, lib
+        nbytes = M * K * esize + K * N + nkb * N * 4 + M * N * 4
         flops = 2.0 * M * N * K
-        b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
-        log("proteus", f"quant_matmul times, {label} (M {M}, K {K}, N {N}, "
-            f"x fp32, int8 codes, block_k {QMM_BLOCK_K}): kernel {t_k:.4f} "
-            f"ms ({flops / t_k / 1e9:.2f} TFLOP/s), plain {t_p:.4f} ms, "
-            f"torch.matmul on the pre-dequantized fp32 weight {t_l:.4f} ms "
-            f"(4x the weight bytes, no scales; a yardstick, not a port), "
-            f"bound {b_ms:.4f} ms ({b_by}: {nbytes} B, {flops:.3e} FLOP)")
-        if i == 0:
-            rows["quant_matmul"] = dict(
-                max_abs_err=errs["quant_matmul"], ms=t_k, plain_ms=t_p,
-                bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+        # the route: bf16 tensor-core passes (three exact bf16 parts of an
+        # fp32 x, one of a bf16 x); the fp32 CUDA-core bound beside it
+        passes = 3 if xdt == torch.float32 else 1
+        b_ms, b_by = bound_ms(nbytes, passes * flops, torch.bfloat16)
+        b32_ms, b32_by = bound_ms(nbytes, flops, torch.float32)
+        log("proteus", f"quant_matmul times, {QMM_LABELS[row]} (M {M}, K {K}, "
+            f"N {N}, x {str(xdt)[6:]}, int8 codes, block_k {QMM_BLOCK_K}, "
+            f"{n_sets} input sets): kernel {t_k:.4f} ms "
+            f"({flops / t_k / 1e9:.2f} TFLOP/s of the product), plain "
+            f"{t_p:.4f} ms, torch.matmul of fp32 x and the pre-dequantized "
+            f"fp32 weight "
+            f"{t_l:.4f} ms (4x the weight bytes, no scales; a yardstick, not "
+            f"a port), bound {b_ms:.4f} ms ({b_by}: {nbytes} B, {passes} x "
+            f"{flops:.3e} FLOP at 989 TFLOP/s bf16; {b_ms / t_k:.1%} of it), "
+            f"fp32 CUDA-core bound {b32_ms:.4f} ms ({b32_by}); plan "
+            f"{qm.plan(M, N, K, QMM_BLOCK_K, xdt)}")
+        rows[row] = dict(max_abs_err=errs[row], ms=t_k, plain_ms=t_p,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
 
     narrow = {
         # name: (kernel call, plain call, input, bytes in + out)

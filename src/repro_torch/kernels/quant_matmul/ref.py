@@ -12,6 +12,10 @@ fp32 partial sum instead of to each code, as the TPU kernel does: the two
 differ by summation-order noise only. ``ops.quant_matmul`` calls
 ``quant_matmul_ref`` for tensors on the CPU; ``chip_smoke.py`` holds the
 kernel against it on the card.
+
+:func:`split_bf16` and :func:`quant_matmul_route_ref` state the CUDA
+kernel's route in plain PyTorch: x in exact bf16 parts, each part times
+the bf16 codes summed in fp32 per k-block, the partial times the scale.
 """
 from __future__ import annotations
 
@@ -47,3 +51,36 @@ def quant_matmul_ref(x: torch.Tensor, codes: torch.Tensor,
                      scales: torch.Tensor) -> torch.Tensor:
     """x (M, K) float @ dequantized (K, N) -> (M, N) fp32."""
     return x.float() @ dequantize_ref(codes, scales)
+
+
+def split_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """fp32 x -> bf16 (hi, mid, lo) with hi + mid + lo == x exactly, for
+    2^-110 <= |x| and |x| below where bf16(x) rounds to infinity (about
+    3.39e38), and for 0; hi = bf16(x), mid = bf16(x - hi), lo = bf16(x -
+    hi - mid), each difference exact in fp32. Below 2^-110 lo can fall
+    among bf16's subnormals and lose bits."""
+    x = x.float()
+    hi = x.bfloat16()
+    r = x - hi.float()
+    mid = r.bfloat16()
+    lo = (r - mid.float()).bfloat16()
+    return hi, mid, lo
+
+
+def quant_matmul_route_ref(x: torch.Tensor, codes: torch.Tensor,
+                           scales: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel's arithmetic: per k-block of ``K // nkb`` rows an fp32
+    partial of the exact products of x's bf16 parts (three for fp32 x, x
+    itself for bf16) and the codes, then ``acc += partial * scale``."""
+    K, N = codes.shape
+    nkb = scales.shape[0]
+    bk = K // nkb
+    parts = split_bf16(x) if x.dtype == torch.float32 else (x,)
+    acc = torch.zeros((x.shape[0], N), dtype=torch.float32, device=x.device)
+    for kb in range(nkb):
+        ks = slice(kb * bk, (kb + 1) * bk)
+        cb = codes[ks].float()
+        partial = sum(p[:, ks].float() @ cb for p in parts)
+        acc = acc + partial * scales[kb]
+    return acc

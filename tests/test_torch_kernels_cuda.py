@@ -15,6 +15,7 @@ from repro_torch.kernels.flash_attention import kernel as tk  # noqa: E402
 from repro_torch.kernels.flash_attention import ref  # noqa: E402
 from repro_torch.kernels import narrow_value as nv  # noqa: E402
 from repro_torch.kernels import quant_matmul as qm  # noqa: E402
+from repro_torch.kernels.quant_matmul import kernel as qk  # noqa: E402
 from repro_torch.kernels.rglru import kernel as rk  # noqa: E402
 from repro_torch.kernels.rglru import rglru_scan, rglru_scan_ref  # noqa: E402
 from repro_torch.models.layers import (kv_quantize,  # noqa: E402
@@ -503,11 +504,13 @@ def test_decode_kernel_rejects_misaligned_rows(cuda):
 # ---------------------------------------------------------------------------
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,D", [(8, 512, 2560), (1, 1, 64), (2, 3, 100),
-                                   (1, 1000, 100), (3, 17, 2560)])
+                                   (1, 1000, 100), (3, 17, 2560),
+                                   (2, 2100, 2560), (1, 2100, 99),
+                                   (3, 5, 2500), (1, 33, 4)])
 def test_rglru_kernel(cuda, B, T, D):
     """Against the plain sequential loop on the card: the kernel repeats its
-    rounded multiply and add in the same order, so the results agree to
-    within 1e-6 (0 is expected) with |h| below ~3."""
+    rounded multiply and add in the same order, so the results are equal
+    bit for bit, and two calls give the same bits."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     a = 0.7 + 0.299 * torch.rand((B, T, D), generator=gen, device=cuda)
     b = 0.1 * torch.randn((B, T, D), generator=gen, device=cuda)
@@ -516,7 +519,29 @@ def test_rglru_kernel(cuda, B, T, D):
     torch.cuda.synchronize()
     assert rk.LAUNCHES["rglru_scan"] == n + 1
     assert h.dtype == torch.float32 and h.shape == (B, T, D)
-    assert _err(h, rglru_scan_ref(a, b)) <= 1e-6
+    assert torch.equal(h, rglru_scan_ref(a, b)), _err(h, rglru_scan_ref(a, b))
+    assert torch.equal(rglru_scan(a, b), h)
+
+
+@pytest.mark.cuda
+def test_rglru_kernel_unaligned_views(cuda):
+    """Inputs that start off a 16-byte boundary take the 4-byte copy path,
+    bit for bit equal to the loop."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    flat_a = 0.7 + 0.299 * torch.rand(2 * 300 * 64 + 1, generator=gen,
+                                      device=cuda)
+    flat_b = 0.1 * torch.randn(2 * 300 * 64 + 1, generator=gen, device=cuda)
+    a, b = flat_a[1:].view(2, 300, 64), flat_b[1:].view(2, 300, 64)
+    assert rk.plan(2, 300, 64, aligned=False).vec == 4
+    assert torch.equal(rglru_scan(a, b), rglru_scan_ref(a, b))
+
+
+@pytest.mark.cuda
+def test_rglru_plan_states_the_kernels_layout(cuda):
+    """The tile, rows, stages and shared memory that the CPU tests check in
+    ``plan`` are the ones the CUDA source launches with."""
+    p = rk.plan(8, 512, 2560)
+    assert rk.layout() == (p.tile, p.rows, p.stages, p.smem)
 
 
 @pytest.mark.cuda
@@ -640,6 +665,36 @@ def test_quant_matmul_kernel(cuda, M, K, N, block_k, dtype, bits):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 8, 63, 64, 127, 128, 4096])
+@pytest.mark.parametrize("K,N,block_k", [(384, 256, 128), (100, 40, 100),
+                                         (96, 100, 96), (97, 40, 97),
+                                         (96, 128, 96), (192, 256, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_matmul_kernel_routes(cuda, M, K, N, block_k, dtype, bits):
+    """Both routes (narrow up to M 64, wide above), k-blocks that are not a
+    multiple of 16, rows whose byte stride is not a multiple of 16 (N 40 and
+    100 codes, K 97 fp32 and 97 / 100 bf16), aligned rows with k-blocks
+    that are not a multiple of 64 (the narrow route's plain copies where
+    TMA cannot go): within the reference test's atol / rtol of the plain
+    version, and bitwise repeatable."""
+    gen = torch.Generator(device=cuda).manual_seed(M * 7 + K + N)
+    x = _randn(gen, (M, K), dtype, cuda)
+    w = _randn(gen, (K, N), torch.float32, cuda)
+    codes, scales = qm.quantize_weights(w, block_k=block_k, bits=bits)
+    kw = dict(block_m=min(128, M), block_n=min(128, N), block_k=block_k)
+    n = qm.LAUNCHES["quant_matmul"]
+    got = qm.quant_matmul(x, codes, scales, **kw)
+    again = qm.quant_matmul(x, codes, scales, **kw)
+    torch.cuda.synchronize()
+    assert qm.LAUNCHES["quant_matmul"] == n + 2
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    want = qm.quant_matmul_ref(x, codes, scales)
+    assert torch.allclose(got, want, atol=1e-3, rtol=1e-4), _err(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
 def test_quant_matmul_kernel_rejects_what_it_does_not_take(cuda):
     x = torch.zeros(128, 128, device=cuda)
     codes = torch.zeros(128, 128, dtype=torch.int8, device=cuda)
@@ -650,6 +705,16 @@ def test_quant_matmul_kernel_rejects_what_it_does_not_take(cuda):
         qm.quant_matmul_kernel(x.t(), codes, scales)
     with pytest.raises(ValueError, match="on the card"):
         qm.quant_matmul_kernel(x, codes.cpu(), scales)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 8, 9, 16, 17, 32, 33, 64, 65, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_plan_states_the_kernels_layout(cuda, M, dtype):
+    """The padded rows, ring stages and shared memory that the CPU tests
+    check in ``plan`` are the ones the CUDA source launches with."""
+    p = qk.plan(M, 256, 256, 128, dtype)
+    assert qk.layout(M, dtype) == (p.mp, p.stages, p.smem)
 
 
 @pytest.mark.cuda

@@ -19,6 +19,7 @@ from repro.models import rglru as jr  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.kernels.rglru import (LAUNCHES, rglru_scan,  # noqa: E402
                                        rglru_scan_kernel, rglru_scan_ref)
+from repro_torch.kernels.rglru import kernel as rk  # noqa: E402
 from repro_torch.models import rglru as tr  # noqa: E402
 
 # the recurrence in fp32: the sequential loop and the associative scan
@@ -79,6 +80,25 @@ def test_kernel_wrapper_takes_only_card_tensors():
     torch.testing.assert_close(rglru_scan(a, a), rglru_scan_ref(a, a),
                                atol=0, rtol=0)
     assert LAUNCHES["rglru_scan"] == n
+
+
+@pytest.mark.parametrize("B,T,D", [(8, 512, 2560), (2, 2100, 2560),
+                                   (1, 2100, 99), (3, 5, 2500), (1, 1, 4),
+                                   (16, 4096, 4096)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_kernel_plan(B, T, D, aligned):
+    """The CUDA kernel's plan: every channel of every batch row in exactly
+    one block, the ring within the card's shared memory, TMA (16-byte
+    rows) only where rows are 16-byte aligned; both Griffin prefill shapes
+    give at least one block an SM and keep at least 3.5 MB in flight."""
+    p = rk.plan(B, T, D, aligned=aligned)
+    tiles = -(-D // p.tile)
+    assert p.blocks == B * tiles and (tiles - 1) * p.tile < D <= tiles * p.tile
+    assert p.smem <= rk.SMEM_LIMIT
+    assert p.vec == (16 if aligned and D % 4 == 0 else 4)
+    if (B, T, D) in ((8, 512, 2560), (2, 2100, 2560)):
+        assert p.blocks >= 132
+        assert p.blocks * (p.stages - 1) * p.rows * p.tile * 2 * 4 >= 3.5e6
 
 
 @pytest.fixture(scope="module")
