@@ -16,9 +16,13 @@ Runs on one NVIDIA GPU; exits non-zero without one. Phases:
    q heads of 256, S = T = 512) and Griffin's long prompt
    (``flash_attention_fwd_d256_long``: B 2, S = T = 2100, window 2048),
    each through ``ops.flash_attention_gqa_fwd`` as a model calls it, with
-   the kernel call alone logged beside; its fp32 route at pimref's shape is
-   checked and timed beside SDPA on fp32 inputs (row
-   ``flash_attention_fwd_fp32``). The RG-LRU kernel is checked bit for bit
+   the kernel call alone logged beside; its fp32 route (three exact bf16
+   parts a value, six pair products on the tensor cores) is checked, two
+   calls bitwise equal, and timed beside SDPA on fp32 inputs at pimref's
+   shape (row ``flash_attention_fwd_fp32``) and at Griffin's
+   (``flash_attention_fwd_fp32_d256``), its bound that of the six bf16
+   passes with the fp32 CUDA-core bound logged beside. The RG-LRU kernel
+   is checked bit for bit
    against its loop at eight shapes and timed at Griffin's prefill (B 8 x
    T 512) and long prompt (``rglru_scan_long``: B 2 x T 2100). The decode
    kernel (``csrc/flash_decode.cu``) is timed
@@ -35,7 +39,9 @@ Runs on one NVIDIA GPU; exits non-zero without one. Phases:
    route none: the serving path is bf16);
 5. card vs CPU: the same fp32 weights on the card (kernels) and on the CPU
    (plain path), prefill plus teacher-forced decode steps, logits compared,
-   through the contiguous, the paged and the int8 cache;
+   through the contiguous, the paged and the int8 cache; every prefill
+   launched the prefill kernel's fp32 route once per layer (the launches
+   of the fp32 rows);
 6. engine: ``ServeEngine`` drains mixed-length requests with a shared
    prefix on 8 slots, contiguous, paged and paged int8: one completion per
    request, prefix sharing, every page back in the pool at the end;
@@ -51,7 +57,8 @@ Runs on one NVIDIA GPU; exits non-zero without one. Phases:
 9. engine_griffin: 16 mixed-length requests drained through 8 slots;
 10. parity_griffin: card vs CPU fp32 logits and caches at full width with
    the depth cut to 5 layers (one group and the two trailing recurrent
-   layers), prefill 64 plus 8 decode steps.
+   layers), prefill 64 plus 8 decode steps; its one prefill launched the
+   fp32 route once (its one attention layer).
 
 Phase ``proteus`` runs after ``parity`` and before the Griffin phases: the
 Proteus library's entry points on full-width ``pimref-100m`` (random
@@ -69,8 +76,9 @@ whole parameter vector as int16-grid codes and over an edge sweep, bitwise
 against its plain version; ``pack_int4`` / ``unpack_int4`` over the
 vector's int4 codes, bitwise, with an exact round trip; the
 ``flash_attention_bh`` adapter at BH 96 (8 x 12 heads), S = T = 512 and
-500, causal, window 0 and 128, bf16 and fp32. Exact launch counts, then
-device times at the path's shapes.
+500, causal, window 0 and 128, bf16 and fp32 (rows ``flash_attention_bh``
+and ``flash_attention_bh_fp32``). Exact launch counts, then device times at
+the path's shapes.
 
 The second-to-last line is a JSON object of per-kernel numbers, the last is
 ``{"ok": true, "device": {...}}``. Any failure raises.
@@ -83,6 +91,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -97,6 +106,9 @@ PHASES = ("device", "build", "kernels", "serve", "engine", "profile", "parity",
           "proteus", "serve_griffin", "engine_griffin", "parity_griffin")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the fp32 prefill route's products: q, k, p and v each as three exact bf16
+# parts, the six pairs of parts i + j <= 2 (ref.fp32_route_ref)
+FP32_ROUTE_PASSES = 6
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # the bf16 prefill route, beside TOL's 2e-2: every element of out within
 # ref.bf16_route_limit (its two roundings by design: one output ulp,
@@ -154,8 +166,9 @@ SOURCES = {"flash_attention_fwd": PREFILL_SOURCE,
            "flash_decode_quant_fwd": DECODE_SOURCE,
            "flash_decode_paged_fwd": DECODE_SOURCE,
            "flash_decode_paged_quant_fwd": DECODE_SOURCE,
-           "flash_attention_fwd_fp32":
-               "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+           "flash_attention_fwd_fp32": PREFILL_SOURCE,
+           "flash_attention_fwd_fp32_d256": PREFILL_SOURCE,
+           "flash_attention_bh_fp32": PREFILL_SOURCE,
            "rglru_scan": RGLRU_SOURCE, "rglru_scan_long": RGLRU_SOURCE,
            "quant_matmul": QMM_SOURCE, "quant_matmul_bf16": QMM_SOURCE,
            "quant_matmul_griffin": QMM_SOURCE,
@@ -176,9 +189,13 @@ REPLACES = {
         "src/repro/kernels/flash_attention/kernel.py:443",
     "flash_attention_fwd_fp32":
         "src/repro/kernels/flash_attention/kernel.py:126",
+    "flash_attention_fwd_fp32_d256":
+        "src/repro/kernels/flash_attention/kernel.py:126",
     "rglru_scan": "src/repro/kernels/rglru/kernel.py:44",
     "rglru_scan_long": "src/repro/kernels/rglru/kernel.py:44",
     "flash_attention_bh": "src/repro/kernels/flash_attention/kernel.py:504",
+    "flash_attention_bh_fp32":
+        "src/repro/kernels/flash_attention/kernel.py:504",
     "quant_matmul": "src/repro/kernels/quant_matmul/kernel.py:43",
     "quant_matmul_bf16": "src/repro/kernels/quant_matmul/kernel.py:43",
     "quant_matmul_griffin": "src/repro/kernels/quant_matmul/kernel.py:43",
@@ -196,7 +213,8 @@ LAYOUTS = {
     "paged16": ("off", 16, "flash_decode_paged_fwd"),
     "paged16_int8": ("int8", 16, "flash_decode_paged_quant_fwd"),
 }
-# the layout whose serve run gives each kernel's launches in the JSON line
+# the run whose launches each row of the JSON line reports: the fused serve
+# run of a layout, or phase parity, parity_griffin or proteus
 MAIN_LAYOUT = {"flash_attention_fwd": "contiguous",
                "flash_attention_fwd_d256": "griffin",
                "flash_attention_fwd_d256_long": "griffin_long",
@@ -205,17 +223,21 @@ MAIN_LAYOUT = {"flash_attention_fwd": "contiguous",
                "flash_decode_quant_fwd": "int8",
                "flash_decode_paged_fwd": "paged16",
                "flash_decode_paged_quant_fwd": "paged16_int8",
-               "flash_attention_fwd_fp32": "contiguous",
+               "flash_attention_fwd_fp32": "parity",
+               "flash_attention_fwd_fp32_d256": "parity_griffin",
                "rglru_scan": "griffin", "rglru_scan_long": "griffin_long",
                "flash_attention_bh": "proteus",
+               "flash_attention_bh_fp32": "proteus",
                "quant_matmul": "proteus", "quant_matmul_bf16": "proteus",
                "quant_matmul_griffin": "proteus",
                "quant_matmul_decode": "proteus", "required_bits": "proteus",
                "pack_int4": "proteus", "unpack_int4": "proteus"}
 # rows whose launches are another row's counter: the prefill and decode
 # kernels at the Griffin shapes, the RG-LRU kernel at the long prompt, the
-# quantized matmul at its other timed shapes
+# quantized matmul at its other timed shapes, the adapter's fp32 calls
 COUNTER = {"flash_attention_fwd_d256": "flash_attention_fwd",
+           "flash_attention_fwd_fp32_d256": "flash_attention_fwd_fp32",
+           "flash_attention_bh_fp32": "flash_attention_bh",
            "flash_attention_fwd_d256_long": "flash_attention_fwd",
            "flash_decode_fwd_d256": "flash_decode_fwd",
            "rglru_scan_long": "rglru_scan",
@@ -390,6 +412,93 @@ def _check_bf16(name, got, want, abs_v_out, lse=None, want_lse=None,
     return err
 
 
+def fp32_route_bound(nbytes: int, flops: float) -> tuple:
+    """(bound ms, bound_by) of the fp32 prefill route as the kernel runs it,
+    FP32_ROUTE_PASSES bf16 tensor-core passes of the product work, and the
+    fp32 CUDA-core bound of the same work (ms, by) to log beside it."""
+    return (bound_ms(nbytes, FP32_ROUTE_PASSES * flops, torch.bfloat16),
+            bound_ms(nbytes, flops, torch.float32))
+
+
+def fp32_prefill_row(gen, label, B, Hkv, G, S, D, window) -> dict:
+    """The prefill kernel's fp32 route at a main-path shape in the model's
+    layout (strided views of (B, S, H, D) projections): out and lse within
+    TOL of the plain version, two calls bitwise equal, then device times of
+    the kernel call (positions made once), the plain version and SDPA on
+    fp32 inputs (K/V expanded to the q heads as views; ``is_causal``, which
+    is the same function while S <= window). Returns the row."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref
+    H, dt = Hkv * G, torch.float32
+    kw = dict(causal=True, window=window)
+
+    def inputs():
+        q = randn(gen, (B, S, H, D), dt)
+        k, v = (randn(gen, (B, S, Hkv, D), dt) for _ in range(2))
+        return (q.reshape(B, S, Hkv, G, D).permute(0, 2, 3, 1, 4),
+                k.transpose(1, 2), v.transpose(1, 2))
+
+    n_sets = n_sets_for(2 * 4 * B * S * (H + Hkv) * D)
+    sets5 = [inputs() for _ in range(n_sets)]
+    pos = torch.arange(S, dtype=torch.int32, device=DEVICE).expand(B, S)
+    posc = pos.contiguous()
+    name = f"prefill {label} fp32 route"
+    o, lse = fk.flash_attention_fwd(*sets5[0], posc, posc, **kw)
+    ro, rl = ref.flash_attention_fwd_ref(*sets5[0], pos, pos, **kw)
+    err = _check(name, o, ro, TOL[dt])
+    _check(name, lse, rl, TOL[dt], "lse")
+    o2, lse2 = fk.flash_attention_fwd(*sets5[0], posc, posc, **kw)
+    _identical(f"{name} out: two calls", o2, o)
+    _identical(f"{name} lse: two calls", lse2, lse)
+    del o2, lse2, ro, rl
+    t_k = device_ms(lambda i: fk.flash_attention_fwd(*sets5[i], posc, posc,
+                                                     **kw), n_sets, 5)
+    t_p = device_ms(lambda i: ref.flash_attention_fwd_ref(
+        *sets5[i], pos, pos, **kw), n_sets, 2)
+    sets4 = [(q5.reshape(B, H, S, D),
+              *(x[:, :, None].expand(B, Hkv, G, S, D).reshape(B, H, S, D)
+                for x in (k4, v4))) for q5, k4, v4 in sets5]
+    t_l = device_ms(lambda i: F.scaled_dot_product_attention(
+        *sets4[i], is_causal=True), n_sets, 5)
+    split = kernel_split_us(lambda i: fk.flash_attention_fwd(
+        *sets5[i], posc, posc, **kw), n_sets)
+    del sets4, sets5
+    nbytes = 2 * o.nbytes + 2 * 4 * B * S * Hkv * D + lse.nbytes \
+        + 2 * pos.nbytes
+    flops = 4.0 * D * H * visible_pairs(pos, pos, True, window)
+    (b_ms, b_by), (c_ms, c_by) = fp32_route_bound(nbytes, flops)
+    log("kernels", f"{name} times: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+        f"sdpa fp32 {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
+        f"{FP32_ROUTE_PASSES} bf16 passes of {flops:.3e} FLOP at 989 "
+        f"TFLOP/s), fp32 CUDA-core bound {c_ms:.4f} ms ({c_by}, 67 "
+        f"TFLOP/s); plan {fk.prefill_plan(G, S, fk.FP32_PREFILL_TILES[D][0])}"
+        f"; device us a call by kernel (torch.profiler, kernels overlap): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in split.items()))
+    return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+                bound_by=b_by, library_ms=t_l)
+
+
+def kernel_split_us(fn, n_sets: int, calls: int = 30) -> dict:
+    """Device microseconds a call of ``fn(i)`` by kernel name under
+    torch.profiler, after a warm-up: where a wrapper launches more than
+    one kernel, what each takes."""
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(n_sets):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(i % n_sets)
+        torch.cuda.synchronize()
+    name = lambda key: (re.search(r"(\w+)<", key) or re.search(r"(.{1,40})",
+                                                               key)).group(1)
+    return {name(e.key): e.self_device_time_total / calls
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
 def phase_kernels(seed: int) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -436,38 +545,10 @@ def phase_kernels(seed: int) -> dict:
         f"timed it; the kernel call alone, positions made once: "
         f"{t_k:.4f} ms), plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {flops:.3e} FLOP)")
-    # the fp32 route (the FMA kernel) at the same shape: checked, timed
-    # beside SDPA on fp32 inputs, its own row (no serving path runs it)
-    n_sets = n_sets_for(8 * q.nbytes)
-    sets5 = [(split(randn(gen, (B, S, H, D), torch.float32)),
-              *(randn(gen, (B, S, H, D), torch.float32).transpose(1, 2)
-                for _ in range(2))) for _ in range(n_sets)]
-    o32, l32 = fk.flash_attention_fwd(*sets5[0], posc, posc)
-    r32, rl32 = ref.flash_attention_fwd_ref(*sets5[0], pos, pos, causal=True)
-    err32 = _check("prefill B8 H12 S=T=512 D64 fp32 route", o32, r32,
-                   TOL[torch.float32])
-    _check("prefill B8 H12 S=T=512 D64 fp32 route", l32, rl32,
-           TOL[torch.float32], "lse")
-    del o32, l32, r32, rl32
-    t_32 = device_ms(lambda i: fk.flash_attention_fwd(*sets5[i], posc, posc),
-                     n_sets, 5)
-    t_32p = device_ms(lambda i: ref.flash_attention_fwd_ref(
-        *sets5[i], pos, pos, causal=True), n_sets, 2)
-    sets4 = [tuple(x.permute(0, 1, 3, 2, 4).reshape(B, H, S, D)
-                   if x.dim() == 5 else x.contiguous() for x in s5)
-             for s5 in sets5]
-    t_32l = device_ms(lambda i: F.scaled_dot_product_attention(
-        *sets4[i], is_causal=True), n_sets, 5)
-    del sets4, sets5
-    nbytes = 8 * q.nbytes + lse.nbytes + 2 * pos.nbytes
-    b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
-    rows["flash_attention_fwd_fp32"] = dict(
-        max_abs_err=err32, ms=t_32, plain_ms=t_32p, bound_ms=b_ms,
-        bound_by=b_by, library_ms=t_32l)
-    log("kernels", f"prefill fp32 route (FMA kernel) times (B8 H12 S=T=512 "
-        f"D64 fp32): kernel {t_32:.4f} ms, plain {t_32p:.4f} ms, sdpa fp32 "
-        f"{t_32l:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
-        f"{flops:.3e} FLOP at 67 TFLOP/s)")
+    # the fp32 route at the same shape: its own row (the parity phases run
+    # it; no serving path does)
+    rows["flash_attention_fwd_fp32"] = fp32_prefill_row(
+        gen, "B8 H12 S=T=512 D64", B, H, 1, S, D, 0)
 
     # -- prefill edge cases (kernel layout): G=4, D=128, odd S/T, window,
     #    softcap, -1 q rows and kv slots; out and lse ---------------------
@@ -677,6 +758,8 @@ def kernels_griffin(gen) -> dict:
         f"alone: {t_k:.4f} ms), plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {flops:.3e} FLOP)")
     rows["flash_attention_fwd_d256_long"] = kernels_griffin_long(gen)
+    rows["flash_attention_fwd_fp32_d256"] = fp32_prefill_row(
+        gen, "B8 Hkv1 G10 S=T=512 D256 window 2048", B, 1, G, S, Dh, W)
 
     T = 576
     qp, kp = ring_positions([575 - 8 * b for b in range(B)], 1, T)
@@ -1010,9 +1093,26 @@ def _cache_diff(cc, cg):
     return err, flips, code_max
 
 
-def phase_parity(seed: int) -> None:
+def _check_fp32_prefills(phase, cfg, prefills) -> dict:
+    """Every fp32 prefill of the phase launched the prefill kernel's fp32
+    route once per attention layer, and no prefill took the bf16 route;
+    returns the phase's launches."""
+    from repro_torch.kernels.flash_attention import LAUNCHES
+    torch.cuda.synchronize()
+    got = {n: c for counter in _counters() for n, c in counter.items()}
+    want = _layer_counts(cfg)[0] * prefills
+    log(phase, f"launches {got} (want flash_attention_fwd = "
+        f"flash_attention_fwd_fp32 = {want}: {prefills} fp32 prefills)")
+    if not LAUNCHES["flash_attention_fwd"] == \
+            LAUNCHES["flash_attention_fwd_fp32"] == want:
+        raise AssertionError(f"{phase}: prefill launches {got}, want {want} "
+                             "of the fp32 route")
+    return got
+
+
+def phase_parity(seed: int) -> dict:
     """fp32 logits and caches, card vs CPU, in the contiguous, paged and
-    int8 layouts."""
+    int8 layouts; returns the launches of the card's side."""
     from repro_torch.configs import get_config
     from repro_torch.models import TransformerLM, init_params
     cfg = get_config("pimref-100m").replace(compute_dtype="float32")
@@ -1026,7 +1126,9 @@ def phase_parity(seed: int) -> None:
                               .astype(np.int32))
     feed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8))
                             .astype(np.int32))
-    for layout in ("contiguous", "paged16", "int8"):
+    layouts = ("contiguous", "paged16", "int8")
+    _reset()
+    for layout in layouts:
         kv_quant, page_size, _ = LAYOUTS[layout]
         cpu = cpu0.with_kv_layout(kv_quant, page_size)
         gpu = gpu0.with_kv_layout(kv_quant, page_size)
@@ -1050,6 +1152,7 @@ def phase_parity(seed: int) -> None:
         if max(errs) > tol or kv > PARITY_ATOL or code_max > 1:
             raise AssertionError(f"{layout}: card vs CPU differ: logits "
                                  f"{max(errs)}, cache {kv}, code {code_max}")
+    return _check_fp32_prefills("parity", cfg, len(layouts))
 
 
 def _drain(eng, reqs, label, decode_kernel) -> dict:
@@ -1184,10 +1287,10 @@ def _rel_err(c, g) -> float:
     return ((c - g.cpu()).abs().max() / c.abs().max().clamp(min=1)).item()
 
 
-def phase_parity_griffin(seed: int) -> None:
+def phase_parity_griffin(seed: int) -> dict:
     """recurrentgemma-2b at full width, depth cut to 5 layers, fp32: logits
-    of a 64-token prefill and 8 decode steps, and the caches, card vs
-    CPU."""
+    of a 64-token prefill and 8 decode steps, and the caches, card vs CPU;
+    returns the launches of the card's side."""
     from repro_torch.configs import get_config
     from repro_torch.models import GriffinLM, init_params
     full = get_config("recurrentgemma-2b")
@@ -1209,6 +1312,7 @@ def phase_parity_griffin(seed: int) -> None:
     feed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8))
                             .astype(np.int32))
     lc, cc = cpu.prefill(prompt, max_len=72)
+    _reset()
     lg, cg = gpu.prefill(prompt.to(DEVICE), max_len=72)
     pairs = [(lc, lg)]
     for i in range(feed.shape[1]):
@@ -1237,6 +1341,7 @@ def phase_parity_griffin(seed: int) -> None:
         raise AssertionError(f"parity_griffin: card vs CPU differ: logits "
                              f"{max(errs)}, cache {max(rel.values())}, "
                              f"positions equal {same_pos}")
+    return _check_fp32_prefills("parity_griffin", cfg, 1)
 
 
 def phase_profile(model, smi: str, label: str = "profile") -> None:
@@ -1440,8 +1545,9 @@ def _proteus_drive(model, gen) -> tuple:
                         phase="proteus")
                 else:
                     e = _check(name, o, want, TOL[dt], phase="proteus")
-                if (dt, S, window) == (torch.bfloat16, BH_LENGTHS[0], 0):
-                    errs["flash_attention_bh"] = e
+                if (S, window) == (BH_LENGTHS[0], 0):
+                    errs["flash_attention_bh" if dt == torch.bfloat16
+                         else "flash_attention_bh_fp32"] = e
     return errs, calls, timed, codes32, c4, packed
 
 
@@ -1549,28 +1655,36 @@ def phase_proteus(model, seed: int) -> tuple:
             f"library: none ({NO_LIBRARY_NARROW[name]})")
 
     BH, D = BH_SHAPE
-    S, dt = BH_LENGTHS[0], torch.bfloat16
-    n_sets = n_sets_for(3 * BH * S * D * 2)
-    sets = [tuple(randn(gen, (BH, S, D), dt) for _ in range(3))
-            for _ in range(n_sets)]
-    t_k = device_ms(lambda j: fk.flash_attention_bh(*sets[j], causal=True),
-                    n_sets, 20)
-    t_p = device_ms(lambda j: ref.attention_ref_bh(*sets[j], causal=True),
-                    n_sets, 4)
-    # as (1, BH, S, D): SDPA takes its flash backend for 4-D inputs only
-    t_l = device_ms(lambda j: F.scaled_dot_product_attention(
-        *(t[None] for t in sets[j]), is_causal=True), n_sets, 20)
-    del sets
+    S = BH_LENGTHS[0]
     pos = torch.arange(S, dtype=torch.int32, device=DEVICE)[None]
-    nbytes = 4 * BH * S * D * 2
     flops = 4.0 * D * BH * visible_pairs(pos, pos, True, 0)
-    b_ms, b_by = bound_ms(nbytes, flops, dt)
-    rows["flash_attention_bh"] = dict(
-        max_abs_err=errs["flash_attention_bh"], ms=t_k, plain_ms=t_p,
-        bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
-    log("proteus", f"flash_attention_bh times (BH {BH}, S=T={S}, D {D}, bf16, "
-        f"causal): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, sdpa {t_l:.4f} "
-        f"ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, {flops:.3e} FLOP)")
+    for row, dt in (("flash_attention_bh", torch.bfloat16),
+                    ("flash_attention_bh_fp32", torch.float32)):
+        nbytes = 4 * BH * S * D * (2 if dt == torch.bfloat16 else 4)
+        n_sets = n_sets_for(nbytes)
+        sets = [tuple(randn(gen, (BH, S, D), dt) for _ in range(3))
+                for _ in range(n_sets)]
+        t_k = device_ms(lambda j: fk.flash_attention_bh(*sets[j],
+                                                        causal=True),
+                        n_sets, 20)
+        t_p = device_ms(lambda j: ref.attention_ref_bh(*sets[j], causal=True),
+                        n_sets, 4)
+        # as (1, BH, S, D): SDPA takes its flash backend for 4-D inputs only
+        t_l = device_ms(lambda j: F.scaled_dot_product_attention(
+            *(t[None] for t in sets[j]), is_causal=True), n_sets, 20)
+        del sets
+        if dt == torch.bfloat16:
+            (b_ms, b_by), core = bound_ms(nbytes, flops, dt), ""
+        else:
+            (b_ms, b_by), (c_ms, c_by) = fp32_route_bound(nbytes, flops)
+            core = (f"; {FP32_ROUTE_PASSES} bf16 passes; fp32 CUDA-core bound "
+                    f"{c_ms:.4f} ms ({c_by})")
+        rows[row] = dict(max_abs_err=errs[row], ms=t_k, plain_ms=t_p,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+        log("proteus", f"flash_attention_bh times (BH {BH}, S=T={S}, D {D}, "
+            f"{str(dt)[6:]}, causal): kernel {t_k:.4f} ms, plain {t_p:.4f} "
+            f"ms, sdpa {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
+            f"{flops:.3e} FLOP{core})")
     return rows, launches
 
 
@@ -1609,7 +1723,7 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
     if "parity" in phases:
-        phase_parity(args.seed)
+        launches["parity"] = phase_parity(args.seed)
     if "proteus" in phases:
         from repro_torch.launch.serve import load_model
         model = load_model("pimref-100m", smoke=False, seed=args.seed,
@@ -1640,7 +1754,7 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
     if "parity_griffin" in phases:
-        phase_parity_griffin(args.seed)
+        launches["parity_griffin"] = phase_parity_griffin(args.seed)
 
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name],

@@ -1,6 +1,11 @@
 """Shared kernel utilities (counterpart: ``repro/kernels/common.py``): the
-KV-cache quantization mode names and the int4 nibble pack/unpack pair."""
+KV-cache quantization mode names, the int4 nibble pack/unpack pair, and the
+exact bf16 split of fp32 values that the tensor-core routes of
+``quant_matmul`` and of the fp32 prefill kernel state in their plain
+emulations."""
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -32,3 +37,18 @@ def unpack_int4(p: torch.Tensor) -> torch.Tensor:
     sx = lambda t: torch.where(t >= 8, t - 16, t)
     out = torch.stack([sx(lo), sx(hi)], dim=-1)
     return out.reshape(p.shape[:-1] + (p.shape[-1] * 2,))
+
+
+def split_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """fp32 x -> bf16 (hi, mid, lo) with hi + mid + lo == x exactly, for
+    2^-110 <= |x| and |x| below where bf16(x) rounds to infinity (about
+    3.39e38), and for 0; hi = bf16(x), mid = bf16(x - hi), lo = bf16(x -
+    hi - mid), each difference exact in fp32. Below 2^-110 lo can fall
+    among bf16's subnormals and lose bits."""
+    x = x.float()
+    hi = x.bfloat16()
+    r = x - hi.float()
+    mid = r.bfloat16()
+    lo = (r - mid.float()).bfloat16()
+    return hi, mid, lo

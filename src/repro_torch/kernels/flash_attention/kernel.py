@@ -23,16 +23,22 @@ their argument layouts:
 when paged) are int32, -1 = masked. Head dims 64, 128 and 256 for every
 kernel and layout.
 
-The prefill kernel has two routes, chosen by q's dtype (there is no knob):
+The prefill kernel has two routes, chosen by q's dtype (there is no knob),
+both in ``csrc/flash_prefill.cu`` on the tensor cores (``wgmma``, fp32
+accumulators and softmax):
 
-* bf16: ``csrc/flash_prefill.cu``, a tensor-core kernel (``wgmma``, bf16
-  operands, fp32 accumulators and softmax; p is rounded to bf16 before
-  ``p @ v``). A block holds 128 query rows, ``GG`` heads x ``BQ``
-  positions of one kv head, as :func:`prefill_plan` lays them out. Every
-  pointer and row stride of q, k and v must be 16-byte aligned; anything
-  else raises ``ValueError``, it never takes the fp32 route;
-* fp32: ``flash_fwd_kernel`` of ``csrc/flash_attention.cu``, fp32 FMA
-  loops over staged tiles, which the fp32 parity checks hold to 2e-5.
+* bf16: bf16 operands; p is rounded to bf16 before ``p @ v``. A block holds
+  ``PREFILL_BLOCK_ROWS`` query rows, ``GG`` heads x ``BQ`` positions of one
+  kv head, as :func:`prefill_plan` lays them out;
+* fp32: q, k, v and p each as three exact bf16 parts and the six products
+  of parts ``i + j <= 2`` (``ref.fp32_route_ref`` states it), which the
+  fp32 parity checks hold to 2e-5; :data:`FP32_PREFILL_TILES` rows a block.
+  A pre-pass splits K and V into their parts once per call, into a
+  ``(6, B, Hkv, T, D)`` bf16 scratch that the wrapper allocates, and the
+  product reads the parts' tiles by TMA (two launches, one count).
+
+Every pointer and row stride of q, k and v must be 16-byte aligned on both
+routes; anything else raises ``ValueError`` (nothing falls back).
 
 The four decode wrappers launch one streaming kernel,
 ``csrc/flash_decode.cu``, that differs only in how it finds and decodes a
@@ -41,14 +47,16 @@ gathered pages bit for bit. :func:`decode_plan` lays the q rows and the kv
 axis over its one-warp blocks. Every K/V pointer and row stride must be
 16-byte aligned; anything else raises ``ValueError``.
 
-Bound on the H100: bytes. At the serving shapes the kernels stream q and the
-K/V operands once (decode: the visible cache rows per launch, as codes
-where the cache holds codes), below the ~295 bf16 operations per byte where
-the tensor cores would become the limit (prefill at head_dim 256 comes
-within 25% of it, and passes it at Griffin's long prompt). The kernels keep
-scores on chip, read each K/V tile once per block of all G heads of a kv
-head, skip masked tiles (prefill) or rows (decode), and split the decode kv
-axis over blocks so the cache stream occupies every SM.
+Bound on the H100: decode and the bf16 prefill route are bound by bytes at
+the serving shapes: they stream q and the K/V operands once (decode: the
+visible cache rows per launch, as codes where the cache holds codes), below
+the ~295 bf16 operations per byte where the tensor cores would become the
+limit (bf16 prefill at head_dim 256 comes within 25% of it, and passes it
+at Griffin's long prompt). The fp32 prefill route does six tensor passes of
+the product work, which pass its bytes at every serving shape. The kernels
+keep scores on chip, read each K/V tile once per block of all G heads of a
+kv head, skip masked tiles (prefill) or rows (decode), and split the decode
+kv axis over blocks so the cache stream occupies every SM.
 
 Selection is by the device of the inputs: CPU tensors go to the plain
 versions in ``ref.py``; CUDA tensors launch the kernels or raise. Inputs may
@@ -82,7 +90,11 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_PAGE_SIZES = (8, 16, 32, 64)
 # the bf16 prefill kernel's query rows per block
 PREFILL_BLOCK_ROWS = 128
-# the byte alignment of every pointer and row stride that the bf16 prefill
+# the fp32 prefill kernel's (query rows a block, kv rows a tile) by
+# head_dim, as csrc/flash_prefill.cu F32Tiles sets them (fp32_layout()
+# reads the source's)
+FP32_PREFILL_TILES = {64: (128, 128), 128: (128, 64), 256: (64, 32)}
+# the byte alignment of every pointer and row stride that the prefill
 # kernel (q, k, v) and the decode kernel (k, v) copy in 16-byte chunks
 COPY_ALIGN = 16
 # decode: the q-row counts a block is built for (csrc/flash_decode.cu NR);
@@ -99,20 +111,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _MASK = [_I, _I, _F, _F, _P]      # causal, window, softcap, scale, stream
-_bound = False
 _prefill_bound = False
 _decode_bound = False
-
-
-def _lib() -> ctypes.CDLL:
-    global _bound
-    lib = build.library("flash_attention")
-    if not _bound:
-        lib.repro_flash_attention_fwd.argtypes = ([_P] * 7 + [_L] * 10
-                                                  + [_I] * 6 + _MASK)
-        lib.repro_flash_attention_fwd.restype = _I
-        _bound = True
-    return lib
 
 
 def _decode_lib() -> ctypes.CDLL:
@@ -133,18 +133,34 @@ def _prefill_lib() -> ctypes.CDLL:
     global _prefill_bound
     lib = build.library("flash_prefill")
     if not _prefill_bound:
-        # repro_flash_attention_fwd's arguments, then the plan's GG BQ
-        # groups blocks
+        # q k v, the positions, out lse (the fp32 route: and the K/V parts
+        # scratch), the q / k / v strides, B H G S T D, the plan's GG BQ
+        # groups blocks, the mask and the stream
         lib.repro_flash_prefill_bf16.argtypes = ([_P] * 7 + [_L] * 10
                                                  + [_I] * 10 + _MASK)
+        lib.repro_flash_prefill_f32.argtypes = ([_P] * 8 + [_L] * 10
+                                                + [_I] * 10 + _MASK)
         lib.repro_flash_prefill_bf16.restype = _I
+        lib.repro_flash_prefill_f32.restype = _I
+        lib.repro_flash_prefill_f32_layout.argtypes = [_I, _P]
+        lib.repro_flash_prefill_f32_layout.restype = None
         _prefill_bound = True
     return lib
 
 
+def fp32_layout(D: int) -> Tuple[int, int, int]:
+    """(query rows a block, kv rows a tile, dynamic shared memory bytes) of
+    the fp32 prefill route at head_dim D, as the CUDA source sets them
+    (builds the library)."""
+    out = (ctypes.c_int * 3)()
+    _prefill_lib().repro_flash_prefill_f32_layout(D, out)
+    return tuple(out)
+
+
 class PrefillPlan(NamedTuple):
-    """How the bf16 prefill kernel lays G query heads x S positions of one
-    kv head over blocks of ``PREFILL_BLOCK_ROWS`` rows: block ``x`` of
+    """How the prefill kernel lays G query heads x S positions of one kv
+    head over blocks of ``rows`` rows (``PREFILL_BLOCK_ROWS`` on the bf16
+    route, ``FP32_PREFILL_TILES[D][0]`` on the fp32 one): block ``x`` of
     ``blocks`` takes heads ``gg * GG .. gg * GG + GG - 1`` at positions
     ``qt * BQ .. qt * BQ + BQ - 1``, with ``gg = x % groups`` and the q
     tiles in reverse (``qt = blocks // groups - 1 - x // groups``: the
@@ -160,11 +176,12 @@ class PrefillPlan(NamedTuple):
     blocks: int
 
 
-def prefill_plan(G: int, S: int) -> PrefillPlan:
+def prefill_plan(G: int, S: int,
+                 rows: int = PREFILL_BLOCK_ROWS) -> PrefillPlan:
     """All G heads of a kv head in one block where they fit (GG = G up to
-    128), with as many positions as fill the block's 128 rows."""
-    GG = min(G, PREFILL_BLOCK_ROWS)
-    BQ = PREFILL_BLOCK_ROWS // GG
+    ``rows``), with as many positions as fill the block's ``rows`` rows."""
+    GG = min(G, rows)
+    BQ = rows // GG
     groups = -(-G // GG)
     return PrefillPlan(GG, BQ, groups, -(-S // BQ) * groups)
 
@@ -273,8 +290,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         softcap: float = 0.0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prefill kernel: returns (out (B, Hkv, G, S, D) in q's dtype,
-    lse (B, Hkv, G, S) fp32). Any S and T. bf16 runs on the tensor-core
-    kernel, fp32 on the FMA kernel."""
+    lse (B, Hkv, G, S) fp32). Any S and T. bf16 and fp32 each run on their
+    tensor-core route."""
     B, H, G, S, T, D = _check(q, k, v, q_positions, kv_positions)
     if q.device.type == "cpu":
         return flash_attention_fwd_ref(q, k, v, q_positions, kv_positions,
@@ -283,22 +300,24 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_cuda(q, D, (("k", k), ("v", v)),
                 (("q_positions", q_positions), ("kv_positions", kv_positions)))
     bf16 = q.dtype == torch.bfloat16
-    if bf16:
-        _check_aligned((("q", q), ("k", k), ("v", v)), "bf16 prefill")
+    _check_aligned((("q", q), ("k", k), ("v", v)),
+                   "bf16 prefill" if bf16 else "fp32 prefill")
     out = torch.empty((B, H, G, S, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, G, S), dtype=torch.float32, device=q.device)
-    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
-            kv_positions.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            *q.stride()[:4], *k.stride()[:3], *v.stride()[:3],
-            B, H, G, S, T, D]
-    mask = _mask_args(causal, window, softcap, D)
+    lib = _prefill_lib()
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
+            kv_positions.data_ptr(), out.data_ptr(), lse.data_ptr()]
     if bf16:
-        lib = _prefill_lib()
-        plan = prefill_plan(G, S)
-        err = lib.repro_flash_prefill_bf16(*args, *plan, *mask)
+        launch, rows = lib.repro_flash_prefill_bf16, PREFILL_BLOCK_ROWS
     else:
-        lib = _lib()
-        err = lib.repro_flash_attention_fwd(*args, *mask)
+        # K's and V's three bf16 parts, split once per call by the pre-pass
+        parts = torch.empty((6, B, H, T, D), dtype=torch.bfloat16,
+                            device=q.device)
+        launch, rows = lib.repro_flash_prefill_f32, FP32_PREFILL_TILES[D][0]
+        ptrs.append(parts.data_ptr())
+    err = launch(*ptrs, *q.stride()[:4], *k.stride()[:3], *v.stride()[:3],
+                 B, H, G, S, T, D, *prefill_plan(G, S, rows),
+                 *_mask_args(causal, window, softcap, D))
     build.check(lib, err, "flash_attention_fwd")
     LAUNCHES["flash_attention_fwd"] += 1
     if not bf16:

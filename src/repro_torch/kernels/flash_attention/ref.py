@@ -6,18 +6,23 @@ layout (counterpart of the TPU kernels' semantics in
 They compute in fp32 with the kernels' mask rule and fully-masked-row guard,
 over the whole kv axis at once. The wrappers in ``kernel.py`` call them for
 tensors that lie on the CPU; ``chip_smoke.py`` holds the CUDA kernels
-against them on the card.
+against them on the card. :func:`fp32_route_ref` states the fp32 prefill
+kernel's arithmetic (exact bf16 parts on the tensor cores) for the tests.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels.common import unpack_int4
+from repro_torch.kernels.common import split_bf16, unpack_int4
 
 NEG_INF = -1e30
+# the fp32 prefill route's products: the pairs (i, j) of bf16 parts with
+# i + j <= 2, smallest first, as csrc/flash_prefill.cu's pair_a / pair_b
+# order them
+FP32_ROUTE_PAIRS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
 
 
 def visible_mask(q_positions: torch.Tensor, kv_positions: torch.Tensor, *,
@@ -93,6 +98,57 @@ def attention_ref_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.where(mask[None], s, torch.full_like(s, NEG_INF))
     p = torch.where(mask[None], torch.softmax(s, dim=-1), torch.zeros_like(s))
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def _pair_products(a_parts, b_parts, eq: str, pairs) -> torch.Tensor:
+    """sum over ``pairs`` of einsum(eq, a_i, b_j), each product of bf16
+    parts exact in fp32, summed in fp32 in the pairs' order."""
+    out = None
+    for i, j in pairs:
+        t = torch.einsum(eq, a_parts[i].float(), b_parts[j].float())
+        out = t if out is None else out + t
+    return out
+
+
+def fp32_route_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   q_positions: torch.Tensor, kv_positions: torch.Tensor, *,
+                   causal: bool = True, window: int = 0, softcap: float = 0.0,
+                   block_k: int,
+                   pairs: Sequence[Tuple[int, int]] = FP32_ROUTE_PAIRS
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 prefill kernel's arithmetic in plain PyTorch, for the tests:
+    q, k, v and p each as three exact bf16 parts (:func:`split_bf16`); q.k
+    and p @ v as the sums of the products of ``pairs`` of parts in fp32;
+    an fp32 online softmax over kv tiles of ``block_k`` rows (the kernel's
+    tile at q's head_dim, ``kernel.FP32_PREFILL_TILES``); l summed from the
+    fp32 p. Inputs in the kernel layout, fp32; returns (out, lse) fp32."""
+    B, H, G, S, D = q.shape
+    T = k.shape[2]
+    qp, kp, vp = split_bf16(q), split_bf16(k), split_bf16(v)
+    mask = visible_mask(q_positions, kv_positions, causal=causal,
+                        window=window)[:, None, None]          # (B,1,1,S,T)
+    m = torch.full((B, H, G, S), NEG_INF)
+    l = torch.zeros(B, H, G, S)
+    acc = torch.zeros(B, H, G, S, D)
+    for t0 in range(0, T, block_k):
+        tile = slice(t0, t0 + block_k)
+        s = _pair_products(qp, [x[:, :, tile] for x in kp],
+                           "bhgsd,bhtd->bhgst", pairs) * (1.0 / math.sqrt(D))
+        if softcap > 0:
+            s = softcap * torch.tanh(s / softcap)
+        s = torch.where(mask[..., tile], s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        safe = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)
+        alpha = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(m - safe))
+        p = torch.exp(s - safe[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + _pair_products(
+            split_bf16(p), [x[:, :, tile] for x in vp], "bhgst,bhtd->bhgsd",
+            pairs)
+        m = m_new
+    lsafe = torch.where(l == 0, 1.0, l)
+    lse = torch.where(m <= NEG_INF / 2, NEG_INF, m + torch.log(lsafe))
+    return acc / lsafe[..., None], lse
 
 
 def bf16_route_limit(want: torch.Tensor,

@@ -13,15 +13,18 @@ differ by summation-order noise only. ``ops.quant_matmul`` calls
 ``quant_matmul_ref`` for tensors on the CPU; ``chip_smoke.py`` holds the
 kernel against it on the card.
 
-:func:`split_bf16` and :func:`quant_matmul_route_ref` state the CUDA
-kernel's route in plain PyTorch: x in exact bf16 parts, each part times
-the bf16 codes summed in fp32 per k-block, the partial times the scale.
+:func:`quant_matmul_route_ref` states the CUDA kernel's route in plain
+PyTorch: x in exact bf16 parts (``kernels/common.py`` :func:`split_bf16`),
+each part times the bf16 codes summed in fp32 per k-block, the partial
+times the scale.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+
+from repro_torch.kernels.common import split_bf16
 
 
 def quantize_weights_ref(w: torch.Tensor, block_k: int = 128,
@@ -51,21 +54,6 @@ def quant_matmul_ref(x: torch.Tensor, codes: torch.Tensor,
                      scales: torch.Tensor) -> torch.Tensor:
     """x (M, K) float @ dequantized (K, N) -> (M, N) fp32."""
     return x.float() @ dequantize_ref(codes, scales)
-
-
-def split_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
-                                         torch.Tensor]:
-    """fp32 x -> bf16 (hi, mid, lo) with hi + mid + lo == x exactly, for
-    2^-110 <= |x| and |x| below where bf16(x) rounds to infinity (about
-    3.39e38), and for 0; hi = bf16(x), mid = bf16(x - hi), lo = bf16(x -
-    hi - mid), each difference exact in fp32. Below 2^-110 lo can fall
-    among bf16's subnormals and lose bits."""
-    x = x.float()
-    hi = x.bfloat16()
-    r = x - hi.float()
-    mid = r.bfloat16()
-    lo = (r - mid.float()).bfloat16()
-    return hi, mid, lo
 
 
 def quant_matmul_route_ref(x: torch.Tensor, codes: torch.Tensor,

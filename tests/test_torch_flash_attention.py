@@ -231,6 +231,107 @@ def test_bf16_route_limits_catch_a_window_off_by_one():
 
 
 # ---------------------------------------------------------------------------
+# the fp32 prefill route (csrc/flash_prefill.cu): its block plan, and a plain
+# emulation of its arithmetic (ref.fp32_route_ref) held against the reference
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4, 10])
+@pytest.mark.parametrize("S", [1, 77, 512])
+def test_fp32_prefill_plan_covers_every_row_once(D, G, S):
+    """The fp32 route's plan, with its FP32_PREFILL_TILES rows a block:
+    every (query head, position) of a kv head in exactly one block row."""
+    rows = tk.FP32_PREFILL_TILES[D][0]
+    plan = tk.prefill_plan(G, S, rows)
+    assert 1 <= plan.GG * plan.BQ <= rows
+    nq = plan.blocks // plan.groups
+    seen = {}
+    for x in range(plan.blocks):            # the kernel's block_row
+        qt, gg = nq - 1 - x // plan.groups, x % plan.groups
+        cover = [(gg * plan.GG + r // plan.BQ, qt * plan.BQ + r % plan.BQ)
+                 for r in range(rows) if r // plan.BQ < plan.GG]
+        cover = [(g, s) for g, s in cover if g < G and s < S]
+        assert cover
+        for gs in cover:
+            seen[gs] = seen.get(gs, 0) + 1
+    assert seen == {(g, s): 1 for g in range(G) for s in range(S)}
+
+
+FP32_ROUTE_LIMIT = 2e-5 / 4     # a quarter of the card's fp32 limit
+
+
+def _fp32_case(rng, D, G, S, T, spike=80.0):
+    """fp32 inputs in the kernel layout: q positions T - S .. T - 1, batch
+    row 1 with its first 3 q rows and every third kv slot at -1, and a q
+    row 0 of batch row 0 whose scores are -spike |k[:, 0]| (k's first
+    column made non-positive): a third of its p underflow past 2^-110
+    (where bf16's parts lose bits), while its lse stays near 0."""
+    B, H = 2, 2
+    q, k, v = (_np(rng, *shape) for shape in
+               ((B, H, G, S, D), (B, H, T, D), (B, H, T, D)))
+    k[..., 0] = -np.abs(k[..., 0])
+    q[0, :, :, 0] = 0.0
+    q[0, :, :, 0, 0] = spike * np.sqrt(D)
+    qp = np.tile(np.arange(S, dtype=np.int32) + T - S, (B, 1))
+    qp[1, :3] = -1
+    kp = np.tile(np.arange(T, dtype=np.int32), (B, 1))
+    kp[1, ::3] = -1
+    return q, k, v, qp, kp
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G,S,T,window,cap", [
+    (1, 40, 301, 0, 0.0), (4, 23, 150, 48, 20.0), (10, 13, 91, 0, 0.0)])
+def test_fp32_route_within_quarter_of_limit(D, G, S, T, window, cap):
+    """The fp32 kernel's arithmetic (three exact bf16 parts of q, k, v and
+    p, the six pair products i + j <= 2, an fp32 online softmax over its kv
+    tiles) stays within a quarter of the card's 2e-5 fp32 limit of the
+    reference's Pallas kernel in interpret mode and of the port's plain
+    version, out and lse, on the same fp32 inputs; -1 q rows give out 0 and
+    lse -1e30, and (without a softcap) the spiked row's p do underflow past
+    2^-110."""
+    rng = np.random.default_rng(D + G * 7 + S)
+    q, k, v, qp, kp = _fp32_case(rng, D, G, S, T)
+    kw = dict(causal=True, window=window, softcap=cap)
+    args = _t(q, k, v, qp, kp)
+    eo, el = ref.fp32_route_ref(*args, block_k=tk.FP32_PREFILL_TILES[D][1],
+                                **kw)
+    jo, jl = jk.flash_attention_fwd(*(jnp.asarray(a) for a in (q, k, v, qp,
+                                                                kp)),
+                                    block_q=S, block_k=T, interpret=True, **kw)
+    _close(eo, jo, atol=FP32_ROUTE_LIMIT)
+    _close(el, jl, atol=FP32_ROUTE_LIMIT)
+    po, pl = ref.flash_attention_fwd_ref(*args, **kw)
+    _close(eo, po.numpy(), atol=FP32_ROUTE_LIMIT)
+    _close(el, pl.numpy(), atol=FP32_ROUTE_LIMIT)
+    assert float(eo[1, :, :, :3].abs().max()) == 0.0
+    assert float(el[1, :, :, :3].max()) == float(np.float32(ref.NEG_INF))
+    if cap == 0:                 # a softcap bounds the scores to +-cap
+        seen = ref.visible_mask(*_t(qp, kp), causal=True,
+                                window=window)[0, 0].numpy()
+        s = np.einsum("hd,htd->ht", q[0, :, 0, 0], k[0])[:, seen] / np.sqrt(D)
+        assert (np.exp(s - s.max(axis=-1, keepdims=True)) < 2.0 ** -110).any()
+
+
+def test_fp32_route_limit_catches_three_pair_products():
+    """The quarter limit tells the schemes apart: with three pair products
+    (q0 k0 + q0 k1 + q1 k0, and the same for p and v) the emulation leaves
+    it against the plain version, at pimref's head_dim over a causal
+    512 x 512 attention."""
+    rng = np.random.default_rng(7)
+    S, D = 512, 64
+    q, k, v = (_np(rng, *shape) for shape in
+               ((1, 2, 1, S, D), (1, 2, S, D), (1, 2, S, D)))
+    pos = np.arange(S, dtype=np.int32)[None]
+    args = _t(q, k, v, pos, pos)
+    po, _ = ref.flash_attention_fwd_ref(*args, causal=True)
+    e3, _ = ref.fp32_route_ref(*args, causal=True, block_k=64,
+                               pairs=((1, 0), (0, 1), (0, 0)))
+    e6, _ = ref.fp32_route_ref(*args, causal=True, block_k=64)
+    assert float((e3 - po).abs().max()) > FP32_ROUTE_LIMIT
+    assert float((e6 - po).abs().max()) <= FP32_ROUTE_LIMIT
+
+
+# ---------------------------------------------------------------------------
 # decode: ops.flash_decode against the ring cache
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("S", [1, 4])
@@ -582,10 +683,10 @@ def test_decode_plan_covers_every_row_once(B, H, R, T):
 
 def test_build_finds_sources_and_names_missing_nvcc(monkeypatch, tmp_path):
     srcs = build.sources()
-    assert "flash_attention" in srcs
-    lib = build.library_path(srcs["flash_attention"])
+    assert "flash_prefill" in srcs
+    lib = build.library_path(srcs["flash_prefill"])
     assert lib.parent == build.BUILD_DIR and lib.name.startswith(
-        "libflash_attention-")
+        "libflash_prefill-")
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     for var in build.CUDA_ROOTS:
         monkeypatch.delenv(var, raising=False)

@@ -91,8 +91,8 @@ def test_prefill_kernel(cuda, dtype, G, S, T, D, window, cap):
 
 
 # ---------------------------------------------------------------------------
-# the two prefill routes: bf16 on the tensor-core kernel (flash_prefill.cu),
-# fp32 on the FMA kernel (flash_attention.cu)
+# the two prefill routes of flash_prefill.cu, both on the tensor cores: bf16
+# operands, and fp32 operands as three exact bf16 parts each
 # ---------------------------------------------------------------------------
 def _prefill_case(gen, dev, B, H, G, S, T, D, dtype, shift=None):
     """Inputs of one prefill case: q positions T - S .. T - 1 (or + shift),
@@ -219,22 +219,90 @@ def test_prefill_bf16_rejects_misaligned_views(cuda):
 
 
 @pytest.mark.cuda
-def test_prefill_fp32_route(cuda):
-    """fp32 prefill stays on the FMA kernel: its route counter moves, and
-    it is within 2e-5 of the plain version."""
-    gen = torch.Generator(device=cuda).manual_seed(9)
-    q, k, v, qp, kp = _prefill_case(gen, cuda, 2, 3, 4, 77, 203, 64,
-                                    torch.float32)
-    kw = dict(causal=True, window=48, softcap=20.0)
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4, 10])
+@pytest.mark.parametrize("window,cap,holes", [
+    (0, 0.0, False), (48, 20.0, False), (0, 0.0, True)])
+def test_prefill_fp32_route(cuda, D, G, window, cap, holes):
+    """fp32 prefill on its tensor-core route (q, k, v and p as three exact
+    bf16 parts, six pair products) through strided views of the model's
+    (B, S, H, D) layout, ragged S and T: out and lse within 2e-5 of the
+    plain version, the fp32 route counter +1; with holes, -1 q rows give
+    out 0 and lse -1e30 and -1 kv slots are skipped."""
+    gen = torch.Generator(device=cuda).manual_seed(D + G + window)
+    B, Hkv, S, T = 2, 2, 77, 203
+    q = _randn(gen, (B, S, Hkv * G, D), torch.float32, cuda)
+    k, v = (_randn(gen, (B, T, Hkv, D), torch.float32, cuda)
+            for _ in range(2))
+    q5 = q.reshape(B, S, Hkv, G, D).permute(0, 2, 3, 1, 4)
+    k4, v4 = k.transpose(1, 2), v.transpose(1, 2)
+    qp = (torch.arange(S, dtype=torch.int32, device=cuda) + T - S).repeat(B, 1)
+    kp = torch.arange(T, dtype=torch.int32, device=cuda).repeat(B, 1)
+    if holes:
+        qp[1, :S // 4] = -1
+        kp[1, ::3] = -1
+        kp[0, 64:140] = -1
+    kw = dict(causal=True, window=window, softcap=cap)
     n = dict(tk.LAUNCHES)
-    o, lse = tk.flash_attention_fwd(q, k, v, qp, kp, **kw)
+    o, lse = tk.flash_attention_fwd(q5, k4, v4, qp, kp, **kw)
     torch.cuda.synchronize()
     assert tk.LAUNCHES["flash_attention_fwd_fp32"] == \
         n["flash_attention_fwd_fp32"] + 1
     assert tk.LAUNCHES["flash_attention_fwd"] == n["flash_attention_fwd"] + 1
-    ro, rl = ref.flash_attention_fwd_ref(q, k, v, qp, kp, **kw)
-    assert _err(o, ro) <= TOL[torch.float32]
-    assert _err(lse, rl) <= TOL[torch.float32]
+    assert o.dtype == torch.float32 and lse.dtype == torch.float32
+    _assert_prefill(torch.float32, o, lse, q5, k4, v4, qp, kp, **kw)
+    if holes:
+        assert float(o[1, :, :, :S // 4].abs().max()) == 0.0
+        assert float(lse[1, :, :, :S // 4].max()) == float(
+            torch.tensor(ref.NEG_INF, dtype=torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_prefill_fp32_route_is_deterministic(cuda, D):
+    """A fixed order of sums and no atomics: two calls on the same inputs
+    give the same bits, out and lse."""
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    q, k, v, qp, kp = _prefill_case(gen, cuda, 2, 2, 10, 300, 300, D,
+                                    torch.float32)
+    o1, l1 = tk.flash_attention_fwd(q, k, v, qp, kp, window=100)
+    o2, l2 = tk.flash_attention_fwd(q, k, v, qp, kp, window=100)
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+
+
+@pytest.mark.cuda
+def test_prefill_fp32_rejects_misaligned_views(cuda):
+    """The fp32 route copies 16-byte chunks too: a view one element off its
+    row start, or rows 65 elements apart, raise ValueError and launch
+    nothing, through the kernel's wrapper and the adapter."""
+    q = torch.zeros(1, 1, 1, 4, 65, device=cuda)
+    k = torch.zeros(1, 1, 8, 64, device=cuda)
+    qp = torch.arange(4, dtype=torch.int32, device=cuda)[None]
+    kp = torch.arange(8, dtype=torch.int32, device=cuda)[None]
+    n = dict(tk.LAUNCHES)
+    for bad in (q[..., 1:], q[..., :64]):
+        with pytest.raises(ValueError, match="aligned"):
+            tk.flash_attention_fwd(bad, k, k, qp, kp)
+    vbad = torch.zeros(1, 1, 8, 65, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        tk.flash_attention_fwd(q[..., :64].contiguous(), k, vbad[..., 1:],
+                               qp, kp)
+    kb = torch.zeros(2, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        tk.flash_attention_bh(torch.zeros(2, 4, 65, device=cuda)[..., 1:],
+                              kb, kb)
+    assert tk.LAUNCHES == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_fp32_prefill_tiles_state_the_kernels_layout(cuda, D):
+    """FP32_PREFILL_TILES, which the CPU tests' plan and emulation take,
+    are the rows and kv tile the CUDA source launches with, within the
+    227 KB a block may use."""
+    rows, bk, smem = tk.fp32_layout(D)
+    assert (rows, bk) == tk.FP32_PREFILL_TILES[D]
+    assert 0 < smem <= 232448
 
 
 @pytest.mark.cuda
