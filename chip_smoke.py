@@ -30,13 +30,18 @@ Runs on one NVIDIA GPU; exits non-zero without one. Phases:
    pages of 16 and both) and at Griffin's (``flash_decode_fwd_d256``: B 8,
    one kv head for ten q heads of 256, T 576), each through ``ops`` as a
    model calls it; its layouts are also checked at head_dim 256;
-4. serve: ``pimref-100m`` at full width, batch-mode ``serve()`` with the
-   fused and the per-token engine, in every KV layout (contiguous, Proteus
-   int8 / int4 / auto codes, pages of 16, pages of 16 holding int8 codes);
-   greedy tokens of the two engines must be identical and every prefill /
-   decode step must have launched the prefill kernel and the layout's
-   decode kernel once per layer, and no other (the prefill kernel's fp32
-   route none: the serving path is bf16);
+4. serve: ``pimref-100m`` at full width, batch-mode ``serve()`` in every
+   KV layout (contiguous, Proteus int8 / int4 / auto codes, pages of 16,
+   pages of 16 holding int8 codes) three ways: the fused chunk as one CUDA
+   graph replay (the port's path), the same chunk body run eagerly (set
+   here by ``eager_chunks``, not a knob of the port) and the per-token
+   loop. Greedy tokens of the three must be identical, the graph's decode
+   ms per token-step below the eager chunk's, and every prefill / decode
+   step must have launched the prefill kernel and the layout's decode
+   kernel once per layer, and no other (the prefill kernel's fp32 route
+   none: the serving path is bf16); a replay counts the launches of the
+   chunk it replays. Logged: the capture's time and the graph's device ms
+   per step (back-to-back replays timed by CUDA events);
 5. card vs CPU: the same fp32 weights on the card (kernels) and on the CPU
    (plain path), prefill plus teacher-forced decode steps, logits compared,
    through the contiguous, the paged and the int8 cache; every prefill
@@ -44,17 +49,24 @@ Runs on one NVIDIA GPU; exits non-zero without one. Phases:
    of the fp32 rows);
 6. engine: ``ServeEngine`` drains mixed-length requests with a shared
    prefix on 8 slots, contiguous, paged and paged int8: one completion per
-   request, prefix sharing, every page back in the pool at the end;
-7. profile: ``torch.profiler`` over batch-mode serving (prefill and three
-   fused chunks): the device's busy share and the kernels by device time;
+   request, prefix sharing, every page back in the pool at the end, one
+   graph capture per engine, and the completions of a drain whose engine
+   runs the chunk body eagerly;
+7. profile: ``torch.profiler`` over batch-mode serving (prefill, the
+   warm-up chunk, then two chunks: graph replays, and beside them eager
+   chunks): the device's busy share, the kernels by device time, and the
+   launches of the prefill, decode and RG-LRU kernels counted from the
+   profiler's kernel events against the launch counters;
 8. serve_griffin: ``recurrentgemma-2b`` at full width and depth (random
    weights from ``--seed``), batch 8 x prompt 512 x 64 new tokens and one
    long request (batch 2 x prompt 2100 x 32, past the local window of
-   2048, so the ring wraps): fused == loop tokens, and exact launches: per
+   2048, so the ring wraps), graph, eager chunk and loop as in phase
+   serve: identical tokens, and exact launches: per
    prefill 8 of the prefill kernel (attention layers) and 18 of the RG-LRU
    kernel (recurrent layers), per decode step 8 of the decode kernel;
    then a profile of its serving;
-9. engine_griffin: 16 mixed-length requests drained through 8 slots;
+9. engine_griffin: 16 mixed-length requests drained through 8 slots, graph
+   against eager body;
 10. parity_griffin: card vs CPU fp32 logits and caches at full width with
    the depth cut to 5 layers (one group and the two trailing recurrent
    layers), prefill 64 plus 8 decode steps; its one prefill launched the
@@ -88,6 +100,7 @@ The second-to-last line is a JSON object of per-kernel numbers, the last is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -213,7 +226,7 @@ LAYOUTS = {
     "paged16": ("off", 16, "flash_decode_paged_fwd"),
     "paged16_int8": ("int8", 16, "flash_decode_paged_quant_fwd"),
 }
-# the run whose launches each row of the JSON line reports: the fused serve
+# the run whose launches each row of the JSON line reports: the graph serve
 # run of a layout, or phase parity, parity_griffin or proteus
 MAIN_LAYOUT = {"flash_attention_fwd": "contiguous",
                "flash_attention_fwd_d256": "griffin",
@@ -1021,11 +1034,8 @@ def kernels_kv_layouts(gen) -> dict:
 
 def _counters() -> list:
     """The launch counters of every kernel module."""
-    from repro_torch.kernels.flash_attention import LAUNCHES
-    from repro_torch.kernels.narrow_value import LAUNCHES as NV_LAUNCHES
-    from repro_torch.kernels.quant_matmul import LAUNCHES as QMM_LAUNCHES
-    from repro_torch.kernels.rglru import LAUNCHES as RGLRU_LAUNCHES
-    return [LAUNCHES, RGLRU_LAUNCHES, NV_LAUNCHES, QMM_LAUNCHES]
+    from repro_torch.kernels import launch_counters
+    return launch_counters()
 
 
 def _reset():
@@ -1064,11 +1074,11 @@ def _check_launches(phase, cfg, prefills, decode_steps,
 
 def phase_serve(model, smi: str) -> dict:
     """Batch serving in every KV layout; returns the launches of each
-    layout's fused run."""
-    return {layout: _serve_pair(model, smi, f"serve/{layout}", decode_kernel,
-                                batch=8, prompt_len=512, gen=64, chunk=8,
-                                seed=0, kv_quant=kv_quant,
-                                page_size=page_size)
+    layout's graph run."""
+    return {layout: _serve_engines(model, smi, f"serve/{layout}",
+                                   decode_kernel, batch=8, prompt_len=512,
+                                   gen=64, chunk=8, seed=0,
+                                   kv_quant=kv_quant, page_size=page_size)
             for layout, (kv_quant, page_size, decode_kernel)
             in LAYOUTS.items()}
 
@@ -1194,10 +1204,39 @@ def _drain(eng, reqs, label, decode_kernel) -> dict:
         f"({sorted({c.finish_reason for c in comps})}), "
         f"{s['tokens_out']} tokens in {s['wall_seconds']:.3f} s "
         f"({s['tokens_per_second']:.1f} tokens/s), {s['prefills']} prefills, "
-        f"{s['decode_dispatches']} chunks, kv_bytes_per_token "
-        f"{s['kv_bytes_per_token']:.1f}"
+        f"{s['decode_dispatches']} chunks, {s['graph_captures']} graph "
+        f"capture(s) in {s['capture_seconds'] * 1e3:.1f} ms, "
+        f"kv_bytes_per_token {s['kv_bytes_per_token']:.1f}"
         + (f", pages peak {s['kv_pages_peak']}, prefix hits "
            f"{s['prefix_hits']}" if eng.paged else ""))
+    return s
+
+
+def _completions(eng) -> list:
+    return sorted((c.uid, c.finish_reason, np.asarray(c.tokens).tolist())
+                  for c in eng.completions)
+
+
+def _drain_pair(make, reqs, label, decode_kernel) -> dict:
+    """Drain ``reqs`` through an engine from ``make()`` that runs the chunk
+    body eagerly, then through one that replays the captured chunk: the
+    same completions, one capture for the whole drain; returns the graph
+    engine's stats."""
+    with eager_chunks():
+        eager = make()
+        e = _drain(eager, reqs, f"{label}/eager", decode_kernel)
+        want, eager_captures = _completions(eager), e["graph_captures"]
+        del eager
+    eng = make()
+    s = _drain(eng, reqs, f"{label}/graph", decode_kernel)
+    same = _completions(eng) == want
+    log(label, f"graph == eager-body completions: {same}; tokens/s graph "
+        f"{s['tokens_per_second']:.1f} (wall {s['wall_seconds']:.3f} s, the "
+        f"capture's {s['capture_seconds']:.3f} s included), eager "
+        f"{e['tokens_per_second']:.1f}")
+    if not same or s["graph_captures"] != 1 or eager_captures != 0:
+        raise AssertionError(f"{label}: completions equal {same}, captures "
+                             f"{s['graph_captures']} / {eager_captures}")
     return s
 
 
@@ -1210,10 +1249,12 @@ def phase_engine(model, seed: int) -> None:
     per_token = {}
     for layout in ("contiguous", "paged16", "paged16_int8"):
         kv_quant, page_size, decode_kernel = LAYOUTS[layout]
-        eng = make_queue_engine(model=model, slots=8, prompt_len=256, gen=64,
-                                chunk=8, seed=seed, kv_quant=kv_quant,
-                                page_size=page_size)
-        s = _drain(eng, reqs, f"engine/{layout}", decode_kernel)
+
+        def make():
+            return make_queue_engine(model=model, slots=8, prompt_len=256,
+                                     gen=64, chunk=8, seed=seed,
+                                     kv_quant=kv_quant, page_size=page_size)
+        s = _drain_pair(make, reqs, f"engine/{layout}", decode_kernel)
         per_token[layout] = s["kv_bytes_per_token"]
     base = per_token["contiguous"]
     log("engine", "kv_bytes_per_token " + ", ".join(
@@ -1221,38 +1262,119 @@ def phase_engine(model, seed: int) -> None:
         for k, v in per_token.items()))
 
 
-def _serve_pair(model, smi, label, decode_kernel="flash_decode_fwd",
-                **kw) -> dict:
-    """Batch serving with the fused and the per-token engine after a short
-    warm-up run: exact launches, tokens in range, fused == loop; returns
-    the fused run's launches."""
+# ---------------------------------------------------------------------------
+# the decode chunk: a CUDA graph replay against its eager body
+# ---------------------------------------------------------------------------
+ENGINES = ("graph", "eager", "loop")
+
+
+@contextlib.contextmanager
+def eager_chunks():
+    """Inside, ``serve()`` and ``ServeEngine`` run the fused chunk's body
+    eagerly on the card instead of replaying its graph: the yardstick the
+    graph is checked and timed against."""
+    from repro_torch.launch import engine, serve
+    from repro_torch.launch.steps import GenerateStep
+
+    class EagerChunk(GenerateStep):
+        def prepare(self, cache, tok, generator):
+            self._warm_up(cache, tok)
+
+        def __call__(self, cache, tok, generator, eos_id):
+            return self._eager(cache, tok, generator, eos_id)
+
+    saved = serve.make_generate_step, engine.make_generate_step
+    serve.make_generate_step = engine.make_generate_step = EagerChunk
+    try:
+        yield
+    finally:
+        serve.make_generate_step, engine.make_generate_step = saved
+
+
+def _serve_as(name: str, **kw) -> dict:
+    """``serve()`` with one of ENGINES."""
+    from repro_torch.launch.serve import serve
+    with eager_chunks() if name == "eager" else contextlib.nullcontext():
+        return serve(engine="loop" if name == "loop" else "fused", **kw)
+
+
+def graph_device_ms(model, *, batch, prompt_len, gen, chunk, seed,
+                    kv_quant="off", page_size=0) -> tuple:
+    """Device ms per token-step of the captured chunk: serve()'s batch
+    prefilled, the chunk captured on its cache, then back-to-back replays
+    (the first alone, then ``gen // chunk - 1``) timed by CUDA events.
+    Returns (ms per step of the later replays, ms of the first replay,
+    which uploads the graph to the card)."""
+    from repro_torch.launch.steps import make_generate_step
+    m = model.with_kv_layout(kv_quant, page_size)
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(
+        0, m.cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).to(DEVICE)
+    logits, cache = m.prefill(tokens, max_len=prompt_len + gen)
+    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    step = make_generate_step(m, chunk=chunk)
+    step.prepare(cache, tok, None)
+    graph = step._captured.graph      # the replays alone, no host work between
+    replays = gen // chunk - 1
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    graph.replay()
+    ev[1].record()
+    for _ in range(replays):
+        graph.replay()
+    ev[2].record()
+    torch.cuda.synchronize()
+    return (ev[1].elapsed_time(ev[2]) / (replays * chunk),
+            ev[0].elapsed_time(ev[1]))
+
+
+def _serve_engines(model, smi, label, decode_kernel="flash_decode_fwd",
+                   **kw) -> dict:
+    """Batch serving with each of ENGINES after a short warm-up run: exact
+    launches, tokens in range, graph == eager chunk == loop tokens, the
+    graph's decode ms per token-step below the eager chunk's; logs the
+    graph's device ms per step; returns the graph run's launches."""
     from repro_torch.launch.serve import serve
     cfg = model.cfg
     serve(model=model, engine="fused", **{**kw, "gen": 8})   # first calls
     runs, launches = {}, None
-    for engine in ("fused", "loop"):
+    for name in ENGINES:
         _reset()
-        out = serve(model=model, engine=engine, **kw)
-        got = _check_launches(f"{label}/{engine}", cfg, out["prefills"],
+        out = _serve_as(name, model=model, **kw)
+        got = _check_launches(f"{label}/{name}", cfg, out["prefills"],
                               out["decode_steps"], decode_kernel)
-        if engine == "fused":
+        if name == "graph":
             launches = got
         toks = out["tokens"]
         if toks.shape != (kw["batch"], kw["gen"]) or toks.min() < 0 \
                 or toks.max() >= cfg.vocab_size:
-            raise AssertionError(f"{label}/{engine}: bad tokens {toks.shape} "
+            raise AssertionError(f"{label}/{name}: bad tokens {toks.shape} "
                                  f"[{toks.min()}, {toks.max()}]")
-        log(f"{label}/{engine}", f"{smi}: prefill "
+        log(f"{label}/{name}", f"{smi}: prefill "
             f"{out['prefill_s'] * 1e3:.3f} ms (B={kw['batch']} x "
             f"{kw['prompt_len']}), decode "
             f"{out['decode_s_per_tok'] * 1e3:.4f} ms/token-step, "
             f"{out['throughput_tok_s']:.1f} tokens/s, "
-            f"{out['dispatches']} host syncs")
-        runs[engine] = out
-    same = np.array_equal(runs["fused"]["tokens"], runs["loop"]["tokens"])
-    log(label, f"fused == loop tokens: {same}")
+            f"{out['dispatches']} host syncs"
+            + (f", capture {out['capture_s'] * 1e3:.3f} ms (its eager "
+               "warm-up chunk included)" if name == "graph" else ""))
+        runs[name] = out
+    same = all(np.array_equal(runs["graph"]["tokens"], runs[n]["tokens"])
+               for n in ENGINES[1:])
+    log(label, f"graph == eager chunk == loop tokens: {same}")
     if not same:
-        raise AssertionError(f"{label}: fused and loop greedy tokens differ")
+        raise AssertionError(f"{label}: greedy tokens of {ENGINES} differ")
+    dev, first = graph_device_ms(model, **kw)
+    g, e = (runs[n]["decode_s_per_tok"] * 1e3 for n in ("graph", "eager"))
+    log(label, f"{smi}: decode ms per token-step: graph {g:.4f}, its device "
+        f"time {dev:.4f} (wall / device {g / dev:.2f}; a first replay "
+        f"{first:.3f} ms, {first / kw['chunk']:.4f} a step); eager chunk "
+        f"{e:.4f} ({e / g:.2f}x the graph)")
+    if not g < e:
+        raise AssertionError(f"{label}: the graph's decode ({g:.4f} ms per "
+                             f"token-step) is not below the eager chunk's "
+                             f"({e:.4f})")
     return launches
 
 
@@ -1260,15 +1382,15 @@ def phase_serve_griffin(model, smi: str) -> dict:
     """recurrentgemma-2b batch serving at B 8 x 512 + 64, then one long
     request (B 2 x 2100 + 32) whose prompt crosses the local window, so the
     prefill keeps the last 2048 positions and every decode write wraps the
-    ring. Returns the launches of the two fused runs."""
-    launches = _serve_pair(model, smi, "serve_griffin", batch=8,
-                           prompt_len=512, gen=64, chunk=8, seed=0)
+    ring. Returns the launches of the two graph runs."""
+    launches = _serve_engines(model, smi, "serve_griffin", batch=8,
+                              prompt_len=512, gen=64, chunk=8, seed=0)
     W = model.cfg.local_window
     if model.cache_len(2100 + 32) != W:
         raise AssertionError(f"long request: ring of "
                              f"{model.cache_len(2132)} slots, not {W}")
-    long = _serve_pair(model, smi, "serve_griffin/long", batch=2,
-                       prompt_len=2100, gen=32, chunk=8, seed=1)
+    long = _serve_engines(model, smi, "serve_griffin/long", batch=2,
+                          prompt_len=2100, gen=32, chunk=8, seed=1)
     return launches, long
 
 
@@ -1277,9 +1399,10 @@ def phase_engine_griffin(model, seed: int) -> None:
     from repro_torch.launch.serve import make_queue_engine, synth_requests
     reqs = synth_requests(cfg=model.cfg, requests=16, prompt_len=256, gen=64,
                           seed=seed)
-    eng = make_queue_engine(model=model, slots=8, prompt_len=256, gen=64,
-                            chunk=8, seed=seed)
-    _drain(eng, reqs, "engine_griffin", "flash_decode_fwd")
+    _drain_pair(lambda: make_queue_engine(model=model, slots=8,
+                                          prompt_len=256, gen=64, chunk=8,
+                                          seed=seed),
+                reqs, "engine_griffin", "flash_decode_fwd")
 
 
 def _rel_err(c, g) -> float:
@@ -1344,34 +1467,60 @@ def phase_parity_griffin(seed: int) -> dict:
     return _check_fp32_prefills("parity_griffin", cfg, 1)
 
 
+# counter -> the kernel whose launches the profiler counts for it
+PROFILED = {"flash_attention_fwd": "flash_prefill_kernel<",
+            "flash_decode_fwd": "flash_decode_kernel<",
+            "rglru_scan": "rglru_scan_kernel<"}
+
+
 def phase_profile(model, smi: str, label: str = "profile") -> None:
+    """``torch.profiler`` over one batch-mode serve (B 8 x 512, prefill, the
+    warm-up chunk and two chunks of 8) with the graph and with the eager
+    chunk: busy share, kernels by device time, and the launches of the
+    prefill, decode and RG-LRU kernels by the profiler's kernel events
+    against the launch counters."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import serve
-    kw = dict(model=model, engine="fused", batch=8, prompt_len=512, gen=16,
-              chunk=8, seed=0)
-    serve(**kw)                                   # allocator and cuBLAS warm
+    kw = dict(model=model, batch=8, prompt_len=512, gen=16, chunk=8, seed=0)
+    serve(engine="fused", **kw)                   # allocator and cuBLAS warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        serve(**kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in kern)
-    launches = sum(e.count for e in kern)
-    log(label, f"{smi}: {model.cfg.name} serve B=8 prompt 512, prefill + 3 "
-        f"chunks of 8: wall {wall * 1e3:.3f} ms, device busy "
-        f"{busy_us / 1e3:.3f} ms ({busy_us / 1e4 / wall:.1f}% busy), "
-        f"{launches} kernel launches of {len(kern)} kernels")
-    ranked = sorted(kern, key=lambda e: -e.self_device_time_total)
-    # the top twelve, and every attention and RG-LRU kernel of the port
-    for e in ranked[:12] + [e for e in ranked[12:]
-                            if "flash_" in e.key or "rglru_" in e.key]:
-        log(label, f"  {e.self_device_time_total / 1e3:9.3f} ms "
-            f"{e.count:6d}x  {e.key[:90]}")
+    for name in ("graph", "eager"):
+        _reset()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = _serve_as(name, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        busy_us = sum(e.self_device_time_total for e in kern)
+        launches = sum(e.count for e in kern)
+        tag = f"{label}/{name}"
+        log(tag, f"{smi}: {model.cfg.name} serve B=8 prompt 512, prefill + "
+            f"warm-up chunk + 2 chunks of 8: wall {wall * 1e3:.3f} ms (the "
+            f"capture {out['capture_s'] * 1e3:.3f} ms), device busy "
+            f"{busy_us / 1e3:.3f} ms ({busy_us / 1e4 / wall:.1f}% busy; "
+            f"{busy_us / 1e4 / (wall - out['capture_s']):.1f}% of the wall "
+            f"outside the capture), {launches} kernel launches of "
+            f"{len(kern)} kernels; decode "
+            f"{out['decode_s_per_tok'] * 1e3:.4f} ms/token-step")
+        counted = {n: c for counter in _counters() for n, c in counter.items()}
+        seen = {n: sum(e.count for e in kern if k in e.key)
+                for n, k in PROFILED.items()}
+        want = {n: counted[n] for n in PROFILED}
+        log(tag, f"launches by the profiler's kernel events {seen}, by the "
+            f"counters {want}")
+        if seen != want:
+            raise AssertionError(f"{tag}: the profiler counted {seen}, the "
+                                 f"counters {want}")
+        ranked = sorted(kern, key=lambda e: -e.self_device_time_total)
+        # the top twelve, and every attention and RG-LRU kernel of the port
+        for e in ranked[:12] + [e for e in ranked[12:]
+                                if "flash_" in e.key or "rglru_" in e.key]:
+            log(tag, f"  {e.self_device_time_total / 1e3:9.3f} ms "
+                f"{e.count:6d}x  {e.key[:90]}")
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,12 @@ it retires finished sequences (from the on-device ``done`` flags and
 prompt at batch 1 each. Every request ends in exactly one completion:
 ``length``, ``eos``, or an ``error`` with a typed reason.
 
+On the card a chunk is one CUDA graph replay. The cache, the next-token
+buffer, the EOS id (a device scalar) and the sampler's generator live as
+long as the engine, so its first chunk captures the graph once and every
+later chunk replays it: slot inserts, page-table rows, copy-on-write and
+positions are written in place into the tensors the graph reads.
+
 The cache is laid out as the model says (``kv_quant``, ``page_size``):
 
 * contiguous (ring per slot, values or Proteus codes and scales, and the
@@ -185,7 +191,8 @@ class ServeEngine:
       max_new: per-request generation cap; the cache holds
         ``max_len = prompt_len + max_new`` positions (whole pages when
         paged).
-      chunk: decode steps per fused chunk (one host sync each).
+      chunk: decode steps per fused chunk (one host sync each; one graph
+        replay on the card).
       eos_id: stop token (None = length-only stopping).
       temperature/top_k: sampling (0 temperature = greedy).
       page_pool_pages: physical pages of the paged pool (default
@@ -245,6 +252,9 @@ class ServeEngine:
             self._batch_axes = model.cache_batch_axes()
         self._tok = torch.zeros((slots, 1), dtype=torch.int32,
                                 device=self.device)
+        # the EOS id as the chunk reads it, so setting eos_id between chunks
+        # takes effect in a captured graph too
+        self._eos = torch.full((), -1, dtype=torch.int32, device=self.device)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._queue: Deque[Request] = deque()
         self._active: Dict[int, _Slot] = {}
@@ -257,7 +267,8 @@ class ServeEngine:
             "decode_dispatches": 0, "decode_steps": 0, "prefills": 0,
             "tokens_out": 0, "wall_seconds": 0.0, "error_completions": 0,
             "kv_pages_in_use": 0, "kv_pages_peak": 0, "kv_pages_reserved": 0,
-            "prefix_hits": 0, "admission_blocked": 0,
+            "prefix_hits": 0, "admission_blocked": 0, "graph_captures": 0,
+            "capture_seconds": 0.0,
         }
         kv = [t for name in ("k", "v") for t in self._leaf_tensors(name)]
         if self.paged:
@@ -473,17 +484,23 @@ class ServeEngine:
         if self.paged:
             self._ensure_writable()
             self._refresh_page_stats()
-        eos = -1 if self.eos_id is None else int(self.eos_id)
+        self._eos.fill_(-1 if self.eos_id is None else int(self.eos_id))
+        captures = self._generate.captures
         (self.cache, self._tok, self._gen, done, n_valid, toks,
-         failed) = self._generate(self.cache, self._tok, self._gen, eos)
+         failed) = self._generate(self.cache, self._tok, self._gen, self._eos)
         # ONE host sync per chunk: tokens and per-slot flags in one transfer
         host = torch.cat([toks, done[:, None].to(torch.int32),
                           n_valid[:, None], failed[:, None].to(torch.int32)],
                          dim=1).cpu().numpy()
         toks_np, done_np = host[:, :self.chunk], host[:, self.chunk] != 0
         n_np, failed_np = host[:, self.chunk + 1], host[:, self.chunk + 2] != 0
-        self.stats["decode_dispatches"] += 1
-        self.stats["decode_steps"] += self.chunk
+        s = self.stats
+        s["decode_dispatches"] += 1
+        # a capture's eager warm-up chunk ran its decode steps too
+        s["decode_steps"] += self.chunk * (1 + self._generate.captures
+                                           - captures)
+        s["graph_captures"] = self._generate.captures
+        s["capture_seconds"] = self._generate.capture_seconds
         for slot in list(self._active):
             st = self._active[slot]
             take = min(int(n_np[slot]), st.cap - len(st.produced))

@@ -4,7 +4,8 @@
 Two decode engines share one pre-sized cache:
 
   * ``loop``  — one ``decode_step`` and one host sync per generated token;
-  * ``fused`` — ``make_generate_step``: ``chunk`` decode steps per host sync.
+  * ``fused`` — ``make_generate_step``: ``chunk`` decode steps per host
+    sync, one CUDA graph replay per chunk on the card.
 
 Greedy tokens of the two are identical. The KV cache layout is explicit:
 ``kv_quant`` (``off|int8|int4|auto``, the Proteus narrow-value cache) and
@@ -23,7 +24,6 @@ from __future__ import annotations
 
 import argparse
 import time
-from dataclasses import fields
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -33,7 +33,8 @@ from repro_torch import resolve_device
 from repro_torch.configs import ALL_IDS, ModelConfig, get_config
 from repro_torch.kernels.common import KV_QUANT_MODES
 from repro_torch.launch.engine import Request, ServeEngine
-from repro_torch.launch.steps import make_generate_step, sample_tokens
+from repro_torch.launch.steps import (clone_cache, make_generate_step,
+                                      sample_tokens)
 from repro_torch.models import build_model, init_params, load_jax_params
 
 
@@ -60,17 +61,6 @@ def load_model(arch: str, *, smoke: bool, seed: int, device,
     return model
 
 
-def _clone(x):
-    """A copy of a cache (dicts and lists of tensors and KV leaves)."""
-    if isinstance(x, dict):
-        return {k: _clone(v) for k, v in x.items()}
-    if isinstance(x, list):
-        return [_clone(v) for v in x]
-    if isinstance(x, torch.Tensor):
-        return x.clone()
-    return type(x)(*(_clone(getattr(x, f.name)) for f in fields(x)))
-
-
 def _model(model, arch, *, smoke, seed, device, cfg, params, kv_quant,
            page_size):
     """``model`` in the asked KV layout (weights shared), or a new one."""
@@ -90,10 +80,15 @@ def serve(arch: str = "pimref-100m", *, smoke: bool = True, batch: int = 4,
     """Prefill a synthetic batch, then decode ``gen`` tokens per sequence
     from a KV cache laid out as ``kv_quant`` / ``page_size`` say.
 
-    Returns the tokens with timing and dispatch counts: ``prefills`` and
-    ``decode_steps`` count every ``model.prefill`` / ``model.decode_step``
-    call, the untimed warmup of the decode engine included. ``model`` reuses
-    the weights of an already built model.
+    Returns the tokens with timing and dispatch counts. ``prefills`` and
+    ``decode_steps`` count the prefills and decode steps the device ran:
+    the untimed warm-up (one step for ``loop``; for ``fused`` one eager
+    chunk of ``chunk`` steps on a copy of the cache) and then one step per
+    token (``loop``) or ``chunk`` steps per chunk (``fused``; on the card
+    each chunk is one replay of the graph captured, after the warm-up, on
+    the real cache before the timed region). ``capture_s`` is the warm-up
+    and capture time on the card (0 on the CPU and for ``loop``).
+    ``model`` reuses the weights of an already built model.
     """
     assert engine in ("fused", "loop"), engine
     model = _model(model, arch, smoke=smoke, seed=seed, device=device,
@@ -119,13 +114,13 @@ def serve(arch: str = "pimref-100m", *, smoke: bool = True, batch: int = 4,
     tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
     sampler = torch.Generator(device=dev).manual_seed(seed + 1)
     eos = -1                       # batch mode: length-only stopping
-    # warmup: first-call costs outside the timed region
-    spare = torch.Generator(device=dev).manual_seed(seed + 1)
+    # warmup (and on the card the capture): first-call costs outside the
+    # timed region
     if engine == "loop":
-        model.decode_step(_clone(cache), tok)
+        model.decode_step(clone_cache(cache), tok)
         decode_steps += 1
     else:
-        generate(_clone(cache), tok, spare, eos)
+        generate.prepare(cache, tok, sampler)
         decode_steps += chunk
     _sync(dev)
 
@@ -155,6 +150,7 @@ def serve(arch: str = "pimref-100m", *, smoke: bool = True, batch: int = 4,
         "tokens": toks,
         "device": str(dev),
         "prefill_s": t_prefill,
+        "capture_s": generate.capture_seconds,
         "decode_s_per_tok": t_decode / max(gen, 1),
         "throughput_tok_s": batch * gen / max(t_decode, 1e-9),
         "dispatches": dispatches,

@@ -243,7 +243,9 @@ class TransformerLM(ServingLM):
         """tokens (B, S): append S tokens per row at per-slot positions
         ``cache["pos"]`` and return their logits (B, S, V). S > 1 is a verify
         block written at consecutive slots; ``layers`` runs (and writes the
-        cache of) only the first N blocks. Updates ``cache`` in place."""
+        cache of) only the first N blocks. Updates ``cache`` in place: every
+        tensor stays the same object (``pos`` advances by S), which a CUDA
+        graph of the decode chunk replays on."""
         S = tokens.shape[1]
         x = self._embed(tokens)
         pos = cache["pos"]
@@ -262,7 +264,7 @@ class TransformerLM(ServingLM):
                                   causal=True, window=self.window,
                                   q_offset=pos, kv_positions=cache["pos_ids"])
             x = self._finish_block(blk, x, o)
-        cache["pos"] = pos + S
+        pos.add_(S)
         return self._logits(x), cache
 
     def cache_batch_axes(self) -> Cache:

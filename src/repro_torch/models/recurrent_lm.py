@@ -267,7 +267,8 @@ class GriffinLM(ServingLM):
         """tokens (B, S): append S tokens per row at per-slot positions
         ``cache["pos"]`` and return their logits (B, S, V). S == 1 steps the
         recurrences elementwise; S > 1 runs them through the RG-LRU kernel
-        from the cached state. Updates ``cache`` in place."""
+        from the cached state. Updates ``cache`` in place: every tensor
+        stays the same object (``pos`` advances by S)."""
         S = tokens.shape[1]
         x = self._embed(tokens)
         pos = cache["pos"]
@@ -291,5 +292,5 @@ class GriffinLM(ServingLM):
             x = self._attn_finish(g.attn, x, o)
         for layer, st in zip(self.tail, cache["tail"]):
             x = self._rec_step(layer, x, st)
-        cache["pos"] = pos + S
+        pos.add_(S)
         return self._logits(x), cache

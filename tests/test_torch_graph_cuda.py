@@ -1,0 +1,295 @@
+"""The fused decode chunk as a CUDA graph replay against the same chunk run
+eagerly, on a card, at smoke size with head_dim 64 (a width the kernels
+take): ``pimref-100m`` in its six KV layouts and ``recurrentgemma-2b``
+across a window wrap, the engine, EOS set between chunks, a weight load
+after the capture, and sampled decoding. Imports neither jax nor the
+reference package:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
+        tests/test_torch_graph_cuda.py
+
+Without a card every test skips."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import launch_counters  # noqa: E402
+from repro_torch.launch import engine as engine_mod  # noqa: E402
+from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.launch.steps import (GenerateStep, cache_tensors,  # noqa: E402
+                                      clone_cache, decode_chunk,
+                                      make_generate_step, sample_tokens)
+
+PAGE = 8
+LAYOUTS = [("off", 0), ("int8", 0), ("int4", 0), ("auto", 0), ("off", PAGE),
+           ("int8", PAGE)]
+DECODE_KERNEL = {("off", 0): "flash_decode_fwd",
+                 ("off", PAGE): "flash_decode_paged_fwd",
+                 ("int8", PAGE): "flash_decode_paged_quant_fwd"}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+class EagerChunk(GenerateStep):
+    """The chunk body run eagerly on the card: the graph's yardstick."""
+
+    def prepare(self, cache, tok, generator):
+        self._warm_up(cache, tok)
+
+    def __call__(self, cache, tok, generator, eos_id):
+        return self._eager(cache, tok, generator, eos_id)
+
+
+def _model(arch, dev, kv_quant="off", page_size=0, seed=0):
+    cfg = get_config(arch, smoke=True).replace(head_dim=64)
+    return tserve.load_model(arch, smoke=True, seed=seed, device=dev, cfg=cfg,
+                             kv_quant=kv_quant, page_size=page_size)
+
+
+def _prefill(model, dev, B=2, S=20, max_len=32, seed=3):
+    toks = np.random.default_rng(seed).integers(
+        0, model.cfg.vocab_size, (B, S)).astype(np.int32)
+    logits, cache = model.prefill(torch.from_numpy(toks).to(dev),
+                                  max_len=max_len)
+    return cache, torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+
+
+def _reset():
+    for counter in launch_counters():
+        for name in counter:
+            counter[name] = 0
+
+
+def _launches():
+    return {n: c for counter in launch_counters() for n, c in counter.items()}
+
+
+def _run(step, cache, tok, chunks, gen=None, eos=-1):
+    out = []
+    for _ in range(chunks):
+        cache, tok, gen, done, n_valid, toks, failed = step(cache, tok, gen,
+                                                            eos)
+        out.append(torch.cat([toks, done[:, None].int(), n_valid[:, None],
+                              failed[:, None].int()], 1).cpu())
+    torch.cuda.synchronize()
+    return torch.cat(out, 1), cache
+
+
+def _same_cache(a, b):
+    for x, y in zip(cache_tensors(a), cache_tensors(b)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant,page_size", LAYOUTS)
+def test_graph_equals_eager_chunk(cuda, kv_quant, page_size):
+    """Three chunks of 4: tokens, flags, counts and the cache byte for
+    byte; one capture; every replay counted one chunk of decode launches;
+    the cache tensors and ``tok`` are the caller's."""
+    model = _model("pimref-100m", cuda, kv_quant, page_size)
+    cache, tok = _prefill(model, cuda)
+    eager_cache, eager_tok = clone_cache(cache), tok.clone()
+    want, eager_cache = _run(EagerChunk(model, chunk=4), eager_cache,
+                             eager_tok, 3)
+    step = make_generate_step(model, chunk=4)
+    ptrs = [t.data_ptr() for t in cache_tensors(cache)]
+    step.prepare(cache, tok, None)
+    _reset()
+    got, cache_out = _run(step, cache, tok, 3)
+    assert torch.equal(got, want)
+    _same_cache(cache, eager_cache)
+    assert cache_out is cache
+    assert [t.data_ptr() for t in cache_tensors(cache)] == ptrs
+    assert step.captures == 1
+    kernel = DECODE_KERNEL.get((kv_quant, page_size), "flash_decode_quant_fwd")
+    want_launches = dict.fromkeys(_launches(), 0)
+    want_launches[kernel] = 3 * 4 * model.cfg.num_layers
+    assert _launches() == want_launches
+
+
+@pytest.mark.cuda
+def test_tok_copied_into_the_graph(cuda):
+    """A caller that hands in a fresh ``tok`` tensor every chunk gets the
+    eager body's tokens from one capture: ``tok`` is copied in."""
+    model = _model("pimref-100m", cuda)
+    cache, tok = _prefill(model, cuda)
+    want, _ = _run(EagerChunk(model, chunk=4), clone_cache(cache),
+                   tok.clone(), 3)
+    step = make_generate_step(model, chunk=4)
+    got = []
+    for _ in range(3):
+        out = step(cache, tok.clone(), None, -1)
+        tok = out[1].clone()
+        got.append(torch.cat([out[5], out[3][:, None].int(), out[4][:, None],
+                              out[6][:, None].int()], 1).cpu())
+    assert torch.equal(torch.cat(got, 1), want)
+    assert step.captures == 1
+
+
+@pytest.mark.cuda
+def test_griffin_graph_across_window_wrap(cuda):
+    """Griffin (window 32) from a 30-token prompt, four chunks of 4: every
+    decode write past position 31 wraps the ring. Graph == eager."""
+    model = _model("recurrentgemma-2b", cuda)
+    cache, tok = _prefill(model, cuda, S=30, max_len=46)
+    assert model.cache_len(46) == 32
+    want, eager_cache = _run(EagerChunk(model, chunk=4), clone_cache(cache),
+                             tok.clone(), 4)
+    step = make_generate_step(model, chunk=4)
+    got, _ = _run(step, cache, tok, 4)
+    assert torch.equal(got, want)
+    _same_cache(cache, eager_cache)
+    assert step.captures == 1
+
+
+def _requests(vocab, n=7, prompt_len=16):
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(1, vocab, 8).astype(np.int32)
+    reqs = []
+    for i in range(n):
+        t = rng.integers(1, vocab, int(rng.integers(9, prompt_len + 1)))
+        t[:8] = prefix
+        reqs.append(tserve.Request(uid=i, tokens=t.astype(np.int32),
+                                   max_new_tokens=int(rng.integers(3, 13))))
+    return reqs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant,page_size", [("off", 0), ("off", PAGE),
+                                                ("int8", PAGE)])
+def test_engine_drain_graph_equals_eager(cuda, kv_quant, page_size,
+                                         monkeypatch):
+    """A mixed queue with a shared prefix through 3 slots: one capture per
+    engine, the completions of an engine running the eager body, and
+    exact launches (the capture's warm-up chunk included)."""
+    model = _model("pimref-100m", cuda, kv_quant, page_size)
+    kw = dict(model=model, slots=3, prompt_len=16, gen=12, chunk=4,
+              kv_quant=kv_quant, page_size=page_size)
+    reqs = _requests(model.cfg.vocab_size)
+    monkeypatch.setattr(engine_mod, "make_generate_step", EagerChunk)
+    want = tserve.make_queue_engine(**kw).run(list(reqs))
+    monkeypatch.undo()
+    eng = tserve.make_queue_engine(**kw)
+    _reset()
+    got = eng.run(list(reqs))
+    torch.cuda.synchronize()
+    key = lambda c: c.uid  # noqa: E731
+    assert [(c.uid, c.finish_reason, list(c.tokens))
+            for c in sorted(got, key=key)] == \
+        [(c.uid, c.finish_reason, list(c.tokens))
+         for c in sorted(want, key=key)]
+    s = eng.stats
+    assert s["graph_captures"] == 1 and s["capture_seconds"] > 0
+    assert s["decode_steps"] == 4 * (s["decode_dispatches"] + 1)
+    kernel = DECODE_KERNEL.get((kv_quant, page_size))
+    n_layers = model.cfg.num_layers
+    want_launches = dict.fromkeys(_launches(), 0)
+    want_launches[kernel] = n_layers * s["decode_steps"]
+    want_launches["flash_attention_fwd"] = n_layers * s["prefills"]
+    assert _launches() == want_launches
+
+
+@pytest.mark.cuda
+def test_eos_set_between_chunks(cuda):
+    """``eng.eos_id`` set after the first (captured) chunk stops the
+    request at its next occurrence; no second capture."""
+    model = _model("pimref-100m", cuda)
+    kw = dict(model=model, slots=2, prompt_len=8, gen=12, chunk=3)
+    req = dict(uid=0, tokens=np.arange(1, 7, dtype=np.int32),
+               max_new_tokens=12)
+    stream = list(tserve.make_queue_engine(**kw).run(
+        [tserve.Request(**req)])[0].tokens)
+    eng = tserve.make_queue_engine(**kw)
+    eng.submit(tserve.Request(**req))
+    eng.step()
+    eng.eos_id = int(stream[4])
+    eng.run()
+    got = eng.completions[0]
+    assert got.finish_reason == "eos"
+    assert list(got.tokens) == stream[:stream.index(stream[4], 3) + 1]
+    assert eng.stats["graph_captures"] == 1
+
+
+@pytest.mark.cuda
+def test_weight_load_recaptures(cuda):
+    """Weights loaded in place after the capture: the next chunk captures
+    again and its tokens are those of the eager body on the new
+    weights."""
+    model = _model("pimref-100m", cuda)
+    other = _model("pimref-100m", cuda, seed=5)
+    cache, tok = _prefill(model, cuda)
+    step = make_generate_step(model, chunk=4)
+    _run(step, cache, tok, 1)
+    assert step.captures == 1
+    model.load_state_dict(other.state_dict())
+    eager_cache, eager_tok = clone_cache(cache), tok.clone()
+    want, _ = _run(EagerChunk(model, chunk=4), eager_cache, eager_tok, 2)
+    got, _ = _run(step, cache, tok, 2)
+    assert step.captures == 2
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_sampled_graph(cuda):
+    """Top-k sampling: two graph runs from one seed are identical, every
+    token lies in the top k of its step's logits, and the graph draws what
+    the eager body draws from the same generator state."""
+    model = _model("pimref-100m", cuda)
+    cache0, tok0 = _prefill(model, cuda)
+    runs = []
+    for _ in range(2):
+        gen = torch.Generator(device=cuda).manual_seed(11)
+        step = make_generate_step(model, chunk=4, temperature=0.9, top_k=5)
+        runs.append(_run(step, clone_cache(cache0), tok0.clone(), 3, gen)[0])
+    assert torch.equal(runs[0], runs[1])
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    eager, _ = _run(EagerChunk(model, chunk=4, temperature=0.9, top_k=5),
+                    clone_cache(cache0), tok0.clone(), 3, gen)
+    assert torch.equal(runs[0], eager)
+    # every emitted token after the first is a top-5 token of its step
+    cache, tok = clone_cache(cache0), tok0.clone()
+    toks = runs[0][:, [c * 7 + i for c in range(3) for i in range(4)]]
+    for i in range(toks.shape[1] - 1):
+        logits, cache = model.decode_step(cache, toks[:, i:i + 1].to(cuda))
+        top = torch.topk(logits[:, -1].float(), 5, dim=-1).indices.cpu()
+        assert bool((top == toks[:, i + 1:i + 2]).any(-1).all())
+
+
+@pytest.mark.cuda
+def test_sampler_draws_as_multinomial(cuda):
+    """On the card too, the exponential race draws what
+    ``torch.multinomial`` draws from the same generator state."""
+    logits = torch.randn((8, 1, 32768), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(0))
+    for seed in range(4):
+        g1 = torch.Generator(device=cuda).manual_seed(seed)
+        g2 = torch.Generator(device=cuda).manual_seed(seed)
+        got = sample_tokens(logits, g1, temperature=0.8, top_k=0)
+        want = torch.multinomial(torch.softmax(logits[:, 0] / 0.8, -1), 1,
+                                 generator=g2)
+        assert torch.equal(got[:, 0], want[:, 0].int())
+
+
+@pytest.mark.cuda
+def test_decode_chunk_under_sync_debug_mode(cuda):
+    """One eager chunk per layout with CUDA's sync debug mode set to
+    raise on any synchronising call."""
+    for kv_quant, page_size in LAYOUTS:
+        model = _model("pimref-100m", cuda, kv_quant, page_size)
+        cache, tok = _prefill(model, cuda)
+        eos = torch.tensor(5, dtype=torch.int32, device=cuda)
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            decode_chunk(model, cache, tok, gen, eos, chunk=2,
+                         temperature=0.7, top_k=4)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
