@@ -72,6 +72,27 @@ Runs on one NVIDIA GPU; exits non-zero without one. Phases:
    layers), prefill 64 plus 8 decode steps; its one prefill launched the
    fp32 route once (its one attention layer).
 
+Phase ``spec`` runs after ``engine``: speculative decoding (k 3, the
+``ngram`` and ``draft`` drafters) on full-width ``pimref-100m``, batch 8 x
+prompt 512 (rows 0-3 a period-4 tile, rows 4-7 random, from ``--seed``) +
+64 new tokens in chunks of 8, in every KV layout, as the captured chunk
+and as its eager body: tokens and accepted lengths identical, exact
+decode-kernel launches (one verify block through every layer and, for
+``draft``, k steps through the first half, per iteration: 96 and 240 a
+chunk), also counted from the profiler's kernel events; ms per token-step,
+per committed token, accepted length per draft and the graph's device ms
+per iteration, beside speculation off. ``serve(spec=...)`` on its own
+batch (its ``draft`` drafter must accept drafts) and ``ServeEngine``
+drains of the engine phase's requests (one capture, every page back). In
+bf16 the tokens against speculation off are recorded (a verify block's
+kernel shapes differ from a one-token step's, so a rounding can differ;
+``spec_rounding`` logs which results do); in fp32 they must be identical,
+in every layout but ``auto``, for the batch and the engine's drains; the
+``draft`` drafter through all the layers must accept more than k tokens
+an iteration. The kernels phase times
+the decode kernel at the verify block's shape (row
+``flash_decode_fwd_verify``: B 8, H 12, S 4, T 579, D 64, bf16).
+
 Phase ``proteus`` runs after ``parity`` and before the Griffin phases: the
 Proteus library's entry points on full-width ``pimref-100m`` (random
 weights from ``--seed``): ``quant_matmul`` over every projection weight
@@ -115,8 +136,9 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-PHASES = ("device", "build", "kernels", "serve", "engine", "profile", "parity",
-          "proteus", "serve_griffin", "engine_griffin", "parity_griffin")
+PHASES = ("device", "build", "kernels", "serve", "engine", "spec", "profile",
+          "parity", "proteus", "serve_griffin", "engine_griffin",
+          "parity_griffin")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # the fp32 prefill route's products: q, k, p and v each as three exact bf16
@@ -176,6 +198,7 @@ SOURCES = {"flash_attention_fwd": PREFILL_SOURCE,
            "flash_attention_bh": PREFILL_SOURCE,
            "flash_decode_fwd": DECODE_SOURCE,
            "flash_decode_fwd_d256": DECODE_SOURCE,
+           "flash_decode_fwd_verify": DECODE_SOURCE,
            "flash_decode_quant_fwd": DECODE_SOURCE,
            "flash_decode_paged_fwd": DECODE_SOURCE,
            "flash_decode_paged_quant_fwd": DECODE_SOURCE,
@@ -196,6 +219,8 @@ REPLACES = {
         "src/repro/kernels/flash_attention/kernel.py:126",
     "flash_decode_fwd": "src/repro/kernels/flash_attention/kernel.py:174",
     "flash_decode_fwd_d256": "src/repro/kernels/flash_attention/kernel.py:174",
+    "flash_decode_fwd_verify":
+        "src/repro/kernels/flash_attention/kernel.py:174",
     "flash_decode_quant_fwd": "src/repro/kernels/flash_attention/kernel.py:262",
     "flash_decode_paged_fwd": "src/repro/kernels/flash_attention/kernel.py:359",
     "flash_decode_paged_quant_fwd":
@@ -233,6 +258,7 @@ MAIN_LAYOUT = {"flash_attention_fwd": "contiguous",
                "flash_attention_fwd_d256_long": "griffin_long",
                "flash_decode_fwd": "contiguous",
                "flash_decode_fwd_d256": "griffin",
+               "flash_decode_fwd_verify": "spec/contiguous/ngram",
                "flash_decode_quant_fwd": "int8",
                "flash_decode_paged_fwd": "paged16",
                "flash_decode_paged_quant_fwd": "paged16_int8",
@@ -253,6 +279,7 @@ COUNTER = {"flash_attention_fwd_d256": "flash_attention_fwd",
            "flash_attention_bh_fp32": "flash_attention_bh",
            "flash_attention_fwd_d256_long": "flash_attention_fwd",
            "flash_decode_fwd_d256": "flash_decode_fwd",
+           "flash_decode_fwd_verify": "flash_decode_fwd",
            "rglru_scan_long": "rglru_scan",
            "quant_matmul_bf16": "quant_matmul",
            "quant_matmul_griffin": "quant_matmul",
@@ -265,6 +292,10 @@ NO_LIBRARY_NARROW = {
     "pack_int4": "no single PyTorch call packs nibbles",
     "unpack_int4": "no single PyTorch call unpacks nibbles"}
 DEVICE = "cuda"
+# speculative decoding (phase spec): the reference's draft length, its two
+# drafters; the batch rows 0-3 a period-4 tile, rows 4-7 random
+SPEC_K = 3
+SPEC_MODES = ("ngram", "draft")
 
 
 def log(phase: str, msg: str) -> None:
@@ -643,6 +674,7 @@ def phase_kernels(seed: int) -> dict:
     log("kernels", f"decode times: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
         f"sdpa {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
         f"{flops:.3e} FLOP); plan {fk.decode_plan(B, H, S, T)}")
+    rows["flash_decode_fwd_verify"] = kernels_verify(gen)
     rows.update(kernels_kv_layouts(gen))
     rows.update(kernels_griffin(gen))
     return rows
@@ -881,6 +913,52 @@ def kernels_griffin_long(gen) -> dict:
                 bound_by=b_by, library_ms=t_l)
 
 
+def kernels_verify(gen) -> dict:
+    """The decode kernel at the speculative verify block's shape: B 8, H 12,
+    S = k + 1 = 4 q rows a slot, T 579 (512 + 64 + k ring slots), D 64,
+    bf16, mixed depths, through ``ops.flash_decode`` as the model calls it;
+    checked against the plain version, timed beside it and SDPA with a
+    boolean mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.kernels.flash_attention.ref import visible_mask
+    B, H, S, T, D, dt = 8, 12, SPEC_K + 1, 512 + 64 + SPEC_K, 64, \
+        torch.bfloat16
+    qp, kp = ring_positions([T - S - 8 * b for b in range(B)], S, T)
+    q = randn(gen, (B, S, H, D), dt)
+    k, v = (randn(gen, (B, T, H, D), dt) for _ in range(2))
+    split = lambda x: x.reshape(B, S, H, 1, D).permute(0, 2, 3, 1, 4)
+    merge = lambda x: x.permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
+    err = _check("decode verify block B8 H12 S4 T579 D64 bf16",
+                 ops.flash_decode(q, k, v, qp, kp),
+                 merge(ref.flash_decode_fwd_ref(split(q), k.transpose(1, 2),
+                                                v.transpose(1, 2), qp, kp)),
+                 TOL[dt])
+    n_sets = n_sets_for(2 * B * T * H * D * 2)
+    sets = [(randn(gen, (B, S, H, D), dt), randn(gen, (B, T, H, D), dt),
+             randn(gen, (B, T, H, D), dt)) for _ in range(n_sets)]
+    t_k = device_ms(lambda i: ops.flash_decode(*sets[i], qp, kp), n_sets, 50)
+    sets5 = [(split(a), b.transpose(1, 2), c.transpose(1, 2))
+             for a, b, c in sets]
+    t_p = device_ms(lambda i: ref.flash_decode_fwd_ref(*sets5[i], qp, kp),
+                    n_sets, 10)
+    mask = visible_mask(qp, kp, causal=True, window=0)[:, None]  # (B,1,S,T)
+    sets4 = [tuple(x.transpose(1, 2).contiguous() for x in s) for s in sets]
+    t_l = device_ms(lambda i: F.scaled_dot_product_attention(
+        *sets4[i], attn_mask=mask), n_sets, 50)
+    del sets, sets4, sets5
+    nbytes = (2 * 2 * int((kp >= 0).sum()) * H * D   # K and V rows held
+              + 2 * B * S * H * D * 2                # q in, out
+              + qp.nbytes + kp.nbytes)
+    flops = 4.0 * D * H * visible_pairs(qp, kp, True, 0)
+    b_ms, b_by = bound_ms(nbytes, flops, dt)
+    log("kernels", f"decode at the verify shape: kernel {t_k:.4f} ms, plain "
+        f"{t_p:.4f} ms, sdpa {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{nbytes} B, {flops:.3e} FLOP)")
+    return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+                bound_by=b_by, library_ms=t_l)
+
+
 def _identical(name, got, want, phase="kernels") -> None:
     same = torch.equal(got, want)
     log(phase, f"{name}: bitwise identical {same}")
@@ -1053,20 +1131,24 @@ def _layer_counts(cfg) -> tuple:
 
 
 def _check_launches(phase, cfg, prefills, decode_steps,
-                    decode_kernel="flash_decode_fwd") -> dict:
+                    decode_kernel="flash_decode_fwd", draft_steps=0,
+                    draft_layers=0) -> dict:
     """Every prefill launched the prefill kernel once per attention layer
-    and the RG-LRU kernel once per recurrent layer, every (one-token)
-    decode step the layout's decode kernel once per attention layer; no
-    other kernel ran."""
+    and the RG-LRU kernel once per recurrent layer, every decode step (one
+    token, or a speculative verify block) the layout's decode kernel once
+    per attention layer, and every draft step of speculative decoding's
+    ``draft`` mode once per layer of its first ``draft_layers``; no other
+    kernel ran."""
     got = {n: c for counter in _counters() for n, c in counter.items()}
     n_attn, n_rec = _layer_counts(cfg)
     want = dict.fromkeys(got, 0)
     want["flash_attention_fwd"] = n_attn * prefills
-    want[decode_kernel] = n_attn * decode_steps
+    want[decode_kernel] = n_attn * decode_steps + draft_layers * draft_steps
     want["rglru_scan"] = n_rec * prefills
     log(phase, f"launches {got} (want {want}: {n_attn} attention + {n_rec} "
         f"recurrent layers x {prefills} prefills / {decode_steps} decode "
-        "steps)")
+        f"steps" + (f", {draft_layers} layers x {draft_steps} draft steps"
+                    if draft_steps else "") + ")")
     if got != want:
         raise AssertionError(f"{phase}: launches {got} != {want}")
     return got
@@ -1174,7 +1256,8 @@ def _drain(eng, reqs, label, decode_kernel) -> dict:
     torch.cuda.synchronize()
     s = eng.stats
     _check_launches(label, cfg, s["prefills"], s["decode_steps"],
-                    decode_kernel)
+                    decode_kernel, s["draft_steps"],
+                    eng._generate.draft_layers)
     by_uid = {}
     for c in comps:
         if c.uid in by_uid:
@@ -1208,7 +1291,10 @@ def _drain(eng, reqs, label, decode_kernel) -> dict:
         f"capture(s) in {s['capture_seconds'] * 1e3:.1f} ms, "
         f"kv_bytes_per_token {s['kv_bytes_per_token']:.1f}"
         + (f", pages peak {s['kv_pages_peak']}, prefix hits "
-           f"{s['prefix_hits']}" if eng.paged else ""))
+           f"{s['prefix_hits']}" if eng.paged else "")
+        + (f", spec {eng.spec} accepted_len_per_draft "
+           f"{s['spec_accepted_len_per_draft']:.4f}, accept hist "
+           f"{s['spec_accept_hist']}" if eng.spec != "off" else ""))
     return s
 
 
@@ -1217,11 +1303,11 @@ def _completions(eng) -> list:
                   for c in eng.completions)
 
 
-def _drain_pair(make, reqs, label, decode_kernel) -> dict:
+def _drain_pair(make, reqs, label, decode_kernel) -> tuple:
     """Drain ``reqs`` through an engine from ``make()`` that runs the chunk
     body eagerly, then through one that replays the captured chunk: the
     same completions, one capture for the whole drain; returns the graph
-    engine's stats."""
+    engine's stats and completions."""
     with eager_chunks():
         eager = make()
         e = _drain(eager, reqs, f"{label}/eager", decode_kernel)
@@ -1237,29 +1323,408 @@ def _drain_pair(make, reqs, label, decode_kernel) -> dict:
     if not same or s["graph_captures"] != 1 or eager_captures != 0:
         raise AssertionError(f"{label}: completions equal {same}, captures "
                              f"{s['graph_captures']} / {eager_captures}")
-    return s
+    return s, want
 
 
-def phase_engine(model, seed: int) -> None:
-    """24 mixed requests with a 64-token shared prefix on 8 slots, in the
-    contiguous, paged and paged int8 layouts."""
-    from repro_torch.launch.serve import make_queue_engine, synth_requests
-    reqs = synth_requests(cfg=model.cfg, requests=24, prompt_len=256, gen=64,
+ENGINE_LAYOUTS = ("contiguous", "paged16", "paged16_int8")
+
+
+def _engine_requests(model, seed: int) -> list:
+    """24 mixed requests with a 64-token shared prefix."""
+    from repro_torch.launch.serve import synth_requests
+    return synth_requests(cfg=model.cfg, requests=24, prompt_len=256, gen=64,
                           seed=seed, shared_prefix=64)
-    per_token = {}
-    for layout in ("contiguous", "paged16", "paged16_int8"):
-        kv_quant, page_size, decode_kernel = LAYOUTS[layout]
 
-        def make():
-            return make_queue_engine(model=model, slots=8, prompt_len=256,
-                                     gen=64, chunk=8, seed=seed,
-                                     kv_quant=kv_quant, page_size=page_size)
-        s = _drain_pair(make, reqs, f"engine/{layout}", decode_kernel)
+
+def _make_engine(model, seed, layout, **kw):
+    from repro_torch.launch.serve import make_queue_engine
+    kv_quant, page_size, _ = LAYOUTS[layout]
+    return make_queue_engine(model=model, slots=8, prompt_len=256, gen=64,
+                             chunk=8, seed=seed, kv_quant=kv_quant,
+                             page_size=page_size, **kw)
+
+
+def phase_engine(model, seed: int) -> dict:
+    """The requests of ``_engine_requests`` on 8 slots, in the contiguous,
+    paged and paged int8 layouts; returns each layout's completions."""
+    reqs = _engine_requests(model, seed)
+    per_token, completions = {}, {}
+    for layout in ENGINE_LAYOUTS:
+        s, completions[layout] = _drain_pair(
+            lambda: _make_engine(model, seed, layout), reqs,
+            f"engine/{layout}", LAYOUTS[layout][2])
         per_token[layout] = s["kv_bytes_per_token"]
     base = per_token["contiguous"]
     log("engine", "kv_bytes_per_token " + ", ".join(
         f"{k} {v:.1f} ({v / base:.3f} of contiguous)"
         for k, v in per_token.items()))
+    return completions
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: the draft-verify chunk as one graph replay
+# ---------------------------------------------------------------------------
+def spec_prompts(vocab: int, batch: int = 8, prompt_len: int = 512,
+                 seed: int = 0) -> torch.Tensor:
+    """Rows 0-3 a period-4 tile (what the n-gram drafter finds), rows 4-7
+    random, from ``seed`` (the reference's spec tests mix them so)."""
+    rng = np.random.default_rng(seed)
+    rows = [np.tile(rng.integers(1, vocab, 4), prompt_len // 4)
+            if r < batch // 2 else rng.integers(1, vocab, prompt_len)
+            for r in range(batch)]
+    return torch.from_numpy(np.stack(rows).astype(np.int32)).to(DEVICE)
+
+
+def _spec_start(m, toks, spec, gen, chunk, eager=False,
+                draft_layers=None) -> tuple:
+    """Prefill ``toks`` into a cache sized for ``gen`` tokens and a verify
+    block's k-ahead writes, the drafter's history seeded with the prompts,
+    and the chunk step (captured by ``prepare``, or run eagerly)."""
+    from repro_torch.launch.steps import make_generate_step
+    k = SPEC_K if spec != "off" else 0
+    B, P = toks.shape
+    step = (eager_step if eager else make_generate_step)(
+        m, chunk=chunk, spec=spec, spec_k=k, draft_layers=draft_layers)
+    logits, cache = m.prefill(toks, max_len=P + gen + k)
+    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    state = ()
+    if spec != "off":
+        hist = torch.zeros((B, P + gen + step.span), dtype=torch.int32,
+                           device=DEVICE)
+        hist[:, :P] = toks
+        state = (hist, torch.full((B,), P, dtype=torch.int32, device=DEVICE))
+    step.prepare(cache, tok, None, *state)
+    torch.cuda.synchronize()
+    return step, cache, tok, state
+
+
+def spec_drain(m, toks, spec, gen=64, chunk=8, eager=False,
+               draft_layers=None) -> dict:
+    """serve()'s speculative drain on the prompts ``toks``: chunks until
+    every row holds ``gen`` tokens, one host read a chunk. Returns the
+    first ``gen`` tokens of every row, each chunk's accepted lengths, the
+    decode wall, the tokens committed, and the steps run (the warm-up chunk
+    included) for the launch check."""
+    t_start = time.perf_counter()
+    step, cache, tok, state = _spec_start(m, toks, spec, gen, chunk, eager,
+                                          draft_layers)
+    capture_s = time.perf_counter() - t_start
+    B = toks.shape[0]
+    rows, accs, chunks, committed = [[] for _ in range(B)], [], 0, 0
+    t0 = time.perf_counter()
+    while min(len(r) for r in rows) < gen:
+        out = step(cache, tok, None, -1, *state)
+        tok, n_valid, toks_d = out[1], out[4], out[5]
+        cols = [toks_d, n_valid[:, None]] + ([out[8]] if state else [])
+        host = torch.cat(cols, dim=1).cpu().numpy()
+        span = toks_d.shape[1]
+        for r in range(B):
+            rows[r].extend(host[r, :host[r, span]].tolist())
+        committed += int(host[:, span].sum())
+        accs.append(host[:, span + 1:])
+        chunks += 1
+    wall = time.perf_counter() - t0
+    acc = np.concatenate(accs, axis=1)
+    live = acc[acc >= 0]
+    return dict(tokens=np.asarray([r[:gen] for r in rows], np.int32),
+                acc=acc, wall_s=wall, capture_s=capture_s, chunks=chunks,
+                committed=committed,
+                accepted_len=float(live.mean()) if state else 1.0,
+                decode_steps=chunk * (chunks + 1),
+                draft_steps=chunk * (chunks + 1) * step.spec_k
+                if step.draft_layers else 0,
+                draft_layers=step.draft_layers)
+
+
+def _spec_profile(m, toks, spec, label) -> None:
+    """The captured spec chunk under ``torch.profiler``: prefill, warm-up
+    and capture, two replays; the prefill and decode kernels' launches by
+    the profiler's kernel events equal the counters."""
+    from torch.profiler import ProfilerActivity, profile
+    _reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step, cache, tok, state = _spec_start(m, toks, spec, 16, 8)
+        for _ in range(2):
+            tok = step(cache, tok, None, -1, *state)[1]
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    counted = {n: c for counter in _counters() for n, c in counter.items()}
+    names = ("flash_attention_fwd", "flash_decode_fwd")
+    seen = {n: sum(e.count for e in kern if PROFILED[n] in e.key)
+            for n in names}
+    want = {n: counted[n] for n in names}
+    per_chunk = 8 * (m.cfg.num_layers + SPEC_K * step.draft_layers)
+    log(label, f"launches by the profiler's kernel events {seen}, by the "
+        f"counters {want} (prefill, warm-up chunk, two replays: "
+        f"{per_chunk} decode-kernel launches a chunk)")
+    if seen != want or want["flash_decode_fwd"] != 3 * per_chunk:
+        raise AssertionError(f"{label}: the profiler counted {seen}, the "
+                             f"counters {want}, {per_chunk} a chunk")
+
+
+def spec_rounding(model, toks) -> None:
+    """Where a verify block's bf16 rows part from one-token steps (logged,
+    not gated): four greedy tokens fed as one (k + 1)-row decode step and
+    as four one-token steps from the same cache, compared bit for bit: the
+    logits; the first layer's q projection at M = 4B rows against four
+    products of B rows (cuBLAS); and the decode kernel on the block's cache
+    (S = 4 against four S = 1 calls on the same K/V and positions)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.steps import clone_cache
+    from repro_torch.models.layers import dense, rms_norm
+    S = SPEC_K + 1
+    logits, cache = model.prefill(toks, max_len=toks.shape[1] + 64 + SPEC_K)
+    feed = [torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)]
+    singles, one = [], clone_cache(cache)
+    for _ in range(S):
+        lg, _ = model.decode_step(one, feed[-1])
+        singles.append(lg)
+        feed.append(torch.argmax(lg[:, -1:], dim=-1).to(torch.int32))
+    blk = torch.cat(feed[:S], dim=1)
+    block = clone_cache(cache)
+    lb, _ = model.decode_step(block, blk)
+    ls = torch.cat(singles, dim=1)
+    blk0 = model.blocks[0]
+    xn = rms_norm(model._embed(blk), blk0.ln1, model.cfg.norm_eps)
+    w = model._ws(blk0.attn)["w_q"]
+    qa = dense(xn, w, "bsd,dhe->bshe")
+    qb = torch.cat([dense(xn[:, i:i + 1], w, "bsd,dhe->bshe")
+                    for i in range(S)], dim=1)
+    k, v, kp = block["k"][0], block["v"][0], block["pos_ids"]
+    qp = cache["pos"][:, None] + torch.arange(S, dtype=torch.int32,
+                                              device=DEVICE)
+    oa = ops.flash_decode(qa, k, v, qp, kp)
+    ob = torch.cat([ops.flash_decode(qa[:, i:i + 1], k, v, qp[:, i:i + 1],
+                                     kp) for i in range(S)], dim=1)
+    torch.cuda.synchronize()
+
+    def cmp(a, b):
+        d = (a.float() - b.float()).abs()
+        return (f"{bool(torch.equal(a, b))} ({int((a != b).sum())} of "
+                f"{a.numel()} differ, max {d.max().item():.3e})")
+    log("spec/rounding", f"a verify block against {S} one-token steps, "
+        f"bf16: logits equal {cmp(lb, ls)}; layer 0 q projection (M "
+        f"{qa.shape[0] * S} vs {qa.shape[0]}) equal {cmp(qa, qb)}; decode "
+        f"kernel S {S} vs S 1 equal {cmp(oa, ob)}")
+
+
+def _first_differences(got: np.ndarray, want: np.ndarray) -> str:
+    """'row@token' of each row of ``got`` that differs from ``want``."""
+    diff = np.argwhere(got != want)
+    return ", ".join(f"{r}@{diff[diff[:, 0] == r][0, 1]}"
+                     for r in sorted(set(diff[:, 0].tolist())))
+
+
+def _differing_requests(got: list, want: list) -> str:
+    """'uid@token' of each completion of ``got`` that differs from
+    ``want`` (both as ``_completions`` gives them)."""
+    by_uid = {c[0]: c[2] for c in got}
+    return ", ".join(
+        f"{u}@" + str(next((i for i, (a, b) in enumerate(zip(t, by_uid[u]))
+                            if a != b), min(len(t), len(by_uid[u]))))
+        for u, _, t in want if t != by_uid[u])
+
+
+def phase_spec(model, smi: str, seed: int, engine_want=None) -> dict:
+    """Speculative decoding (k 3) on full-width pimref-100m, both drafters.
+
+    In the serving dtype (bf16): batch 8 x prompt 512 (``spec_prompts``) +
+    64 new tokens in chunks of 8 in every KV layout, the graph replay and
+    the eager body (tokens and accepted lengths identical, exact launches,
+    96 / 240 a chunk, also by the profiler's kernel events), beside the
+    graph with speculation off; serve() with speculation (its draft drafter
+    must accept drafts); the engine's drains of the engine phase's requests
+    (one capture, every page back). A verify block computes its rows with
+    other kernel shapes than one-token steps (``spec_rounding`` logs which
+    results differ), so a bf16 rounding may differ and a greedy stream
+    part from speculation off: in bf16 that is recorded. Greedy identity
+    with speculation off is held in fp32 (``spec_fp32``), whose roundings
+    are too small to flip these tokens, while a fault of the speculative
+    path would show there too. Every comparison runs; the phase fails at
+    its end, naming each that failed. Returns the launches of each graph
+    run."""
+    from repro_torch.launch.serve import serve
+    launches, failed = {}, []
+    toks = spec_prompts(model.cfg.vocab_size, seed=seed)
+    gen, chunk = 64, 8
+    for layout, (kv_quant, page_size, decode_kernel) in LAYOUTS.items():
+        m = model.with_kv_layout(kv_quant, page_size)
+        _reset()
+        off = spec_drain(m, toks, "off", gen, chunk)
+        _check_launches(f"spec/{layout}/off", m.cfg, 1, off["decode_steps"],
+                        decode_kernel)
+        off_dev = graph_device_ms(m, toks, gen, chunk)[0]
+        log(f"spec/{layout}/off", f"{smi}: decode "
+            f"{off['wall_s'] * 1e3 / gen:.4f} ms/token-step, "
+            f"{off['wall_s'] * 1e3 / off['committed']:.4f} ms per committed "
+            f"token, device {off_dev:.4f} ms per step")
+        for mode in SPEC_MODES:
+            label = f"spec/{layout}/{mode}"
+            runs = {}
+            for name in ("graph", "eager"):
+                _reset()
+                run = spec_drain(m, toks, mode, gen, chunk,
+                                 eager=name == "eager")
+                got = _check_launches(f"{label}/{name}", m.cfg, 1,
+                                      run["decode_steps"], decode_kernel,
+                                      run["draft_steps"],
+                                      run["draft_layers"])
+                if name == "graph":
+                    launches[label] = got
+                per_chunk = chunk * (m.cfg.num_layers
+                                     + SPEC_K * run["draft_layers"])
+                if got[decode_kernel] != per_chunk * (run["chunks"] + 1):
+                    raise AssertionError(f"{label}/{name}: {got} is not "
+                                         f"{per_chunk} a chunk")
+                log(f"{label}/{name}", f"{smi}: {run['chunks']} chunks, "
+                    f"decode {run['wall_s'] * 1e3 / gen:.4f} ms/token-step, "
+                    f"{run['wall_s'] * 1e3 / run['committed']:.4f} ms per "
+                    f"committed token ({run['committed']} committed), "
+                    f"accepted_len_per_draft {run['accepted_len']:.4f}, "
+                    f"{per_chunk} decode-kernel launches a chunk"
+                    + (f", capture {run['capture_s'] * 1e3:.3f} ms (its "
+                       "eager warm-up chunk included)"
+                       if name == "graph" else ""))
+                runs[name] = run
+            g, e = runs["graph"], runs["eager"]
+            same = (np.array_equal(g["tokens"], e["tokens"])
+                    and np.array_equal(g["acc"], e["acc"]))
+            as_off = np.array_equal(g["tokens"], off["tokens"])
+            dev = graph_device_ms(m, toks, gen, chunk, mode)[0]
+            log(label, f"graph == eager body (tokens and accepted lengths): "
+                f"{same}; bf16 tokens == speculation off: {as_off}"
+                + ("" if as_off else " (rows@first differing token: "
+                   + _first_differences(g["tokens"], off["tokens"]) + ")")
+                + f"; device {dev:.4f} ms per iteration ({off_dev:.4f} a "
+                f"step off), wall {g['wall_s'] * 1e3 / gen:.4f} "
+                f"ms/token-step against {off['wall_s'] * 1e3 / gen:.4f} off "
+                f"({off['wall_s'] / g['wall_s']:.2f}x)")
+            if not same:
+                failed.append(f"{label}: graph and eager body differ")
+    spec_rounding(model, toks)
+    for mode in SPEC_MODES:
+        _spec_profile(model, toks, mode, f"spec/profile/{mode}")
+    # serve(), the entry point, on its own random batch
+    kw = dict(model=model, batch=8, prompt_len=512, gen=64, chunk=8,
+              seed=seed)
+    want = serve(**kw)["tokens"]
+    for mode in SPEC_MODES:
+        _reset()
+        out = serve(spec=mode, **kw)
+        _check_launches(f"spec/serve/{mode}", model.cfg, 1,
+                        out["decode_steps"], "flash_decode_fwd",
+                        out["draft_steps"], model.cfg.num_layers // 2)
+        same = np.array_equal(out["tokens"], want)
+        log(f"spec/serve/{mode}", f"{smi}: serve(spec={mode!r}) decode "
+            f"{out['decode_s_per_tok'] * 1e3:.4f} ms/token-step, "
+            f"accepted_len_per_draft {out['accepted_len_per_draft']:.4f}, "
+            f"bf16 tokens == serve() without speculation: {same}"
+            + ("" if same else " (" + _first_differences(out["tokens"], want)
+               + ")"))
+        if mode == "draft" and not out["accepted_len_per_draft"] > 1.0:
+            failed.append(f"spec/serve/draft: accepted_len_per_draft "
+                          f"{out['accepted_len_per_draft']} <= 1.0")
+    # the engine: the engine phase's requests, ngram and draft drains
+    reqs = _engine_requests(model, seed)
+    for layout in ENGINE_LAYOUTS:
+        if engine_want is None or layout not in engine_want:
+            off = _make_engine(model, seed, layout)
+            _drain(off, reqs, f"spec/engine/{layout}/off",
+                   LAYOUTS[layout][2])
+            want = _completions(off)
+        else:
+            want = engine_want[layout]
+        for mode in SPEC_MODES:
+            label = f"spec/engine/{layout}/{mode}"
+            eng = _make_engine(model, seed, layout, spec=mode, spec_k=SPEC_K)
+            s = _drain(eng, reqs, label, LAYOUTS[layout][2])
+            got = _completions(eng)
+            log(label, f"bf16 completions == the spec-off drain's: "
+                f"{got == want}"
+                + ("" if got == want else " (requests@first differing "
+                   "token: " + _differing_requests(got, want) + ")")
+                + f"; {s['decode_dispatches']} chunks, "
+                f"{s['graph_captures']} capture(s)")
+            if s["graph_captures"] != 1:
+                failed.append(f"{label}: {s['graph_captures']} captures")
+    failed += spec_fp32(smi, seed)
+    if failed:
+        raise AssertionError("spec: " + "; ".join(failed))
+    return launches
+
+
+def spec_fp32(smi: str, seed: int) -> list:
+    """Greedy identity with speculation off, in fp32 compute (TF32 off):
+    the batch of ``spec_prompts`` in every layout (``auto`` recorded: its
+    grid is chosen over each whole write, a verify block's rejected drafts
+    included), both drafters, the graph replay; the engine's drains in
+    its three layouts. Then the ``draft`` drafter with every layer (its
+    drafts are the model's own greedy tokens): it must accept more than k
+    tokens an iteration on average. Returns the checks that failed."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import load_model
+    failed = []
+    cfg = get_config("pimref-100m").replace(compute_dtype="float32")
+    model = load_model("pimref-100m", smoke=False, seed=seed, device=DEVICE,
+                       cfg=cfg)
+    toks = spec_prompts(cfg.vocab_size, seed=seed)
+    offs = {}
+    for layout, (kv_quant, page_size, decode_kernel) in LAYOUTS.items():
+        m = model.with_kv_layout(kv_quant, page_size)
+        off = offs[layout] = spec_drain(m, toks, "off")
+        for mode in SPEC_MODES:
+            label = f"spec_fp32/{layout}/{mode}"
+            g = spec_drain(m, toks, mode)
+            same = np.array_equal(g["tokens"], off["tokens"])
+            log(label, f"{smi}: fp32 tokens == speculation off: {same}"
+                + ("" if same else " (" + _first_differences(
+                    g["tokens"], off["tokens"]) + ")")
+                + f"; accepted_len_per_draft {g['accepted_len']:.4f}, "
+                f"decode {g['wall_s'] * 1e3 / 64:.4f} ms/token-step "
+                f"({off['wall_s'] * 1e3 / 64:.4f} off)")
+            if not same and kv_quant != "auto":
+                failed.append(f"{label}: fp32 greedy tokens differ from "
+                              "speculation off")
+    step_all = spec_drain(model, toks, "draft", draft_layers=cfg.num_layers)
+    same = np.array_equal(step_all["tokens"], offs["contiguous"]["tokens"])
+    log("spec_fp32/contiguous/draft_all_layers", f"draft through all "
+        f"{cfg.num_layers} layers: accepted_len_per_draft "
+        f"{step_all['accepted_len']:.4f}, tokens == speculation off: {same}")
+    if not same:
+        failed.append("spec_fp32/draft_all_layers: fp32 greedy tokens "
+                      "differ from speculation off")
+    if not step_all["accepted_len"] > SPEC_K:
+        failed.append(f"spec_fp32/draft_all_layers: accepted_len_per_draft "
+                      f"{step_all['accepted_len']} <= {SPEC_K}")
+    reqs = _engine_requests(model, seed)
+    for layout in ENGINE_LAYOUTS:
+        off = _make_engine(model, seed, layout)
+        off.run(list(reqs))
+        want = _completions(off)
+        for mode in SPEC_MODES:
+            label = f"spec_fp32/engine/{layout}/{mode}"
+            eng = _make_engine(model, seed, layout, spec=mode, spec_k=SPEC_K)
+            eng.run(list(reqs))
+            got = _completions(eng)
+            drained = not eng.paged or (eng.stats["kv_pages_in_use"] == 0
+                                        and not eng._host_table.any())
+            log(label, f"fp32 completions == the spec-off drain's: "
+                f"{got == want}" + ("" if got == want else " (" +
+                                    _differing_requests(got, want) + ")")
+                + f"; accepted_len_per_draft "
+                f"{eng.stats['spec_accepted_len_per_draft']:.4f}"
+                + ("; every page back" if eng.paged and drained else ""))
+            if not drained:
+                failed.append(f"{label}: pages left in use")
+            if got != want:
+                failed.append(f"{label}: fp32 completions differ from "
+                              "speculation off")
+    del model
+    torch.cuda.empty_cache()
+    return failed
 
 
 # ---------------------------------------------------------------------------
@@ -1268,23 +1733,31 @@ def phase_engine(model, seed: int) -> None:
 ENGINES = ("graph", "eager", "loop")
 
 
-@contextlib.contextmanager
-def eager_chunks():
-    """Inside, ``serve()`` and ``ServeEngine`` run the fused chunk's body
-    eagerly on the card instead of replaying its graph: the yardstick the
-    graph is checked and timed against."""
-    from repro_torch.launch import engine, serve
+def eager_step(model, **kw):
+    """A ``GenerateStep`` that runs the fused chunk's body eagerly on the
+    card instead of replaying its graph: the yardstick the graph is checked
+    and timed against (the port has no knob for it)."""
     from repro_torch.launch.steps import GenerateStep
 
     class EagerChunk(GenerateStep):
-        def prepare(self, cache, tok, generator):
-            self._warm_up(cache, tok)
+        def prepare(self, cache, tok, generator, hist=None, hist_len=None):
+            self._warm_up(cache, tok, self._state(hist, hist_len))
 
-        def __call__(self, cache, tok, generator, eos_id):
-            return self._eager(cache, tok, generator, eos_id)
+        def __call__(self, cache, tok, generator, eos_id, hist=None,
+                     hist_len=None):
+            return self._eager(cache, tok, generator, eos_id,
+                               *self._state(hist, hist_len))
 
+    return EagerChunk(model, **kw)
+
+
+@contextlib.contextmanager
+def eager_chunks():
+    """Inside, ``serve()`` and ``ServeEngine`` run the fused chunk's body
+    eagerly (``eager_step``) instead of replaying its graph."""
+    from repro_torch.launch import engine, serve
     saved = serve.make_generate_step, engine.make_generate_step
-    serve.make_generate_step = engine.make_generate_step = EagerChunk
+    serve.make_generate_step = engine.make_generate_step = eager_step
     try:
         yield
     finally:
@@ -1298,22 +1771,14 @@ def _serve_as(name: str, **kw) -> dict:
         return serve(engine="loop" if name == "loop" else "fused", **kw)
 
 
-def graph_device_ms(model, *, batch, prompt_len, gen, chunk, seed,
-                    kv_quant="off", page_size=0) -> tuple:
-    """Device ms per token-step of the captured chunk: serve()'s batch
-    prefilled, the chunk captured on its cache, then back-to-back replays
-    (the first alone, then ``gen // chunk - 1``) timed by CUDA events.
-    Returns (ms per step of the later replays, ms of the first replay,
-    which uploads the graph to the card)."""
-    from repro_torch.launch.steps import make_generate_step
-    m = model.with_kv_layout(kv_quant, page_size)
-    rng = np.random.default_rng(seed)
-    tokens = torch.from_numpy(rng.integers(
-        0, m.cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).to(DEVICE)
-    logits, cache = m.prefill(tokens, max_len=prompt_len + gen)
-    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
-    step = make_generate_step(m, chunk=chunk)
-    step.prepare(cache, tok, None)
+def graph_device_ms(m, toks, gen, chunk, spec="off") -> tuple:
+    """Device ms per iteration (a token-step without speculation) of the
+    captured chunk: the prompts ``toks`` prefilled, the chunk captured on
+    their cache, then back-to-back replays (the first alone, then ``gen //
+    chunk - 1``) timed by CUDA events. Returns (ms per iteration of the
+    later replays, ms of the first replay, which uploads the graph to the
+    card)."""
+    step = _spec_start(m, toks, spec, gen, chunk)[0]
     graph = step._captured.graph      # the replays alone, no host work between
     replays = gen // chunk - 1
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
@@ -1365,7 +1830,13 @@ def _serve_engines(model, smi, label, decode_kernel="flash_decode_fwd",
     log(label, f"graph == eager chunk == loop tokens: {same}")
     if not same:
         raise AssertionError(f"{label}: greedy tokens of {ENGINES} differ")
-    dev, first = graph_device_ms(model, **kw)
+    m = model.with_kv_layout(kw.get("kv_quant", "off"),
+                             kw.get("page_size", 0))
+    rng = np.random.default_rng(kw["seed"])        # serve()'s prompts
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (kw["batch"], kw["prompt_len"])).astype(
+            np.int32)).to(DEVICE)
+    dev, first = graph_device_ms(m, toks, kw["gen"], kw["chunk"])
     g, e = (runs[n]["decode_s_per_tok"] * 1e3 for n in ("graph", "eager"))
     log(label, f"{smi}: decode ms per token-step: graph {g:.4f}, its device "
         f"time {dev:.4f} (wall / device {g / dev:.2f}; a first replay "
@@ -1854,7 +2325,7 @@ def main() -> int:
         phase_build()
     rows = phase_kernels(args.seed) if "kernels" in phases else {}
     launches = {}
-    if {"serve", "engine", "profile"} & set(phases):
+    if {"serve", "engine", "spec", "profile"} & set(phases):
         from repro_torch.launch.serve import load_model
         t0 = time.perf_counter()
         model = load_model("pimref-100m", smoke=False, seed=args.seed,
@@ -1865,8 +2336,11 @@ def main() -> int:
             f"{time.perf_counter() - t0:.2f}s")
         if "serve" in phases:
             launches = phase_serve(model, smi)
+        engine_want = None
         if "engine" in phases:
-            phase_engine(model, args.seed)
+            engine_want = phase_engine(model, args.seed)
+        if "spec" in phases:
+            launches.update(phase_spec(model, smi, args.seed, engine_want))
         if "profile" in phases:
             phase_profile(model, smi)
         del model

@@ -1,5 +1,8 @@
 """Shared kernel utilities (counterpart: ``repro/kernels/common.py``): the
-KV-cache quantization mode names, the int4 nibble pack/unpack pair, and the
+KV-cache quantization and speculative-decoding mode names and their
+validators (the reference reads the same values from ``REPRO_KV_QUANT``,
+``REPRO_SPEC_DECODE``, ``REPRO_SPEC_K`` and ``REPRO_SPEC_DRAFT_LAYERS``; the
+port takes them as arguments), the int4 nibble pack/unpack pair, and the
 exact bf16 split of fp32 values that the tensor-core routes of
 ``quant_matmul`` and of the fp32 prefill kernel state in their plain
 emulations."""
@@ -10,6 +13,8 @@ from typing import Tuple
 import torch
 
 KV_QUANT_MODES = ("off", "int8", "int4", "auto")
+SPEC_DECODE_MODES = ("off", "ngram", "draft")
+SPEC_K_DEFAULT = 3
 
 
 def check_kv_quant(mode: str) -> str:
@@ -17,6 +22,31 @@ def check_kv_quant(mode: str) -> str:
     if mode not in KV_QUANT_MODES:
         raise ValueError(f"kv_quant={mode!r}: expected one of {KV_QUANT_MODES}")
     return mode
+
+
+def check_spec_decode(mode: str) -> str:
+    """``mode`` if it names a speculative-decoding drafter (``off``,
+    ``ngram``: n-gram lookup over the slot's history, ``draft``: layer-skip
+    self-drafting), else ValueError."""
+    if mode not in SPEC_DECODE_MODES:
+        raise ValueError(f"spec={mode!r}: expected one of {SPEC_DECODE_MODES}")
+    return mode
+
+
+def check_spec_k(k: int) -> int:
+    """The draft length k (each iteration verifies a (k + 1)-token block)
+    if it is a positive int, else ValueError."""
+    if int(k) != k or k < 1:
+        raise ValueError(f"spec_k={k!r}: expected a positive int")
+    return int(k)
+
+
+def check_draft_layers(n: int) -> int:
+    """The ``draft`` mode's layer budget (0 = half the target's layers, at
+    least one) if it is a non-negative int, else ValueError."""
+    if int(n) != n or n < 0:
+        raise ValueError(f"draft_layers={n!r}: expected a non-negative int")
+    return int(n)
 
 
 def pack_int4(v: torch.Tensor) -> torch.Tensor:

@@ -32,8 +32,16 @@ The cache is laid out as the model says (``kv_quant``, ``page_size``):
   reserves each request's worst-case pages, so decode can never run out of
   pages; a request that can never fit ends in a ``page_pool`` error.
 
-Speculative decoding, deadlines, retries, load shedding, snapshots and fault
-injection are ported in later slices.
+With speculative decoding (``spec``: ``ngram`` or ``draft``) each chunk
+iteration drafts ``spec_k`` tokens and verifies them in one (k + 1)-token
+block (:func:`~repro_torch.launch.steps.make_generate_step`): a chunk may
+write ``chunk * (spec_k + 1)`` positions, so the cache holds ``spec_k`` rows
+of slack, page reservations and copy-on-write cover that span, and each slot
+keeps the drafter's history (its prompt, then its committed tokens) on the
+device. Greedy completions equal those with speculation off.
+
+Deadlines, retries, load shedding, snapshots and fault injection are ported
+in later slices.
 """
 from __future__ import annotations
 
@@ -46,7 +54,7 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.launch.steps import make_generate_step
+from repro_torch.launch.steps import make_generate_step, spec_config
 from repro_torch.models.layers import (PagedKVCache, QKVCache, TRASH_PAGE,
                                        kv_zeros)
 
@@ -189,12 +197,19 @@ class ServeEngine:
       slots: concurrently decoded sequences (cache batch rows).
       prompt_len: prompt bucket (longer prompts are rejected).
       max_new: per-request generation cap; the cache holds
-        ``max_len = prompt_len + max_new`` positions (whole pages when
-        paged).
+        ``max_len = prompt_len + max_new`` positions, ``spec_k`` more with
+        speculation (whole pages when paged).
       chunk: decode steps per fused chunk (one host sync each; one graph
         replay on the card).
       eos_id: stop token (None = length-only stopping).
       temperature/top_k: sampling (0 temperature = greedy).
+      spec/spec_k/draft_layers: speculative decoding (``off``, ``ngram``,
+        ``draft``; see :func:`~repro_torch.launch.steps.spec_config`), the
+        draft length (default 3) and the ``draft`` mode's layer budget
+        (default half the layers). Stats gain ``spec_draft_iters``,
+        ``spec_emitted_tokens``, the accepted-length histogram
+        ``spec_accept_hist`` (bin i: iterations that committed i + 1
+        tokens) and, after ``run``, ``spec_accepted_len_per_draft``.
       page_pool_pages: physical pages of the paged pool (default
         ``slots`` times the pages of one slot, the worst case). A smaller
         pool makes admission wait until a request's worst-case pages fit.
@@ -203,7 +218,9 @@ class ServeEngine:
     def __init__(self, model, *, slots: int = 4, prompt_len: int = 32,
                  max_new: int = 32, chunk: int = 8,
                  eos_id: Optional[int] = None, temperature: float = 0.0,
-                 top_k: int = 0, seed: int = 0,
+                 top_k: int = 0, seed: int = 0, spec: str = "off",
+                 spec_k: Optional[int] = None,
+                 draft_layers: Optional[int] = None,
                  page_pool_pages: Optional[int] = None):
         if max_new < 1 or prompt_len < 1:
             raise ValueError(f"prompt_len {prompt_len} and max_new {max_new} "
@@ -214,14 +231,21 @@ class ServeEngine:
         self.max_new, self.eos_id = max_new, eos_id
         self.max_len = prompt_len + max_new
         self.paged = model.page_size > 0
+        # speculation: a chunk writes up to chunk_span positions, k of them
+        # past the last committed one, so the cache holds spec_k more rows
+        self.spec, self.spec_k = spec_config(model, spec, spec_k)
         self._generate = make_generate_step(model, chunk=chunk,
                                             temperature=temperature,
-                                            top_k=top_k)
+                                            top_k=top_k, spec=self.spec,
+                                            spec_k=self.spec_k,
+                                            draft_layers=draft_layers)
+        self.chunk_span = self._generate.span
+        self._cache_max = self.max_len + self.spec_k
         # empty slot rows are zeros, like the reference's tiled template
         if self.paged:
             cfg, dev = model.cfg, self.device
             self.page_size = model.page_size
-            self.cache_pos_len = model.cache_len(self.max_len)
+            self.cache_pos_len = model.cache_len(self._cache_max)
             self.n_logical_pages = self.cache_pos_len // self.page_size
             # +1: pool row 0 is the trash page
             self.n_phys_pages = (slots * self.n_logical_pages
@@ -247,7 +271,7 @@ class ServeEngine:
             # prefill that never ring-wraps
             self._share_ok = self.cache_pos_len >= self.prompt_len
         else:
-            self.cache = model.init_cache(slots, self.max_len)
+            self.cache = model.init_cache(slots, self._cache_max)
             self.cache["pos_ids"].zero_()
             self._batch_axes = model.cache_batch_axes()
         self._tok = torch.zeros((slots, 1), dtype=torch.int32,
@@ -256,6 +280,15 @@ class ServeEngine:
         # takes effect in a captured graph too
         self._eos = torch.full((), -1, dtype=torch.int32, device=self.device)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._spec_state: Tuple[torch.Tensor, ...] = ()
+        if self.spec != "off":
+            # the drafter's history: each slot's prompt and committed
+            # tokens, room for the bucket, the cap and a chunk's overshoot
+            self.hist_cap = prompt_len + max_new + self.chunk_span
+            self._spec_state = (
+                torch.zeros((slots, self.hist_cap), dtype=torch.int32,
+                            device=self.device),
+                torch.zeros((slots,), dtype=torch.int32, device=self.device))
         self._queue: Deque[Request] = deque()
         self._active: Dict[int, _Slot] = {}
         self._free: List[int] = list(range(slots))[::-1]
@@ -268,8 +301,12 @@ class ServeEngine:
             "tokens_out": 0, "wall_seconds": 0.0, "error_completions": 0,
             "kv_pages_in_use": 0, "kv_pages_peak": 0, "kv_pages_reserved": 0,
             "prefix_hits": 0, "admission_blocked": 0, "graph_captures": 0,
-            "capture_seconds": 0.0,
+            "capture_seconds": 0.0, "draft_steps": 0,
         }
+        if self.spec != "off":
+            self.stats["spec_draft_iters"] = 0
+            self.stats["spec_emitted_tokens"] = 0
+            self.stats["spec_accept_hist"] = [0] * (self.spec_k + 1)
         kv = [t for name in ("k", "v") for t in self._leaf_tensors(name)]
         if self.paged:
             self._page_bytes = sum(t.nbytes // t.shape[1] for t in kv)
@@ -328,10 +365,11 @@ class ServeEngine:
     # -- pages -------------------------------------------------------------
     def _worst_pages(self, n: int, cap: int) -> int:
         """Worst-case pages a request can touch: the prompt, ``cap`` decode
-        steps and the overrun of the last chunk. Pages past that hold only
+        steps and the overrun of the last chunk (``chunk_span``: with
+        speculation its k-ahead writes too). Pages past that hold only
         prefill pad rows, which decode never writes and always reads
         masked: they stay on the trash page."""
-        maxp = n + cap - 1 + self.chunk       # one past the last written pos
+        maxp = n + cap - 1 + self.chunk_span  # one past the last written pos
         return min(-(-min(maxp, self.cache_pos_len) // self.page_size),
                    self.n_logical_pages)
 
@@ -386,7 +424,7 @@ class ServeEngine:
         for slot, st in list(self._active.items()):
             pos0 = st.n + len(st.produced)
             for i in sorted({(p % T) // ps
-                             for p in range(pos0, pos0 + self.chunk)}):
+                             for p in range(pos0, pos0 + self.chunk_span)}):
                 phys = int(self._host_table[slot, i])
                 if phys == TRASH_PAGE:
                     continue              # unclaimed tail: writes go to trash
@@ -403,12 +441,14 @@ class ServeEngine:
                     self._alloc.unregister(phys)
 
     # -- admission ---------------------------------------------------------
-    def _insert(self, slot: int, small, first: torch.Tensor, n: int,
+    def _insert(self, slot: int, small, first: torch.Tensor, t: np.ndarray,
                 dest: Optional[np.ndarray], trow: Optional[np.ndarray]) -> None:
         """Copy a batch-1 prefill cache into slot ``slot``: its rows along
         each leaf's batch axis (contiguous), or its owned pages into the
         pool rows ``dest`` plus the slot's table row (paged; pages resolved
-        by sharing and unclaimed tails are not written)."""
+        by sharing and unclaimed tails are not written). With speculation
+        the slot's drafter history becomes the prompt ``t``."""
+        n = len(t)
         c = self.cache
         if self.paged:
             own = np.nonzero(dest)[0]
@@ -424,6 +464,12 @@ class ServeEngine:
         else:
             _put_rows(c, small, self._batch_axes, slot)
         self._tok[slot, 0] = first
+        if self._spec_state:
+            hist, hist_len = self._spec_state
+            row = np.zeros(self.hist_cap, np.int32)
+            row[:n] = t
+            hist[slot] = torch.from_numpy(row).to(self.device)
+            hist_len[slot] = n
 
     def _admit(self) -> None:
         while self._free and self._queue:
@@ -458,17 +504,17 @@ class ServeEngine:
                 cap = min(req.max_new_tokens, self.max_len - self.prompt_len)
             self._queue.popleft()
             slot = self._free.pop()
-            logits, small = self.model.prefill(toks, max_len=self.max_len,
+            logits, small = self.model.prefill(toks, max_len=self._cache_max,
                                                full_logits=self.paged)
             if self.paged:
                 first = torch.argmax(logits[0, n - 1], dim=-1)
                 dest, trow = self._plan_pages(slot, t, n, cap)
                 self._reserved[slot] = need
                 self._reserved_total += need
-                self._insert(slot, small, first, n, dest, trow)
+                self._insert(slot, small, first, t, dest, trow)
             else:
                 first = torch.argmax(logits[0, -1], dim=-1)
-                self._insert(slot, small, first, n, None, None)
+                self._insert(slot, small, first, t, None, None)
             self._active[slot] = _Slot(request=req, cap=cap, n=n)
             if self.paged:
                 self._refresh_page_stats()
@@ -486,21 +532,37 @@ class ServeEngine:
             self._refresh_page_stats()
         self._eos.fill_(-1 if self.eos_id is None else int(self.eos_id))
         captures = self._generate.captures
-        (self.cache, self._tok, self._gen, done, n_valid, toks,
-         failed) = self._generate(self.cache, self._tok, self._gen, self._eos)
-        # ONE host sync per chunk: tokens and per-slot flags in one transfer
-        host = torch.cat([toks, done[:, None].to(torch.int32),
-                          n_valid[:, None], failed[:, None].to(torch.int32)],
-                         dim=1).cpu().numpy()
-        toks_np, done_np = host[:, :self.chunk], host[:, self.chunk] != 0
-        n_np, failed_np = host[:, self.chunk + 1], host[:, self.chunk + 2] != 0
+        out = self._generate(self.cache, self._tok, self._gen, self._eos,
+                             *self._spec_state)
+        self.cache, self._tok, self._gen, done, n_valid, toks = out[:6]
+        failed = out[-1]
+        cols = [toks, done[:, None].to(torch.int32), n_valid[:, None],
+                failed[:, None].to(torch.int32)]
+        if self._spec_state:
+            cols.append(out[8])                        # acc (B, chunk)
+        # ONE host sync per chunk: tokens, per-slot flags and accept counts
+        host = torch.cat(cols, dim=1).cpu().numpy()
+        span = self.chunk_span
+        toks_np, done_np = host[:, :span], host[:, span] != 0
+        n_np, failed_np = host[:, span + 1], host[:, span + 2] != 0
         s = self.stats
         s["decode_dispatches"] += 1
         # a capture's eager warm-up chunk ran its decode steps too
-        s["decode_steps"] += self.chunk * (1 + self._generate.captures
-                                           - captures)
+        chunks = 1 + self._generate.captures - captures
+        s["decode_steps"] += self.chunk * chunks
+        if self.spec == "draft":
+            s["draft_steps"] += self.chunk * self.spec_k * chunks
         s["graph_captures"] = self._generate.captures
         s["capture_seconds"] = self._generate.capture_seconds
+        if self._spec_state:
+            # accepted lengths of the active slots' live iterations (free
+            # and retired slots ride the chunk too)
+            acc = host[sorted(self._active), span + 3:]
+            live = acc[acc >= 0]
+            s["spec_draft_iters"] += int(live.size)
+            s["spec_emitted_tokens"] += int(live.sum())
+            for c, freq in zip(*np.unique(live, return_counts=True)):
+                s["spec_accept_hist"][int(c) - 1] += int(freq)
         for slot in list(self._active):
             st = self._active[slot]
             take = min(int(n_np[slot]), st.cap - len(st.produced))
@@ -553,4 +615,9 @@ class ServeEngine:
                                      / max(s["tokens_out"], 1))
         s["kv_bytes_per_token"] = (s["kv_hbm_bytes_peak"]
                                    / max(s["tokens_out"], 1))
+        if self.spec != "off":
+            # tokens committed per draft-verify iteration: 1.0 accepts
+            # nothing, spec_k + 1 every draft and the bonus
+            s["spec_accepted_len_per_draft"] = (
+                s["spec_emitted_tokens"] / max(s["spec_draft_iters"], 1))
         return self.completions

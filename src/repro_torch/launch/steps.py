@@ -1,23 +1,27 @@
-"""Sampling and the fused decode loop (counterpart: ``repro/launch/steps.py``,
-``logits_transform``, ``sample_tokens`` and ``make_generate_step`` with
-speculation off).
+"""Sampling, speculative decoding and the fused decode loop (counterpart:
+``repro/launch/steps.py``: ``logits_transform``, ``sample_tokens``,
+``spec_config``, ``ngram_draft`` and ``make_generate_step``).
 
-A chunk is ``chunk`` decode steps that stay on the device: EOS detection,
-the finite guard and sampling are tensor ops, and the caller reads the
-results with one host sync per chunk. On the card the chunk is one CUDA
-graph replay, the counterpart of the reference's jitted ``lax.scan``: it is
+A chunk is ``chunk`` decode iterations that stay on the device: EOS
+detection, the finite guard, sampling and, with speculation, drafting,
+verifying and the rollback are tensor ops, and the caller reads the results
+with one host sync per chunk. On the card the chunk is one CUDA graph
+replay, the counterpart of the reference's jitted ``lax.scan``: it is
 captured once per cache and replayed for every chunk. On the CPU the same
 body runs eagerly.
 """
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass, fields, is_dataclass
 from typing import Iterator, List, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import launch_counters
+from repro_torch.kernels.common import (SPEC_K_DEFAULT, check_draft_layers,
+                                        check_spec_decode, check_spec_k)
 from repro_torch.models.layers import slot_isfinite
 
 
@@ -50,6 +54,58 @@ def sample_tokens(logits: torch.Tensor,
     race = probs / torch.empty_like(probs).exponential_(1.0,
                                                         generator=generator)
     return torch.argmax(race, dim=-1).to(torch.int32)
+
+
+def spec_config(model, mode: str = "off",
+                k: Optional[int] = None) -> Tuple[str, int]:
+    """Effective ``(mode, k)`` of speculative decoding on ``model``: ``("off",
+    0)`` for ``off``; ``k`` defaults to 3. Speculation needs a multi-token
+    verify step and room for the k-ahead writes, so it is for the dense
+    families with full attention: any other family, or sliding attention
+    (whose ring has no slack for the writes), warns and falls back to
+    ``("off", 0)``. An unknown mode or k < 1 raises ValueError."""
+    check_spec_decode(mode)
+    if mode == "off":
+        return "off", 0
+    k = check_spec_k(SPEC_K_DEFAULT if k is None else k)
+    cfg = model.cfg
+    if cfg.family not in ("dense", "moe", "vlm"):
+        warnings.warn(f"spec-decode {mode!r} unsupported for family "
+                      f"{cfg.family!r}; falling back to off")
+        return "off", 0
+    if cfg.attention_kind == "sliding":
+        warnings.warn(f"spec-decode {mode!r} unsupported with sliding-window "
+                      "attention; falling back to off")
+        return "off", 0
+    return mode, k
+
+
+def ngram_draft(hist: torch.Tensor, hist_len: torch.Tensor, t0: torch.Tensor,
+                k: int) -> torch.Tensor:
+    """(B, k) draft tokens by lookup over each slot's history: ``hist`` (B,
+    H) holds the committed prompt and emitted tokens (``hist_len`` valid),
+    ``t0`` (B,) the token about to be emitted. The most recent earlier
+    occurrence of ``t0`` that has a following token, preferring a bigram
+    match (the token before it equal to ``hist[len - 1]``), proposes the k
+    tokens that followed it. A miss, or a continuation past ``hist_len``,
+    drafts whatever the clipped indices hold: the verifier commits only
+    what the model confirms. Indices past the row clamp, as the reference's
+    gathers do."""
+    B, H = hist.shape
+    pos = torch.arange(H, dtype=torch.int32, device=hist.device)
+    valid = pos[None, :] < (hist_len - 1)[:, None]        # a continuation
+    last = (hist_len - 1).clamp(0, H - 1).long()
+    t_prev = hist.gather(1, last[:, None])               # the token before t0
+    prev_col = torch.cat([torch.full_like(hist[:, :1], -1), hist[:, :-1]], 1)
+    uni = (hist == t0[:, None]) & valid
+    bi = uni & (prev_col == t_prev)
+    none = torch.full_like(pos, -1)
+    j_bi = torch.amax(torch.where(bi, pos, none), dim=1)
+    j_uni = torch.amax(torch.where(uni, pos, none), dim=1)
+    j = torch.where(j_bi >= 0, j_bi, j_uni)               # -1 on a miss
+    src = (j[:, None] + 1 + torch.arange(k, dtype=torch.int32,
+                                         device=hist.device)).clamp(0, H - 1)
+    return hist.gather(1, src.long()).to(t0.dtype)
 
 
 def clone_cache(x):
@@ -104,6 +160,91 @@ def decode_chunk(model, cache, tok: torch.Tensor,
     return tok, done, n_valid, torch.stack(toks, 1), failed
 
 
+def _put_block(buf: torch.Tensor, start: torch.Tensor, cnt: torch.Tensor,
+               blk: torch.Tensor) -> torch.Tensor:
+    """``buf[b, start[b] + i] = blk[b, i]`` for ``i < cnt[b]``, indices past
+    the row dropped (the reference's ``.at[].set(mode="drop")``), as a
+    gather and a select over the whole row: the same work every call, no
+    index leaves the row, and ``buf`` is written in place."""
+    cols = torch.arange(buf.shape[1], dtype=start.dtype, device=buf.device)
+    rel = cols[None, :] - start[:, None]
+    put = (rel >= 0) & (rel < cnt[:, None])
+    src = blk.gather(1, rel.clamp(0, blk.shape[1] - 1).long())
+    return buf.copy_(torch.where(put, src.to(buf.dtype), buf))
+
+
+def spec_decode_chunk(model, cache, tok: torch.Tensor,
+                      generator: Optional[torch.Generator],
+                      eos_id: Union[int, torch.Tensor], hist: torch.Tensor,
+                      hist_len: torch.Tensor, *, chunk: int, k: int,
+                      mode: str, draft_layers: int = 1,
+                      temperature: float = 0.0, top_k: int = 0):
+    """The speculative chunk body, run eagerly: ``chunk`` draft-verify
+    iterations from ``tok`` (B, 1). Each drafts k tokens (``ngram``: lookup
+    over ``hist``; ``draft``: k greedy steps through the first
+    ``draft_layers`` layers, whose scratch writes the verify block
+    overwrites), runs the fed token and the drafts as one (k + 1)-token
+    ``decode_step``, commits the drafts its targets confirm plus the bonus
+    token (truncated at EOS), and rolls back by rewinding ``cache["pos"]``.
+    Returns (next tok, done, n_valid, toks, hist, hist_len, acc, failed), as
+    :func:`make_generate_step` describes them; ``cache``, ``hist`` and
+    ``hist_len`` are updated in place."""
+    B = tok.shape[0]
+    dev = tok.device
+    span = k + 1
+    idx = torch.arange(span, dtype=torch.int32, device=dev)
+    pos = cache["pos"]
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    failed = torch.zeros((B,), dtype=torch.bool, device=dev)
+    n_valid = torch.zeros((B,), dtype=torch.int32, device=dev)
+    toks = torch.zeros((B, chunk * span), dtype=tok.dtype, device=dev)
+    accs = []
+    for _ in range(chunk):
+        t0 = tok[:, 0]
+        if mode == "ngram":
+            drafts = ngram_draft(hist, hist_len, t0, k)
+        else:
+            pos_in = pos.clone()
+            dt, dr = tok, []
+            for _ in range(k):
+                dlogits, _ = model.decode_step(cache, dt, layers=draft_layers)
+                dt = torch.argmax(dlogits[:, -1], dim=-1).to(t0.dtype)[:, None]
+                dr.append(dt)
+            pos.copy_(pos_in)
+            drafts = torch.cat(dr, 1)
+        blk = torch.cat([tok, drafts], 1)                   # (B, k + 1)
+        pos0 = pos.clone()
+        logits, _ = model.decode_step(cache, blk)
+        # row j's logits are the target of draft j + 1 and the bonus after j
+        # accepts: acceptance stops at the last finite target
+        fin_row = torch.isfinite(logits).all(dim=-1)        # (B, k + 1)
+        tgt = sample_tokens(logits, generator, temperature, top_k)
+        ok = (blk[:, 1:] == tgt[:, :-1]) & fin_row[:, :-1]
+        a = torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1)   # 0..k
+        eos_hit = (blk == eos_id) & (idx[None, :] <= a[:, None])
+        any_eos = eos_hit.any(dim=1)
+        first_eos = torch.amin(torch.where(eos_hit, idx, span), dim=1)
+        cnt = torch.where(any_eos, first_eos + 1, a + 1)
+        cnt = torch.where(done | failed, 0, cnt).to(torch.int32)
+        bonus_fin = fin_row.gather(1, a[:, None])[:, 0]
+        failed_now = failed | (~bonus_fin & ~any_eos & ~done)
+        # rollback: the next block's k + 1 writes start at pos0 + cnt and
+        # cover every rejected row before anything attends to it (a done
+        # slot advances 1, its frozen re-feed)
+        pos.copy_(pos0 + cnt.clamp(min=1))
+        bonus = tgt.gather(1, a[:, None])[:, 0]
+        nxt = torch.where(any_eos, eos_id, bonus).to(t0.dtype)
+        nxt = torch.where(done | failed_now, t0, nxt)       # frozen re-feed
+        _put_block(toks, n_valid, cnt, blk)
+        _put_block(hist, hist_len, cnt, blk)
+        hist_len.add_(cnt)
+        accs.append(torch.where(done | failed, -1, cnt))
+        tok, done, failed = nxt[:, None], done | any_eos, failed_now
+        n_valid = n_valid + cnt
+    return (tok, done, n_valid, toks, hist, hist_len, torch.stack(accs, 1),
+            failed)
+
+
 def _launch_counts() -> List[int]:
     return [n for counter in launch_counters() for n in counter.values()]
 
@@ -121,18 +262,20 @@ def _weights(model) -> Tuple:
     return tuple((id(p), p._version, p.data_ptr()) for p in model.parameters())
 
 
-def _cache_key(cache, tok: torch.Tensor) -> Tuple:
+def _cache_key(cache, tok: torch.Tensor, state: Tuple = ()) -> Tuple:
     """What a graph is captured on: the address and layout of every cache
-    tensor, and ``tok``'s shape."""
+    tensor and of the drafter's history (``state``: ``hist``, ``hist_len``),
+    and ``tok``'s shape."""
     return (tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
-                  for t in cache_tensors(cache)), tuple(tok.shape), tok.dtype)
+                  for t in cache_tensors([cache, *state])),
+            tuple(tok.shape), tok.dtype)
 
 
 @dataclass
 class _Captured:
-    """One captured chunk: the graph, what it was captured on (the cache,
-    the generator, the weights), its static inputs ``tok`` and ``eos`` and
-    outputs, and the launches of one replay."""
+    """One captured chunk: the graph, what it was captured on (the cache and
+    history, the generator, the weights), its static inputs ``tok`` and
+    ``eos`` and outputs, and the launches of one replay."""
 
     graph: "torch.cuda.CUDAGraph"
     key: Tuple
@@ -147,43 +290,68 @@ class _Captured:
 class GenerateStep:
     """The fused decode chunk of :func:`make_generate_step`. ``captures``
     counts its CUDA graph captures and ``capture_seconds`` their time, the
-    eager warm-up included."""
+    eager warm-up included; ``span`` is the width of a chunk's token
+    buffer."""
 
     def __init__(self, model, *, chunk: int, temperature: float = 0.0,
-                 top_k: int = 0):
+                 top_k: int = 0, spec: str = "off", spec_k: int = 0,
+                 draft_layers: Optional[int] = None):
         self.model, self.chunk = model, chunk
         self.temperature, self.top_k = temperature, top_k
+        self.spec = check_spec_decode(spec)
+        self.spec_k = 0 if spec == "off" else check_spec_k(spec_k)
+        L = model.cfg.num_layers
+        n = check_draft_layers(draft_layers or 0) or max(1, L // 2)
+        self.draft_layers = min(n, L) if spec == "draft" else 0
+        self.span = chunk * (self.spec_k + 1)
         self.captures = 0
         self.capture_seconds = 0.0
         self._captured: Optional[_Captured] = None
 
-    def _body(self, cache, tok, generator, eos_id):
-        return decode_chunk(self.model, cache, tok, generator, eos_id,
-                            chunk=self.chunk, temperature=self.temperature,
-                            top_k=self.top_k)
+    def _state(self, hist, hist_len) -> Tuple:
+        """The in-place state beside the cache: (hist, hist_len) with
+        speculation, nothing without."""
+        if (self.spec == "off") != (hist is None and hist_len is None):
+            raise ValueError(f"spec={self.spec!r}: hist and hist_len are "
+                             + ("not taken" if self.spec == "off"
+                                else "required"))
+        return () if self.spec == "off" else (hist, hist_len)
 
-    def _eager(self, cache, tok, generator, eos_id):
-        tok, done, n_valid, toks, failed = self._body(cache, tok, generator,
-                                                      eos_id)
-        return cache, tok, generator, done, n_valid, toks, failed
+    def _body(self, cache, tok, generator, eos_id, *state):
+        if self.spec == "off":
+            return decode_chunk(self.model, cache, tok, generator, eos_id,
+                                chunk=self.chunk, temperature=self.temperature,
+                                top_k=self.top_k)
+        return spec_decode_chunk(self.model, cache, tok, generator, eos_id,
+                                 *state, chunk=self.chunk, k=self.spec_k,
+                                 mode=self.spec,
+                                 draft_layers=self.draft_layers,
+                                 temperature=self.temperature,
+                                 top_k=self.top_k)
 
-    def _warm_up(self, cache, tok: torch.Tensor) -> None:
-        """One eager chunk on a copy of the cache: first-call costs (cuBLAS
-        handles, weight casts) paid, the cache, ``tok`` and the caller's
-        generator untouched."""
+    def _eager(self, cache, tok, generator, eos_id, *state):
+        tok, *outputs = self._body(cache, tok, generator, eos_id, *state)
+        return (cache, tok, generator, *outputs)
+
+    def _warm_up(self, cache, tok: torch.Tensor, state: Tuple = ()) -> None:
+        """One eager chunk on copies of the cache and the history:
+        first-call costs (cuBLAS handles, weight casts) paid, the cache,
+        the history, ``tok`` and the caller's generator untouched."""
         spare = (torch.Generator(device=tok.device).manual_seed(0)
                  if self.temperature > 0 else None)
-        self._body(clone_cache(cache), tok.clone(), spare, -1)
+        self._body(clone_cache(cache), tok.clone(), spare, -1,
+                   *(t.clone() for t in state))
 
     def _capture(self, cache, tok: torch.Tensor,
-                 generator: Optional[torch.Generator]) -> _Captured:
+                 generator: Optional[torch.Generator],
+                 state: Tuple) -> _Captured:
         t0 = time.perf_counter()
         self._captured = None                 # free the old graph's pool
         dev = tok.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self._warm_up(cache, tok)
+            self._warm_up(cache, tok, state)
         torch.cuda.current_stream(dev).wait_stream(side)
         static_tok = tok.clone()
         eos = torch.full((), -1, dtype=torch.int32, device=dev)
@@ -192,42 +360,50 @@ class GenerateStep:
             graph.register_generator_state(generator)
         before = _launch_counts()
         with torch.cuda.graph(graph):
-            nxt, *outputs = self._body(cache, static_tok, generator, eos)
+            nxt, *outputs = self._body(cache, static_tok, generator, eos,
+                                       *state)
             static_tok.copy_(nxt)
         # capture launches nothing: take its counts back, add them per replay
         delta = [a - b for a, b in zip(_launch_counts(), before)]
         _add_launches([-d for d in delta])
-        self._captured = _Captured(graph, _cache_key(cache, tok), generator,
-                                   _weights(self.model), static_tok, eos,
-                                   tuple(outputs), delta)
+        self._captured = _Captured(graph, _cache_key(cache, tok, state),
+                                   generator, _weights(self.model), static_tok,
+                                   eos, tuple(outputs), delta)
         self.captures += 1
         self.capture_seconds += time.perf_counter() - t0
         return self._captured
 
-    def _graph_for(self, cache, tok, generator) -> _Captured:
+    def _graph_for(self, cache, tok, generator, state) -> _Captured:
         c = self._captured
         if (c is None or c.generator is not generator
-                or c.key != _cache_key(cache, tok)
+                or c.key != _cache_key(cache, tok, state)
                 or c.weights != _weights(self.model)):
-            c = self._capture(cache, tok, generator)
+            c = self._capture(cache, tok, generator, state)
         return c
 
     def prepare(self, cache, tok: torch.Tensor,
-                generator: Optional[torch.Generator]) -> None:
+                generator: Optional[torch.Generator],
+                hist: Optional[torch.Tensor] = None,
+                hist_len: Optional[torch.Tensor] = None) -> None:
         """First-call costs before the first chunk: on the card, the capture
-        on ``cache`` (after the eager warm-up on a copy); on the CPU, the
-        warm-up alone. Neither changes ``cache``, ``tok`` or ``generator``."""
+        on ``cache`` (and the history), after the eager warm-up on copies;
+        on the CPU, the warm-up alone. Neither changes ``cache``, the
+        history, ``tok`` or ``generator``."""
+        state = self._state(hist, hist_len)
         if tok.device.type == "cuda":
-            self._graph_for(cache, tok, generator)
+            self._graph_for(cache, tok, generator, state)
         else:
-            self._warm_up(cache, tok)
+            self._warm_up(cache, tok, state)
 
     def __call__(self, cache, tok: torch.Tensor,
                  generator: Optional[torch.Generator],
-                 eos_id: Union[int, torch.Tensor]):
+                 eos_id: Union[int, torch.Tensor],
+                 hist: Optional[torch.Tensor] = None,
+                 hist_len: Optional[torch.Tensor] = None):
+        state = self._state(hist, hist_len)
         if tok.device.type != "cuda":
-            return self._eager(cache, tok, generator, eos_id)
-        c = self._graph_for(cache, tok, generator)
+            return self._eager(cache, tok, generator, eos_id, *state)
+        c = self._graph_for(cache, tok, generator, state)
         if tok is not c.tok:
             c.tok.copy_(tok)
         if isinstance(eos_id, torch.Tensor):
@@ -240,9 +416,9 @@ class GenerateStep:
 
 
 def make_generate_step(model, *, chunk: int, temperature: float = 0.0,
-                       top_k: int = 0) -> GenerateStep:
-    """Fused decode loop of ``chunk`` steps (speculation off; speculative
-    decoding is ported in a later slice):
+                       top_k: int = 0, spec: str = "off", spec_k: int = 0,
+                       draft_layers: Optional[int] = None) -> GenerateStep:
+    """Fused decode loop of ``chunk`` iterations:
 
         generate_step(cache, tok, generator, eos_id)
             -> (cache, tok, generator, done, n_valid, toks, failed)
@@ -255,20 +431,44 @@ def make_generate_step(model, *, chunk: int, temperature: float = 0.0,
     slots whose logits went non-finite; their counting stops with the last
     token sampled from finite logits. The cache is updated in place.
 
+    Speculative decoding (``spec="ngram"`` or ``"draft"``, draft length
+    ``spec_k``; ``draft_layers`` is the ``draft`` mode's layer budget, by
+    default half the layers) keeps one chunk per call. Each iteration
+    drafts k tokens, verifies the fed token and the drafts as one (k +
+    1)-token ``decode_step``, and commits the leading drafts its targets
+    confirm plus the target after the last of them (the bonus token);
+    rollback rewinds ``cache["pos"]``. The call takes and updates the
+    drafter's history in place, ``hist`` (B, Hcap) int32 (each slot's
+    committed prompt and output tokens, ``hist_len`` (B,) int32 of them):
+
+        generate_step(cache, tok, generator, eos_id, hist, hist_len)
+            -> (cache, tok, generator, done, n_valid, toks, hist, hist_len,
+                acc, failed)
+
+    ``toks`` (B, chunk * (k + 1)) is compacted: the first ``n_valid`` of a
+    row are its emitted tokens. ``acc`` (B, chunk) counts the tokens each
+    iteration committed (1..k + 1; -1 for a slot already done or failed).
+    Greedy tokens equal those of ``spec="off"``; sampled speculation draws
+    the k + 1 targets of an iteration from the same generator, in another
+    order than the plain loop. The cache's ring must hold ``spec_k`` rows
+    more than the positions served (the k-ahead writes).
+
     On the card the chunk is one CUDA graph replay. The graph is captured
-    on the first call for a cache (keyed on the addresses of its tensors
-    and on ``generator``, which is registered with it so that every replay
-    draws fresh numbers), after one eager chunk on a copy of the cache; a
-    parameter changed in place since the capture makes the next call
-    capture again. ``tok`` and ``eos_id`` are copied into the graph's
-    static inputs before each replay (``tok`` not, when it is the static
-    ``tok`` a call returned: write into that one between chunks). The
-    returned ``tok``, ``done``, ``n_valid``, ``toks`` and ``failed`` are
-    the graph's own tensors, overwritten by the next replay: read them
-    before the next call. ``prepare`` captures ahead of the first chunk.
-    The kernels' launch counters advance by one chunk's launches per
-    replay, and not at the capture. On the CPU the chunk runs eagerly and
-    returns new tensors.
+    on the first call for a cache (keyed on the addresses of its tensors,
+    and of ``hist`` and ``hist_len``, and on ``generator``, which is
+    registered with it so that every replay draws fresh numbers), after one
+    eager chunk on copies of them; a parameter changed in place since the
+    capture makes the next call capture again. ``tok`` and ``eos_id`` are
+    copied into the graph's static inputs before each replay (``tok`` not,
+    when it is the static ``tok`` a call returned: write into that one
+    between chunks). The returned ``tok``, ``done``, ``n_valid``, ``toks``,
+    ``acc`` and ``failed`` are the graph's own tensors, overwritten by the
+    next replay: read them before the next call. ``prepare`` captures ahead
+    of the first chunk. The kernels' launch counters advance by one
+    chunk's launches per replay, and not at the capture. On the CPU the
+    chunk runs eagerly and returns new tensors (``hist`` and ``hist_len``
+    are the caller's, updated).
     """
     return GenerateStep(model, chunk=chunk, temperature=temperature,
-                        top_k=top_k)
+                        top_k=top_k, spec=spec, spec_k=spec_k,
+                        draft_layers=draft_layers)

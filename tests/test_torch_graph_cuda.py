@@ -2,8 +2,9 @@
 eagerly, on a card, at smoke size with head_dim 64 (a width the kernels
 take): ``pimref-100m`` in its six KV layouts and ``recurrentgemma-2b``
 across a window wrap, the engine, EOS set between chunks, a weight load
-after the capture, and sampled decoding. Imports neither jax nor the
-reference package:
+after the capture, sampled decoding, and speculative decoding (both
+drafters; contiguous, int8 and pages of 16; a new history; the engine).
+Imports neither jax nor the reference package:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
         tests/test_torch_graph_cuda.py
@@ -41,11 +42,13 @@ def cuda():
 class EagerChunk(GenerateStep):
     """The chunk body run eagerly on the card: the graph's yardstick."""
 
-    def prepare(self, cache, tok, generator):
-        self._warm_up(cache, tok)
+    def prepare(self, cache, tok, generator, hist=None, hist_len=None):
+        self._warm_up(cache, tok, self._state(hist, hist_len))
 
-    def __call__(self, cache, tok, generator, eos_id):
-        return self._eager(cache, tok, generator, eos_id)
+    def __call__(self, cache, tok, generator, eos_id, hist=None,
+                 hist_len=None):
+        return self._eager(cache, tok, generator, eos_id,
+                           *self._state(hist, hist_len))
 
 
 def _model(arch, dev, kv_quant="off", page_size=0, seed=0):
@@ -293,3 +296,154 @@ def test_decode_chunk_under_sync_debug_mode(cuda):
                          temperature=0.7, top_k=4)
         finally:
             torch.cuda.set_sync_debug_mode("default")
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: the draft-verify chunk as one graph replay
+# ---------------------------------------------------------------------------
+K = 3
+SPEC_LAYOUTS = [("off", 0), ("int8", 0), ("off", 16)]
+SPEC_KERNEL = {("off", 0): "flash_decode_fwd",
+               ("int8", 0): "flash_decode_quant_fwd",
+               ("off", 16): "flash_decode_paged_fwd"}
+
+
+def _spec_inputs(model, dev, B=4, S=20, gen=16, chunk=4, seed=3):
+    """Half the rows a period-4 tile, half random; the cache sized for the
+    k-ahead writes; the drafter's history seeded with the prompts."""
+    rng = np.random.default_rng(seed)
+    V = model.cfg.vocab_size
+    toks = np.stack([np.tile(rng.integers(1, V, 4), S // 4) if r < B // 2
+                     else rng.integers(1, V, S) for r in range(B)])
+    toks = torch.from_numpy(toks.astype(np.int32)).to(dev)
+    logits, cache = model.prefill(toks, max_len=S + gen + K)
+    hist = torch.zeros((B, S + gen + chunk * (K + 1)), dtype=torch.int32,
+                       device=dev)
+    hist[:, :S] = toks
+    hist_len = torch.full((B,), S, dtype=torch.int32, device=dev)
+    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    return cache, tok, hist, hist_len
+
+
+def _spec_run(step, cache, tok, hist, hist_len, chunks, gen=None, eos=-1):
+    out = []
+    for _ in range(chunks):
+        (cache, tok, gen, done, n_valid, toks, hist, hist_len, acc,
+         failed) = step(cache, tok, gen, eos, hist, hist_len)
+        out.append(torch.cat([toks, done[:, None].int(), n_valid[:, None],
+                              acc, failed[:, None].int(), hist_len[:, None]],
+                             1).cpu())
+    torch.cuda.synchronize()
+    return torch.cat(out, 1)
+
+
+def _spec_launches(step, chunks):
+    """Decode-kernel launches of ``chunks`` spec chunks: per iteration one
+    verify block through every layer and, for ``draft``, k steps through
+    the first draft_layers."""
+    L = step.model.cfg.num_layers
+    return chunks * step.chunk * (L + step.spec_k * step.draft_layers)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ngram", "draft"])
+@pytest.mark.parametrize("kv_quant,page_size", SPEC_LAYOUTS)
+def test_spec_graph_equals_eager_chunk(cuda, mode, kv_quant, page_size):
+    """Three spec chunks of 4 iterations, k 3: tokens, flags, counts,
+    accepted lengths, the history and the cache byte for byte against the
+    eager body; one capture; every replay counted one chunk's decode
+    launches (the verify blocks and the draft steps) and nothing else."""
+    model = _model("pimref-100m", cuda, kv_quant, page_size)
+    cache, tok, hist, hist_len = _spec_inputs(model, cuda)
+    eager = (clone_cache(cache), tok.clone(), hist.clone(), hist_len.clone())
+    want = _spec_run(EagerChunk(model, chunk=4, spec=mode, spec_k=K),
+                     *eager, 3)
+    step = make_generate_step(model, chunk=4, spec=mode, spec_k=K)
+    step.prepare(cache, tok, None, hist, hist_len)
+    _reset()
+    got = _spec_run(step, cache, tok, hist, hist_len, 3)
+    assert torch.equal(got, want)
+    _same_cache(cache, eager[0])
+    assert torch.equal(hist, eager[2]) and torch.equal(hist_len, eager[3])
+    assert step.captures == 1
+    want_launches = dict.fromkeys(_launches(), 0)
+    want_launches[SPEC_KERNEL[(kv_quant, page_size)]] = _spec_launches(step,
+                                                                       3)
+    assert _launches() == want_launches
+
+
+@pytest.mark.cuda
+def test_spec_recaptures_for_a_new_history(cuda):
+    """A new ``hist`` tensor (the same values) makes the next chunk capture
+    again, on it; its tokens are the eager body's."""
+    model = _model("pimref-100m", cuda)
+    cache, tok, hist, hist_len = _spec_inputs(model, cuda)
+    step = make_generate_step(model, chunk=4, spec="ngram", spec_k=K)
+    _spec_run(step, cache, tok, hist, hist_len, 1)
+    assert step.captures == 1
+    hist2 = hist.clone()
+    eager = (clone_cache(cache), tok.clone(), hist.clone(), hist_len.clone())
+    want = _spec_run(EagerChunk(model, chunk=4, spec="ngram", spec_k=K),
+                     *eager, 2)
+    got = _spec_run(step, cache, tok, hist2, hist_len, 2)
+    assert step.captures == 2
+    assert torch.equal(got, want) and torch.equal(hist2, eager[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ngram", "draft"])
+def test_spec_sampled_graph(cuda, mode):
+    """Sampled speculation (top-k 5): the generator is registered with the
+    graph, so two graph runs from one seed are identical and equal the
+    eager body from the same generator state; every iteration commits 1
+    .. k + 1 tokens."""
+    model = _model("pimref-100m", cuda)
+    inputs = _spec_inputs(model, cuda)
+    runs = []
+    for cls in (make_generate_step, make_generate_step, EagerChunk):
+        gen = torch.Generator(device=cuda).manual_seed(11)
+        step = cls(model, chunk=4, temperature=0.9, top_k=5, spec=mode,
+                   spec_k=K)
+        state = (clone_cache(inputs[0]),) + tuple(t.clone()
+                                                  for t in inputs[1:])
+        runs.append(_spec_run(step, *state, 3, gen))
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+    span = 4 * (K + 1)
+    for c in range(3):
+        acc = runs[0][:, c * (span + 8) + span + 2:c * (span + 8) + span + 6]
+        assert ((acc >= 1) & (acc <= K + 1)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ngram", "draft"])
+@pytest.mark.parametrize("kv_quant,page_size", [("off", 0), ("int8", 16)])
+def test_engine_spec_drain(cuda, mode, kv_quant, page_size):
+    """A mixed queue through 3 slots with speculation: the completions of
+    the same engine with speculation off, one capture, exact launches and
+    every page back in the pool."""
+    model = _model("pimref-100m", cuda, kv_quant, page_size)
+    kw = dict(model=model, slots=3, prompt_len=16, gen=12, chunk=4,
+              kv_quant=kv_quant, page_size=page_size)
+    reqs = _requests(model.cfg.vocab_size)
+    want = tserve.make_queue_engine(**kw).run(list(reqs))
+    eng = tserve.make_queue_engine(spec=mode, spec_k=K, **kw)
+    _reset()
+    got = eng.run(list(reqs))
+    torch.cuda.synchronize()
+    key = lambda c: c.uid  # noqa: E731
+    assert [(c.uid, c.finish_reason, list(c.tokens))
+            for c in sorted(got, key=key)] == \
+        [(c.uid, c.finish_reason, list(c.tokens))
+         for c in sorted(want, key=key)]
+    s = eng.stats
+    assert s["graph_captures"] == 1
+    L = model.cfg.num_layers
+    want_launches = dict.fromkeys(_launches(), 0)
+    want_launches[DECODE_KERNEL.get((kv_quant, page_size),
+                                    "flash_decode_paged_quant_fwd")] = (
+        L * s["decode_steps"] + eng._generate.draft_layers * s["draft_steps"])
+    want_launches["flash_attention_fwd"] = L * s["prefills"]
+    assert _launches() == want_launches
+    assert sum(s["spec_accept_hist"]) == s["spec_draft_iters"] > 0
+    if page_size:
+        assert s["kv_pages_in_use"] == 0 and not eng._host_table.any()
