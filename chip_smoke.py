@@ -93,7 +93,44 @@ an iteration. The kernels phase times
 the decode kernel at the verify block's shape (row
 ``flash_decode_fwd_verify``: B 8, H 12, S 4, T 579, D 64, bf16).
 
-Phase ``proteus`` runs after ``parity`` and before the Griffin phases: the
+Phases ``train``, ``train_kernels`` and ``train_parity`` run after
+``parity``. ``train``: full-width ``pimref-100m`` (163,597,056 parameters,
+fp32 weights and AdamW state, bf16 compute, ``remat="block"``) trained
+through ``repro_torch.launch.train.train`` on the card, 12 guarded steps
+of batch 4 x seq 4096 (the repo's ``train_4k`` sequence; its batch cut
+from 256 to 4 so that a step fits one card in one microbatch), warm-up 2,
+lr 3e-4, a checkpoint every 4 steps into a temporary directory: every
+loss finite, no step skipped, the mean of the last three losses below the
+first, exactly 12 x 24 launches of the prefill kernel's bf16 route in the
+run (the forward and the remat recompute of 12 layers a step) and no
+other kernel; then one profiled step whose kernel events equal the
+counters, 24. Logged beside
+the card's name and power limit: step wall and the numpy batch's host
+share, tokens/s, peak memory, the busy share, the top kernels, the
+model-FLOP share (6 N tokens over 989 TFLOP/s) with the attention FLOPs
+beside it. ``train_kernels``: the kernel under autograd at the train
+shape (B 4, H 12, S = T = 4096, D 64, bf16): out within the bf16 route's
+limits and lse 1e-4 of the plain version, dq / dk / dv of the kernel
+forward + the plain backward within 3e-2 of the gradient's largest
+|value| of the all-plain pair, two calls bitwise equal; times of the
+kernel forward, the plain backward, the Function's forward + backward,
+the all-plain pair and SDPA (``is_causal``) forward and forward +
+backward (row ``flash_attention_fwd_train``: the kernel forward's numbers
+in the row's keys; the plain backward, the pairs and their bound in its
+extra keys ``grad_max_abs_err``, ``backward_ms``, ``pair_ms``,
+``plain_pair_ms``, ``library_pair_ms``, ``pair_bound_ms``, since the
+backward is plain PyTorch, the counterpart of the reference's jnp
+``_flash_vjp_bwd`` and of no ``pallas_call``). ``train_parity``: fp32 compute, TF32
+off, full width with the depth cut to 2 layers, batch 2 x seq 1536 (T
+padded to 2048, the padding masked): three guarded AdamW steps on the
+card and on the CPU from the same weights, the loss within 1e-5, the
+gradient norm, every weight and moment within 1e-4 of their leaf's
+largest |value| (weights also by up to lr a step where a gradient is
+below the fp32 noise), 2 x 2 launches of the fp32 route a step; then
+``verify_resume_identity`` on the card at that size (NaN gradients and a
+preemption): stitched losses and final weights byte-identical.
+
+Phase ``proteus`` runs after the train phases and before the Griffin phases: the
 Proteus library's entry points on full-width ``pimref-100m`` (random
 weights from ``--seed``): ``quant_matmul`` over every projection weight
 quantized to int8 and to int4 codes (x 4096 rows, a batch-8 x 512
@@ -137,8 +174,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("device", "build", "kernels", "serve", "engine", "spec", "profile",
-          "parity", "proteus", "serve_griffin", "engine_griffin",
-          "parity_griffin")
+          "parity", "train", "train_kernels", "train_parity", "proteus",
+          "serve_griffin", "engine_griffin", "parity_griffin")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # the fp32 prefill route's products: q, k, p and v each as three exact bf16
@@ -210,7 +247,8 @@ SOURCES = {"flash_attention_fwd": PREFILL_SOURCE,
            "quant_matmul_griffin": QMM_SOURCE,
            "quant_matmul_decode": QMM_SOURCE,
            "required_bits": NV_SOURCE, "pack_int4": NV_SOURCE,
-           "unpack_int4": NV_SOURCE}
+           "unpack_int4": NV_SOURCE,
+           "flash_attention_fwd_train": PREFILL_SOURCE}
 REPLACES = {
     "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:126",
     "flash_attention_fwd_d256":
@@ -241,6 +279,8 @@ REPLACES = {
     "required_bits": "src/repro/kernels/narrow_value/kernel.py:30",
     "pack_int4": "src/repro/kernels/narrow_value/kernel.py:62",
     "unpack_int4": "src/repro/kernels/narrow_value/kernel.py:79",
+    "flash_attention_fwd_train":
+        "src/repro/kernels/flash_attention/kernel.py:126",
 }
 # the serving layouts: (kv_quant, page_size, the decode kernel of each step)
 LAYOUTS = {
@@ -270,7 +310,8 @@ MAIN_LAYOUT = {"flash_attention_fwd": "contiguous",
                "quant_matmul": "proteus", "quant_matmul_bf16": "proteus",
                "quant_matmul_griffin": "proteus",
                "quant_matmul_decode": "proteus", "required_bits": "proteus",
-               "pack_int4": "proteus", "unpack_int4": "proteus"}
+               "pack_int4": "proteus", "unpack_int4": "proteus",
+               "flash_attention_fwd_train": "train"}
 # rows whose launches are another row's counter: the prefill and decode
 # kernels at the Griffin shapes, the RG-LRU kernel at the long prompt, the
 # quantized matmul at its other timed shapes, the adapter's fp32 calls
@@ -283,7 +324,8 @@ COUNTER = {"flash_attention_fwd_d256": "flash_attention_fwd",
            "rglru_scan_long": "rglru_scan",
            "quant_matmul_bf16": "quant_matmul",
            "quant_matmul_griffin": "quant_matmul",
-           "quant_matmul_decode": "quant_matmul"}
+           "quant_matmul_decode": "quant_matmul",
+           "flash_attention_fwd_train": "flash_attention_fwd"}
 NO_LIBRARY = ("no single PyTorch call computes attention over quantized "
               "codes or through a page table")
 NO_LIBRARY_RGLRU = "no single PyTorch call computes a linear recurrence"
@@ -292,6 +334,29 @@ NO_LIBRARY_NARROW = {
     "pack_int4": "no single PyTorch call packs nibbles",
     "unpack_int4": "no single PyTorch call unpacks nibbles"}
 DEVICE = "cuda"
+# training (phases train, train_kernels, train_parity): the batch of the
+# train_4k shape cut to 4 (its seq 4096 kept), 12 steps, a checkpoint every
+# 4; card vs CPU at full width with 2 layers, batch 2 x seq 1536
+TRAIN_BATCH = 4
+TRAIN_STEPS = 12
+TRAIN_CKPT_EVERY = 4
+TRAIN_PARITY_LAYERS = 2
+TRAIN_PARITY_SHAPE = (2, 1536)
+TRAIN_PARITY_STEPS = 3
+TRAIN_RESUME_STEPS = 6
+# the attention of a train step: pimref's heads at the train shape
+TRAIN_KERNEL_SHAPE = (TRAIN_BATCH, 12, 4096, 64)
+# kernel forward + plain backward against the all-plain pair in bf16: one
+# rounding of out (2^-8) carried through delta, and of each gradient; of the
+# gradient's largest |value|
+TRAIN_GRAD_TOL = 3e-2
+# fp32 training, card vs CPU: the loss within 1e-5 relative; gradient
+# norms, weights and moments within 1e-4 of a leaf's largest |value| (the
+# gradients are ill-conditioned in fp32: the CPU tests find each package
+# 3e-5 to 6e-5 from a float64 run); weights also by up to lr a step where a
+# gradient is below that noise (AdamW's first steps divide by |g|)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_TREE_RTOL = 1e-4
 # speculative decoding (phase spec): the reference's draft length, its two
 # drafters; the batch rows 0-3 a period-4 tile, rows 4-7 random
 SPEC_K = 3
@@ -2308,6 +2373,406 @@ def phase_proteus(model, seed: int) -> tuple:
     return rows, launches
 
 
+# ---------------------------------------------------------------------------
+# training: pimref-100m through the port's train(), the kernel under
+# autograd at the train shape, card vs CPU steps and bitwise resume
+# ---------------------------------------------------------------------------
+def _flat_counts() -> dict:
+    return {n: c for counter in _counters() for n, c in counter.items()}
+
+
+def _event_ms(fn, iters: int) -> float:
+    """Host-launched ``fn()`` (autograd work a graph does not capture here)
+    timed by CUDA events over ``iters`` calls after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_time_us(e) -> float:
+    """An op event's device time including its children's kernels."""
+    return getattr(e, "device_time_total", None) or \
+        getattr(e, "cuda_time_total", 0.0)
+
+
+def _attention_train_flops(B, H, D, pairs, L=1) -> tuple:
+    """(forward, forward + backward) attention FLOPs over the visible
+    (q, kv) pairs: the forward's two products, the backward's five (the
+    scores recomputed, dp, dv, dq, dk)."""
+    fwd = 4.0 * B * H * D * pairs * L
+    return fwd, fwd * (1 + 10 / 4)
+
+
+def phase_train(smi: str, seed: int) -> dict:
+    """pimref-100m trained through ``repro_torch.launch.train.train`` on the
+    card: 12 guarded AdamW steps of batch 4 x seq 4096, bf16 compute,
+    ``remat="block"``, a checkpoint every 4 steps; then one profiled step.
+    Returns the launches of the run."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import TRAIN_4K, RunConfig, ShapeConfig, get_config
+    from repro_torch.data import make_batch_fn
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model, count_params
+    from repro_torch.optim import make_optimizer
+    cfg = get_config("pimref-100m")
+    B, S, L = TRAIN_BATCH, TRAIN_4K.seq_len, cfg.num_layers
+    n_params = count_params(cfg)
+    run = RunConfig(warmup_steps=2, learning_rate=3e-4, microbatches=1,
+                    total_steps=TRAIN_STEPS, checkpoint_every=TRAIN_CKPT_EVERY,
+                    seed=seed)
+    log("train", f"{smi}: pimref-100m full width ({n_params} params, param "
+        f"{cfg.param_dtype}, compute {cfg.compute_dtype}, remat "
+        f"{cfg.remat!r}, AdamW), batch {B} x seq {S}: the sequence of the "
+        f"repo's {TRAIN_4K.name} shape, its batch cut from "
+        f"{TRAIN_4K.global_batch} to {B} so that a step fits one card in one "
+        f"microbatch within the smoke's time; {TRAIN_STEPS} steps, warm-up "
+        f"{run.warmup_steps}, lr {run.learning_rate}, a checkpoint every "
+        f"{run.checkpoint_every}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
+        t0 = time.perf_counter()
+        out = train("pimref-100m", smoke=False, steps=TRAIN_STEPS, batch=B,
+                    seq=S, run=run, checkpoint_dir=d, device=DEVICE,
+                    log_every=1)
+        wall = time.perf_counter() - t0
+        total = _flat_counts()
+        saved = sorted(n for n in os.listdir(d) if n.startswith("step_"))
+    peak = torch.cuda.max_memory_allocated()
+    losses = np.asarray(out["losses"])
+    log("train", f"losses {[float('%.4f' % x) for x in losses]}; skipped "
+        f"{out['skipped_steps']}; checkpoints kept {saved}; {wall:.2f} s for "
+        f"the run (checkpoint writes and the first step's warm-up included); "
+        f"peak device memory {peak / 1e9:.2f} GB")
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all() \
+            or out["skipped_steps"]:
+        raise AssertionError(f"train: losses {losses}, skipped "
+                             f"{out['skipped_steps']}")
+    if not losses[-3:].mean() < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    want = dict.fromkeys(total, 0)
+    want["flash_attention_fwd"] = 2 * L * TRAIN_STEPS
+    if total != want:
+        raise AssertionError(f"train: launches {total}, want {want} (forward "
+                             f"and recompute of {L} layers in each of "
+                             f"{TRAIN_STEPS} steps, bf16 route)")
+    log("train", f"launches {total} in {TRAIN_STEPS} steps: {2 * L} a step "
+        f"(the bf16 route: forward + the remat recompute per layer; the "
+        f"profiled step below holds one step to exactly that)")
+
+    # host share: the numpy batch at S 4096 (a Python loop over positions)
+    bf = make_batch_fn(cfg, ShapeConfig("custom", S, B, "train"), seed=seed)
+    t0 = time.perf_counter()
+    for i in range(2):
+        bf(TRAIN_STEPS + i)
+    batch_s = (time.perf_counter() - t0) / 2
+    secs = np.asarray(out["step_seconds"][1:])
+    step_s = float(np.median(secs))
+    tokens = B * S
+    fwd_attn, train_attn = _attention_train_flops(B, cfg.num_heads,
+                                                  cfg.resolved_head_dim,
+                                                  S * (S + 1) // 2, L)
+    model_flops = 6.0 * n_params * tokens
+    log("train", f"{smi}: step wall (host clock, step start to loss read) median "
+        f"{step_s * 1e3:.1f} ms of steps 1-{TRAIN_STEPS - 1} "
+        f"({', '.join('%.1f' % (x * 1e3) for x in secs)} ms; step 0 "
+        f"{out['step_seconds'][0] * 1e3:.1f} ms); the numpy batch {batch_s * 1e3:.1f} "
+        f"ms a step on the host ({batch_s / step_s:.1%} of the step); "
+        f"{tokens / step_s:.1f} tokens/s; model-FLOP share 6 N tokens / "
+        f"(step s x 989e12) = {model_flops / (step_s * 989e12):.2%} (N "
+        f"{n_params}, {model_flops:.3e} FLOP a step); attention beside it "
+        f"{train_attn:.3e} FLOP a step (forward {fwd_attn:.3e}, causal pairs "
+        f"only; the plain backward computes every tile), "
+        f"{(model_flops + train_attn) / (step_s * 989e12):.2%} with it")
+
+    # one profiled step from the trained state
+    model = build_model(cfg, DEVICE)
+    step_fn = make_train_step(model, make_optimizer(cfg.optimizer, run), run,
+                              guard=True)
+    b = {k: torch.from_numpy(v).to(DEVICE)
+         for k, v in bf(TRAIN_STEPS).items()}
+    params, opt = out["params"], out["opt_state"]
+    del out
+    torch.cuda.synchronize()
+    _reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, b)
+        loss = m["loss"].item()
+        wall = time.perf_counter() - t0
+    avg = prof.key_averages()
+    kern = [e for e in avg if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in kern)
+    counted = _flat_counts()
+    seen = {n: sum(e.count for e in kern if k in e.key)
+            for n, k in PROFILED.items()}
+    log("train/profile", f"{smi}: one step (loss {loss:.4f}): wall "
+        f"{wall * 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
+        f"({busy_us / 1e4 / wall:.1f}%), {sum(e.count for e in kern)} kernel "
+        f"launches of {len(kern)} kernels; launches by the profiler's kernel "
+        f"events {seen}, by the counters "
+        f"{ {n: counted[n] for n in PROFILED} }")
+    if seen != {n: counted[n] for n in PROFILED} or \
+            seen["flash_attention_fwd"] != 2 * L:
+        raise AssertionError(f"train/profile: the profiler counted {seen}, "
+                             f"the counters {counted}")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:15]:
+        log("train/profile", f"  {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:6d}x  {e.key[:90]}")
+    for e in avg:
+        if "FlashAttentionFn" in e.key or e.key in ("aten::embedding_dense_backward",):
+            log("train/profile", f"  op {e.key}: {e.count}x, device "
+                f"{_device_time_us(e) / 1e3:.3f} ms (its kernels included)")
+    del params, opt, model, b
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_train_kernels(seed: int) -> dict:
+    """The prefill kernel under autograd at the train shape (B 4, H 12,
+    S = T = 4096, D 64, bf16): the kernel's out and lse against its plain
+    version, the gradients of the kernel forward + the plain backward
+    against the all-plain forward and backward, two calls bitwise equal;
+    device times of the kernel forward, the plain backward, both through
+    the Function, the all-plain pair and SDPA (``is_causal``) forward and
+    forward + backward on the same inputs. Returns the row: the forward
+    kernel's numbers in its keys, the backward's and the pairs' in extra
+    keys."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.kernels.flash_attention.autograd import (
+        flash_attention_bwd_ref, flash_attention_train)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    (B, H, S, D), dt = TRAIN_KERNEL_SHAPE, torch.bfloat16
+    cq, ck = 512, 1024
+    q, k, v, do = (randn(gen, (B, S, H, D), dt) for _ in range(4))
+    label = f"B{B} H{H} S=T={S} D{D} bf16"
+    # -- forward: the kernel against its plain version ------------------
+    out, lse = ops.flash_attention_gqa_fwd(q, k, v, causal=True)
+    pos = torch.arange(S, dtype=torch.int32, device=DEVICE).expand(B, S)
+    split = lambda x: x.reshape(B, S, H, 1, D).permute(0, 2, 3, 1, 4)
+    args5 = (split(q), k.transpose(1, 2), v.transpose(1, 2), pos, pos)
+    r_out, r_lse = ref.flash_attention_fwd_ref(*args5, causal=True)
+    to4 = lambda x: x.permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
+    err = _check_bf16(f"train attention {label} forward", out, to4(r_out),
+                      to4(_abs_v_out(*args5, causal=True)), lse, r_lse,
+                      phase="train_kernels")
+    plain_out, plain_lse = to4(r_out).contiguous(), r_lse
+    del r_out, r_lse
+
+    # -- gradients: kernel forward + plain backward vs all plain ---------
+    def kernel_pair():
+        xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        o = flash_attention_train(*xs, causal=True, chunk_q=cq, chunk_kv=ck)
+        return (o.detach(),) + torch.autograd.grad(o, xs, do)
+
+    def plain_bwd(o, l):
+        five = lambda t: t.reshape(B, S, H, 1, D)
+        dq, dk_, dv_ = flash_attention_bwd_ref(
+            five(q), k, v, five(o), l, five(do), causal=True, window=0,
+            softcap=0.0, cq=cq, ck=ck)
+        return dq.reshape(B, S, H, D), dk_, dv_
+
+    before = _flat_counts()["flash_attention_fwd"]
+    got = kernel_pair()
+    if _flat_counts()["flash_attention_fwd"] != before + 1:
+        raise AssertionError("train_kernels: the Function did not launch the "
+                             "prefill kernel once")
+    want = plain_bwd(plain_out, plain_lse)
+    errs = []
+    for name, g, w in zip(("dq", "dk", "dv"), got[1:], want):
+        scale = w.float().abs().max().item()
+        errs.append(_check(f"train attention {label} {name} (kernel forward "
+                           f"+ plain backward vs all plain; "
+                           f"{TRAIN_GRAD_TOL} x max|plain| = "
+                           f"{TRAIN_GRAD_TOL * scale:.3e})", g, w,
+                           TRAIN_GRAD_TOL * scale, phase="train_kernels"))
+    again = kernel_pair()
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, again):
+        _identical(f"train attention {name}: two calls", b, a,
+                   "train_kernels")
+    del got, again, want
+
+    # -- times -----------------------------------------------------------
+    posc = pos.contiguous()
+    q5, k4, v4 = split(q), k.transpose(1, 2), v.transpose(1, 2)
+    t_fwd = device_ms(lambda i: ops.flash_attention_gqa_fwd(
+        q, k, v, causal=True), 1, 4)
+    t_fwd_alone = device_ms(lambda i: fk.flash_attention_fwd(
+        q5, k4, v4, posc, posc), 1, 4)
+    t_plain_fwd = _event_ms(lambda: ref.flash_attention_fwd_ref(
+        q5, k4, v4, pos, pos, causal=True), 2)
+    t_bwd = _event_ms(lambda: plain_bwd(out, lse), 3)
+    t_pair = _event_ms(kernel_pair, 3)
+    def plain_pair():
+        o, l = ref.flash_attention_fwd_ref(q5, k4, v4, pos, pos, causal=True)
+        return plain_bwd(to4(o), l)
+
+    t_plain_pair = _event_ms(plain_pair, 2)
+    q4, k4s, v4s, do4 = (x.transpose(1, 2).contiguous()
+                         for x in (q, k, v, do))
+    t_sdpa = device_ms(lambda i: F.scaled_dot_product_attention(
+        q4, k4s, v4s, is_causal=True), 1, 4)
+
+    def sdpa_pair():
+        xs = [x.detach().requires_grad_(True) for x in (q4, k4s, v4s)]
+        o = F.scaled_dot_product_attention(*xs, is_causal=True)
+        return torch.autograd.grad(o, xs, do4)
+
+    t_sdpa_pair = _event_ms(sdpa_pair, 5)
+    pairs = S * (S + 1) // 2
+    f_fwd, f_pair = _attention_train_flops(B, H, D, pairs)
+    nbytes_fwd = 4 * q.nbytes + lse.nbytes + 2 * pos.nbytes
+    # the pair: q, k, v, do read, out, lse, dq, dk, dv written, once each
+    nbytes_pair = 8 * q.nbytes + lse.nbytes
+    b_fwd, by_fwd = bound_ms(nbytes_fwd, f_fwd, dt)
+    b_pair, by_pair = bound_ms(nbytes_pair, f_pair, dt)
+    log("train_kernels", f"{label} causal times: kernel forward {t_fwd:.4f} "
+        f"ms through ops (the kernel call alone {t_fwd_alone:.4f}), plain "
+        f"forward {t_plain_fwd:.4f} ms, sdpa forward {t_sdpa:.4f} ms, bound "
+        f"{b_fwd:.4f} ms ({by_fwd}: {nbytes_fwd} B, {f_fwd:.3e} FLOP); plain "
+        f"backward (fp32 tiles {cq} x {ck}, every tile) {t_bwd:.4f} ms; "
+        f"forward + backward: the Function (kernel forward + plain "
+        f"backward) {t_pair:.4f} ms, all plain {t_plain_pair:.4f} ms, sdpa "
+        f"forward + backward {t_sdpa_pair:.4f} ms, bound {b_pair:.4f} ms "
+        f"({by_pair}: {nbytes_pair} B, {f_pair:.3e} FLOP); the plain "
+        f"backward is {t_bwd / max(t_sdpa_pair - t_sdpa, 1e-9):.1f}x sdpa's "
+        f"backward (its forward + backward less its forward)")
+    rows = {
+        "flash_attention_fwd_train": dict(
+            max_abs_err=err, ms=t_fwd, plain_ms=t_plain_fwd, bound_ms=b_fwd,
+            bound_by=by_fwd, library_ms=t_sdpa, grad_max_abs_err=max(errs),
+            backward_ms=t_bwd, pair_ms=t_pair, plain_pair_ms=t_plain_pair,
+            library_pair_ms=t_sdpa_pair, pair_bound_ms=b_pair),
+    }
+    del q, k, v, do, out, lse, plain_out, plain_lse
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_train_parity(smi: str, seed: int) -> dict:
+    """Card vs CPU in fp32 compute (TF32 off): three guarded AdamW steps of
+    full-width pimref-100m with the depth cut to 2 layers, batch 2 x seq
+    1536 (``ck`` 1024 pads T to 2048, the padding masked by ``kv_len``):
+    loss, gradient norm, weights and optimizer state within their limits,
+    two fp32-route launches per layer a step; then the resume-identity gate
+    on the card at that size with NaN gradients and a preemption. Returns
+    the launches of the card's steps."""
+    import tempfile
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config
+    from repro_torch.data import make_batch_fn
+    from repro_torch.distributed import TrainChaosConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import initial_params, verify_resume_identity
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import leaves_with_path
+    cfg = get_config("pimref-100m").replace(
+        num_layers=TRAIN_PARITY_LAYERS, compute_dtype="float32")
+    B, S = TRAIN_PARITY_SHAPE
+    run = RunConfig(total_steps=TRAIN_PARITY_STEPS, warmup_steps=1,
+                    microbatches=1, seed=seed)
+    bf = make_batch_fn(cfg, ShapeConfig("custom", S, B, "train"), seed=seed)
+    state, metrics = {}, {}
+    launches = None
+    for side, dev in (("cpu", "cpu"), ("card", DEVICE)):
+        opt = make_optimizer(cfg.optimizer, run)
+        step = make_train_step(build_model(cfg, dev), opt, run, guard=True)
+        p = initial_params(cfg, seed, dev)
+        s = opt.init(p)
+        ms = []
+        t0 = time.perf_counter()
+        for i in range(TRAIN_PARITY_STEPS):
+            _reset()
+            p, s, m = step(p, s, {k: torch.from_numpy(v).to(dev)
+                                  for k, v in bf(i).items()})
+            ms.append({k: float(v) for k, v in m.items()})
+            if side == "card":
+                got = _flat_counts()
+                want = dict.fromkeys(got, 0)
+                want["flash_attention_fwd"] = \
+                    want["flash_attention_fwd_fp32"] = 2 * cfg.num_layers
+                if got != want:
+                    raise AssertionError(f"train_parity: step {i} launches "
+                                         f"{got}, want {want}")
+                launches = got
+        log("train_parity", f"{side}: {TRAIN_PARITY_STEPS} steps in "
+            f"{time.perf_counter() - t0:.2f} s; losses "
+            f"{[m['loss'] for m in ms]}")
+        state[side] = {"params": p, "opt": s}
+        metrics[side] = ms
+    for mc, mg in zip(metrics["cpu"], metrics["card"]):
+        for k, tol in (("loss", TRAIN_LOSS_RTOL), ("grad_norm", TRAIN_TREE_RTOL)):
+            rel = abs(mg[k] - mc[k]) / abs(mc[k])
+            if rel > tol or mg["skipped"] or mc["skipped"]:
+                raise AssertionError(f"train_parity: {k} card {mg[k]} cpu "
+                                     f"{mc[k]} (rel {rel:.2e} > {tol})")
+    n = TRAIN_PARITY_STEPS
+    worst = {}
+    for (path, c), (_, g) in zip(leaves_with_path(state["cpu"]),
+                                 leaves_with_path(state["card"])):
+        if c.dtype == torch.int32:
+            if not torch.equal(c, g.cpu()):
+                raise AssertionError(f"train_parity: {path} differs")
+            continue
+        d = (g.cpu() - c).abs()
+        tight = TRAIN_TREE_RTOL * c.abs().max().item()
+        slack = n * run.learning_rate if "params" in path else \
+            (n - 1) * TRAIN_TREE_RTOL * c.abs().max().item()
+        over = (d > tight).float().mean().item()
+        worst[path] = (d.max().item() / max(c.abs().max().item(), 1e-30),
+                       over)
+        if d.max().item() > tight + slack or over > 1e-3:
+            raise AssertionError(f"train_parity: {path}: max |card - cpu| "
+                                 f"{d.max().item():.3e} (tight {tight:.3e} + "
+                                 f"{slack:.3e}), {over:.2e} past tight")
+    top = sorted(worst.items(), key=lambda kv: -kv[1][0])[:4]
+    log("train_parity", f"{smi}: card vs CPU over {n} steps: losses within "
+        f"{TRAIN_LOSS_RTOL}, grad_norm within {TRAIN_TREE_RTOL} relative; "
+        f"every weight and moment within {TRAIN_TREE_RTOL} of its leaf's "
+        f"largest |value| (weights: plus {n} x lr where a gradient is below "
+        f"the fp32 noise, at most 1e-3 of the elements); largest "
+        f"(err / max, share past tight): "
+        + ", ".join(f"{p} {e:.2e} {o:.1e}" for p, (e, o) in top))
+    del state
+    torch.cuda.empty_cache()
+
+    # bitwise resume on the card: preempted and NaN-poisoned, restarted
+    chaos = TrainChaosConfig(seed=seed, nan=1, preempt=2)
+    rrun = RunConfig(total_steps=TRAIN_RESUME_STEPS, warmup_steps=1,
+                     microbatches=1, checkpoint_every=3, seed=seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as d:
+        t0 = time.perf_counter()
+        res = verify_resume_identity(
+            "pimref-100m", steps=TRAIN_RESUME_STEPS, work_dir=d, chaos=chaos,
+            max_restarts=2, smoke=False, batch=B, seq=S, run=rrun,
+            device=DEVICE, cfg=cfg, log_every=100)
+    log("train_parity", f"resume identity on the card ({TRAIN_RESUME_STEPS} "
+        f"steps, chaos nan=1 preempt=2): identical={res['identical']} "
+        f"(losses {res['losses_match']}, params {res['params_match']}), "
+        f"{res['restarts']} restart(s), {res['skipped_steps']} skipped, "
+        f"events {res['out']['chaos_events']}; "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not res["identical"] or res["restarts"] < 1 \
+            or res["skipped_steps"] < 1:
+        raise AssertionError(f"train_parity: resume identity failed: "
+                             f"{ {k: res[k] for k in res if k not in ('out', 'ref')} }")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2347,6 +2812,12 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "parity" in phases:
         launches["parity"] = phase_parity(args.seed)
+    if "train" in phases:
+        launches["train"] = phase_train(smi, args.seed)
+    if "train_kernels" in phases:
+        rows.update(phase_train_kernels(args.seed))
+    if "train_parity" in phases:
+        launches["train_parity"] = phase_train_parity(smi, args.seed)
     if "proteus" in phases:
         from repro_torch.launch.serve import load_model
         model = load_model("pimref-100m", smoke=False, seed=args.seed,

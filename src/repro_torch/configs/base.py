@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Tuple
 
 
 @dataclass(frozen=True)
@@ -85,6 +85,40 @@ class ShapeConfig:
     mode: str                        # train | prefill | decode
 
     def replace(self, **kw: Any) -> "ShapeConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# the reference's training shape cell (the sequence of its train_4k)
+TRAIN_4K = ShapeConfig("train_4k", seq_len=4_096, global_batch=256, mode="train")
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Training / serving run options (launcher-level)."""
+
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    seed: int = 0
+    # distribution
+    mesh_shape: Tuple[int, ...] = (1,)
+    mesh_axes: Tuple[str, ...] = ("data",)
+    microbatches: int = 0            # 0 = auto; >1 grad accumulation / PP chunks
+    pipeline_stages: int = 0         # >0 enables PP over the 'pod' axis
+    # proteus runtime
+    proteus_enabled: bool = False
+    proteus_grad_bits: int = 8       # quantized all-reduce payload width
+    proteus_block: int = 256         # per-block scale granularity
+    # checkpointing
+    checkpoint_dir: str = ""
+    checkpoint_every: int = 200
+    keep_checkpoints: int = 3
+
+    def replace(self, **kw: Any) -> "RunConfig":
         return dataclasses.replace(self, **kw)
 
 

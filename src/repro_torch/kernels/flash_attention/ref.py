@@ -41,7 +41,9 @@ def visible_mask(q_positions: torch.Tensor, kv_positions: torch.Tensor, *,
 
 def _attend(q, k, v, q_positions, kv_positions, causal, window, softcap):
     D = q.shape[-1]
-    qf, kf, vf = q.float(), k.float(), v.float()
+    # fp32 for fp32 / bf16 inputs; float64 stays float64 (gradcheck)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf = q.to(acc), k.to(acc), v.to(acc)
     s = torch.einsum("bhgsd,bhtd->bhgst", qf, kf) * (1.0 / math.sqrt(D))
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)

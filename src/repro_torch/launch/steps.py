@@ -1,6 +1,13 @@
-"""Sampling, speculative decoding and the fused decode loop (counterpart:
-``repro/launch/steps.py``: ``logits_transform``, ``sample_tokens``,
-``spec_config``, ``ngram_draft`` and ``make_generate_step``).
+"""The train step, sampling, speculative decoding and the fused decode loop
+(counterpart: ``repro/launch/steps.py``: ``auto_microbatches``,
+``_loss_and_grads``, ``make_train_step``, ``logits_transform``,
+``sample_tokens``, ``spec_config``, ``ngram_draft`` and
+``make_generate_step``).
+
+A train step takes and returns the parameter tree and optimizer state in
+the reference's layout; gradients accumulate over microbatches in fp32, and
+the guard's choice between the new and the old state is made on the device
+(no host read inside the step).
 
 A chunk is ``chunk`` decode iterations that stay on the device: EOS
 detection, the finite guard, sampling and, with speculation, drafting,
@@ -19,10 +26,107 @@ from typing import Iterator, List, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.kernels import launch_counters
 from repro_torch.kernels.common import (SPEC_K_DEFAULT, check_draft_layers,
                                         check_spec_decode, check_spec_k)
 from repro_torch.models.layers import slot_isfinite
+from repro_torch.optim import Optimizer, global_norm
+from repro_torch.tree import leaves, tree_map, unflatten
+
+
+# ---------------------------------------------------------------------------
+# Train
+# ---------------------------------------------------------------------------
+def auto_microbatches(cfg: ModelConfig, shape: ShapeConfig,
+                      budget_bytes: float = 5e9) -> int:
+    """Pick the grad-accumulation factor so saved activations + logits fit
+    (the reference's estimate on one device: no data or vocab sharding).
+
+    Rough model: saved block inputs (B*S*d*2B*L) plus the logits round trip
+    (B*S*V*6B)."""
+    if shape.mode != "train":
+        return 1
+    if cfg.microbatches_hint:
+        return cfg.microbatches_hint
+    b = shape.global_batch
+    saved = b * shape.seq_len * cfg.d_model * 2 * max(cfg.num_layers, 1)
+    logits = b * shape.seq_len * cfg.vocab_size * 6
+    est = saved + logits
+    nm = 1
+    while est / nm > budget_bytes and nm < b:
+        nm *= 2
+    return nm
+
+
+def _value_and_grad(model, params, batch):
+    with torch.enable_grad():
+        tracked = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss = model.loss(tracked, batch)
+        grads = torch.autograd.grad(loss, leaves(tracked))
+    return loss.detach(), unflatten(params, list(grads))
+
+
+def _loss_and_grads(model, params, batch, nm: int):
+    """Loss and gradients, with gradient accumulation over ``nm``
+    microbatches (split along the batch axis) in fp32, or in bf16 when every
+    floating parameter is bf16 (the reference's rule)."""
+    if nm <= 1:
+        return _value_and_grad(model, params, batch)
+    mbs = [{k: v.reshape((nm, v.shape[0] // nm) + tuple(v.shape[1:]))[i]
+            for k, v in batch.items()} for i in range(nm)]
+    floats = [p for p in leaves(params) if p.is_floating_point()]
+    acc_dt = (torch.bfloat16 if all(p.dtype == torch.bfloat16 for p in floats)
+              else torch.float32)
+    lsum = torch.zeros((), dtype=torch.float32,
+                       device=leaves(params)[0].device)
+    gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt,
+                                          device=p.device), params)
+    for mb in mbs:
+        loss, g = _value_and_grad(model, params, mb)
+        gsum = tree_map(lambda a, b: a + b.to(a.dtype), gsum, g)
+        lsum = lsum + loss
+    inv = 1.0 / nm
+    return lsum * inv, tree_map(lambda g: g * inv, gsum)
+
+
+def make_train_step(model, optimizer: Optimizer, run: RunConfig, *,
+                    guard: bool = False, grad_hook=None):
+    """``train_step(params, opt_state, batch[, arm]) -> (params', opt_state',
+    metrics)`` on one device (the reference's GSPMD step without a mesh).
+
+    ``guard=True`` arms the non-finite guard: the step still computes the
+    gradients and the candidate update, but a non-finite loss or gradient
+    norm selects the *old* params / opt_state for every leaf
+    (``torch.where`` on the device, so a clean step is bitwise-identical to
+    the unguarded step and nothing is read back inside the step). Guarded
+    metrics are ``{"loss", "grad_norm", "skipped"}``, device scalars.
+
+    ``grad_hook(loss, grads, arm) -> (loss, grads)`` is the chaos harness's
+    injection point (:func:`repro_torch.distributed.chaos.nan_grad_hook`);
+    with it, ``train_step`` takes a trailing ``arm`` device scalar.
+    """
+    nm = max(run.microbatches, 1)
+
+    def train_step(params, opt_state, batch, arm=None):
+        loss, grads = _loss_and_grads(model, params, batch, nm)
+        if grad_hook is not None:
+            loss, grads = grad_hook(loss, grads, arm)
+        if not guard:
+            new_params, new_opt = optimizer.update(grads, opt_state, params)
+            return new_params, new_opt, {"loss": loss}
+        gnorm = global_norm(grads)
+        ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+        new_params, new_opt = optimizer.update(grads, opt_state, params)
+
+        def sel(new, old):
+            return tree_map(lambda n, o: torch.where(ok, n, o), new, old)
+
+        metrics = {"loss": loss, "grad_norm": gnorm,
+                   "skipped": torch.logical_not(ok)}
+        return sel(new_params, params), sel(new_opt, opt_state), metrics
+
+    return train_step
 
 
 def logits_transform(logits: torch.Tensor, temperature: float,

@@ -8,6 +8,11 @@ and ``groups`` ``[G, ...]`` (hybrid) into ``blocks.<i>.*`` /
 ``tail.<i>.*``, and copies every array into the parameter of the same name.
 Layouts are kept as they are (``w_q`` (d, h, e), ``w_o`` (h, e, d), ``head``
 (d, V)). A missing, extra or misshaped key raises.
+
+``reference_tree(named)`` goes the other way: the port's flat ``name ->
+tensor`` parameters as the reference's tree, the ``blocks.<i>.*`` entries
+stacked on a leading axis. The training stack keeps its parameters,
+optimizer state and checkpoints in that layout.
 """
 from __future__ import annotations
 
@@ -67,3 +72,30 @@ def load_jax_params(model: torch.nn.Module, np_params: Dict[str, Any]) -> None:
             raise ValueError(f"{name}: shape {tuple(arr.shape)} != "
                              f"{tuple(p.shape)}")
         p.copy_(torch.from_numpy(np.array(arr)).to(p.dtype))
+
+
+def reference_tree(named: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Flat ``name -> tensor`` (names as ``model.named_parameters()``
+    gives them) -> the reference's nested tree, stacked entries of
+    ``STACKED`` keys joined on a new leading axis (dense family)."""
+    tree: Dict[str, Any] = {}
+    stacks: Dict[tuple, Dict[int, torch.Tensor]] = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] in STACKED:
+            key = (parts[0],) + tuple(parts[2:])
+            stacks.setdefault(key, {})[int(parts[1])] = t
+        else:
+            _put(tree, parts, t)
+    for key, by_layer in stacks.items():
+        if sorted(by_layer) != list(range(len(by_layer))):
+            raise ValueError(f"{'.'.join(key)}: layers {sorted(by_layer)}")
+        _put(tree, key, torch.stack([by_layer[i]
+                                     for i in range(len(by_layer))]))
+    return tree
+
+
+def _put(tree: Dict[str, Any], path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value

@@ -29,6 +29,7 @@ from repro_torch.kernels.flash_attention.ops import (flash_attention_gqa_fwd,
                                                      flash_decode_paged,
                                                      flash_decode_paged_quant,
                                                      flash_decode_quant)
+from repro_torch.kernels.flash_attention.autograd import flash_attention_train
 from repro_torch.kernels.flash_attention.ref import dequant_rows, gather_pages
 
 # ---------------------------------------------------------------------------
@@ -424,11 +425,16 @@ def chunked_attention(
     kv_positions: Optional[torch.Tensor] = None,   # (T,) or (B, T)
     kv_valid_len=None,
     attn_softcap: float = 0.0,
+    chunk_q: int = 512,
+    chunk_kv: int = 1024,
 ) -> torch.Tensor:
     """Attention with online softmax. A full sequence from position 0 over
     plain k/v (prefill) goes to the flash-attention forward kernel; every
     positional call (decode) goes to the split-KV decode kernel of the
-    cache's layout, which reads codes, scales and pages as they are stored."""
+    cache's layout, which reads codes, scales and pages as they are stored.
+    A full sequence that needs gradients (training) goes through the kernel
+    under autograd (``flash_attention_train``), padded to the ``chunk_q`` /
+    ``chunk_kv`` tiles of its plain backward as the reference pads it."""
     if not isinstance(k, (torch.Tensor, QKVCache, PagedKVCache)):
         raise TypeError(f"unsupported KV cache leaf {type(k).__name__}")
     if type(k) is not type(v):
@@ -438,6 +444,11 @@ def chunked_attention(
     dense_kv = isinstance(k, torch.Tensor)
     if (dense_kv and kv_positions is None and kv_valid_len is None and S > 1
             and isinstance(q_offset, int) and q_offset == 0):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return flash_attention_train(q, k, v, causal=causal,
+                                         window=window, softcap=attn_softcap,
+                                         chunk_q=chunk_q, chunk_kv=chunk_kv)
         out, _ = flash_attention_gqa_fwd(q, k, v, causal=causal, window=window,
                                          softcap=attn_softcap)
         return out
@@ -455,3 +466,21 @@ def chunked_attention(
         return flash_decode_quant(q, k.codes, k.scale, v.codes, v.scale,
                                   q_pos, kv_pos, **kw)
     return flash_decode(q, k, v, q_pos, kv_pos, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy
+# ---------------------------------------------------------------------------
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy in fp32. logits (B, S, V) of any float
+    dtype; labels (B, S); ``mask`` (B, S) weights each position (the mean
+    is over its sum, at least 1)."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()

@@ -4,7 +4,19 @@
 An ``nn.Module`` whose parameters carry the reference's keys
 (``blocks.<i>.attn.w_q`` ...), held in ``param_dtype`` and applied in
 ``compute_dtype`` (the compute-dtype copies are cast once and cached).
-Serving uses a pre-sized ring KV cache:
+Training is functional over a parameter tree in the reference's layout
+(``bridge.reference_tree``: nested dicts, blocks stacked on a leading layer
+axis), as the reference's ``forward(params, tokens)`` / ``loss(params,
+batch)`` are:
+
+    forward(tokens, params) -> logits        # differentiable
+    loss(params, batch) -> scalar            # mean next-token xent, fp32
+
+The compute-dtype casts happen inside the autograd graph, each block is
+recomputed in the backward (``remat="block"``, as ``jax.checkpoint`` does;
+the attention kernel too), and attention runs the prefill kernel under
+autograd (``kernels/flash_attention/autograd.py``). Serving uses a
+pre-sized ring KV cache:
 
     prefill(tokens, max_len) -> (last_logits, cache)
     decode_step(cache, tokens) -> (logits, cache)   # cache updated in place
@@ -29,17 +41,21 @@ import copy
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import check_kv_quant
+from repro_torch.models.bridge import reference_tree
 from repro_torch.models.layers import (aligned_cache_len, chunked_attention,
                                        dense, gated_mlp, kv_cache_init,
                                        kv_cache_len, kv_cache_store,
                                        kv_cache_update, kv_cast,
                                        ring_cache_update, ring_position_ids,
-                                       rms_norm, rope, stack_kv)
+                                       rms_norm, rope, softmax_xent,
+                                       stack_kv)
 from repro_torch.models.module import (attn_param_specs, block_specs,
                                        mlp_param_specs, param_specs,
                                        torch_dtype)
@@ -169,19 +185,68 @@ class TransformerLM(ServingLM):
                 else self._w(self.head))
         return dense(x, head, "bsd,dv->bsv")
 
-    # -- full-sequence forward ---------------------------------------------
-    @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """(B, S) tokens -> (B, S, V) logits."""
-        x = self._embed(tokens)
+    # -- full-sequence forward and loss ------------------------------------
+    def forward(self, tokens: torch.Tensor,
+                params: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+        """(B, S) tokens -> (B, S, V) logits, differentiable in ``params``
+        (a parameter tree in the reference's layout); without ``params``,
+        from the module's own weights under ``no_grad``."""
+        if params is None:
+            with torch.no_grad():
+                return self._tree_forward(
+                    reference_tree(dict(self.named_parameters())), tokens)
+        return self._tree_forward(params, tokens)
+
+    # counterpart: the reference's forward / _block over a parameter tree
+    BLOCK_LEAVES = ("ln1", "ln2", "attn.w_q", "attn.w_k", "attn.w_v",
+                    "attn.w_o", "mlp.wi_gate", "mlp.wi_up", "mlp.wo")
+
+    def _tree_block(self, x, positions, ln1, ln2, w_q, w_k, w_v, w_o,
+                    wi_gate, wi_up, wo) -> torch.Tensor:
+        """One block from fp32 weights; ``dense`` casts each to the compute
+        dtype inside the graph (and inside the recompute)."""
+        cfg = self.cfg
+        xn = rms_norm(x, ln1, cfg.norm_eps)
+        q, k, v = qkv(cfg, {"w_q": w_q, "w_k": w_k, "w_v": w_v}, xn,
+                      positions)
+        o = chunked_attention(q, k, v, causal=True, window=self.window,
+                              chunk_q=cfg.attn_chunk_q,
+                              chunk_kv=cfg.attn_chunk_kv)
+        x = x + attn_out({"w_o": w_o}, o)
+        xn2 = rms_norm(x, ln2, cfg.norm_eps)
+        return x + gated_mlp(xn2, wi_gate, wi_up, wo)
+
+    def _tree_forward(self, params: Dict[str, Any],
+                      tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = F.embedding(tokens.long(), params["embed"].to(self.cdtype))
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
-        for blk in self.blocks:
-            xn = rms_norm(x, blk.ln1, self.cfg.norm_eps)
-            q, k, v = self._qkv(blk, xn, positions)
-            o = chunked_attention(q, k, v, causal=True, window=self.window)
-            x = self._finish_block(blk, x, o)
-        return self._logits(x)
+        layers = []
+        for name in self.BLOCK_LEAVES:
+            leaf = params["blocks"]
+            for k in name.split("."):
+                leaf = leaf[k]
+            layers.append(torch.unbind(leaf))
+        for i in range(cfg.num_layers):
+            ws = [per_layer[i] for per_layer in layers]
+            if cfg.remat != "none" and torch.is_grad_enabled():
+                x = checkpoint(self._tree_block, x, positions, *ws,
+                               use_reentrant=False)
+            else:
+                x = self._tree_block(x, positions, *ws)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        head = params["embed"].T if cfg.tie_embeddings else params["head"]
+        return dense(x, head, "bsd,dv->bsv")
+
+    def loss(self, params: Dict[str, Any],
+             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``batch`` (``tokens``,
+        ``labels``, optional ``loss_mask``) under ``params``."""
+        logits = self.forward(batch["tokens"], params)
+        mask = batch.get("loss_mask")
+        return softmax_xent(logits[:, :-1], batch["labels"][:, 1:],
+                            None if mask is None else mask[:, 1:])
 
     # -- serving -----------------------------------------------------------
     def cache_len(self, max_len: int) -> int:

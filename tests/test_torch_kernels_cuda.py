@@ -803,3 +803,101 @@ def test_flash_attention_bh(cuda, dtype, S, window):
             q.float(), k, v.abs(), causal=True, window=window))
     else:
         assert _err(o, want) <= TOL[dtype]
+
+
+# ---------------------------------------------------------------------------
+# training: the prefill kernel under autograd, one guarded step
+# ---------------------------------------------------------------------------
+# gradients of the kernel forward + plain backward against the all-plain
+# forward and backward, relative to the largest |gradient|: fp32 carries the
+# forward's summation-order difference (TOL) through the backward's delta;
+# bf16 one rounding of out (2^-8) and of each gradient
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window,cap,cq,ck", [
+    (2, 1536, 4, 4, 64, 0, 0.0, 512, 1024),      # T padded, kv_len masked
+    (1, 700, 8, 2, 128, 256, 20.0, 256, 256),    # GQA, window, softcap
+])
+def test_flash_attention_train_on_card(cuda, dtype, B, S, Hq, Hkv, D, window,
+                                       cap, cq, ck):
+    from repro_torch.kernels.flash_attention.autograd import (
+        flash_attention_train)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = _randn(gen, (B, S, Hq, D), dtype, cuda)
+    k, v = (_randn(gen, (B, S, Hkv, D), dtype, cuda) for _ in range(2))
+    do = _randn(gen, (B, S, Hq, D), dtype, cuda)
+    kw = dict(causal=True, window=window, softcap=cap, chunk_q=cq,
+              chunk_kv=ck)
+
+    def run(*xs):
+        xs = [x.detach().clone().requires_grad_(True) for x in xs]
+        out = flash_attention_train(*xs, **kw)
+        return (out.detach(),) + torch.autograd.grad(out, xs, do.to(
+            xs[0].device))
+
+    before = tk.LAUNCHES["flash_attention_fwd"]
+    got = run(q, k, v)
+    assert tk.LAUNCHES["flash_attention_fwd"] == before + 1
+    want = run(q.cpu(), k.cpu(), v.cpu())
+    assert _err(got[0], want[0].to(cuda)) <= TOL[dtype]
+    for g, w in zip(got[1:], want[1:]):
+        w = w.to(cuda)
+        assert _err(g, w) <= GRAD_TOL[dtype] * w.float().abs().max().item()
+    again = run(q, k, v)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_guarded_train_step_card_vs_cpu(cuda):
+    """One guarded AdamW step of a two-layer model (head_dim 64, fp32
+    compute) on the card and on the CPU from the same weights and batch:
+    loss, gradient norm and weights agree; the card ran the prefill
+    kernel's fp32 route twice per layer (forward, recompute)."""
+    import numpy as np
+
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config
+    from repro_torch.data import make_batch_fn
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import initial_params
+    from repro_torch.models import TransformerLM
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import leaves
+
+    cfg = get_config("pimref-100m", smoke=True).replace(
+        d_model=128, num_heads=2, num_kv_heads=2, compute_dtype="float32")
+    run = RunConfig(total_steps=4, warmup_steps=1, microbatches=1)
+    batch = make_batch_fn(cfg, ShapeConfig("t", 192, 2, "train"), seed=0)(0)
+    out = {}
+    for dev in ("cpu", cuda):
+        opt = make_optimizer("adamw", run)
+        p = initial_params(cfg, 0, dev)
+        step = make_train_step(TransformerLM(cfg, dev), opt, run, guard=True)
+        tk.LAUNCHES["flash_attention_fwd_fp32"] = 0
+        out[str(dev)] = step(p, opt.init(p), {
+            k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert tk.LAUNCHES["flash_attention_fwd_fp32"] == \
+                2 * cfg.num_layers
+    (pc, oc, mc), (pg, og, mg) = out["cpu"], out["cuda"]
+    assert not bool(mg["skipped"])
+    np.testing.assert_allclose(mg["loss"].item(), mc["loss"].item(),
+                               rtol=1e-5)
+    np.testing.assert_allclose(mg["grad_norm"].item(), mc["grad_norm"].item(),
+                               rtol=1e-4)
+    # every element within 1e-4 of its leaf's largest |value|; a weight
+    # also by up to lr where its gradient is below the fp32 noise, but at
+    # most 1 in 1000 elements past 1e-4 (a step that left the weights
+    # unchanged differs by about lr in nearly every element)
+    for got, want, slack in ((pg, pc, run.learning_rate), (og, oc, 0.0)):
+        for a, b in zip(leaves(got), leaves(want)):
+            if b.dtype == torch.int32:
+                assert torch.equal(a.cpu(), b)
+                continue
+            d = (a.cpu() - b).abs()
+            tight = 1e-4 * b.abs().max().item()
+            assert d.max().item() <= tight + slack
+            assert (d > tight).float().mean().item() <= 1e-3

@@ -87,6 +87,18 @@ def test_config_copy_matches_reference(smoke):
         dataclasses.asdict(ShapeConfig(**shape))
 
 
+def test_run_config_copy_matches_reference():
+    from repro.configs.base import TRAIN_4K, RunConfig
+    assert dataclasses.asdict(tconfigs.RunConfig()) == \
+        dataclasses.asdict(RunConfig())
+    assert [f.name for f in dataclasses.fields(tconfigs.RunConfig)] == \
+        [f.name for f in dataclasses.fields(RunConfig)]
+    kw = dict(learning_rate=1e-3, warmup_steps=2, microbatches=2, seed=5)
+    assert dataclasses.asdict(tconfigs.RunConfig(**kw)) == \
+        dataclasses.asdict(RunConfig(**kw))
+    assert dataclasses.asdict(tconfigs.TRAIN_4K) == dataclasses.asdict(TRAIN_4K)
+
+
 def test_registry_knows_only_ported_archs():
     assert tconfigs.ALL_IDS == ("pimref-100m", "recurrentgemma-2b")
     with pytest.raises(KeyError, match="not yet ported"):

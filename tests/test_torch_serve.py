@@ -251,9 +251,11 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
 
 def test_port_imports_no_jax_and_no_reference():
     """Every repro_torch module (the Griffin model, the RG-LRU kernel, the
-    narrow-value and quantized-matmul kernels and the Proteus host layer
-    among them) and chip_smoke.py's imports load without jax or the
-    reference package."""
+    narrow-value and quantized-matmul kernels, the Proteus host layer and
+    the training stack: train loop, optimizers, data, checkpoints, fault
+    tolerance and chaos, the attention kernel under autograd, among them)
+    and chip_smoke.py's imports load without jax or the reference
+    package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -271,7 +273,12 @@ def test_port_imports_no_jax_and_no_reference():
         "       'repro_torch.kernels.quant_matmul.kernel',\n"
         "       'repro_torch.kernels.quant_matmul.ops',\n"
         "       'repro_torch.kernels.quant_matmul.ref',\n"
-        "       'repro_torch.core.proteus')\n"
+        "       'repro_torch.core.proteus', 'repro_torch.launch.train',\n"
+        "       'repro_torch.optim.optimizers', 'repro_torch.data.pipeline',\n"
+        "       'repro_torch.checkpoint.manager', 'repro_torch.tree',\n"
+        "       'repro_torch.distributed.chaos',\n"
+        "       'repro_torch.distributed.fault_tolerance',\n"
+        "       'repro_torch.kernels.flash_attention.autograd')\n"
         "from repro_torch.kernels.flash_attention import (attention_ref_bh,\n"
         "    flash_attention_bh)\n"
         "assert all(n in sys.modules for n in new), new\n"
