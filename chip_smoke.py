@@ -72,7 +72,32 @@ Runs on one NVIDIA GPU; exits non-zero without one. Phases:
    layers), prefill 64 plus 8 decode steps; its one prefill launched the
    fp32 route once (its one attention layer).
 
-Phase ``spec`` runs after ``engine``: speculative decoding (k 3, the
+Phases ``robust`` and ``fleet`` run after ``engine``, on full-width
+``pimref-100m`` with the engine phase's 24 requests in a 512-token bucket
+on 8 slots. ``robust``, in the contiguous, paged16 and paged16-int8
+layouts and with an ``ngram`` engine (the NaN hook in the verify block):
+a clean drain, then a seeded chaos drain (``nan=2,slow=2,fail=1,pages=4``:
+one completion each, the poisoned uids ``nan_logits`` with a prefix of
+their clean tokens, the rest byte-identical, a retry, every page back
+once the stolen ones are released), ``max_queue`` 4 (exactly 20
+``queue_full``), deadlines on an injected clock (partial tokens a prefix
+of the clean ones), a persistent failure (every request ``step_failure``,
+the engine dead, no decode launch) and a preemption after 2 chunks, its
+snapshot in a ``RestartManifest``, restored into a fresh engine (the
+union equals the uninterrupted drain); every drain's launches exact (a
+hooked replay launches a clean one's, a failed chunk nothing). Shedding
+by a straggler stub: bf16 contiguous halves the chunk twice; an fp32
+``ngram`` engine (where greedy spec == off) turns speculation off, then
+halves the chunk; tokens equal the unshed drain's, each level's capture
+logged. The graph's device ms per step with and without the (disarmed)
+hook. ``fleet`` (paged16 shards): 1 and 2 in-process shards and 2
+spawned workers (each building its engine on the card from the seed)
+equal one engine's drain; ``kill=1@2`` fails over in process and by a
+real ``terminate()``; ``stall=1@1`` walks LIVE -> SUSPECT -> DEAD;
+tokens/s and the workers' start-up seconds logged. ``engine_griffin``
+adds a chaos drain (``nan=2,fail=1``) and a snapshot / restore.
+
+Phase ``spec`` runs after the fleet: speculative decoding (k 3, the
 ``ngram`` and ``draft`` drafters) on full-width ``pimref-100m``, batch 8 x
 prompt 512 (rows 0-3 a period-4 tile, rows 4-7 random, from ``--seed``) +
 64 new tokens in chunks of 8, in every KV layout, as the captured chunk
@@ -173,7 +198,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-PHASES = ("device", "build", "kernels", "serve", "engine", "spec", "profile",
+PHASES = ("device", "build", "kernels", "serve", "engine", "robust", "fleet",
+          "spec", "profile",
           "parity", "train", "train_kernels", "train_parity", "proteus",
           "serve_griffin", "engine_griffin", "parity_griffin")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
@@ -1199,15 +1225,17 @@ def _check_launches(phase, cfg, prefills, decode_steps,
                     decode_kernel="flash_decode_fwd", draft_steps=0,
                     draft_layers=0) -> dict:
     """Every prefill launched the prefill kernel once per attention layer
-    and the RG-LRU kernel once per recurrent layer, every decode step (one
-    token, or a speculative verify block) the layout's decode kernel once
-    per attention layer, and every draft step of speculative decoding's
-    ``draft`` mode once per layer of its first ``draft_layers``; no other
-    kernel ran."""
+    (its fp32 route too, for a model computing in fp32) and the RG-LRU
+    kernel once per recurrent layer, every decode step (one token, or a
+    speculative verify block) the layout's decode kernel once per attention
+    layer, and every draft step of speculative decoding's ``draft`` mode
+    once per layer of its first ``draft_layers``; no other kernel ran."""
     got = {n: c for counter in _counters() for n, c in counter.items()}
     n_attn, n_rec = _layer_counts(cfg)
     want = dict.fromkeys(got, 0)
     want["flash_attention_fwd"] = n_attn * prefills
+    if cfg.compute_dtype == "float32":
+        want["flash_attention_fwd_fp32"] = n_attn * prefills
     want[decode_kernel] = n_attn * decode_steps + draft_layers * draft_steps
     want["rglru_scan"] = n_rec * prefills
     log(phase, f"launches {got} (want {want}: {n_attn} attention + {n_rec} "
@@ -1427,6 +1455,465 @@ def phase_engine(model, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# robust serving and the fleet: the fault model around the captured chunk
+# ---------------------------------------------------------------------------
+# the engine phase's 24 requests (prompts up to 256, a 64-token shared
+# prefix) in a 512-token bucket, so a paged restore's prompt + produced fits
+ROBUST_BUCKET = 512
+ROBUST_CASES = (("contiguous", "off"), ("paged16", "off"),
+                ("paged16_int8", "off"), ("contiguous", "ngram"))
+ROBUST_CHAOS = "nan=2,slow=2,fail=1,pages=4"
+ROBUST_MAX_QUEUE = 4
+FLEET_LAYOUT = "paged16"
+
+
+class FlagOn:
+    """A deterministic stand-in for the engine's StragglerMonitor: flags
+    exact chunk indices (the reference's shedding test drives it so)."""
+
+    def __init__(self, steps):
+        self.steps, self.flagged = set(steps), []
+
+    def step_start(self):
+        pass
+
+    def step_end(self, idx):
+        if idx in self.steps:
+            self.flagged.append({"step": idx, "seconds": 1.0, "ema": 0.1})
+            return self.flagged[-1]
+        return None
+
+
+def _robust_engine(model, seed, layout, spec="off", **kw):
+    from repro_torch.launch.serve import make_queue_engine
+    kv_quant, page_size, _ = LAYOUTS[layout]
+    return make_queue_engine(model=model, slots=8, prompt_len=ROBUST_BUCKET,
+                             gen=64, chunk=8, seed=seed, kv_quant=kv_quant,
+                             page_size=page_size, spec=spec,
+                             spec_k=SPEC_K if spec != "off" else None, **kw)
+
+
+def _launches_of(label, eng) -> dict:
+    """``_check_launches`` over an engine's stats (the draft steps too)."""
+    torch.cuda.synchronize()
+    s = eng.stats
+    return _check_launches(label, eng.model.cfg, s["prefills"],
+                           s["decode_steps"], _decode_kernel(eng),
+                           s["draft_steps"], eng._generate.draft_layers)
+
+
+def _decode_kernel(eng) -> str:
+    m = eng.model
+    if m.kv_quant == "off":
+        return "flash_decode_paged_fwd" if m.page_size else "flash_decode_fwd"
+    return ("flash_decode_paged_quant_fwd" if m.page_size
+            else "flash_decode_quant_fwd")
+
+
+def _one_each(label, comps, reqs) -> dict:
+    by_uid = {}
+    for c in comps:
+        if c.uid in by_uid:
+            raise AssertionError(f"{label}: two completions for {c.uid}")
+        by_uid[c.uid] = c
+    if sorted(by_uid) != sorted(r.uid for r in reqs):
+        raise AssertionError(f"{label}: completions {sorted(by_uid)}")
+    return by_uid
+
+
+def _by_uid(comps) -> dict:
+    """uid -> (finish reason, token list) of completions."""
+    return {c.uid: (c.finish_reason, np.asarray(c.tokens).tolist())
+            for c in comps}
+
+
+def _prefix_of(label, c, want) -> None:
+    """An error completion's partial tokens begin the clean stream."""
+    got, ref = np.asarray(c.tokens).tolist(), want[1]
+    if got != ref[:len(got)]:
+        raise AssertionError(f"{label}: uid {c.uid} ({c.reason}) tokens "
+                             f"{got} are not a prefix of {ref}")
+
+
+def _pages_back(label, eng) -> None:
+    free = len(eng._alloc.free)
+    if (eng.stats["kv_pages_in_use"] != 0 or free != eng.n_phys_pages - 1
+            or eng._host_table.any()):
+        raise AssertionError(f"{label}: pages in use "
+                             f"{eng.stats['kv_pages_in_use']}, free {free} "
+                             f"of {eng.n_phys_pages - 1}")
+
+
+def _robust_chaos(make, reqs, clean, label, plan=ROBUST_CHAOS,
+                  seed=0) -> dict:
+    """A seeded chaos drain: one completion each, poisoned uids end
+    ``nan_logits`` with a prefix of their clean tokens, every other
+    completion equals the clean drain's, a retry happened, exact launches
+    (a failed chunk launched nothing: only dispatched chunks' steps count),
+    and, paged, every page back once the stolen ones are released."""
+    from repro_torch.distributed.chaos import ChaosConfig
+    eng = make(chaos=ChaosConfig.parse(plan, seed=seed))
+    _reset()
+    by_uid = _one_each(label, eng.run(list(reqs)), reqs)
+    _launches_of(label, eng)
+    ev = eng.chaos_events
+    poisoned = {e["uid"] for e in ev if e["kind"] == "nan"}
+    reasons = {}
+    for uid, c in by_uid.items():
+        if c.finish_reason == "error":
+            reasons[c.reason] = reasons.get(c.reason, 0) + 1
+            _prefix_of(label, c, clean[uid])
+        elif (c.finish_reason, np.asarray(c.tokens).tolist()) != clean[uid]:
+            raise AssertionError(f"{label}: survivor {uid} differs from the "
+                                 "clean drain")
+    bad = [u for u in poisoned if by_uid[u].reason != "nan_logits"]
+    s = eng.stats
+    if len(poisoned) != 2 or bad or s["retries"] < 1:
+        raise AssertionError(f"{label}: poisoned {sorted(poisoned)} (not "
+                             f"nan_logits: {bad}), retries {s['retries']}")
+    if eng.paged:
+        eng._chaos.release_pages(eng._alloc)
+        _pages_back(label, eng)
+    slow = [e["chunk"] for e in ev if e["kind"] == "slow"]
+    walls = s["chunk_seconds"]
+    log(label, f"chaos {plan} seed {seed}: events "
+        f"{[e['kind'] for e in ev]}, poisoned {sorted(poisoned)}, errors "
+        f"{reasons}, retries {s['retries']}; {s['tokens_out']} tokens in "
+        f"{s['wall_seconds']:.3f} s ({s['tokens_per_second']:.1f} tokens/s); "
+        f"slow chunks {slow} walls "
+        f"{['%.1f ms' % (walls[i] * 1e3) for i in slow if i < len(walls)]} "
+        f"(median chunk {np.median(walls) * 1e3:.1f} ms; a wall starts "
+        f"after the injected sleep, the watchdog's window before it), the "
+        f"real watchdog ({eng._straggler.threshold:g}x its EMA, "
+        f"{eng._straggler.ema * 1e3:.1f} ms at the end): "
+        f"{s['straggler_events']} straggler events, {s['shed_events']} "
+        f"shed" + (", every page back after the release" if eng.paged
+                   else ""))
+    return s
+
+
+def _robust_queue(make, reqs, clean, label) -> None:
+    """``max_queue`` 4: the first four submissions accepted, the other 20
+    rejected at once with ``queue_full``; the four drain to the clean
+    drain's tokens."""
+    eng = make(max_queue=ROBUST_MAX_QUEUE)
+    accepted = [eng.submit(r) for r in reqs]
+    by_uid = _one_each(label, eng.run(), reqs)
+    full = sorted(u for u, c in by_uid.items() if c.reason == "queue_full")
+    want = [r.uid for r, ok in zip(reqs, accepted) if not ok]
+    if accepted[:ROBUST_MAX_QUEUE] != [True] * ROBUST_MAX_QUEUE or \
+            full != want or len(full) != len(reqs) - ROBUST_MAX_QUEUE:
+        raise AssertionError(f"{label}: accepted {accepted}, queue_full "
+                             f"{full}")
+    for r in reqs[:ROBUST_MAX_QUEUE]:
+        if np.asarray(by_uid[r.uid].tokens).tolist() != clean[r.uid][1]:
+            raise AssertionError(f"{label}: uid {r.uid} differs")
+    log(label, f"max_queue {ROBUST_MAX_QUEUE}: {len(full)} queue_full of "
+        f"{len(reqs)} (exact), queue peak {eng.stats['queue_peak']}, the "
+        "accepted drained as the clean drain")
+
+
+def _robust_deadlines(make, reqs, clean, label) -> None:
+    """An injected clock: every third request has a 1 s deadline; after two
+    chunks the clock jumps 10 s. Expired active requests end ``deadline``
+    with a prefix of their clean tokens, expired queued ones empty, the
+    rest as the clean drain."""
+    clk = {"t": 1000.0}
+    eng = make(clock=lambda: clk["t"])
+    dl = {r.uid for r in reqs if r.uid % 3 == 0}
+    for r in reqs:
+        r2 = type(r)(uid=r.uid, tokens=r.tokens,
+                     max_new_tokens=r.max_new_tokens,
+                     deadline_ms=1000.0 if r.uid in dl else None)
+        eng.submit(r2)
+    eng.step()
+    eng.step()
+    active = {eng._active[s].request.uid for s in eng._active}
+    clk["t"] += 10.0
+    by_uid = _one_each(label, eng.run(), reqs)
+    missed = {u for u, c in by_uid.items() if c.reason == "deadline"}
+    part = [u for u in missed if len(by_uid[u].tokens)]
+    for u, c in by_uid.items():
+        if u in missed:
+            _prefix_of(label, c, clean[u])
+        elif np.asarray(c.tokens).tolist() != clean[u][1]:
+            raise AssertionError(f"{label}: uid {u} differs")
+    if not missed <= dl or not part or not (missed - active) or \
+            eng.stats["deadline_miss"] != len(missed):
+        raise AssertionError(f"{label}: missed {sorted(missed)} of "
+                             f"{sorted(dl)}, partial {part}")
+    log(label, f"deadlines: {len(missed)} missed ({len(part)} in flight "
+        f"with partial tokens, {len(missed) - len(part)} while queued), "
+        "the rest as the clean drain")
+
+
+def _robust_persistent(make, reqs, label) -> None:
+    """Every pre-dispatch attempt fails: past the retry budget every
+    request ends ``step_failure``, the engine stays dead, nothing was
+    dispatched (the admissions' prefills launched, no decode kernel) and a
+    dead paged engine wrote no page table."""
+    from repro_torch.distributed.chaos import ChaosConfig, TransientStepError
+    eng = make(chaos=ChaosConfig(), max_retries=1, retry_backoff_s=0.0)
+
+    def always_fail(idx):
+        raise TransientStepError(f"persistent fault at chunk {idx}")
+
+    eng._chaos.on_chunk = always_fail
+    writes = []
+    if eng.paged:
+        put = eng._set_table_row
+        eng._set_table_row = lambda *a: (writes.append(a) if eng._dead
+                                         else put(*a))
+    _reset()
+    by_uid = _one_each(label, eng.run(list(reqs)), reqs)
+    _launches_of(label, eng)
+    reasons = {c.reason for c in by_uid.values()}
+    if reasons != {"step_failure"} or eng.step() or writes or \
+            eng.stats["decode_steps"] != 0:
+        raise AssertionError(f"{label}: reasons {reasons}, table writes "
+                             f"{len(writes)}, decode steps "
+                             f"{eng.stats['decode_steps']}")
+    log(label, f"persistent failure: {len(by_uid)} step_failure, "
+        f"{eng.stats['retries']} retries, dead, no decode launch")
+
+
+def _robust_restore(make, reqs, clean, label) -> None:
+    """Preempted after 2 chunks, the snapshot saved as a RestartManifest in
+    a temporary directory, restored into a fresh engine and drained: the
+    union equals the uninterrupted drain, byte for byte (the restore
+    regenerates in-flight requests). Paged, the reference's resume from
+    prompt + produced is also run and its agreement recorded."""
+    import tempfile
+    from repro_torch.launch.serve import restore_serve, save_serve_manifest
+    eng = make()
+    _reset()
+    eng.run(list(reqs), stop=lambda: eng.stats["decode_dispatches"] >= 2)
+    _launches_of(f"{label}/preempted", eng)
+    snap = eng.snapshot()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "serve.json")
+        save_serve_manifest(path, eng, arch=eng.model.cfg.name, smoke=False,
+                            slots=eng.slots, prompt_len=eng.prompt_len,
+                            gen=eng.max_new, chunk=eng.chunk)
+        _reset()
+        t0 = time.perf_counter()
+        restored = restore_serve(path, model=eng.model)
+        wall = time.perf_counter() - t0
+        _launches_of(f"{label}/restored", restored)
+        resumed = (restore_serve(path, model=eng.model, resume=True)
+                   if eng.paged else None)
+    if _by_uid(restored.completions) != clean:
+        raise AssertionError(f"{label}: restored completions differ from "
+                             "the uninterrupted drain")
+    if restored.paged:
+        _pages_back(label, restored)
+    note = ""
+    if resumed is not None:
+        got = _by_uid(resumed.completions)
+        diff = sorted(u for u in clean if got[u] != clean[u])
+        note = (f"; the reference's resume from prompt + produced (recorded, "
+                f"not gated): {len(clean) - len(diff)} of {len(clean)} "
+                f"completions equal the uninterrupted drain's"
+                + (f", uids {diff} differ" if diff else ""))
+    log(label, f"preempted after 2 chunks ({len(snap['completions'])} done, "
+        f"{len(snap['active'])} in flight with "
+        f"{sum(len(d['produced']) for d in snap['active'])} tokens, "
+        f"{len(snap['queued'])} queued); restored (regenerating) in "
+        f"{wall:.3f} s: union == the uninterrupted drain" + note)
+
+
+def _robust_shed(make, reqs, clean, label) -> list:
+    """The straggler stub flags chunks 1 and 2 (``shed_after`` 1): two
+    levels shed (speculation off, then the chunk halved; or the chunk
+    halved twice), each a new program captured on its first call; tokens
+    equal the unshed drain's; launches follow the live programs. Returns
+    each level's capture seconds."""
+    eng = make(shed_after=1)
+    eng._straggler = FlagOn({1, 2})
+    _reset()
+    eng.run(list(reqs))
+    _launches_of(label, eng)
+    s = eng.stats
+    same = _by_uid(eng.completions) == clean
+    log(label, f"shed {s['shed_events']} levels to spec "
+        f"{eng._spec_live!r}, chunk {eng._chunk_live}: captures "
+        f"{s['graph_captures']} (level 0 {s['capture_seconds']:.3f} s, shed "
+        f"levels {['%.3f s' % x for x in s['shed_capture_seconds']]}); "
+        f"tokens == the unshed drain: {same}; {s['tokens_per_second']:.1f} "
+        "tokens/s")
+    if not same or s["shed_events"] != 2 or s["graph_captures"] != 3 \
+            or not all(x > 0 for x in s["shed_capture_seconds"]):
+        raise AssertionError(f"{label}: shed {s['shed_events']}, captures "
+                             f"{s['graph_captures']}, identical {same}")
+    return s["shed_capture_seconds"]
+
+
+def phase_robust(model, smi: str, seed: int) -> None:
+    """The reference's fault model around the captured chunk on
+    full-width pimref-100m: for each of ROBUST_CASES a clean drain, a
+    seeded chaos drain, a bounded queue, deadlines on an injected clock, a
+    persistent failure and a preemption / restore; shedding by a straggler
+    stub (bf16 contiguous: the chunk halved twice; fp32 contiguous
+    ``ngram``: speculation off, then the chunk halved, where greedy spec ==
+    off holds); the graph's device ms per step with and without the hook."""
+    from repro_torch.distributed.chaos import nan_logits_hook
+    reqs = _engine_requests(model, seed)
+    rates = {}
+    for layout, spec in ROBUST_CASES:
+        label = f"robust/{layout}" + (f"/{spec}" if spec != "off" else "")
+
+        def make(_layout=layout, _spec=spec, **kw):
+            return _robust_engine(model, seed, _layout, _spec, **kw)
+        eng = make()
+        s = _drain(eng, reqs, f"{label}/clean", _decode_kernel(eng))
+        clean = _by_uid(eng.completions)
+        del eng
+        c = _robust_chaos(make, reqs, clean, f"{label}/chaos", seed=seed)
+        rates[label] = (s["tokens_per_second"], c["tokens_per_second"])
+        _robust_queue(make, reqs, clean, f"{label}/queue")
+        _robust_deadlines(make, reqs, clean, f"{label}/deadline")
+        _robust_persistent(make, reqs, f"{label}/persistent")
+        _robust_restore(make, reqs, clean, f"{label}/restore")
+        if (layout, spec) == ("contiguous", "off"):
+            _robust_shed(make, reqs, clean, f"{label}/shed")
+    log("robust", f"{smi}: drain tokens/s clean vs chaos (walls with the "
+        "capture): " + ", ".join(f"{k} {a:.1f} vs {b:.1f}"
+                                 for k, (a, b) in rates.items()))
+    # speculation off then the chunk halved, in fp32 (greedy spec == off)
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import load_model
+    cfg = get_config("pimref-100m").replace(compute_dtype="float32")
+    m32 = load_model("pimref-100m", smoke=False, seed=seed, device=DEVICE,
+                     cfg=cfg)
+    def make32(**kw):
+        return _robust_engine(m32, seed, "contiguous", "ngram", **kw)
+    e32 = make32()
+    s32 = _drain(e32, reqs, "robust/fp32/ngram/clean", "flash_decode_fwd")
+    clean32 = _by_uid(e32.completions)
+    del e32
+    _robust_shed(make32, reqs, clean32, "robust/fp32/ngram/shed")
+    log("robust/fp32/ngram", f"unshed {s32['tokens_per_second']:.1f} "
+        "tokens/s")
+    del m32
+    torch.cuda.empty_cache()
+    toks = spec_prompts(model.cfg.vocab_size, seed=seed)
+    for spec in ("off", "ngram"):
+        plain = graph_device_ms(model, toks, 64, 8, spec)[0]
+        hooked = graph_device_ms(model, toks, 64, 8, spec,
+                                 logits_hook=nan_logits_hook)[0]
+        log("robust/hook", f"{smi}: the graph's device ms per "
+            f"{'step' if spec == 'off' else 'iteration'} (batch 8 x 512, "
+            f"spec {spec}): unhooked {plain:.4f}, hooked and disarmed "
+            f"{hooked:.4f} ({hooked / plain:.3f}x)")
+
+
+def _fleet_check(label, fleet, reqs, want, shards_in_process=True) -> dict:
+    """One completion each, every completion the yardstick's; the
+    in-process shards' launches exact (a worker's are its own)."""
+    by_uid = _one_each(label, fleet.completions, reqs)
+    got = sorted((u, c.finish_reason, np.asarray(c.tokens).tolist())
+                 for u, c in by_uid.items())
+    if got != want:
+        raise AssertionError(f"{label}: completions differ from one "
+                             "engine's drain")
+    if shards_in_process:
+        torch.cuda.synchronize()
+        st = [sh.eng.stats for sh in fleet.shards]
+        _check_launches(label, fleet.shards[0].eng.model.cfg,
+                        sum(s["prefills"] for s in st),
+                        sum(s["decode_steps"] for s in st),
+                        _decode_kernel(fleet.shards[0].eng))
+    return fleet.stats
+
+
+def phase_fleet(model, smi: str, seed: int) -> None:
+    """ServeFleet on one card, paged16 shards of 8 slots, the engine
+    phase's 24 requests: 1 and 2 in-process shards (sharing the model's
+    weights) and 2 spawned workers (each building its engine on the card
+    from the seed), each equal to one engine's drain; ``kill=1@2`` fails
+    over (in process and a real terminate); a stall walks LIVE -> SUSPECT
+    -> DEAD."""
+    from repro_torch.distributed.chaos import ShardChaosConfig
+    from repro_torch.distributed.fault_tolerance import ShardState
+    from repro_torch.launch.serve import make_fleet
+    reqs = _engine_requests(model, seed)
+    kv_quant, page_size, _ = LAYOUTS[FLEET_LAYOUT]
+    ekw = dict(slots=8, prompt_len=ROBUST_BUCKET, gen=64, chunk=8, seed=seed,
+               kv_quant=kv_quant, page_size=page_size)
+    one = _robust_engine(model, seed, FLEET_LAYOUT)
+    _drain(one, reqs, "fleet/one_engine", _decode_kernel(one))
+    want = _completions(one)
+    rates = {"1 engine": one.stats["tokens_per_second"]}
+    del one
+    for shards in (1, 2):
+        fleet = make_fleet(shards=shards, model=model, **ekw)
+        _reset()
+        fleet.run(list(reqs))
+        st = _fleet_check(f"fleet/inproc{shards}", fleet, reqs, want)
+        rates[f"{shards} in-process"] = st["tokens_per_second"]
+        log(f"fleet/inproc{shards}", f"== one engine's drain; "
+            f"{st['tokens_out']} tokens in {st['wall_seconds']:.3f} s "
+            f"({st['tokens_per_second']:.1f} tokens/s), per shard "
+            f"{[r['tokens_out'] for r in fleet.per_shard_stats()]} tokens")
+    fleet = make_fleet(shards=2, model=model,
+                       fleet_chaos=ShardChaosConfig.parse("kill=1@2"), **ekw)
+    _reset()
+    fleet.run(list(reqs))
+    st = _fleet_check("fleet/inproc2/kill", fleet, reqs, want)
+    if st["failovers"] != 1 or fleet.monitor.state(1) is not ShardState.DEAD:
+        raise AssertionError(f"fleet/inproc2/kill: {st}")
+    log("fleet/inproc2/kill", f"kill=1@2: {st['failovers']} failover, "
+        f"{st['replays']} replays, one completion each, == one engine")
+    fleet = make_fleet(shards=2, model=model, miss_suspect=2, miss_dead=3,
+                       fleet_chaos=ShardChaosConfig.parse("stall=1@1"), **ekw)
+    _reset()
+    fleet.run(list(reqs))
+    st = _fleet_check("fleet/inproc2/stall", fleet, reqs, want)
+    kinds = [e["kind"] for e in fleet.monitor.events]
+    if kinds != ["suspect", "dead"] or st["failovers"] != 1:
+        raise AssertionError(f"fleet/inproc2/stall: {kinds}, {st}")
+    log("fleet/inproc2/stall", f"stall=1@1: LIVE -> SUSPECT -> DEAD "
+        f"({fleet.monitor.events}), {st['heartbeat_misses']} missed "
+        "heartbeats, == one engine")
+    del fleet
+    for chaos in (None, "kill=1@2"):
+        label = "fleet/mp2" + ("/kill" if chaos else "")
+        t0 = time.perf_counter()
+        fleet = make_fleet(shards=2, backend="mp", arch=model.cfg.name,
+                           smoke=False, device=DEVICE,
+                           fleet_chaos=(ShardChaosConfig.parse(chaos)
+                                        if chaos else None), **ekw)
+        try:
+            start = time.perf_counter() - t0
+            info = [sh.info for sh in fleet.shards]
+            if not all(i["device"].startswith(DEVICE) for i in info):
+                raise AssertionError(f"{label}: workers on {info}")
+            fleet.run(list(reqs))
+            st = _fleet_check(label, fleet, reqs, want,
+                              shards_in_process=False)
+            if chaos and (st["failovers"] != 1
+                          or fleet.shards[1].proc.is_alive()):
+                raise AssertionError(f"{label}: {st}, worker 1 alive "
+                                     f"{fleet.shards[1].proc.is_alive()}")
+            rates[f"2 workers{' (kill)' if chaos else ''}"] = \
+                st["tokens_per_second"]
+            log(label, f"{smi}: workers ready in {start:.2f} s (each "
+                f"{['%.2f s' % x for x in st['worker_startup_seconds']]}, "
+                f"its build {['%.2f s' % i['build_seconds'] for i in info]}, "
+                f"on {[i['device'] for i in info]}); == one engine's drain; "
+                f"{st['tokens_out']} tokens in {st['wall_seconds']:.3f} s "
+                f"({st['tokens_per_second']:.1f} tokens/s)"
+                + (f"; kill=1@2 terminated worker 1 (pid "
+                   f"{info[1]['pid']}), {st['failovers']} failover, "
+                   f"{st['replays']} replays" if chaos else ""))
+        finally:
+            fleet.close()
+    log("fleet", f"{smi}: tokens/s (one card: shards share it, so no "
+        "scaling is claimed) " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in rates.items()))
+
+
+# ---------------------------------------------------------------------------
 # speculative decoding: the draft-verify chunk as one graph replay
 # ---------------------------------------------------------------------------
 def spec_prompts(vocab: int, batch: int = 8, prompt_len: int = 512,
@@ -1441,15 +1928,17 @@ def spec_prompts(vocab: int, batch: int = 8, prompt_len: int = 512,
 
 
 def _spec_start(m, toks, spec, gen, chunk, eager=False,
-                draft_layers=None) -> tuple:
+                draft_layers=None, logits_hook=None) -> tuple:
     """Prefill ``toks`` into a cache sized for ``gen`` tokens and a verify
     block's k-ahead writes, the drafter's history seeded with the prompts,
-    and the chunk step (captured by ``prepare``, or run eagerly)."""
+    and the chunk step (captured by ``prepare``, or run eagerly; with
+    ``logits_hook``, every slot disarmed)."""
     from repro_torch.launch.steps import make_generate_step
     k = SPEC_K if spec != "off" else 0
     B, P = toks.shape
     step = (eager_step if eager else make_generate_step)(
-        m, chunk=chunk, spec=spec, spec_k=k, draft_layers=draft_layers)
+        m, chunk=chunk, spec=spec, spec_k=k, draft_layers=draft_layers,
+        logits_hook=logits_hook)
     logits, cache = m.prefill(toks, max_len=P + gen + k)
     tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
     state = ()
@@ -1458,7 +1947,9 @@ def _spec_start(m, toks, spec, gen, chunk, eager=False,
                            device=DEVICE)
         hist[:, :P] = toks
         state = (hist, torch.full((B,), P, dtype=torch.int32, device=DEVICE))
-    step.prepare(cache, tok, None, *state)
+    arm = (torch.full((B,), -1, dtype=torch.int32, device=DEVICE)
+           if logits_hook is not None else None)
+    step.prepare(cache, tok, None, *state, arm=arm)
     torch.cuda.synchronize()
     return step, cache, tok, state
 
@@ -1805,13 +2296,16 @@ def eager_step(model, **kw):
     from repro_torch.launch.steps import GenerateStep
 
     class EagerChunk(GenerateStep):
-        def prepare(self, cache, tok, generator, hist=None, hist_len=None):
-            self._warm_up(cache, tok, self._state(hist, hist_len))
+        def prepare(self, cache, tok, generator, hist=None, hist_len=None, *,
+                    arm=None):
+            self._warm_up(cache, tok, self._state(hist, hist_len),
+                          self._arm(arm))
 
         def __call__(self, cache, tok, generator, eos_id, hist=None,
-                     hist_len=None):
+                     hist_len=None, *, arm=None):
             return self._eager(cache, tok, generator, eos_id,
-                               *self._state(hist, hist_len))
+                               *self._state(hist, hist_len),
+                               arm=self._arm(arm))
 
     return EagerChunk(model, **kw)
 
@@ -1836,14 +2330,16 @@ def _serve_as(name: str, **kw) -> dict:
         return serve(engine="loop" if name == "loop" else "fused", **kw)
 
 
-def graph_device_ms(m, toks, gen, chunk, spec="off") -> tuple:
+def graph_device_ms(m, toks, gen, chunk, spec="off",
+                    logits_hook=None) -> tuple:
     """Device ms per iteration (a token-step without speculation) of the
-    captured chunk: the prompts ``toks`` prefilled, the chunk captured on
-    their cache, then back-to-back replays (the first alone, then ``gen //
-    chunk - 1``) timed by CUDA events. Returns (ms per iteration of the
-    later replays, ms of the first replay, which uploads the graph to the
-    card)."""
-    step = _spec_start(m, toks, spec, gen, chunk)[0]
+    captured chunk (with ``logits_hook``: hooked, every slot disarmed): the
+    prompts ``toks`` prefilled, the chunk captured on their cache, then
+    back-to-back replays (the first alone, then ``gen // chunk - 1``) timed
+    by CUDA events. Returns (ms per iteration of the later replays, ms of
+    the first replay, which uploads the graph to the card)."""
+    step = _spec_start(m, toks, spec, gen, chunk,
+                       logits_hook=logits_hook)[0]
     graph = step._captured.graph      # the replays alone, no host work between
     replays = gen // chunk - 1
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
@@ -1931,14 +2427,22 @@ def phase_serve_griffin(model, smi: str) -> dict:
 
 
 def phase_engine_griffin(model, seed: int) -> None:
-    """16 mixed-length requests through 8 slots of one contiguous cache."""
+    """16 mixed-length requests through 8 slots of one contiguous cache,
+    graph against eager body; then a seeded chaos drain (``nan=2,fail=1``)
+    and a snapshot / restore (contiguous: regenerated) against the graph
+    drain."""
     from repro_torch.launch.serve import make_queue_engine, synth_requests
     reqs = synth_requests(cfg=model.cfg, requests=16, prompt_len=256, gen=64,
                           seed=seed)
-    _drain_pair(lambda: make_queue_engine(model=model, slots=8,
-                                          prompt_len=256, gen=64, chunk=8,
-                                          seed=seed),
-                reqs, "engine_griffin", "flash_decode_fwd")
+
+    def make(**kw):
+        return make_queue_engine(model=model, slots=8, prompt_len=256,
+                                 gen=64, chunk=8, seed=seed, **kw)
+    _, want = _drain_pair(make, reqs, "engine_griffin", "flash_decode_fwd")
+    clean = {uid: (finish, toks) for uid, finish, toks in want}
+    _robust_chaos(make, reqs, clean, "engine_griffin/chaos",
+                  plan="nan=2,fail=1", seed=seed)
+    _robust_restore(make, reqs, clean, "engine_griffin/restore")
 
 
 def _rel_err(c, g) -> float:
@@ -2790,7 +3294,8 @@ def main() -> int:
         phase_build()
     rows = phase_kernels(args.seed) if "kernels" in phases else {}
     launches = {}
-    if {"serve", "engine", "spec", "profile"} & set(phases):
+    if {"serve", "engine", "robust", "fleet", "spec", "profile"} & \
+            set(phases):
         from repro_torch.launch.serve import load_model
         t0 = time.perf_counter()
         model = load_model("pimref-100m", smoke=False, seed=args.seed,
@@ -2804,6 +3309,14 @@ def main() -> int:
         engine_want = None
         if "engine" in phases:
             engine_want = phase_engine(model, args.seed)
+        if "robust" in phases:
+            t0 = time.perf_counter()
+            phase_robust(model, smi, args.seed)
+            log("robust", f"phase took {time.perf_counter() - t0:.1f} s")
+        if "fleet" in phases:
+            t0 = time.perf_counter()
+            phase_fleet(model, smi, args.seed)
+            log("fleet", f"phase took {time.perf_counter() - t0:.1f} s")
         if "spec" in phases:
             launches.update(phase_spec(model, smi, args.seed, engine_want))
         if "profile" in phases:

@@ -1,10 +1,20 @@
-from repro_torch.distributed.chaos import (ChaosError, TrainChaosConfig,
-                                           TrainChaosMonkey,
-                                           TrainStepCrashError, nan_grad_hook)
-from repro_torch.distributed.fault_tolerance import (PreemptionHandler,
+from repro_torch.distributed.chaos import (ChaosConfig, ChaosError,
+                                           ChaosMonkey, ShardChaosConfig,
+                                           ShardChaosMonkey, ShardKilledError,
+                                           TrainChaosConfig, TrainChaosMonkey,
+                                           TrainStepCrashError,
+                                           TransientStepError, nan_grad_hook,
+                                           nan_logits_hook)
+from repro_torch.distributed.dispatcher import Dispatcher
+from repro_torch.distributed.fault_tolerance import (HealthMonitor,
+                                                     PreemptionHandler,
                                                      RestartManifest,
+                                                     ShardState,
                                                      StragglerMonitor)
 
 __all__ = ["PreemptionHandler", "StragglerMonitor", "RestartManifest",
-           "ChaosError", "TrainChaosConfig", "TrainChaosMonkey",
-           "TrainStepCrashError", "nan_grad_hook"]
+           "HealthMonitor", "ShardState", "Dispatcher",
+           "ChaosConfig", "ChaosError", "ChaosMonkey", "TransientStepError",
+           "ShardChaosConfig", "ShardChaosMonkey", "ShardKilledError",
+           "TrainChaosConfig", "TrainChaosMonkey", "TrainStepCrashError",
+           "nan_grad_hook", "nan_logits_hook"]

@@ -1,18 +1,21 @@
-"""Fault tolerance for the train loop: preemption, stragglers, the restart
+"""Fault tolerance: preemption, stragglers, shard health, the restart
 manifest (counterpart: ``repro/distributed/fault_tolerance.py``; a copy of
-its ``PreemptionHandler``, ``StragglerMonitor`` and ``RestartManifest``,
-which import no jax, kept here because the port imports nothing of
-``repro``).
+its classes, which import no jax, kept here because the port imports
+nothing of ``repro``).
 
 * :class:`PreemptionHandler` — SIGTERM/SIGINT -> synchronous checkpoint at
   the next step boundary, then clean exit (requeue-able).
 * :class:`StragglerMonitor` — per-step wall-time EMA; steps slower than
   ``threshold x`` EMA are flagged and recorded into the manifest.
+* :class:`HealthMonitor` — a fleet's per-shard heartbeat ledger: a shard
+  that answers a step beats; ``miss_suspect`` consecutive misses make it
+  SUSPECT (no new routing), ``miss_dead`` DEAD (its work fails over).
 * :class:`RestartManifest` — tiny JSON (step, mesh shape, data cursor,
   checkpoint path). ``save`` is atomic (tmp file + ``os.replace``).
 """
 from __future__ import annotations
 
+import enum
 import json
 import os
 import signal
@@ -68,6 +71,94 @@ class StragglerMonitor:
         self.ema = dt if self.ema is None else (
             self.ema_coef * self.ema + (1 - self.ema_coef) * dt)
         return flag
+
+
+class ShardState(str, enum.Enum):
+    """Failure-domain state of one fleet shard. LIVE shards take new work;
+    SUSPECT shards keep their in-flight work but get no new routing until
+    they beat again; DEAD is sticky (a late reply never resurrects it)."""
+
+    LIVE = "live"
+    SUSPECT = "suspect"
+    DEAD = "dead"
+
+    def __str__(self) -> str:
+        return self.value
+
+
+class HealthMonitor:
+    """Per-shard heartbeat ledger: miss-threshold -> suspect -> dead.
+
+    The fleet calls :meth:`beat` when a shard answers a step with its
+    heartbeat flag set and :meth:`miss` when it does not (timeout, stall, a
+    dropped flag); :meth:`mark_dead` skips the escalation for unambiguous
+    failures (process exit, closed pipe, a raised kill). Transitions are
+    appended to ``events``."""
+
+    def __init__(self, n_shards: int, *, miss_suspect: int = 2,
+                 miss_dead: int = 4):
+        assert 0 < miss_suspect <= miss_dead
+        self.miss_suspect, self.miss_dead = miss_suspect, miss_dead
+        self.states = [ShardState.LIVE] * n_shards
+        self.misses = [0] * n_shards
+        self.beats = [0] * n_shards
+        self.suspects = 0
+        self.recoveries = 0
+        self.deaths = 0
+        self.events: List[Dict[str, Any]] = []
+
+    def state(self, shard: int) -> ShardState:
+        return self.states[shard]
+
+    def alive(self, shard: int) -> bool:
+        return self.states[shard] is not ShardState.DEAD
+
+    @property
+    def live_shards(self) -> List[int]:
+        return [s for s, st in enumerate(self.states)
+                if st is ShardState.LIVE]
+
+    @property
+    def dead_shards(self) -> List[int]:
+        return [s for s, st in enumerate(self.states)
+                if st is ShardState.DEAD]
+
+    def beat(self, shard: int, step: int) -> ShardState:
+        """A heartbeat arrived; a SUSPECT shard recovers to LIVE."""
+        if self.states[shard] is ShardState.DEAD:
+            return ShardState.DEAD                 # zombies stay dead
+        self.beats[shard] += 1
+        self.misses[shard] = 0
+        if self.states[shard] is ShardState.SUSPECT:
+            self.states[shard] = ShardState.LIVE
+            self.recoveries += 1
+            self.events.append({"kind": "recover", "shard": shard,
+                                "step": step})
+        return self.states[shard]
+
+    def miss(self, shard: int, step: int) -> ShardState:
+        """A heartbeat was missed; escalate suspect -> dead at thresholds."""
+        if self.states[shard] is ShardState.DEAD:
+            return ShardState.DEAD
+        self.misses[shard] += 1
+        if self.misses[shard] >= self.miss_dead:
+            return self.mark_dead(shard, step,
+                                  f"{self.misses[shard]} missed heartbeats")
+        if (self.misses[shard] >= self.miss_suspect
+                and self.states[shard] is ShardState.LIVE):
+            self.states[shard] = ShardState.SUSPECT
+            self.suspects += 1
+            self.events.append({"kind": "suspect", "shard": shard,
+                                "step": step, "misses": self.misses[shard]})
+        return self.states[shard]
+
+    def mark_dead(self, shard: int, step: int, reason: str) -> ShardState:
+        if self.states[shard] is not ShardState.DEAD:
+            self.states[shard] = ShardState.DEAD
+            self.deaths += 1
+            self.events.append({"kind": "dead", "shard": shard,
+                                "step": step, "reason": reason})
+        return ShardState.DEAD
 
 
 @dataclass

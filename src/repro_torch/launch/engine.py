@@ -40,8 +40,45 @@ of slack, page reservations and copy-on-write cover that span, and each slot
 keeps the drafter's history (its prompt, then its committed tokens) on the
 device. Greedy completions equal those with speculation off.
 
-Deadlines, retries, load shedding, snapshots and fault injection are ported
-in later slices.
+Fault tolerance (the reference's contract: adapt, don't crash). A bounded
+frontend queue (``max_queue``) rejects overflow with ``queue_full``
+completions; per-request deadlines retire expired work (``deadline``, with
+the partial tokens); the chunk's on-device finite guard quarantines exactly
+the slot whose logits went non-finite (``nan_logits``); transient failures
+before a dispatch retry with backoff, and a failed dispatch or a retry
+budget spent ends everything in flight with ``step_failure`` and leaves
+the engine dead; a :class:`StragglerMonitor` watchdog over the chunk sheds
+load under sustained pressure (speculation off, then the chunk halved;
+greedy tokens unchanged); ``snapshot()`` / ``load_snapshot()`` carry the
+queue and each slot's progress through a ``RestartManifest`` (a restore
+regenerates in-flight requests from their prompts). A seeded
+:class:`~repro_torch.distributed.chaos.ChaosMonkey` (``chaos``) injects
+each of these faults. Every submitted request ends in exactly one
+:class:`Completion`.
+
+Where the card changes the design:
+
+* NaN injection is a ``logits_hook`` inside the chunk, captured only when
+  the chaos config wants NaN; the per-slot poison positions ``arm`` are a
+  static input of the graph, copied in before each replay, so armed and
+  clean chunks replay one graph, and a clean engine's graph is the
+  unhooked one.
+* A shed level is a new decode program, so a new graph capture (0.5-1.2 s
+  at full width). It is built in ``_shed`` and captured on its first call,
+  inside the watchdog's window, as the reference compiles there; each
+  level's capture time is in ``stats["shed_capture_seconds"]``. The
+  level-0 program keeps its graph; a deeper shed level drops the previous
+  shed program, freeing its graph's memory pool.
+* The watchdog's window opens before the injected faults and closes after
+  the chunk's one host read: a replay returns before the card finishes, so
+  the replay alone would time nothing.
+* A dispatch that raises (a sticky CUDA error surfaces at the replay or at
+  the host read) kills the engine: it touches no device buffer afterwards.
+* A restore regenerates in-flight requests where the reference's paged
+  layout resumes from ``prompt + produced``: a re-prefilled prefix need
+  not reproduce the decode-time cache on the card (see
+  :meth:`ServeEngine.load_snapshot`), and regeneration keeps restored
+  drains byte-identical. ``resume=True`` keeps the reference's shortcut.
 """
 from __future__ import annotations
 
@@ -49,23 +86,32 @@ import enum
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Deque, Dict, List, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.distributed.chaos import (ChaosConfig, ChaosMonkey,
+                                           TransientStepError,
+                                           nan_logits_hook)
+from repro_torch.distributed.fault_tolerance import StragglerMonitor
 from repro_torch.launch.steps import make_generate_step, spec_config
 from repro_torch.models.layers import (PagedKVCache, QKVCache, TRASH_PAGE,
                                        kv_zeros)
 
 
 class ErrorReason(str, enum.Enum):
-    """Typed ``Completion.reason`` values."""
+    """Typed ``Completion.reason`` values: the engine's and the fleet's
+    failure model."""
 
     PROMPT_TOO_LONG = "prompt_too_long"   # prompt exceeds the engine bucket
     BAD_REQUEST = "bad_request"           # empty prompt, bad ids or extras
+    QUEUE_FULL = "queue_full"             # bounded frontend queue overflow
+    DEADLINE = "deadline"                 # per-request deadline expired
     PAGE_POOL = "page_pool"               # KV page pool cannot hold request
     NAN_LOGITS = "nan_logits"             # finite guard retired the slot
+    STEP_FAILURE = "step_failure"         # chunk dispatch failed (post-retry)
+    SHARD_LOST = "shard_lost"             # fleet shard died, replay impossible
 
     def __str__(self) -> str:
         return self.value
@@ -74,12 +120,15 @@ class ErrorReason(str, enum.Enum):
 @dataclass
 class Request:
     """One generation request; ``tokens`` is a 1-D int prompt. Prompts longer
-    than the bucket complete with a ``prompt_too_long`` error."""
+    than the bucket complete with a ``prompt_too_long`` error.
+    ``deadline_ms``: wall-clock budget from submission; expiry retires the
+    request with a ``deadline`` error carrying the tokens produced."""
 
     uid: int
     tokens: np.ndarray
     max_new_tokens: int
     extras: Optional[Dict[str, Any]] = None
+    deadline_ms: Optional[float] = None
 
 
 @dataclass
@@ -97,6 +146,7 @@ class _Slot:
     cap: int                      # per-request generation cap
     n: int = 0                    # true prompt length
     produced: List[int] = field(default_factory=list)
+    chunks: int = 0               # decode chunks dispatched since insert
 
 
 class PromptTooLongError(ValueError):
@@ -105,9 +155,14 @@ class PromptTooLongError(ValueError):
 
 class PagePoolExhaustedError(RuntimeError):
     """The KV page pool has no free page. Admission reserves every active
-    slot's worst case, so the engine's own demand never raises this."""
+    slot's worst case, so only external pressure (the chaos harness
+    stealing pages) raises this; the engine retires the request that needed
+    the page with a ``page_pool`` error."""
 
     def __init__(self, alloc: "_PageAllocator", what: str):
+        self.pool_stats = {"n_phys": alloc.n_phys, "free": len(alloc.free),
+                           "used": alloc.used,
+                           "registered": len(alloc.registry)}
         super().__init__(
             f"KV page pool exhausted during {what}: {alloc.used}/"
             f"{alloc.n_phys - 1} pages in use, {len(alloc.free)} free, "
@@ -213,6 +268,22 @@ class ServeEngine:
       page_pool_pages: physical pages of the paged pool (default
         ``slots`` times the pages of one slot, the worst case). A smaller
         pool makes admission wait until a request's worst-case pages fit.
+      max_queue: bound on the waiting queue (active slots apart);
+        submissions past it complete at once with a ``queue_full`` error.
+        None = unbounded.
+      deadline_ms: default wall-clock budget of requests that carry no
+        ``Request.deadline_ms``. None = no deadline.
+      chaos: a :class:`~repro_torch.distributed.chaos.ChaosConfig` arming
+        the seeded fault injection for this engine.
+      max_retries/retry_backoff_s: retries of a transient failure before a
+        dispatch, the n-th after ``n * retry_backoff_s`` seconds; past the
+        budget (or on a failed dispatch) everything in flight ends with
+        ``step_failure``.
+      straggler_threshold/shed_after: the chunk watchdog: a chunk slower
+        than ``threshold x`` the wall-time EMA is a straggler event, and
+        ``shed_after`` consecutive events shed load one level (speculation
+        off, then the chunk halved); greedy tokens are unchanged.
+      clock: monotonic-seconds callable for deadlines (tests inject one).
     """
 
     def __init__(self, model, *, slots: int = 4, prompt_len: int = 32,
@@ -221,7 +292,13 @@ class ServeEngine:
                  top_k: int = 0, seed: int = 0, spec: str = "off",
                  spec_k: Optional[int] = None,
                  draft_layers: Optional[int] = None,
-                 page_pool_pages: Optional[int] = None):
+                 page_pool_pages: Optional[int] = None,
+                 max_queue: Optional[int] = None,
+                 deadline_ms: Optional[float] = None,
+                 chaos: Optional[ChaosConfig] = None,
+                 max_retries: int = 2, retry_backoff_s: float = 0.02,
+                 straggler_threshold: float = 3.0, shed_after: int = 2,
+                 clock: Optional[Callable[[], float]] = None):
         if max_new < 1 or prompt_len < 1:
             raise ValueError(f"prompt_len {prompt_len} and max_new {max_new} "
                              "must be positive")
@@ -231,6 +308,20 @@ class ServeEngine:
         self.max_new, self.eos_id = max_new, eos_id
         self.max_len = prompt_len + max_new
         self.paged = model.page_size > 0
+        self.seed, self._temperature, self._top_k = seed, temperature, top_k
+        self.max_queue, self.deadline_ms = max_queue, deadline_ms
+        self.max_retries, self.retry_backoff_s = max_retries, retry_backoff_s
+        self.shed_after = shed_after
+        self._clock = clock or time.monotonic
+        self._chaos = ChaosMonkey(chaos) if chaos is not None else None
+        self._straggler = StragglerMonitor(threshold=straggler_threshold,
+                                           warmup_steps=3)
+        self._dead = False
+        # NaN injection is captured into the chunk only when chaos wants
+        # it; arming is data (arm[slot] = poison position, -1 disarmed)
+        self._hook = (nan_logits_hook if self._chaos is not None
+                      and self._chaos.cfg.wants_nan else None)
+        self._arm_np = np.full((slots,), -1, np.int32)
         # speculation: a chunk writes up to chunk_span positions, k of them
         # past the last committed one, so the cache holds spec_k more rows
         self.spec, self.spec_k = spec_config(model, spec, spec_k)
@@ -238,8 +329,13 @@ class ServeEngine:
                                             temperature=temperature,
                                             top_k=top_k, spec=self.spec,
                                             spec_k=self.spec_k,
-                                            draft_layers=draft_layers)
+                                            draft_layers=draft_layers,
+                                            logits_hook=self._hook)
         self.chunk_span = self._generate.span
+        # load shedding swaps in a degraded program (built in _shed);
+        # self._generate stays the level-0 program with its graph
+        self._spec_live, self._chunk_live = self.spec, chunk
+        self._gen_shed = None
         self._cache_max = self.max_len + self.spec_k
         # empty slot rows are zeros, like the reference's tiled template
         if self.paged:
@@ -279,6 +375,9 @@ class ServeEngine:
         # the EOS id as the chunk reads it, so setting eos_id between chunks
         # takes effect in a captured graph too
         self._eos = torch.full((), -1, dtype=torch.int32, device=self.device)
+        self._arm = (torch.full((slots,), -1, dtype=torch.int32,
+                                device=self.device)
+                     if self._hook is not None else None)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._spec_state: Tuple[torch.Tensor, ...] = ()
         if self.spec != "off":
@@ -295,13 +394,19 @@ class ServeEngine:
         # admission reservation: worst-case pages per active slot
         self._reserved: Dict[int, int] = {}
         self._reserved_total = 0
+        self._deadline_at: Dict[int, float] = {}     # uid -> absolute clock
+        self._resume_prefix: Dict[int, List[int]] = {}   # restored progress
+        self._pressure = 0                           # consecutive stragglers
         self.completions: List[Completion] = []
         self.stats: Dict[str, Any] = {
             "decode_dispatches": 0, "decode_steps": 0, "prefills": 0,
-            "tokens_out": 0, "wall_seconds": 0.0, "error_completions": 0,
-            "kv_pages_in_use": 0, "kv_pages_peak": 0, "kv_pages_reserved": 0,
-            "prefix_hits": 0, "admission_blocked": 0, "graph_captures": 0,
-            "capture_seconds": 0.0, "draft_steps": 0,
+            "tokens_out": 0, "wall_seconds": 0.0, "chunk_seconds": [],
+            "error_completions": 0, "kv_pages_in_use": 0, "kv_pages_peak": 0,
+            "kv_pages_reserved": 0, "prefix_hits": 0, "admission_blocked": 0,
+            "graph_captures": 0, "capture_seconds": 0.0, "draft_steps": 0,
+            "deadline_miss": 0, "shed_events": 0, "retries": 0,
+            "straggler_events": 0, "queue_peak": 0,
+            "shed_capture_seconds": [],
         }
         if self.spec != "off":
             self.stats["spec_draft_iters"] = 0
@@ -326,13 +431,55 @@ class ServeEngine:
 
     # -- queue interface ---------------------------------------------------
     def _error(self, uid: int, tokens, reason: ErrorReason, msg: str) -> None:
+        """Append a typed error completion (the one error path)."""
         self.completions.append(Completion(
             uid=uid, tokens=np.asarray(tokens, np.int32).reshape(-1),
             finish_reason="error", error=msg, reason=reason.value))
         self.stats["error_completions"] += 1
+        self._deadline_at.pop(uid, None)
 
-    def submit(self, request: Request) -> None:
+    def submit(self, request: Request) -> bool:
+        """Enqueue a request; returns False (with an immediate
+        ``queue_full`` error completion) when the bounded queue is full."""
+        if self.max_queue is not None and len(self._queue) >= self.max_queue:
+            self._error(request.uid, (), ErrorReason.QUEUE_FULL,
+                        f"request {request.uid}: queue full "
+                        f"({len(self._queue)}/{self.max_queue} waiting)")
+            return False
+        dl = (request.deadline_ms if request.deadline_ms is not None
+              else self.deadline_ms)
+        if dl is not None:
+            self._deadline_at[request.uid] = self._clock() + dl / 1e3
         self._queue.append(request)
+        self.stats["queue_peak"] = max(self.stats["queue_peak"],
+                                       len(self._queue))
+        return True
+
+    def _expired(self, uid: int) -> bool:
+        at = self._deadline_at.get(uid)
+        return at is not None and self._clock() >= at
+
+    def _expire_deadlines(self) -> None:
+        """Retire queued and in-flight requests whose deadline passed (at
+        the top of every step): a queued one ends empty, an active one with
+        its partial tokens, its slot and pages freed."""
+        if not self._deadline_at:
+            return
+        keep: Deque[Request] = deque()
+        for req in self._queue:
+            if self._expired(req.uid):
+                self.stats["deadline_miss"] += 1
+                self._error(req.uid, (), ErrorReason.DEADLINE,
+                            f"request {req.uid}: deadline expired while "
+                            "queued")
+            else:
+                keep.append(req)
+        self._queue = keep
+        for slot in list(self._active):
+            if self._expired(self._active[slot].request.uid):
+                self.stats["deadline_miss"] += 1
+                self._retire(slot, "error", reason=ErrorReason.DEADLINE,
+                             error="deadline expired during decode")
 
     def _prefill_tokens(self, req: Request
                         ) -> Tuple[torch.Tensor, int, np.ndarray]:
@@ -419,26 +566,31 @@ class ServeEngine:
     def _ensure_writable(self) -> None:
         """Copy-on-write before a chunk: a page the chunk may write that
         other slots share is copied to a fresh pool row first, and a
-        sole-owned page still in the prefix registry leaves it."""
+        sole-owned page still in the prefix registry leaves it. A pool
+        emptied by external pressure quarantines the slot (``page_pool``)."""
         ps, T = self.page_size, self.cache_pos_len
         for slot, st in list(self._active.items()):
             pos0 = st.n + len(st.produced)
-            for i in sorted({(p % T) // ps
-                             for p in range(pos0, pos0 + self.chunk_span)}):
-                phys = int(self._host_table[slot, i])
-                if phys == TRASH_PAGE:
-                    continue              # unclaimed tail: writes go to trash
-                if self._alloc.refs[phys] > 1:
-                    new = self._alloc.alloc("copy-on-write")
-                    for name in ("k", "v"):
-                        leaf = self.cache[name]
-                        for pool in _pools(leaf.pages):
-                            pool[:, new] = pool[:, phys]
-                        leaf.table[:, slot, i] = new
-                    self._alloc.refs[phys] -= 1
-                    self._host_table[slot, i] = new
-                elif phys in self._alloc.reg_key:
-                    self._alloc.unregister(phys)
+            try:
+                for i in sorted({(p % T) // ps for p in
+                                 range(pos0, pos0 + self.chunk_span)}):
+                    phys = int(self._host_table[slot, i])
+                    if phys == TRASH_PAGE:
+                        continue          # unclaimed tail: writes go to trash
+                    if self._alloc.refs[phys] > 1:
+                        new = self._alloc.alloc("copy-on-write")
+                        for name in ("k", "v"):
+                            leaf = self.cache[name]
+                            for pool in _pools(leaf.pages):
+                                pool[:, new] = pool[:, phys]
+                            leaf.table[:, slot, i] = new
+                        self._alloc.refs[phys] -= 1
+                        self._host_table[slot, i] = new
+                    elif phys in self._alloc.reg_key:
+                        self._alloc.unregister(phys)
+            except PagePoolExhaustedError as e:
+                self._retire(slot, "error", reason=ErrorReason.PAGE_POOL,
+                             error=str(e))
 
     # -- admission ---------------------------------------------------------
     def _insert(self, slot: int, small, first: torch.Tensor, t: np.ndarray,
@@ -508,7 +660,14 @@ class ServeEngine:
                                                full_logits=self.paged)
             if self.paged:
                 first = torch.argmax(logits[0, n - 1], dim=-1)
-                dest, trow = self._plan_pages(slot, t, n, cap)
+                try:
+                    dest, trow = self._plan_pages(slot, t, n, cap)
+                except PagePoolExhaustedError as e:
+                    # only external pressure (a chaos steal) gets here: the
+                    # reservation covers the engine's own demand
+                    self._free.append(slot)
+                    self._error(req.uid, (), ErrorReason.PAGE_POOL, str(e))
+                    continue
                 self._reserved[slot] = need
                 self._reserved_total += need
                 self._insert(slot, small, first, t, dest, trow)
@@ -516,6 +675,12 @@ class ServeEngine:
                 first = torch.argmax(logits[0, -1], dim=-1)
                 self._insert(slot, small, first, t, None, None)
             self._active[slot] = _Slot(request=req, cap=cap, n=n)
+            if self._hook is not None:
+                # absolute positions: the true prompt end (paged right-pad)
+                # or the bucket end (contiguous left-pad)
+                pos = self._chaos.plan_request(
+                    req.uid, n if self.paged else self.prompt_len, cap)
+                self._arm_np[slot] = -1 if pos is None else pos
             if self.paged:
                 self._refresh_page_stats()
             self.stats["prefills"] += 1
@@ -523,38 +688,86 @@ class ServeEngine:
     # -- decode ------------------------------------------------------------
     def step(self) -> bool:
         """Admit waiting requests, run one fused decode chunk, retire
-        finished slots. Returns False when fully drained."""
+        finished slots. Returns False when fully drained (or dead)."""
+        if self._dead:
+            return False
+        idx = self.stats["decode_dispatches"]          # chunk index
+        if self._chaos is not None and self.paged:
+            self._chaos.page_pressure(self._alloc, idx)
+        self._expire_deadlines()
         self._admit()
         if not self._active:
             return bool(self._queue)
         if self.paged:
             self._ensure_writable()
             self._refresh_page_stats()
-        self._eos.fill_(-1 if self.eos_id is None else int(self.eos_id))
-        captures = self._generate.captures
-        out = self._generate(self.cache, self._tok, self._gen, self._eos,
-                             *self._spec_state)
-        self.cache, self._tok, self._gen, done, n_valid, toks = out[:6]
-        failed = out[-1]
-        cols = [toks, done[:, None].to(torch.int32), n_valid[:, None],
-                failed[:, None].to(torch.int32)]
-        if self._spec_state:
-            cols.append(out[8])                        # acc (B, chunk)
-        # ONE host sync per chunk: tokens, per-slot flags and accept counts
-        host = torch.cat(cols, dim=1).cpu().numpy()
-        span = self.chunk_span
+            if not self._active:                       # COW quarantine
+                return bool(self._queue)
+        # the watchdog window opens before the injected faults (slow chunks
+        # and retry backoff are the stalls it must see) and closes after the
+        # host read below, which waits for the card
+        self._straggler.step_start()
+        attempt = 0
+        while self._chaos is not None:
+            try:
+                self._chaos.on_chunk(idx)
+                break
+            except TransientStepError as e:
+                attempt += 1
+                self.stats["retries"] += 1
+                if attempt > self.max_retries:
+                    self._fail_all(f"transient failure persisted past "
+                                   f"{self.max_retries} retries: {e}")
+                    return False
+                time.sleep(self.retry_backoff_s * attempt)
+        t0 = time.perf_counter()
+        gen = self._gen_shed if self._gen_shed is not None else self._generate
+        state = self._spec_state if gen.spec != "off" else ()
+        captures = gen.captures
+        try:
+            self._eos.fill_(-1 if self.eos_id is None else int(self.eos_id))
+            kw = {}
+            if self._hook is not None:
+                self._arm.copy_(torch.from_numpy(self._arm_np))
+                kw["arm"] = self._arm
+            out = gen(self.cache, self._tok, self._gen, self._eos, *state,
+                      **kw)
+            self.cache, self._tok, self._gen, done, n_valid, toks = out[:6]
+            cols = [toks, done[:, None].to(torch.int32), n_valid[:, None],
+                    out[-1][:, None].to(torch.int32)]
+            if state:
+                cols.append(out[8])                    # acc (B, chunk)
+            # ONE host sync per chunk: tokens, per-slot flags, accept counts
+            host = torch.cat(cols, dim=1).cpu().numpy()
+        except Exception as e:  # noqa: BLE001 - the device state is unknown
+            self._fail_all(f"chunk dispatch failed: {e!r}")
+            return False
+        span = gen.span
         toks_np, done_np = host[:, :span], host[:, span] != 0
         n_np, failed_np = host[:, span + 1], host[:, span + 2] != 0
         s = self.stats
+        s["chunk_seconds"].append(time.perf_counter() - t0)
         s["decode_dispatches"] += 1
         # a capture's eager warm-up chunk ran its decode steps too
-        chunks = 1 + self._generate.captures - captures
-        s["decode_steps"] += self.chunk * chunks
-        if self.spec == "draft":
-            s["draft_steps"] += self.chunk * self.spec_k * chunks
-        s["graph_captures"] = self._generate.captures
-        s["capture_seconds"] = self._generate.capture_seconds
-        if self._spec_state:
+        new = gen.captures - captures
+        s["decode_steps"] += gen.chunk * (1 + new)
+        if gen.spec == "draft":
+            s["draft_steps"] += gen.chunk * gen.spec_k * (1 + new)
+        s["graph_captures"] += new
+        if gen is self._generate:
+            s["capture_seconds"] = gen.capture_seconds
+        else:
+            s["shed_capture_seconds"][-1] = gen.capture_seconds
+        # watchdog: `shed_after` consecutive straggler chunks shed a level
+        if self._straggler.step_end(idx) is not None:
+            s["straggler_events"] += 1
+            self._pressure += 1
+            if self._pressure >= self.shed_after:
+                self._shed()
+                self._pressure = 0
+        else:
+            self._pressure = 0
+        if state:
             # accepted lengths of the active slots' live iterations (free
             # and retired slots ride the chunk too)
             acc = host[sorted(self._active), span + 3:]
@@ -565,6 +778,7 @@ class ServeEngine:
                 s["spec_accept_hist"][int(c) - 1] += int(freq)
         for slot in list(self._active):
             st = self._active[slot]
+            st.chunks += 1
             take = min(int(n_np[slot]), st.cap - len(st.produced))
             st.produced.extend(int(t) for t in toks_np[slot][:take])
             if bool(done_np[slot]) and take == int(n_np[slot]):
@@ -572,15 +786,20 @@ class ServeEngine:
             elif len(st.produced) >= st.cap:
                 self._retire(slot, "length")
             elif bool(failed_np[slot]):
-                self._retire(slot, "error",
+                # the finite guard quarantined exactly this slot; n_valid
+                # stopped at the last token sampled from finite logits
+                self._retire(slot, "error", reason=ErrorReason.NAN_LOGITS,
                              error=f"non-finite logits after "
-                                   f"{len(st.produced)} tokens")
+                                   f"{len(st.produced)} tokens; slot "
+                                   "quarantined")
         return bool(self._active or self._queue)
 
-    def _retire(self, slot: int, finish: str,
+    def _retire(self, slot: int, finish: str, *,
+                reason: Optional[ErrorReason] = None,
                 error: Optional[str] = None) -> None:
         st = self._active.pop(slot)
         self._free.append(slot)
+        self._arm_np[slot] = -1
         self._reserved_total -= self._reserved.pop(slot, 0)
         if self.paged:
             for phys in self._host_table[slot]:
@@ -589,25 +808,146 @@ class ServeEngine:
             self._host_table[slot] = TRASH_PAGE
             # the retired slot rides the fused chunks until reused: its
             # writes must land on the trash page, never in a page the
-            # allocator may hand to another slot
-            self._set_table_row(slot, TRASH_PAGE)
+            # allocator may hand to another slot. A dead engine touches no
+            # device buffer (after a CUDA error the card's state is unknown)
+            if not self._dead:
+                self._set_table_row(slot, TRASH_PAGE)
             self._refresh_page_stats()
         self.stats["tokens_out"] += len(st.produced)
+        uid = st.request.uid
+        self._deadline_at.pop(uid, None)
+        produced = st.produced
+        pre = self._resume_prefix.pop(uid, None)
+        if pre:
+            # a restored request: its earlier tokens were re-prefilled as
+            # prompt; the completion carries the whole stream
+            produced = pre + produced
         if finish == "error":
-            self._error(st.request.uid, st.produced, ErrorReason.NAN_LOGITS,
-                        error or "non-finite logits")
+            self._error(uid, produced, reason or ErrorReason.STEP_FAILURE,
+                        error or "unknown failure")
         else:
             self.completions.append(Completion(
-                uid=st.request.uid, tokens=np.asarray(st.produced, np.int32),
+                uid=uid, tokens=np.asarray(produced, np.int32),
                 finish_reason=finish))
 
-    def run(self, requests: Optional[List[Request]] = None) -> List[Completion]:
-        """Drain the queue (plus ``requests``); returns all completions."""
+    def _fail_all(self, msg: str) -> None:
+        """Unrecoverable dispatch failure: every in-flight and queued request
+        ends with a ``step_failure`` error (active slots with their partial
+        tokens) and the engine goes dead."""
+        self._dead = True
+        for slot in list(self._active):
+            self._retire(slot, "error", reason=ErrorReason.STEP_FAILURE,
+                         error=msg)
+        while self._queue:
+            req = self._queue.popleft()
+            self._error(req.uid, (), ErrorReason.STEP_FAILURE, msg)
+
+    def _shed(self) -> None:
+        """Load shedding, one level a call: speculation off, then the chunk
+        halved (down to one step a chunk). The degraded program resumes
+        from the same cache, tokens and positions at the chunk boundary, so
+        greedy streams are unchanged. On the card it is a new graph,
+        captured on its first call; the previous shed program is dropped
+        first (its graph pool freed), the level-0 program keeps its graph."""
+        if self._spec_live != "off":
+            self._spec_live = "off"
+        elif self._chunk_live > 1:
+            self._chunk_live = max(self._chunk_live // 2, 1)
+        else:
+            return
+        self.stats["shed_events"] += 1
+        self._gen_shed = None
+        self._gen_shed = make_generate_step(
+            self.model, chunk=self._chunk_live,
+            temperature=self._temperature, top_k=self._top_k,
+            logits_hook=self._hook)
+        self.stats["shed_capture_seconds"].append(0.0)
+
+    # -- checkpoint / restore ------------------------------------------------
+    def snapshot(self) -> Dict[str, Any]:
+        """JSON-serializable serving state for a ``RestartManifest``: every
+        request not yet completed (queued, or mid-decode with the tokens
+        produced so far) and the completions already emitted. No device
+        state: a restore re-prefills."""
+        def entry(req: Request, produced: List[int]) -> Dict[str, Any]:
+            toks = np.asarray(req.tokens, np.int32).reshape(-1).tolist()
+            pre = self._resume_prefix.get(req.uid)
+            if pre:      # a restored request: split back to the original
+                produced = list(pre) + produced
+                toks = toks[:len(toks) - len(pre)]
+            d = {"uid": req.uid, "tokens": toks,
+                 "max_new_tokens": int(req.max_new_tokens) + len(pre or ()),
+                 "produced": [int(x) for x in produced]}
+            if req.deadline_ms is not None:
+                d["deadline_ms"] = float(req.deadline_ms)
+            return d
+
+        return {
+            "seed": self.seed,
+            "temperature": self._temperature,
+            "queued": [entry(r, []) for r in self._queue],
+            "active": [entry(self._active[s].request,
+                             list(self._active[s].produced))
+                       for s in sorted(self._active)],
+            "completions": [
+                {"uid": c.uid, "tokens": np.asarray(c.tokens).tolist(),
+                 "finish_reason": c.finish_reason, "error": c.error,
+                 "reason": c.reason}
+                for c in self.completions],
+        }
+
+    def load_snapshot(self, snap: Dict[str, Any],
+                      resume: bool = False) -> None:
+        """Restore a :meth:`snapshot`: completions replay verbatim, queued
+        and in-flight requests are resubmitted and regenerate from their
+        prompts, so greedy completions equal an uninterrupted drain's.
+
+        ``resume=True`` (paged, greedy) is the reference's default: an
+        in-flight request re-prefills ``prompt + produced`` and decodes the
+        rest (``prompt_len`` must hold the grown prompts). It is exact only
+        where a prefill reproduces the cache the decode steps wrote, which
+        the port does not promise: on the card the prefill and decode
+        kernels round differently (the bf16 prefill feeds p to ``p @ v`` in
+        bf16), and over a quantized cache a decode step attends over the
+        dequantized codes where a prefill attends over exact values (the
+        reference too). So the port regenerates by default."""
+        if resume and not (self.paged and self._temperature <= 0):
+            raise ValueError("resume needs the paged layout and greedy "
+                             "sampling")
+        for c in snap.get("completions", ()):
+            self.completions.append(Completion(
+                uid=c["uid"], tokens=np.asarray(c["tokens"], np.int32),
+                finish_reason=c["finish_reason"], error=c.get("error"),
+                reason=c.get("reason")))
+        for d in list(snap.get("queued", ())) + list(snap.get("active", ())):
+            produced = [int(x) for x in d.get("produced") or ()]
+            prompt = [int(x) for x in d["tokens"]]
+            if resume and produced:
+                self._resume_prefix[d["uid"]] = produced
+                req = Request(uid=d["uid"],
+                              tokens=np.asarray(prompt + produced, np.int32),
+                              max_new_tokens=d["max_new_tokens"]
+                              - len(produced),
+                              deadline_ms=d.get("deadline_ms"))
+            else:
+                req = Request(uid=d["uid"],
+                              tokens=np.asarray(prompt, np.int32),
+                              max_new_tokens=d["max_new_tokens"],
+                              deadline_ms=d.get("deadline_ms"))
+            self.submit(req)
+
+    def run(self, requests: Optional[List[Request]] = None, *,
+            stop: Optional[Callable[[], bool]] = None) -> List[Completion]:
+        """Drain the queue (plus ``requests``); returns all completions.
+        ``stop`` is polled between chunks (e.g. a PreemptionHandler's
+        ``requested`` flag): when it fires, draining halts at the chunk
+        boundary with the state intact for :meth:`snapshot`."""
         for r in requests or ():
             self.submit(r)
         t0 = time.perf_counter()
         while self.step():
-            pass
+            if stop is not None and stop():
+                break
         s = self.stats
         s["wall_seconds"] += time.perf_counter() - t0
         s["tokens_per_second"] = s["tokens_out"] / max(s["wall_seconds"], 1e-9)
@@ -621,3 +961,8 @@ class ServeEngine:
             s["spec_accepted_len_per_draft"] = (
                 s["spec_emitted_tokens"] / max(s["spec_draft_iters"], 1))
         return self.completions
+
+    @property
+    def chaos_events(self) -> List[Dict[str, Any]]:
+        """Injection log of the attached chaos harness ([] when unarmed)."""
+        return [] if self._chaos is None else list(self._chaos.events)

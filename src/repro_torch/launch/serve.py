@@ -24,20 +24,36 @@ unless asked for the CPU:
       [--mode batch|queue] [--kv-quant int8] [--kv-page-size 16] \\
       [--spec-decode ngram|draft] [--spec-k 3] [--spec-verify] \\
       [--device cuda|cpu] [--smoke]
+
+Queue mode also takes the reference's robust-serving flags (``--max-queue``,
+``--deadline-ms``, ``--chaos-seed`` with ``REPRO_CHAOS``, ``--chaos-verify``,
+``--preempt-after`` / ``--snapshot``, ``--restore`` / ``--restore-verify``)
+and its fleet flags (``--shards``, ``--fleet-backend inproc|mp``,
+``--fleet-chaos``, ``--fleet-verify``, ``--heartbeat-timeout``,
+``--miss-suspect``, ``--miss-dead``, ``--checkpoint-every``,
+``--manifest-dir``). A serving manifest records the KV layout and the
+drafter as fields and, for the reference's restore, under its environment
+knobs (``_SERVE_ENV_KNOBS``).
 """
 from __future__ import annotations
 
 import argparse
+import os
+import signal
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ALL_IDS, ModelConfig, get_config
+from repro_torch.distributed.chaos import ChaosConfig, ShardChaosConfig
+from repro_torch.distributed.fault_tolerance import (PreemptionHandler,
+                                                     RestartManifest)
 from repro_torch.kernels.common import KV_QUANT_MODES, SPEC_DECODE_MODES
 from repro_torch.launch.engine import Request, ServeEngine
+from repro_torch.launch.fleet import ServeFleet
 from repro_torch.launch.steps import (clone_cache, make_generate_step,
                                       sample_tokens, spec_config)
 from repro_torch.models import build_model, init_params, load_jax_params
@@ -220,10 +236,13 @@ def make_queue_engine(arch: str = "pimref-100m", *, smoke: bool = True,
                       page_size: int = 0,
                       page_pool_pages: Optional[int] = None,
                       spec: str = "off", spec_k: Optional[int] = None,
-                      draft_layers: Optional[int] = None) -> ServeEngine:
+                      draft_layers: Optional[int] = None,
+                      **engine_kwargs: Any) -> ServeEngine:
     """A fresh :class:`ServeEngine` for ``arch`` over the KV layout
     ``kv_quant`` / ``page_size`` (``page_pool_pages`` sizes the paged
-    pool), speculating as ``spec`` / ``spec_k`` / ``draft_layers`` say."""
+    pool), speculating as ``spec`` / ``spec_k`` / ``draft_layers`` say.
+    ``engine_kwargs`` forwards the robustness knobs (``max_queue``,
+    ``deadline_ms``, ``chaos``, ``max_retries``, ...)."""
     model = _model(model, arch, smoke=smoke, seed=seed, device=device,
                    cfg=cfg, params=params, kv_quant=kv_quant,
                    page_size=page_size)
@@ -231,24 +250,31 @@ def make_queue_engine(arch: str = "pimref-100m", *, smoke: bool = True,
                        chunk=chunk, eos_id=eos_id, temperature=temperature,
                        top_k=top_k, seed=seed, spec=spec, spec_k=spec_k,
                        draft_layers=draft_layers,
-                       page_pool_pages=page_pool_pages)
+                       page_pool_pages=page_pool_pages, **engine_kwargs)
 
 
 def synth_requests(arch: str = "pimref-100m", *, smoke: bool = True,
                    requests: int = 10, prompt_len: int = 32, gen: int = 16,
                    seed: int = 0, shared_prefix: int = 0,
+                   repeat_period: int = 0,
                    cfg: Optional[ModelConfig] = None) -> List[Request]:
-    """The synthetic mixed-length request stream of queue mode (the same
-    stream as the reference's for the same arguments, without its repeat
-    option). ``shared_prefix > 0`` gives every request the same first
-    tokens (a common system prompt), which the paged cache shares."""
+    """The synthetic mixed-length request stream of queue mode, the same
+    stream as the reference's for the same arguments. ``shared_prefix > 0``
+    gives every request the same first tokens (a common system prompt),
+    which the paged cache shares; ``repeat_period > 0`` tiles each prompt
+    from a short period of its own (what the n-gram drafter finds)."""
     cfg = cfg or get_config(arch, smoke=smoke)
     rng = np.random.default_rng(seed)
     prefix = rng.integers(1, cfg.vocab_size, shared_prefix).astype(np.int32)
     reqs = []
     for i in range(requests):
         n = int(rng.integers(max(4, shared_prefix + 1), prompt_len + 1))
-        toks = rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+        if repeat_period > 0:
+            period = rng.integers(1, cfg.vocab_size,
+                                  repeat_period).astype(np.int32)
+            toks = np.tile(period, -(-n // repeat_period))[:n]
+        else:
+            toks = rng.integers(1, cfg.vocab_size, n).astype(np.int32)
         toks[:shared_prefix] = prefix
         reqs.append(Request(
             uid=i, tokens=toks,
@@ -260,29 +286,248 @@ def serve_queue(arch: str = "pimref-100m", *, smoke: bool = True,
                 slots: int = 4, requests: int = 10, prompt_len: int = 32,
                 gen: int = 16, chunk: int = 8, seed: int = 0,
                 temperature: float = 0.0, top_k: int = 0,
-                shared_prefix: int = 0, kv_quant: str = "off",
-                page_size: int = 0, page_pool_pages: Optional[int] = None,
+                shared_prefix: int = 0, repeat_period: int = 0,
+                kv_quant: str = "off", page_size: int = 0,
+                page_pool_pages: Optional[int] = None,
                 spec: str = "off", spec_k: Optional[int] = None,
                 draft_layers: Optional[int] = None,
-                device="cuda") -> ServeEngine:
+                max_queue: Optional[int] = None,
+                deadline_ms: Optional[float] = None,
+                chaos: Optional[ChaosConfig] = None,
+                stop: Optional[Callable[[ServeEngine], bool]] = None,
+                device="cuda", cfg: Optional[ModelConfig] = None,
+                params=None, model=None) -> ServeEngine:
     """Continuous batching: drain the synthetic request stream through a
-    :class:`ServeEngine`; returns the drained engine."""
+    :class:`ServeEngine`; returns the drained engine. Robustness knobs:
+    ``max_queue`` bounds the waiting queue, ``deadline_ms`` retires overdue
+    requests, ``chaos`` arms seeded fault injection and ``stop(engine)``
+    halts the drain at a chunk boundary (preemption)."""
     eng = make_queue_engine(arch, smoke=smoke, slots=slots,
                             prompt_len=prompt_len, gen=gen, chunk=chunk,
                             seed=seed, temperature=temperature, top_k=top_k,
-                            device=device, kv_quant=kv_quant,
+                            device=device, cfg=cfg, params=params,
+                            model=model, kv_quant=kv_quant,
                             page_size=page_size,
                             page_pool_pages=page_pool_pages, spec=spec,
-                            spec_k=spec_k, draft_layers=draft_layers)
+                            spec_k=spec_k, draft_layers=draft_layers,
+                            max_queue=max_queue, deadline_ms=deadline_ms,
+                            chaos=chaos)
     eng.run(synth_requests(arch, smoke=smoke, requests=requests,
                            prompt_len=prompt_len, gen=gen, seed=seed,
-                           shared_prefix=shared_prefix))
+                           shared_prefix=shared_prefix,
+                           repeat_period=repeat_period, cfg=eng.model.cfg),
+            stop=(lambda: stop(eng)) if stop is not None else None)
     return eng
 
 
-def _assert_identical(eng: ServeEngine, ref: ServeEngine, label: str) -> int:
-    """``eng``'s non-error completions equal ``ref``'s token for token;
-    returns how many were compared."""
+def make_fleet(arch: str = "pimref-100m", *, shards: int = 2,
+               backend: str = "inproc", smoke: bool = True, slots: int = 4,
+               prompt_len: int = 32, gen: int = 16, chunk: int = 8,
+               seed: int = 0, temperature: float = 0.0, top_k: int = 0,
+               spec: str = "off", spec_k: Optional[int] = None,
+               fleet_chaos: Optional[ShardChaosConfig] = None,
+               checkpoint_every: int = 1, manifest_dir: Optional[str] = None,
+               miss_suspect: int = 2, miss_dead: int = 4,
+               heartbeat_timeout_s: float = 120.0, max_replays: int = 2,
+               **engine_kwargs: Any) -> ServeFleet:
+    """A :class:`ServeFleet` of identical engine shards: the same arch,
+    seed, layout and knobs (``engine_kwargs`` goes to
+    :func:`make_queue_engine`), so any shard decodes any request as any
+    other, which failover replay rests on. In-process shards may share one
+    ``model`` (its weights); each ``mp`` worker (spawned) builds its own
+    engine on the device named (``device``, the card by default) from the
+    same seed or ``params``."""
+    ekw = dict(arch=arch, smoke=smoke, slots=slots, prompt_len=prompt_len,
+               gen=gen, chunk=chunk, seed=seed, temperature=temperature,
+               top_k=top_k, spec=spec, spec_k=spec_k, **engine_kwargs)
+    factory = worker_spec = None
+    if backend == "mp":
+        if ekw.get("model") is not None:
+            raise ValueError("an mp fleet's workers build their own models: "
+                             "pass seed or params, not model")
+        worker_spec = {"engine": ekw, "env": {}}
+    else:
+        factory = lambda sid: make_queue_engine(**ekw)  # noqa: E731
+    return ServeFleet(factory, shards=shards, backend=backend,
+                      worker_spec=worker_spec, chaos=fleet_chaos,
+                      checkpoint_every=checkpoint_every,
+                      manifest_dir=manifest_dir, miss_suspect=miss_suspect,
+                      miss_dead=miss_dead,
+                      heartbeat_timeout_s=heartbeat_timeout_s,
+                      max_replays=max_replays, seed=seed)
+
+
+def serve_fleet(arch: str = "pimref-100m", *, smoke: bool = True,
+                shards: int = 2, backend: str = "inproc", slots: int = 4,
+                requests: int = 10, prompt_len: int = 32, gen: int = 16,
+                chunk: int = 8, seed: int = 0, temperature: float = 0.0,
+                top_k: int = 0, shared_prefix: int = 0,
+                repeat_period: int = 0, spec: str = "off",
+                spec_k: Optional[int] = None,
+                **fleet_kwargs: Any) -> ServeFleet:
+    """Drain the queue-mode request stream through a sharded fleet; returns
+    the drained fleet (the caller closes it). The stream is
+    :func:`serve_queue`'s, so one engine drains the same queue for the
+    byte-identity check."""
+    fleet = make_fleet(arch, shards=shards, backend=backend, smoke=smoke,
+                       slots=slots, prompt_len=prompt_len, gen=gen,
+                       chunk=chunk, seed=seed, temperature=temperature,
+                       top_k=top_k, spec=spec, spec_k=spec_k, **fleet_kwargs)
+    try:
+        fleet.run(synth_requests(arch, smoke=smoke, requests=requests,
+                                 prompt_len=prompt_len, gen=gen, seed=seed,
+                                 shared_prefix=shared_prefix,
+                                 repeat_period=repeat_period,
+                                 cfg=fleet_kwargs.get("cfg")))
+    except BaseException:
+        fleet.close()
+        raise
+    return fleet
+
+
+def _print_fleet_stats(fleet: ServeFleet) -> None:
+    s = fleet.stats
+    print(f"fleet: {fleet.n_shards} shards ({fleet.backend}), "
+          f"{len(fleet.completions)} requests, {s['tokens_out']} tokens in "
+          f"{s['wall_seconds']:.2f}s ({s['tokens_per_second']:.1f} tok/s), "
+          f"{s['fleet_steps']} fleet steps, {s['checkpoints']} checkpoints")
+    if (s["failovers"] or s["heartbeat_misses"] or s["error_completions"]
+            or fleet.chaos_events):
+        print(f"fleet robust: {s['failovers']} failovers "
+              f"({s['replays']} replays, {s['shard_lost']} shard_lost), "
+              f"{s['heartbeat_misses']} heartbeat misses "
+              f"({s.get('suspects', 0)} suspects, "
+              f"{s.get('recoveries', 0)} recoveries, "
+              f"{s.get('deaths', 0)} deaths), "
+              f"{s['error_completions']} error completions, "
+              f"{len(fleet.chaos_events)} chaos events")
+    for row in fleet.per_shard_stats():
+        print(f"  shard {row['shard']} [{row['state']}]: "
+              f"{row['tokens_out']} tokens, {row['dispatches']} dispatches, "
+              f"{row['tok_s']:.1f} tok/s, p50 {row['p50_ms']:.1f}ms, "
+              f"p95 {row['p95_ms']:.1f}ms")
+
+
+# the reference's environment knobs of a serving manifest: the port's
+# manifests record the layout under them too, so either package restores it
+_SERVE_ENV_KNOBS = ("REPRO_KV_PAGES", "REPRO_KV_QUANT", "REPRO_SPEC_DECODE",
+                    "REPRO_SPEC_K", "REPRO_ATTN_IMPL")
+
+
+def save_serve_manifest(path: str, eng: ServeEngine, *, arch: str,
+                        smoke: bool, slots: int, prompt_len: int, gen: int,
+                        chunk: int,
+                        queue: Optional[Dict[str, Any]] = None) -> None:
+    """Write a serving :class:`RestartManifest`: the engine's snapshot and
+    what a restarted process needs to build the same engine. The layout
+    and drafter are fields of the ``engine`` block (``kv_quant``,
+    ``page_size``, ``spec``, ``spec_k``, ``draft_layers``, ``device``) and
+    also its ``env``, under the reference's knob names."""
+    snap = eng.snapshot()
+    env = {"REPRO_KV_PAGES": str(eng.model.page_size),
+           "REPRO_KV_QUANT": eng.model.kv_quant,
+           "REPRO_SPEC_DECODE": eng.spec}
+    if eng.spec != "off":
+        env["REPRO_SPEC_K"] = str(eng.spec_k)
+    snap["engine"] = {
+        "arch": arch, "smoke": smoke, "slots": slots,
+        "prompt_len": prompt_len, "gen": gen, "chunk": chunk,
+        "top_k": eng._top_k, "spec": eng.spec, "spec_k": eng.spec_k,
+        "draft_layers": eng._generate.draft_layers or None,
+        "kv_quant": eng.model.kv_quant, "page_size": eng.model.page_size,
+        "device": eng.device.type, "env": env,
+    }
+    if queue is not None:
+        snap["engine"]["queue"] = queue
+    RestartManifest(
+        step=eng.stats["decode_dispatches"], checkpoint_dir="",
+        mesh_shape=[1], mesh_axes=["data"], data_seed=eng.seed, arch=arch,
+        shape="serve", straggler_events=list(eng._straggler.flagged),
+        serve=snap,
+    ).save(path)
+
+
+def _manifest_layout(ecfg: Dict[str, Any]) -> Dict[str, Any]:
+    """The KV layout and drafter of a manifest's ``engine`` block: its
+    fields (a port manifest) or else its ``env`` knobs (a reference
+    manifest)."""
+    env = ecfg.get("env", {})
+    spec = ecfg.get("spec") or env.get("REPRO_SPEC_DECODE") or "off"
+    spec_k = ecfg.get("spec_k") or env.get("REPRO_SPEC_K")
+    return dict(
+        kv_quant=ecfg.get("kv_quant") or env.get("REPRO_KV_QUANT") or "off",
+        page_size=int(ecfg.get("page_size")
+                      or env.get("REPRO_KV_PAGES") or 0),
+        spec=spec, spec_k=int(spec_k) if spec != "off" and spec_k else None,
+        draft_layers=ecfg.get("draft_layers"))
+
+
+def restore_serve(path: str, *, device=None, cfg: Optional[ModelConfig] = None,
+                  params=None, model=None, resume: bool = False
+                  ) -> ServeEngine:
+    """Rebuild a :class:`ServeEngine` from a serving manifest (the port's or
+    the reference's) and drain it. In-flight requests regenerate from their
+    prompts, so greedy completions equal an uninterrupted drain's;
+    ``resume=True`` (paged) re-prefills ``prompt + produced`` instead, the
+    bucket grown to the longest such prompt (see
+    :meth:`ServeEngine.load_snapshot`). ``device`` defaults to the
+    manifest's (the card when it names none); ``cfg`` / ``params`` /
+    ``model`` give the weights, else the seed's."""
+    man = RestartManifest.load(path)
+    if man.serve is None:
+        raise ValueError(f"{path}: not a serving manifest")
+    snap = man.serve
+    ecfg = snap["engine"]
+    prompt_len = ecfg["prompt_len"]
+    if resume:
+        need = max((len(d["tokens"]) + len(d.get("produced", []))
+                    for d in snap.get("queued", []) + snap.get("active", [])),
+                   default=0)
+        prompt_len = max(prompt_len, need)
+    eng = make_queue_engine(
+        ecfg["arch"], smoke=ecfg["smoke"], slots=ecfg["slots"],
+        prompt_len=prompt_len, gen=ecfg["gen"], chunk=ecfg["chunk"],
+        seed=snap["seed"], temperature=snap["temperature"],
+        top_k=ecfg.get("top_k", 0),
+        device=device or ecfg.get("device", "cuda"), cfg=cfg, params=params,
+        model=model, **_manifest_layout(ecfg))
+    eng.load_snapshot(snap, resume=resume)
+    eng.run()
+    return eng
+
+
+def _print_queue_stats(eng: ServeEngine) -> None:
+    s = eng.stats
+    print(f"device={eng.device} {len(eng.completions)} requests, "
+          f"{s['tokens_out']} tokens in {s['wall_seconds']:.3f}s "
+          f"({s['tokens_per_second']:.1f} tok/s, "
+          f"{s['dispatches_per_token']:.3f} dispatches/token, "
+          f"{s['prefills']} prefills)")
+    print(f"kv: {s['kv_hbm_bytes_peak'] / 1e6:.2f} MB peak "
+          f"({s['kv_bytes_per_token']:.0f} B/token"
+          + (f", {s['kv_pages_peak']} pages peak, "
+             f"{s['prefix_hits']} prefix hits" if eng.paged else "")
+          + ")")
+    if eng.spec != "off":
+        print(f"spec: mode={eng.spec} k={eng.spec_k} accepted_len/draft="
+              f"{s['spec_accepted_len_per_draft']:.3f} "
+              f"accept hist={s['spec_accept_hist']}")
+    if (s["error_completions"] or s["deadline_miss"] or s["retries"]
+            or s["shed_events"] or s["admission_blocked"]
+            or eng.chaos_events):
+        print(f"robust: {s['error_completions']} error completions "
+              f"({s['deadline_miss']} deadline misses), "
+              f"{s['retries']} retries, {s['shed_events']} shed events, "
+              f"{s['straggler_events']} stragglers, "
+              f"{s['admission_blocked']} admission stalls, "
+              f"queue peak {s['queue_peak']}, "
+              f"{len(eng.chaos_events)} chaos events")
+
+
+def _assert_identical(eng, ref, label: str, skip_uids=()) -> int:
+    """``eng``'s non-error completions (an engine's or a fleet's) equal
+    ``ref``'s token for token, but for ``skip_uids``; returns how many
+    were compared."""
     got = {c.uid: c for c in eng.completions}
     want = sorted(c.uid for c in ref.completions)
     if sorted(got) != want:
@@ -291,7 +536,7 @@ def _assert_identical(eng: ServeEngine, ref: ServeEngine, label: str) -> int:
     checked = 0
     for c in ref.completions:
         g = got[c.uid]
-        if g.finish_reason == "error":
+        if g.finish_reason == "error" or c.uid in skip_uids:
             continue
         if list(np.asarray(g.tokens)) != list(np.asarray(c.tokens)):
             raise AssertionError(f"{label} mismatch on uid={c.uid}: "
@@ -330,6 +575,9 @@ def main() -> None:
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="queue mode: give every request the same first N "
                     "tokens (exercises paged prefix sharing)")
+    ap.add_argument("--repeat-period", type=int, default=0,
+                    help="queue mode: tile each prompt from a short period "
+                    "(what the n-gram drafter finds)")
     ap.add_argument("--spec-decode", default="off",
                     choices=list(SPEC_DECODE_MODES),
                     help="speculative decoding inside the fused chunk: "
@@ -340,35 +588,169 @@ def main() -> None:
     ap.add_argument("--spec-verify", action="store_true",
                     help="queue mode: drain the same queue again with "
                     "speculation off and assert identical completions")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="queue mode: bound the waiting queue; submissions "
+                    "beyond it get a queue_full error completion")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="queue mode: per-request deadline; overdue requests "
+                    "retire with a deadline error completion")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="queue mode: arm seeded fault injection; the plan "
+                    "comes from REPRO_CHAOS (e.g. 'nan=1,slow=2,fail=1,"
+                    "pages=4') or defaults to nan=1,slow=1,fail=1")
+    ap.add_argument("--chaos-verify", action="store_true",
+                    help="queue mode: drain the same queue without chaos and "
+                    "assert the fault-free survivors are byte-identical")
+    ap.add_argument("--preempt-after", type=int, default=None,
+                    help="queue mode: raise SIGTERM after N chunks and write "
+                    "the in-flight state to --snapshot (the real signal "
+                    "path)")
+    ap.add_argument("--snapshot", default="serve_manifest.json",
+                    help="manifest written on preemption")
+    ap.add_argument("--restore", default=None,
+                    help="restore a serving manifest and drain the remaining "
+                    "requests (implies queue mode)")
+    ap.add_argument("--restore-verify", action="store_true",
+                    help="with --restore: also drain the original queue "
+                    "uninterrupted and assert byte-identical completions")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="queue mode: drain through a ServeFleet of this "
+                    "many engine shards (1 = one engine, no fleet)")
+    ap.add_argument("--fleet-backend", default="inproc",
+                    choices=["inproc", "mp"],
+                    help="shards as objects in this process, or spawned "
+                    "worker processes, each with its own engine on --device")
+    ap.add_argument("--fleet-chaos", default=None,
+                    help="shard-level fault plan, e.g. 'kill=1@2' (kill "
+                    "shard 1 at fleet step 2), 'stall=0@3', 'drop=1@2x2', "
+                    "or seeded budgets 'kills=1,seed=7' (implies --shards)")
+    ap.add_argument("--fleet-verify", action="store_true",
+                    help="drain the same queue through one engine and assert "
+                    "exactly one completion per request with byte-identical "
+                    "survivors")
+    ap.add_argument("--heartbeat-timeout", type=float, default=120.0,
+                    help="seconds a shard may owe its step reply before a "
+                    "missed heartbeat is counted")
+    ap.add_argument("--miss-suspect", type=int, default=2,
+                    help="consecutive missed heartbeats before a shard is "
+                    "SUSPECT (no new routing)")
+    ap.add_argument("--miss-dead", type=int, default=4,
+                    help="consecutive missed heartbeats before a shard is "
+                    "DEAD (failover)")
+    ap.add_argument("--checkpoint-every", type=int, default=1,
+                    help="fleet steps between shard snapshots (the failover "
+                    "replay source)")
+    ap.add_argument("--manifest-dir", default=None,
+                    help="persist each shard snapshot as an atomic "
+                    "RestartManifest under this directory")
     args = ap.parse_args()
+    if args.restore:
+        eng = restore_serve(args.restore, device=args.device)
+        _print_queue_stats(eng)
+        if args.restore_verify:
+            man = RestartManifest.load(args.restore)
+            e, q = man.serve["engine"], man.serve["engine"].get("queue")
+            if not q:
+                raise SystemExit("--restore-verify needs a manifest saved "
+                                 "by queue mode")
+            layout = _manifest_layout(e)
+            ref = serve_queue(
+                e["arch"], smoke=e["smoke"], slots=e["slots"],
+                requests=q["requests"], prompt_len=e["prompt_len"],
+                gen=e["gen"], chunk=e["chunk"], seed=man.serve["seed"],
+                temperature=man.serve["temperature"], top_k=e.get("top_k", 0),
+                shared_prefix=q.get("shared_prefix", 0),
+                repeat_period=q.get("repeat_period", 0), device=args.device,
+                **layout)
+            n = _assert_identical(eng, ref, "restore-verify")
+            print(f"restore-verify: {n} completions byte-identical with an "
+                  "uninterrupted drain")
+        return
     layout = dict(kv_quant=args.kv_quant, page_size=args.kv_page_size)
     if args.mode == "queue":
+        chaos = ChaosConfig.from_env(args.chaos_seed)
+        if chaos is None and args.chaos_seed is not None:
+            chaos = ChaosConfig.parse("nan=1,slow=1,fail=1",
+                                      seed=args.chaos_seed)
         queue_kw = dict(
             smoke=args.smoke, slots=args.slots, requests=args.requests,
             prompt_len=args.prompt_len, gen=args.gen, chunk=args.chunk,
             seed=args.seed, temperature=args.temperature, top_k=args.top_k,
             shared_prefix=args.shared_prefix,
-            page_pool_pages=args.page_pool_pages, device=args.device,
-            **layout)
-        eng = serve_queue(args.arch, spec=args.spec_decode,
-                          spec_k=args.spec_k, **queue_kw)
-        s = eng.stats
-        print(f"device={eng.device} {len(eng.completions)} requests, "
-              f"{s['tokens_out']} tokens in {s['wall_seconds']:.3f}s "
-              f"({s['tokens_per_second']:.1f} tok/s, "
-              f"{s['dispatches_per_token']:.3f} dispatches/token, "
-              f"{s['prefills']} prefills)")
-        print(f"kv: {s['kv_hbm_bytes_peak'] / 1e6:.2f} MB peak "
-              f"({s['kv_bytes_per_token']:.0f} B/token"
-              + (f", {s['kv_pages_peak']} pages peak, "
-                 f"{s['prefix_hits']} prefix hits" if eng.paged else "")
-              + ")")
-        if eng.spec != "off":
-            print(f"spec: mode={eng.spec} k={eng.spec_k} accepted_len/draft="
-                  f"{s['spec_accepted_len_per_draft']:.3f} "
-                  f"accept hist={s['spec_accept_hist']}")
+            repeat_period=args.repeat_period, device=args.device,
+            spec=args.spec_decode, spec_k=args.spec_k, **layout)
+        if args.shards > 1 or args.fleet_chaos or \
+                args.fleet_backend == "mp":
+            fc = (ShardChaosConfig.parse(args.fleet_chaos,
+                                         seed=args.chaos_seed or 0)
+                  if args.fleet_chaos else None)
+            fleet = serve_fleet(
+                args.arch, shards=max(args.shards, 1),
+                backend=args.fleet_backend, fleet_chaos=fc,
+                checkpoint_every=args.checkpoint_every,
+                manifest_dir=args.manifest_dir,
+                miss_suspect=args.miss_suspect, miss_dead=args.miss_dead,
+                heartbeat_timeout_s=args.heartbeat_timeout,
+                page_pool_pages=args.page_pool_pages, **queue_kw)
+            _print_fleet_stats(fleet)
+            try:
+                if args.fleet_verify:
+                    uids = sorted(c.uid for c in fleet.completions)
+                    if uids != list(range(args.requests)):
+                        raise AssertionError(
+                            f"fleet-verify: expected exactly one completion "
+                            f"per request, got uids {uids}")
+                    ref = serve_queue(args.arch,
+                                      page_pool_pages=args.page_pool_pages,
+                                      **queue_kw)
+                    n = _assert_identical(fleet, ref, "fleet-verify")
+                    print(f"fleet-verify: {n}/{args.requests} surviving "
+                          f"completions byte-identical with a single-engine "
+                          f"drain ({fleet.stats['failovers']} failovers)")
+            finally:
+                fleet.close()
+            return
+        handler = stop = None
+        if args.preempt_after is not None:
+            handler = PreemptionHandler().install()
+
+            def stop(e, _h=handler):
+                if (not _h.requested and
+                        e.stats["decode_dispatches"] >= args.preempt_after):
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return _h.requested
+        eng = serve_queue(args.arch, max_queue=args.max_queue,
+                          deadline_ms=args.deadline_ms, chaos=chaos,
+                          page_pool_pages=args.page_pool_pages, stop=stop,
+                          **queue_kw)
+        _print_queue_stats(eng)
+        if handler is not None:
+            handler.uninstall()
+            if handler.requested:
+                save_serve_manifest(
+                    args.snapshot, eng, arch=args.arch, smoke=args.smoke,
+                    slots=args.slots, prompt_len=args.prompt_len,
+                    gen=args.gen, chunk=args.chunk,
+                    queue={"requests": args.requests,
+                           "shared_prefix": args.shared_prefix,
+                           "repeat_period": args.repeat_period})
+                print(f"preempted after {eng.stats['decode_dispatches']} "
+                      f"chunks: {len(eng.completions)}/{args.requests} done, "
+                      f"manifest -> {args.snapshot}")
+                return
+        if args.chaos_verify and chaos is not None:
+            ref = serve_queue(args.arch, page_pool_pages=args.page_pool_pages,
+                              **queue_kw)
+            poisoned = {ev["uid"] for ev in eng.chaos_events
+                        if ev["kind"] == "nan"}
+            n = _assert_identical(eng, ref, "chaos-verify",
+                                  skip_uids=poisoned)
+            print(f"chaos-verify: {n}/{len(eng.completions)} fault-free "
+                  f"survivors byte-identical "
+                  f"({len(eng.chaos_events)} injected events)")
         if args.spec_verify and eng.spec != "off":
-            ref = serve_queue(args.arch, spec="off", **queue_kw)
+            ref = serve_queue(args.arch, page_pool_pages=args.page_pool_pages,
+                              **{**queue_kw, "spec": "off"})
             n = _assert_identical(eng, ref, "spec-verify")
             print(f"spec-verify: {n} completions byte-identical with "
                   "speculation off")

@@ -22,7 +22,7 @@ from __future__ import annotations
 import time
 import warnings
 from dataclasses import dataclass, fields, is_dataclass
-from typing import Iterator, List, Optional, Tuple, Union
+from typing import Callable, Iterator, List, Optional, Tuple, Union
 
 import torch
 
@@ -241,10 +241,14 @@ def cache_tensors(x) -> Iterator[torch.Tensor]:
 def decode_chunk(model, cache, tok: torch.Tensor,
                  generator: Optional[torch.Generator],
                  eos_id: Union[int, torch.Tensor], *, chunk: int,
-                 temperature: float = 0.0, top_k: int = 0):
+                 temperature: float = 0.0, top_k: int = 0,
+                 logits_hook: Optional[Callable] = None,
+                 arm: Optional[torch.Tensor] = None):
     """The chunk body, run eagerly: ``chunk`` decode steps from ``tok``
     (B, 1). Returns (next tok, done, n_valid, toks, failed), as
-    :func:`make_generate_step` describes them; updates ``cache`` in place."""
+    :func:`make_generate_step` describes them; updates ``cache`` in place.
+    ``logits_hook(logits, row_pos, arm)`` sees each step's logits before
+    the finite guard, ``row_pos`` (B, 1) their cache positions."""
     B = tok.shape[0]
     dev = tok.device
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -255,7 +259,11 @@ def decode_chunk(model, cache, tok: torch.Tensor,
         emitted = tok[:, 0]
         done_now = done | (emitted == eos_id)
         n_valid = n_valid + (~(done | failed)).to(torch.int32)
+        if logits_hook is not None:
+            pos0 = cache["pos"].clone()
         logits, cache = model.decode_step(cache, tok)
+        if logits_hook is not None:
+            logits = logits_hook(logits, pos0[:, None], arm)
         failed_now = failed | (~slot_isfinite(logits) & ~done_now)
         nxt = sample_tokens(logits[:, -1], generator, temperature, top_k)
         nxt = torch.where(done_now | failed_now, emitted, nxt)
@@ -282,7 +290,9 @@ def spec_decode_chunk(model, cache, tok: torch.Tensor,
                       eos_id: Union[int, torch.Tensor], hist: torch.Tensor,
                       hist_len: torch.Tensor, *, chunk: int, k: int,
                       mode: str, draft_layers: int = 1,
-                      temperature: float = 0.0, top_k: int = 0):
+                      temperature: float = 0.0, top_k: int = 0,
+                      logits_hook: Optional[Callable] = None,
+                      arm: Optional[torch.Tensor] = None):
     """The speculative chunk body, run eagerly: ``chunk`` draft-verify
     iterations from ``tok`` (B, 1). Each drafts k tokens (``ngram``: lookup
     over ``hist``; ``draft``: k greedy steps through the first
@@ -292,7 +302,8 @@ def spec_decode_chunk(model, cache, tok: torch.Tensor,
     token (truncated at EOS), and rolls back by rewinding ``cache["pos"]``.
     Returns (next tok, done, n_valid, toks, hist, hist_len, acc, failed), as
     :func:`make_generate_step` describes them; ``cache``, ``hist`` and
-    ``hist_len`` are updated in place."""
+    ``hist_len`` are updated in place. ``logits_hook`` sees the verify
+    block's logits, rows at positions ``pos0 + 0..k``."""
     B = tok.shape[0]
     dev = tok.device
     span = k + 1
@@ -319,6 +330,8 @@ def spec_decode_chunk(model, cache, tok: torch.Tensor,
         blk = torch.cat([tok, drafts], 1)                   # (B, k + 1)
         pos0 = pos.clone()
         logits, _ = model.decode_step(cache, blk)
+        if logits_hook is not None:
+            logits = logits_hook(logits, pos0[:, None] + idx[None, :], arm)
         # row j's logits are the target of draft j + 1 and the bonus after j
         # accepts: acceptance stops at the last finite target
         fin_row = torch.isfinite(logits).all(dim=-1)        # (B, k + 1)
@@ -378,8 +391,9 @@ def _cache_key(cache, tok: torch.Tensor, state: Tuple = ()) -> Tuple:
 @dataclass
 class _Captured:
     """One captured chunk: the graph, what it was captured on (the cache and
-    history, the generator, the weights), its static inputs ``tok`` and
-    ``eos`` and outputs, and the launches of one replay."""
+    history, the generator, the weights), its static inputs ``tok``,
+    ``eos`` and (with a logits hook) ``arm`` and outputs, and the launches
+    of one replay."""
 
     graph: "torch.cuda.CUDAGraph"
     key: Tuple
@@ -387,6 +401,7 @@ class _Captured:
     weights: Tuple
     tok: torch.Tensor
     eos: torch.Tensor
+    arm: Optional[torch.Tensor]
     outputs: Tuple[torch.Tensor, ...]
     launches: List[int]
 
@@ -399,9 +414,11 @@ class GenerateStep:
 
     def __init__(self, model, *, chunk: int, temperature: float = 0.0,
                  top_k: int = 0, spec: str = "off", spec_k: int = 0,
-                 draft_layers: Optional[int] = None):
+                 draft_layers: Optional[int] = None,
+                 logits_hook: Optional[Callable] = None):
         self.model, self.chunk = model, chunk
         self.temperature, self.top_k = temperature, top_k
+        self.logits_hook = logits_hook
         self.spec = check_spec_decode(spec)
         self.spec_k = 0 if spec == "off" else check_spec_k(spec_k)
         L = model.cfg.num_layers
@@ -421,99 +438,117 @@ class GenerateStep:
                                 else "required"))
         return () if self.spec == "off" else (hist, hist_len)
 
-    def _body(self, cache, tok, generator, eos_id, *state):
+    def _arm(self, arm: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """``arm`` (B,) int32, taken iff the step has a logits hook."""
+        if (self.logits_hook is None) != (arm is None):
+            raise ValueError("arm is " + ("required with" if arm is None
+                                          else "not taken without")
+                             + " a logits hook")
+        return arm
+
+    def _body(self, cache, tok, generator, eos_id, *state, arm=None):
+        hook = dict(logits_hook=self.logits_hook, arm=arm)
         if self.spec == "off":
             return decode_chunk(self.model, cache, tok, generator, eos_id,
                                 chunk=self.chunk, temperature=self.temperature,
-                                top_k=self.top_k)
+                                top_k=self.top_k, **hook)
         return spec_decode_chunk(self.model, cache, tok, generator, eos_id,
                                  *state, chunk=self.chunk, k=self.spec_k,
                                  mode=self.spec,
                                  draft_layers=self.draft_layers,
                                  temperature=self.temperature,
-                                 top_k=self.top_k)
+                                 top_k=self.top_k, **hook)
 
-    def _eager(self, cache, tok, generator, eos_id, *state):
-        tok, *outputs = self._body(cache, tok, generator, eos_id, *state)
+    def _eager(self, cache, tok, generator, eos_id, *state, arm=None):
+        tok, *outputs = self._body(cache, tok, generator, eos_id, *state,
+                                   arm=arm)
         return (cache, tok, generator, *outputs)
 
-    def _warm_up(self, cache, tok: torch.Tensor, state: Tuple = ()) -> None:
+    def _warm_up(self, cache, tok: torch.Tensor, state: Tuple = (),
+                 arm: Optional[torch.Tensor] = None) -> None:
         """One eager chunk on copies of the cache and the history:
         first-call costs (cuBLAS handles, weight casts) paid, the cache,
         the history, ``tok`` and the caller's generator untouched."""
         spare = (torch.Generator(device=tok.device).manual_seed(0)
                  if self.temperature > 0 else None)
         self._body(clone_cache(cache), tok.clone(), spare, -1,
-                   *(t.clone() for t in state))
+                   *(t.clone() for t in state),
+                   arm=None if arm is None else arm.clone())
 
     def _capture(self, cache, tok: torch.Tensor,
                  generator: Optional[torch.Generator],
-                 state: Tuple) -> _Captured:
+                 state: Tuple, arm: Optional[torch.Tensor]) -> _Captured:
         t0 = time.perf_counter()
         self._captured = None                 # free the old graph's pool
         dev = tok.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self._warm_up(cache, tok, state)
+            self._warm_up(cache, tok, state, arm)
         torch.cuda.current_stream(dev).wait_stream(side)
         static_tok = tok.clone()
         eos = torch.full((), -1, dtype=torch.int32, device=dev)
+        static_arm = None if arm is None else arm.clone()
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
         before = _launch_counts()
         with torch.cuda.graph(graph):
             nxt, *outputs = self._body(cache, static_tok, generator, eos,
-                                       *state)
+                                       *state, arm=static_arm)
             static_tok.copy_(nxt)
         # capture launches nothing: take its counts back, add them per replay
         delta = [a - b for a, b in zip(_launch_counts(), before)]
         _add_launches([-d for d in delta])
         self._captured = _Captured(graph, _cache_key(cache, tok, state),
                                    generator, _weights(self.model), static_tok,
-                                   eos, tuple(outputs), delta)
+                                   eos, static_arm, tuple(outputs), delta)
         self.captures += 1
         self.capture_seconds += time.perf_counter() - t0
         return self._captured
 
-    def _graph_for(self, cache, tok, generator, state) -> _Captured:
+    def _graph_for(self, cache, tok, generator, state, arm) -> _Captured:
         c = self._captured
         if (c is None or c.generator is not generator
                 or c.key != _cache_key(cache, tok, state)
                 or c.weights != _weights(self.model)):
-            c = self._capture(cache, tok, generator, state)
+            c = self._capture(cache, tok, generator, state, arm)
         return c
 
     def prepare(self, cache, tok: torch.Tensor,
                 generator: Optional[torch.Generator],
                 hist: Optional[torch.Tensor] = None,
-                hist_len: Optional[torch.Tensor] = None) -> None:
+                hist_len: Optional[torch.Tensor] = None, *,
+                arm: Optional[torch.Tensor] = None) -> None:
         """First-call costs before the first chunk: on the card, the capture
         on ``cache`` (and the history), after the eager warm-up on copies;
         on the CPU, the warm-up alone. Neither changes ``cache``, the
-        history, ``tok`` or ``generator``."""
-        state = self._state(hist, hist_len)
+        history, ``tok``, ``arm`` or ``generator``."""
+        state, arm = self._state(hist, hist_len), self._arm(arm)
         if tok.device.type == "cuda":
-            self._graph_for(cache, tok, generator, state)
+            self._graph_for(cache, tok, generator, state, arm)
         else:
-            self._warm_up(cache, tok, state)
+            self._warm_up(cache, tok, state, arm)
 
     def __call__(self, cache, tok: torch.Tensor,
                  generator: Optional[torch.Generator],
                  eos_id: Union[int, torch.Tensor],
                  hist: Optional[torch.Tensor] = None,
-                 hist_len: Optional[torch.Tensor] = None):
-        state = self._state(hist, hist_len)
+                 hist_len: Optional[torch.Tensor] = None, *,
+                 arm: Optional[torch.Tensor] = None):
+        state, arm = self._state(hist, hist_len), self._arm(arm)
         if tok.device.type != "cuda":
-            return self._eager(cache, tok, generator, eos_id, *state)
-        c = self._graph_for(cache, tok, generator, state)
+            return self._eager(cache, tok, generator, eos_id, *state,
+                               arm=arm)
+        c = self._graph_for(cache, tok, generator, state, arm)
         if tok is not c.tok:
             c.tok.copy_(tok)
         if isinstance(eos_id, torch.Tensor):
             c.eos.copy_(eos_id)
         else:
             c.eos.fill_(eos_id)
+        if arm is not None and arm is not c.arm:
+            c.arm.copy_(arm)
         c.graph.replay()
         _add_launches(c.launches)
         return (cache, c.tok, generator) + c.outputs
@@ -521,7 +556,9 @@ class GenerateStep:
 
 def make_generate_step(model, *, chunk: int, temperature: float = 0.0,
                        top_k: int = 0, spec: str = "off", spec_k: int = 0,
-                       draft_layers: Optional[int] = None) -> GenerateStep:
+                       draft_layers: Optional[int] = None,
+                       logits_hook: Optional[Callable] = None
+                       ) -> GenerateStep:
     """Fused decode loop of ``chunk`` iterations:
 
         generate_step(cache, tok, generator, eos_id)
@@ -557,6 +594,17 @@ def make_generate_step(model, *, chunk: int, temperature: float = 0.0,
     order than the plain loop. The cache's ring must hold ``spec_k`` rows
     more than the positions served (the k-ahead writes).
 
+    ``logits_hook(logits, row_pos, arm) -> logits``, with ``row_pos`` (B,
+    S) the absolute cache position of each logits row, is the chaos
+    harness's NaN-injection point (:func:`~repro_torch.distributed.chaos.
+    nan_logits_hook`), applied where a real overflow would appear: before
+    the finite guard and the sampler, on every step's logits and on a
+    verify block's (positions ``pos0 + 0..k``). With a hook the call takes
+    a trailing keyword ``arm`` (B,) int32 (the poison position per slot, -1
+    disarmed): on the card a static input of the graph, copied in before
+    each replay like ``eos_id``, so armed and clean chunks replay one
+    graph.
+
     On the card the chunk is one CUDA graph replay. The graph is captured
     on the first call for a cache (keyed on the addresses of its tensors,
     and of ``hist`` and ``hist_len``, and on ``generator``, which is
@@ -575,4 +623,4 @@ def make_generate_step(model, *, chunk: int, temperature: float = 0.0,
     """
     return GenerateStep(model, chunk=chunk, temperature=temperature,
                         top_k=top_k, spec=spec, spec_k=spec_k,
-                        draft_layers=draft_layers)
+                        draft_layers=draft_layers, logits_hook=logits_hook)

@@ -2,8 +2,10 @@
 eagerly, on a card, at smoke size with head_dim 64 (a width the kernels
 take): ``pimref-100m`` in its six KV layouts and ``recurrentgemma-2b``
 across a window wrap, the engine, EOS set between chunks, a weight load
-after the capture, sampled decoding, and speculative decoding (both
-drafters; contiguous, int8 and pages of 16; a new history; the engine).
+after the capture, sampled decoding, speculative decoding (both drafters;
+contiguous, int8 and pages of 16; a new history; the engine), and the
+robust-serving layer (the NaN hook as a static input of the graph, a shed
+level's capture, a spawned worker killed by ``terminate()`` on the card).
 Imports neither jax nor the reference package:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
@@ -16,6 +18,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.distributed.chaos import (ShardChaosConfig,  # noqa: E402
+                                           nan_logits_hook)
 from repro_torch.kernels import launch_counters  # noqa: E402
 from repro_torch.launch import engine as engine_mod  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
@@ -42,13 +46,15 @@ def cuda():
 class EagerChunk(GenerateStep):
     """The chunk body run eagerly on the card: the graph's yardstick."""
 
-    def prepare(self, cache, tok, generator, hist=None, hist_len=None):
-        self._warm_up(cache, tok, self._state(hist, hist_len))
+    def prepare(self, cache, tok, generator, hist=None, hist_len=None, *,
+                arm=None):
+        self._warm_up(cache, tok, self._state(hist, hist_len),
+                      self._arm(arm))
 
     def __call__(self, cache, tok, generator, eos_id, hist=None,
-                 hist_len=None):
+                 hist_len=None, *, arm=None):
         return self._eager(cache, tok, generator, eos_id,
-                           *self._state(hist, hist_len))
+                           *self._state(hist, hist_len), arm=self._arm(arm))
 
 
 def _model(arch, dev, kv_quant="off", page_size=0, seed=0):
@@ -447,3 +453,157 @@ def test_engine_spec_drain(cuda, mode, kv_quant, page_size):
     assert sum(s["spec_accept_hist"]) == s["spec_draft_iters"] > 0
     if page_size:
         assert s["kv_pages_in_use"] == 0 and not eng._host_table.any()
+
+
+# ---------------------------------------------------------------------------
+# robust serving: the NaN hook in the graph, shedding, a spawned worker
+# ---------------------------------------------------------------------------
+def _hook_run(step, cache, tok, hist, hist_len, arm, chunks):
+    """``chunks`` chunks with the hook armed by ``arm``, read as ``_run``
+    (or, with speculation, ``_spec_run``) reads them."""
+    out = []
+    state = () if hist is None else (hist, hist_len)
+    for _ in range(chunks):
+        res = step(cache, tok, None, -1, *state, arm=arm)
+        tok = res[1]
+        cols = [res[5], res[3][:, None].int(), res[4][:, None]]
+        if state:
+            cols.append(res[8])
+        cols.append(res[-1][:, None].int())
+        if state:
+            cols.append(res[7][:, None])
+        out.append(torch.cat(cols, 1).cpu())
+    torch.cuda.synchronize()
+    return torch.cat(out, 1)
+
+
+def _hook_inputs(model, dev, spec):
+    if spec == "off":
+        cache, tok = _prefill(model, dev, B=4, S=20, max_len=40)
+        return cache, tok, None, None
+    return _spec_inputs(model, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["off", "ngram"])
+def test_hooked_graph_equals_hooked_eager_body(cuda, spec):
+    """The NaN hook inside the captured chunk (the verify block with
+    ``ngram``): armed rows 1 and 3 at positions inside the first and second
+    chunk, the graph's tokens, flags, counts and cache equal the hooked
+    eager body's; the armed slots fail, the others decode on; one capture;
+    a hooked replay launches what a clean one does."""
+    model = _model("pimref-100m", cuda)
+    kw = dict(chunk=4, logits_hook=nan_logits_hook)
+    if spec != "off":
+        kw.update(spec=spec, spec_k=K)
+    cache, tok, hist, hist_len = _hook_inputs(model, cuda, spec)
+    arm = torch.tensor([-1, 22, -1, 26], dtype=torch.int32, device=cuda)
+    eager = (clone_cache(cache), tok.clone(),
+             None if hist is None else hist.clone(),
+             None if hist is None else hist_len.clone())
+    want = _hook_run(EagerChunk(model, **kw), *eager, arm.clone(), 3)
+    step = make_generate_step(model, **kw)
+    step.prepare(cache, tok, None, *(() if hist is None else
+                                     (hist, hist_len)), arm=arm)
+    _reset()
+    got = _hook_run(step, cache, tok, hist, hist_len, arm, 3)
+    assert torch.equal(got, want)
+    _same_cache(cache, eager[0])
+    assert step.captures == 1
+    col = step.span + 2 + (4 if hist is not None else 0)
+    failed = sum(c[:, col] for c in got.split(got.shape[1] // 3, 1))
+    assert failed.tolist() == [0, 1, 0, 1]         # each in its chunk
+    want_launches = dict.fromkeys(_launches(), 0)
+    want_launches["flash_decode_fwd"] = (
+        3 * 4 * model.cfg.num_layers if spec == "off"
+        else _spec_launches(step, 3))
+    assert _launches() == want_launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["off", "ngram"])
+def test_disarmed_hooked_graph_equals_unhooked_graph(cuda, spec):
+    """Every slot disarmed (-1): the hooked graph's tokens, flags, counts
+    and cache are bitwise the unhooked graph's."""
+    model = _model("pimref-100m", cuda)
+    kw = dict(chunk=4)
+    if spec != "off":
+        kw.update(spec=spec, spec_k=K)
+    cache, tok, hist, hist_len = _hook_inputs(model, cuda, spec)
+    plain = (clone_cache(cache), tok.clone(),
+             None if hist is None else hist.clone(),
+             None if hist is None else hist_len.clone())
+    if spec == "off":
+        want, want_cache = _run(make_generate_step(model, **kw), plain[0],
+                                plain[1], 3)
+    else:
+        want = _spec_run(make_generate_step(model, **kw), *plain, 3)
+        want_cache = plain[0]
+    arm = torch.full((tok.shape[0],), -1, dtype=torch.int32, device=cuda)
+    got = _hook_run(make_generate_step(model, logits_hook=nan_logits_hook,
+                                       **kw), cache, tok, hist, hist_len,
+                    arm, 3)
+    assert torch.equal(got, want)
+    _same_cache(cache, want_cache)
+
+
+@pytest.mark.cuda
+def test_shed_program_captures_once(cuda):
+    """A shed level is a new program: its first chunk captures its graph
+    once (recorded in ``shed_capture_seconds``), the level-0 program keeps
+    its graph, and the drain's tokens equal an unshed engine's."""
+    model = _model("pimref-100m", cuda)
+    kw = dict(model=model, slots=3, prompt_len=16, gen=12, chunk=4)
+    reqs = _requests(model.cfg.vocab_size)
+    want = tserve.make_queue_engine(**kw).run(list(reqs))
+
+    class FlagOnce:
+        flagged = []
+
+        def step_start(self):
+            pass
+
+        def step_end(self, idx):
+            return {"step": idx} if idx == 1 else None
+
+    eng = tserve.make_queue_engine(shed_after=1, **kw)
+    eng._straggler = FlagOnce()
+    got = eng.run(list(reqs))
+    s = eng.stats
+    assert s["shed_events"] == 1 and eng._gen_shed.chunk == 2
+    assert eng._gen_shed.captures == 1 and eng._generate.captures == 1
+    assert eng._generate._captured is not None
+    assert s["graph_captures"] == 2
+    assert len(s["shed_capture_seconds"]) == 1
+    assert s["shed_capture_seconds"][0] > 0
+    key = lambda c: c.uid  # noqa: E731
+    assert [(c.uid, list(c.tokens)) for c in sorted(got, key=key)] == \
+        [(c.uid, list(c.tokens)) for c in sorted(want, key=key)]
+
+
+@pytest.mark.cuda
+def test_mp_shard_kill_is_a_real_terminate_and_fails_over(cuda):
+    """Two spawned workers, each building its engine on the card from the
+    same seed; a kill at fleet step 2 terminates worker 1's process; the
+    fleet notices, fails over, and every request completes once, equal to
+    one engine's drain on the card."""
+    cfg = get_config("pimref-100m", smoke=True).replace(head_dim=64)
+    kw = dict(slots=3, prompt_len=16, gen=12, chunk=4, page_size=PAGE,
+              cfg=cfg, seed=0)
+    reqs = _requests(cfg.vocab_size)
+    want = tserve.make_queue_engine(device="cuda", **kw).run(list(reqs))
+    fleet = tserve.make_fleet(backend="mp", shards=2, device="cuda",
+                              fleet_chaos=ShardChaosConfig.parse("kill=1@2"),
+                              **kw)
+    try:
+        assert all(sh.info["device"].startswith("cuda")
+                   for sh in fleet.shards)
+        got = fleet.run(list(reqs))
+        assert sorted(c.uid for c in got) == [r.uid for r in reqs]
+        assert fleet.stats["failovers"] == 1
+        assert not fleet.shards[1].proc.is_alive()
+        key = lambda c: c.uid  # noqa: E731
+        assert [(c.uid, list(c.tokens)) for c in sorted(got, key=key)] == \
+            [(c.uid, list(c.tokens)) for c in sorted(want, key=key)]
+    finally:
+        fleet.close()

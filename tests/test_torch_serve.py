@@ -253,9 +253,9 @@ def test_port_imports_no_jax_and_no_reference():
     """Every repro_torch module (the Griffin model, the RG-LRU kernel, the
     narrow-value and quantized-matmul kernels, the Proteus host layer and
     the training stack: train loop, optimizers, data, checkpoints, fault
-    tolerance and chaos, the attention kernel under autograd, among them)
-    and chip_smoke.py's imports load without jax or the reference
-    package."""
+    tolerance and chaos, the attention kernel under autograd, the fleet and
+    its dispatcher, among them) and chip_smoke.py's imports load without
+    jax or the reference package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -278,7 +278,8 @@ def test_port_imports_no_jax_and_no_reference():
         "       'repro_torch.checkpoint.manager', 'repro_torch.tree',\n"
         "       'repro_torch.distributed.chaos',\n"
         "       'repro_torch.distributed.fault_tolerance',\n"
-        "       'repro_torch.kernels.flash_attention.autograd')\n"
+        "       'repro_torch.kernels.flash_attention.autograd',\n"
+        "       'repro_torch.launch.fleet', 'repro_torch.distributed.dispatcher')\n"
         "from repro_torch.kernels.flash_attention import (attention_ref_bh,\n"
         "    flash_attention_bh)\n"
         "assert all(n in sys.modules for n in new), new\n"
