@@ -175,6 +175,33 @@ vector's int4 codes, bitwise, with an exact round trip; the
 and ``flash_attention_bh_fp32``). Exact launch counts, then device times at
 the path's shapes.
 
+Phases ``archs``, ``moe``, ``parity_moe``, ``vlm`` and ``parity_vlm`` run
+last: the other families of ``TransformerLM``, random weights from
+``--seed``, at full width with depth cut to fit one card (fp32 weights and
+their bf16 copies, 6 bytes a weight). ``archs``: ``stablelm-1.6b`` (D 64)
+and ``internlm2-1.8b`` (D 128, G 2) at full depth, batch 8 x 512 + 64,
+three ways with exact launches. ``moe``: ``mixtral-8x7b`` at 6 of 32
+layers (8 experts, top 2, capacity factor 1.25, window 4096), batch 8 x
+512 + 64 in the contiguous, int8, paged16 and paged16-int8 layouts and one
+long request (2 x 4200 + 32, past the window, so the ring wraps), three
+ways each: identical tokens, exact launches, the graph's device ms a step
+against its byte bound (``step_bytes``: every expert's weights each step);
+the engine phase's requests drained graph against eager body (contiguous,
+paged16); a profile. ``vlm``: ``pixtral-12b`` at 20 of 40 layers, batch 8 x
+512 (256 patch embeddings + 256 tokens) + 64, contiguous and paged16, and
+2 x 2048 with the full 1024-row patch prefix, three ways; ``serve(spec=
+"ngram")`` against speculation off (bf16 recorded, fp32 identical);
+drains of 24 patch-prefixed requests (no prefix sharing) and a malformed
+patch extra (``bad_request``, nothing launched). ``parity_moe`` /
+``parity_vlm``: 2 layers at full width, fp32, TF32 off, prefill 64 (after
+32 patch rows for pixtral) + 8 decode steps, card against CPU, contiguous
+and paged16: every MoE layer's routing (``idx``, ``pos``, ``keep``) equal,
+a flip reported with its router margin, logits within 1e-3. The kernels
+phase checks the on-path kernels at the MoE / VLM shape (32 q heads on 8
+kv heads of 128, window 4096) and times rows ``flash_attention_fwd_d128``
+(B 8 x S = T = 512) and ``flash_decode_fwd_d128`` (B 8, T 576, S 1)
+beside SDPA with ``enable_gqa``.
+
 The second-to-last line is a JSON object of per-kernel numbers, the last is
 ``{"ok": true, "device": {...}}``. Any failure raises.
 
@@ -184,6 +211,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import json
 import math
 import os
@@ -201,7 +229,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PHASES = ("device", "build", "kernels", "serve", "engine", "robust", "fleet",
           "spec", "profile",
           "parity", "train", "train_kernels", "train_parity", "proteus",
-          "serve_griffin", "engine_griffin", "parity_griffin")
+          "serve_griffin", "engine_griffin", "parity_griffin", "archs",
+          "moe", "parity_moe", "vlm", "parity_vlm")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # the fp32 prefill route's products: q, k, p and v each as three exact bf16
@@ -258,10 +287,12 @@ QMM_SOURCE = "src/repro_torch/kernels/quant_matmul/csrc/quant_matmul.cu"
 SOURCES = {"flash_attention_fwd": PREFILL_SOURCE,
            "flash_attention_fwd_d256": PREFILL_SOURCE,
            "flash_attention_fwd_d256_long": PREFILL_SOURCE,
+           "flash_attention_fwd_d128": PREFILL_SOURCE,
            "flash_attention_bh": PREFILL_SOURCE,
            "flash_decode_fwd": DECODE_SOURCE,
            "flash_decode_fwd_d256": DECODE_SOURCE,
            "flash_decode_fwd_verify": DECODE_SOURCE,
+           "flash_decode_fwd_d128": DECODE_SOURCE,
            "flash_decode_quant_fwd": DECODE_SOURCE,
            "flash_decode_paged_fwd": DECODE_SOURCE,
            "flash_decode_paged_quant_fwd": DECODE_SOURCE,
@@ -281,10 +312,13 @@ REPLACES = {
         "src/repro/kernels/flash_attention/kernel.py:126",
     "flash_attention_fwd_d256_long":
         "src/repro/kernels/flash_attention/kernel.py:126",
+    "flash_attention_fwd_d128":
+        "src/repro/kernels/flash_attention/kernel.py:126",
     "flash_decode_fwd": "src/repro/kernels/flash_attention/kernel.py:174",
     "flash_decode_fwd_d256": "src/repro/kernels/flash_attention/kernel.py:174",
     "flash_decode_fwd_verify":
         "src/repro/kernels/flash_attention/kernel.py:174",
+    "flash_decode_fwd_d128": "src/repro/kernels/flash_attention/kernel.py:174",
     "flash_decode_quant_fwd": "src/repro/kernels/flash_attention/kernel.py:262",
     "flash_decode_paged_fwd": "src/repro/kernels/flash_attention/kernel.py:359",
     "flash_decode_paged_quant_fwd":
@@ -322,6 +356,8 @@ LAYOUTS = {
 MAIN_LAYOUT = {"flash_attention_fwd": "contiguous",
                "flash_attention_fwd_d256": "griffin",
                "flash_attention_fwd_d256_long": "griffin_long",
+               "flash_attention_fwd_d128": "moe/contiguous",
+               "flash_decode_fwd_d128": "moe/contiguous",
                "flash_decode_fwd": "contiguous",
                "flash_decode_fwd_d256": "griffin",
                "flash_decode_fwd_verify": "spec/contiguous/ngram",
@@ -347,6 +383,8 @@ COUNTER = {"flash_attention_fwd_d256": "flash_attention_fwd",
            "flash_attention_fwd_d256_long": "flash_attention_fwd",
            "flash_decode_fwd_d256": "flash_decode_fwd",
            "flash_decode_fwd_verify": "flash_decode_fwd",
+           "flash_attention_fwd_d128": "flash_attention_fwd",
+           "flash_decode_fwd_d128": "flash_decode_fwd",
            "rglru_scan_long": "rglru_scan",
            "quant_matmul_bf16": "quant_matmul",
            "quant_matmul_griffin": "quant_matmul",
@@ -387,10 +425,14 @@ TRAIN_TREE_RTOL = 1e-4
 # drafters; the batch rows 0-3 a period-4 tile, rows 4-7 random
 SPEC_K = 3
 SPEC_MODES = ("ngram", "draft")
+T_START = time.perf_counter()
 
 
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """A line of the run's log, after the seconds since the script
+    started (the phases' share of the time limit)."""
+    print(f"{time.perf_counter() - T_START:7.1f}s [{phase}] {msg}",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -614,6 +656,85 @@ def fp32_prefill_row(gen, label, B, Hkv, G, S, D, window) -> dict:
                 bound_by=b_by, library_ms=t_l)
 
 
+# a trace's lead-in: after the profiler's warm-up step, TRACE_LEAD_KERNELS
+# lgamma kernels (a kernel that no served path launches), each run to its
+# end and TRACE_LEAD_GAP_S apart, so that the traced block starts 2.5 s
+# after the trace does. The profiler drops the device records it dates
+# before the trace's start, and that span grows with the time since the
+# process's first trace (about 1.45 ms a second on the H100: 0.34 s of the
+# lead-in lost at 323 s, all of a 1 s lead-in at 754 s; ROADMAP §C), so
+# the check logs how many lead kernels each trace kept (``lead_kept``).
+# TRACE_PAD_S of idle time follows the block.
+TRACE_LEAD_KERNELS = 50
+TRACE_LEAD_GAP_S = 0.05
+TRACE_PAD_S = 0.1
+LEAD_KERNEL = "lgamma"
+
+
+@contextlib.contextmanager
+def traced():
+    """``torch.profiler`` (CPU and CUDA activities) over the block, started
+    through one warm-up step of the profiler's schedule and the lead-in
+    above, so that the block's kernels lie well inside the trace's window
+    (ROADMAP §C)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        torch.ones(1, device=DEVICE).add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        lead = torch.full((1,), 2.0, device=DEVICE)
+        for _ in range(TRACE_LEAD_KERNELS):
+            lead.lgamma_()
+            torch.cuda.synchronize()
+            time.sleep(TRACE_LEAD_GAP_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+
+
+def lead_kept(kern) -> int:
+    """How many of ``traced``'s lead kernels the trace's kernel events
+    list."""
+    return sum(e.count for e in kern if LEAD_KERNEL in e.key)
+
+
+def kernel_events(averages) -> list:
+    """The device kernels of a ``traced`` trace's ``key_averages()``: the
+    schedule's step annotation (``ProfilerStep*``, a device-side range as
+    long as the step) left out."""
+    return [e for e in averages
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
+
+
+def _profiled_launches(label, prof, kern, seen, want) -> None:
+    """The profiler's kernel events ``seen`` must equal the counters
+    ``want``; the lead kernels the trace kept are logged beside them. On a
+    disagreement the trace's records of the counted kernels are logged in
+    launch order (A prefill, D decode, R RG-LRU), with the trace's device
+    records in all, before it raises (ROADMAP §C)."""
+    log(label, f"launches by the profiler's kernel events {seen}, by the "
+        f"counters {want}; the trace kept {lead_kept(kern)} of its "
+        f"{TRACE_LEAD_KERNELS} lead kernels")
+    if seen == want:
+        return
+    raw = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CUDA]
+    ours = sorted((e for e in raw
+                   if any(k in e.name() for k in PROFILED.values())),
+                  key=lambda e: e.start_ns())
+    code = {PROFILED["flash_attention_fwd"]: "A",
+            PROFILED["flash_decode_fwd"]: "D", PROFILED["rglru_scan"]: "R"}
+    seq = "".join(next(c for k, c in code.items() if k in e.name())
+                  for e in ours)
+    log(label, f"the trace's {len(raw)} device records hold the counted "
+        f"kernels in this order: {seq[:160]}{'...' if len(seq) > 160 else ''}")
+    raise AssertionError(f"{label}: the profiler counted {seen}, the "
+                         f"counters {want}")
+
+
 def kernel_split_us(fn, n_sets: int, calls: int = 30) -> dict:
     """Device microseconds a call of ``fn(i)`` by kernel name under
     torch.profiler, after a warm-up: where a wrapper launches more than
@@ -768,6 +889,7 @@ def phase_kernels(seed: int) -> dict:
     rows["flash_decode_fwd_verify"] = kernels_verify(gen)
     rows.update(kernels_kv_layouts(gen))
     rows.update(kernels_griffin(gen))
+    rows.update(kernels_d128(gen))
     return rows
 
 
@@ -1002,6 +1124,117 @@ def kernels_griffin_long(gen) -> dict:
         f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {flops:.3e} FLOP)")
     return dict(max_abs_err=err, ms=t_ops, plain_ms=t_p, bound_ms=b_ms,
                 bound_by=b_by, library_ms=t_l)
+
+
+# the MoE and VLM models' attention (mixtral-8x7b, pixtral-12b): 32 q heads
+# on 8 kv heads of 128, mixtral's window 4096
+D128_HEADS = (8, 4, 128)            # (Hkv, G, D)
+D128_WINDOW = 4096
+
+
+def kernels_d128(gen) -> dict:
+    """The prefill and decode kernels at the MoE / VLM shape: B 8, 32 q
+    heads on 8 kv heads (G 4) of 128, bf16, mixtral's window of 4096;
+    prefill S = T = 512 and a decode step over a ring of 576, through
+    ``ops`` as the models call them, against their plain versions; device
+    times beside the plain versions and SDPA (``enable_gqa``: q head h reads
+    kv head h // G, the models' grouping); then the quantized and paged
+    layouts at this shape with their bitwise identities. Returns the rows
+    ``flash_attention_fwd_d128`` and ``flash_decode_fwd_d128``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.kernels.flash_attention.ref import visible_mask
+    Hkv, G, D = D128_HEADS
+    H, W, B, dt = Hkv * G, D128_WINDOW, 8, torch.bfloat16
+    rows = {}
+
+    # -- prefill: B 8 x S = T = 512 ------------------------------------------
+    S = 512
+    q = randn(gen, (B, S, H, D), dt)
+    k, v = (randn(gen, (B, S, Hkv, D), dt) for _ in range(2))
+    out, lse = ops.flash_attention_gqa_fwd(q, k, v, causal=True, window=W)
+    pos = torch.arange(S, dtype=torch.int32, device=DEVICE).expand(B, S)
+    split = lambda x: x.reshape(B, S, Hkv, G, D).permute(0, 2, 3, 1, 4)
+    to4 = lambda x: x.permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
+    args5 = (split(q), k.transpose(1, 2), v.transpose(1, 2), pos, pos)
+    r_out, r_lse = ref.flash_attention_fwd_ref(*args5, causal=True, window=W)
+    err = _check_bf16("prefill B8 Hkv8 G4 S=T=512 D128 window 4096 bf16 "
+                      "(model layout)", out, to4(r_out),
+                      to4(_abs_v_out(*args5, causal=True, window=W)), lse,
+                      r_lse)
+    n_sets = n_sets_for(q.nbytes + k.nbytes + v.nbytes)
+    sets = [(randn(gen, (B, S, H, D), dt), randn(gen, (B, S, Hkv, D), dt),
+             randn(gen, (B, S, Hkv, D), dt)) for _ in range(n_sets)]
+    sets5 = [(split(a), b.transpose(1, 2), c.transpose(1, 2))
+             for a, b, c in sets]
+    t_ops = device_ms(lambda i: ops.flash_attention_gqa_fwd(
+        *sets[i], causal=True, window=W), n_sets, 20)
+    t_p = device_ms(lambda i: ref.flash_attention_fwd_ref(
+        *sets5[i], pos, pos, causal=True, window=W), n_sets, 4)
+    sets4 = [tuple(x.transpose(1, 2).contiguous() for x in s) for s in sets]
+    t_l = device_ms(lambda i: F.scaled_dot_product_attention(
+        *sets4[i], is_causal=True, enable_gqa=True), n_sets, 20)
+    del sets, sets4, sets5
+    nbytes = 2 * q.nbytes + k.nbytes + v.nbytes + lse.nbytes + 2 * pos.nbytes
+    flops = 4.0 * D * H * visible_pairs(pos, pos, True, W)
+    b_ms, b_by = bound_ms(nbytes, flops, dt)
+    rows["flash_attention_fwd_d128"] = dict(
+        max_abs_err=err, ms=t_ops, plain_ms=t_p, bound_ms=b_ms,
+        bound_by=b_by, library_ms=t_l)
+    log("kernels", f"prefill D128 times (B8 Hkv8 G4 S=T=512 window 4096 "
+        f"bf16): kernel {t_ops:.4f} ms (through ops), plain {t_p:.4f} ms, "
+        f"sdpa (is_causal, enable_gqa) {t_l:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}: {nbytes} B, {flops:.3e} FLOP)")
+
+    # -- decode: one step over a ring of 576 ---------------------------------
+    T = 576
+    qp, kp = ring_positions([575 - 8 * b for b in range(B)], 1, T)
+    q = randn(gen, (B, 1, H, D), dt)
+    k, v = (randn(gen, (B, T, Hkv, D), dt) for _ in range(2))
+    to5 = lambda x: x.reshape(B, 1, Hkv, G, D).permute(0, 2, 3, 1, 4)
+    dec_err = _check(
+        "decode B8 Hkv8 G4 T576 S1 D128 window 4096 bf16 (model layout)",
+        ops.flash_decode(q, k, v, qp, kp, window=W),
+        ref.flash_decode_fwd_ref(to5(q), k.transpose(1, 2), v.transpose(1, 2),
+                                 qp, kp, window=W
+                                 ).permute(0, 3, 1, 2, 4).reshape(B, 1, H, D),
+        TOL[dt])
+    n_sets = n_sets_for(2 * B * T * Hkv * D * 2)
+    sets = [(randn(gen, (B, 1, H, D), dt), randn(gen, (B, T, Hkv, D), dt),
+             randn(gen, (B, T, Hkv, D), dt)) for _ in range(n_sets)]
+    t_k = device_ms(lambda i: ops.flash_decode(*sets[i], qp, kp, window=W),
+                    n_sets, 50)
+    sets5 = [(to5(a), b.transpose(1, 2), c.transpose(1, 2))
+             for a, b, c in sets]
+    t_p = device_ms(lambda i: ref.flash_decode_fwd_ref(*sets5[i], qp, kp,
+                                                       window=W), n_sets, 10)
+    mask = visible_mask(qp, kp, causal=True, window=W)[:, None]
+    sets4 = [tuple(x.transpose(1, 2).contiguous() for x in s) for s in sets]
+    t_l = device_ms(lambda i: F.scaled_dot_product_attention(
+        *sets4[i], attn_mask=mask, enable_gqa=True), n_sets, 50)
+    del sets, sets4, sets5
+    valid_rows = int((kp >= 0).sum())
+    nbytes = (2 * 2 * valid_rows * Hkv * D + 2 * B * H * D * 2 + qp.nbytes
+              + kp.nbytes)
+    flops = 4.0 * D * H * visible_pairs(qp, kp, True, W)
+    b_ms, b_by = bound_ms(nbytes, flops, dt)
+    rows["flash_decode_fwd_d128"] = dict(
+        max_abs_err=dec_err, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+        bound_by=b_by, library_ms=t_l)
+    log("kernels", f"decode D128 times (B8 Hkv8 G4 T576 S1 bf16): kernel "
+        f"{t_k:.4f} ms, plain {t_p:.4f} ms, sdpa (mask, enable_gqa) "
+        f"{t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
+        f"{flops:.3e} FLOP); plan {fk.decode_plan(B, Hkv, G, T)}")
+    # the layout kernels at this shape (and the verify block's S 4), paged
+    # == dense and paged-quant == quant bit for bit
+    for dt in (torch.bfloat16, torch.float32):
+        for S in (1, SPEC_K + 1):
+            _check_layouts_case(gen, dt, 4, Hkv, G, S, 576, D, 16,
+                                [100, 575 - S, 2100, 40],
+                                dict(causal=True, window=W, softcap=0.0),
+                                share=2)
+    return rows
 
 
 def kernels_verify(gen) -> dict:
@@ -1340,9 +1573,10 @@ def phase_parity(seed: int) -> dict:
     return _check_fp32_prefills("parity", cfg, len(layouts))
 
 
-def _drain(eng, reqs, label, decode_kernel) -> dict:
+def _drain(eng, reqs, label, decode_kernel, prefix_hits=True) -> dict:
     """Drain ``reqs`` through ``eng``: exact launches, one completion per
-    request, each of the right length; returns the engine's stats."""
+    request, each of the right length, every page back (and, with
+    ``prefix_hits``, shared prompt pages); returns the engine's stats."""
     cfg = eng.model.cfg
     _reset()
     comps = eng.run(list(reqs))
@@ -1370,7 +1604,8 @@ def _drain(eng, reqs, label, decode_kernel) -> dict:
     if eng.paged:
         free = len(eng._alloc.free)
         if (s["kv_pages_in_use"] != 0 or free != eng.n_phys_pages - 1
-                or eng._host_table.any() or s["prefix_hits"] <= 0):
+                or eng._host_table.any()
+                or (s["prefix_hits"] > 0) != prefix_hits):
             raise AssertionError(
                 f"{label}: pages in use {s['kv_pages_in_use']}, free {free} "
                 f"of {eng.n_phys_pages - 1}, host table zero "
@@ -1396,18 +1631,19 @@ def _completions(eng) -> list:
                   for c in eng.completions)
 
 
-def _drain_pair(make, reqs, label, decode_kernel) -> tuple:
+def _drain_pair(make, reqs, label, decode_kernel, prefix_hits=True,
+                keep=False) -> tuple:
     """Drain ``reqs`` through an engine from ``make()`` that runs the chunk
     body eagerly, then through one that replays the captured chunk: the
     same completions, one capture for the whole drain; returns the graph
-    engine's stats and completions."""
+    engine's stats and completions (and, with ``keep``, the engine)."""
     with eager_chunks():
         eager = make()
-        e = _drain(eager, reqs, f"{label}/eager", decode_kernel)
+        e = _drain(eager, reqs, f"{label}/eager", decode_kernel, prefix_hits)
         want, eager_captures = _completions(eager), e["graph_captures"]
         del eager
     eng = make()
-    s = _drain(eng, reqs, f"{label}/graph", decode_kernel)
+    s = _drain(eng, reqs, f"{label}/graph", decode_kernel, prefix_hits)
     same = _completions(eng) == want
     log(label, f"graph == eager-body completions: {same}; tokens/s graph "
         f"{s['tokens_per_second']:.1f} (wall {s['wall_seconds']:.3f} s, the "
@@ -1416,7 +1652,7 @@ def _drain_pair(make, reqs, label, decode_kernel) -> tuple:
     if not same or s["graph_captures"] != 1 or eager_captures != 0:
         raise AssertionError(f"{label}: completions equal {same}, captures "
                              f"{s['graph_captures']} / {eager_captures}")
-    return s, want
+    return (s, want, eng) if keep else (s, want)
 
 
 ENGINE_LAYOUTS = ("contiguous", "paged16", "paged16_int8")
@@ -1928,18 +2164,21 @@ def spec_prompts(vocab: int, batch: int = 8, prompt_len: int = 512,
 
 
 def _spec_start(m, toks, spec, gen, chunk, eager=False,
-                draft_layers=None, logits_hook=None) -> tuple:
-    """Prefill ``toks`` into a cache sized for ``gen`` tokens and a verify
-    block's k-ahead writes, the drafter's history seeded with the prompts,
-    and the chunk step (captured by ``prepare``, or run eagerly; with
-    ``logits_hook``, every slot disarmed)."""
+                draft_layers=None, logits_hook=None, extras=None) -> tuple:
+    """Prefill ``toks`` (after a vlm model's ``extras``, its patch prefix)
+    into a cache sized for ``gen`` tokens and a verify block's k-ahead
+    writes, the drafter's history seeded with the prompts, and the chunk
+    step (captured by ``prepare``, or run eagerly; with ``logits_hook``,
+    every slot disarmed)."""
     from repro_torch.launch.steps import make_generate_step
     k = SPEC_K if spec != "off" else 0
+    extras = extras or {}
     B, P = toks.shape
+    n = P + sum(x.shape[1] for x in extras.values())
     step = (eager_step if eager else make_generate_step)(
         m, chunk=chunk, spec=spec, spec_k=k, draft_layers=draft_layers,
         logits_hook=logits_hook)
-    logits, cache = m.prefill(toks, max_len=P + gen + k)
+    logits, cache = m.prefill(toks, max_len=n + gen + k, **extras)
     tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
     state = ()
     if spec != "off":
@@ -1996,29 +2235,25 @@ def _spec_profile(m, toks, spec, label) -> None:
     """The captured spec chunk under ``torch.profiler``: prefill, warm-up
     and capture, two replays; the prefill and decode kernels' launches by
     the profiler's kernel events equal the counters."""
-    from torch.profiler import ProfilerActivity, profile
     _reset()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with traced() as prof:
         step, cache, tok, state = _spec_start(m, toks, spec, 16, 8)
         for _ in range(2):
             tok = step(cache, tok, None, -1, *state)[1]
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    kern = kernel_events(prof.key_averages())
     counted = {n: c for counter in _counters() for n, c in counter.items()}
     names = ("flash_attention_fwd", "flash_decode_fwd")
     seen = {n: sum(e.count for e in kern if PROFILED[n] in e.key)
             for n in names}
     want = {n: counted[n] for n in names}
     per_chunk = 8 * (m.cfg.num_layers + SPEC_K * step.draft_layers)
-    log(label, f"launches by the profiler's kernel events {seen}, by the "
-        f"counters {want} (prefill, warm-up chunk, two replays: "
-        f"{per_chunk} decode-kernel launches a chunk)")
-    if seen != want or want["flash_decode_fwd"] != 3 * per_chunk:
-        raise AssertionError(f"{label}: the profiler counted {seen}, the "
-                             f"counters {want}, {per_chunk} a chunk")
+    if want["flash_decode_fwd"] != 3 * per_chunk:
+        raise AssertionError(f"{label}: the counters {want}, not "
+                             f"{per_chunk} decode launches a chunk")
+    _profiled_launches(f"{label} (prefill, warm-up chunk, two replays: "
+                       f"{per_chunk} decode-kernel launches a chunk)", prof,
+                       kern, seen, want)
 
 
 def spec_rounding(model, toks) -> None:
@@ -2331,7 +2566,7 @@ def _serve_as(name: str, **kw) -> dict:
 
 
 def graph_device_ms(m, toks, gen, chunk, spec="off",
-                    logits_hook=None) -> tuple:
+                    logits_hook=None, extras=None) -> tuple:
     """Device ms per iteration (a token-step without speculation) of the
     captured chunk (with ``logits_hook``: hooked, every slot disarmed): the
     prompts ``toks`` prefilled, the chunk captured on their cache, then
@@ -2339,7 +2574,7 @@ def graph_device_ms(m, toks, gen, chunk, spec="off",
     by CUDA events. Returns (ms per iteration of the later replays, ms of
     the first replay, which uploads the graph to the card)."""
     step = _spec_start(m, toks, spec, gen, chunk,
-                       logits_hook=logits_hook)[0]
+                       logits_hook=logits_hook, extras=extras)[0]
     graph = step._captured.graph      # the replays alone, no host work between
     replays = gen // chunk - 1
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
@@ -2353,6 +2588,32 @@ def graph_device_ms(m, toks, gen, chunk, spec="off",
     torch.cuda.synchronize()
     return (ev[1].elapsed_time(ev[2]) / (replays * chunk),
             ev[0].elapsed_time(ev[1]))
+
+
+def step_bytes(model, batch: int, depth: int) -> int:
+    """The bytes a decode step of ``batch`` rows must move at least: every
+    weight once in the compute dtype (the embedding's ``batch`` rows only,
+    unless it is also the head; an MoE layer's experts all, since the
+    batch's choices reach every expert at these shapes), and the K/V rows
+    each row holds at ``depth`` positions (the window's at most) in the
+    model's KV layout (int8 / int4 codes with an fp32 scale a row and
+    head). Norm scales count at 4 bytes."""
+    cfg = model.cfg
+    es = torch.finfo(model.cdtype).bits // 8
+    n = 0
+    for name, p in model.named_parameters():
+        if name == "embed" and not cfg.tie_embeddings:
+            n += batch * cfg.d_model * es
+        else:
+            n += p.numel() * (4 if p.dtype == torch.float32 and p.ndim == 1
+                              else es)
+    depth = min(depth, model.cache_len(depth))
+    row = {"off": cfg.resolved_head_dim * es,
+           "int8": cfg.resolved_head_dim + 4,
+           "int4": cfg.resolved_head_dim // 2 + 4}.get(model.kv_quant,
+                                                       cfg.resolved_head_dim)
+    n_attn = _layer_counts(cfg)[0]
+    return n + 2 * n_attn * batch * depth * cfg.num_kv_heads * row
 
 
 def _serve_engines(model, smi, label, decode_kernel="flash_decode_fwd",
@@ -2391,18 +2652,23 @@ def _serve_engines(model, smi, label, decode_kernel="flash_decode_fwd",
     log(label, f"graph == eager chunk == loop tokens: {same}")
     if not same:
         raise AssertionError(f"{label}: greedy tokens of {ENGINES} differ")
+    from repro_torch.launch.serve import serve_batch
     m = model.with_kv_layout(kw.get("kv_quant", "off"),
                              kw.get("page_size", 0))
-    rng = np.random.default_rng(kw["seed"])        # serve()'s prompts
-    toks = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (kw["batch"], kw["prompt_len"])).astype(
-            np.int32)).to(DEVICE)
-    dev, first = graph_device_ms(m, toks, kw["gen"], kw["chunk"])
+    toks, extras = serve_batch(cfg, kw["batch"], kw["prompt_len"], kw["seed"],
+                               DEVICE)                 # serve()'s prompts
+    dev, first = graph_device_ms(m, toks, kw["gen"], kw["chunk"],
+                                 extras=extras)
     g, e = (runs[n]["decode_s_per_tok"] * 1e3 for n in ("graph", "eager"))
+    nbytes = step_bytes(m, kw["batch"], kw["prompt_len"] + kw["gen"] // 2)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     log(label, f"{smi}: decode ms per token-step: graph {g:.4f}, its device "
         f"time {dev:.4f} (wall / device {g / dev:.2f}; a first replay "
         f"{first:.3f} ms, {first / kw['chunk']:.4f} a step); eager chunk "
-        f"{e:.4f} ({e / g:.2f}x the graph)")
+        f"{e:.4f} ({e / g:.2f}x the graph); the step's byte bound "
+        f"{b_ms:.4f} ms ({nbytes} B: the weights in the compute dtype and "
+        f"the K/V held at the mean depth, at {HBM_BYTES_PER_S / 1e12:.2f} "
+        f"TB/s; device / bound {dev / b_ms:.2f})")
     if not g < e:
         raise AssertionError(f"{label}: the graph's decode ({g:.4f} ms per "
                              f"token-step) is not below the eager chunk's "
@@ -2507,6 +2773,309 @@ def phase_parity_griffin(seed: int) -> dict:
     return _check_fp32_prefills("parity_griffin", cfg, 1)
 
 
+# ---------------------------------------------------------------------------
+# the MoE and VLM families and the other dense architectures
+# ---------------------------------------------------------------------------
+# depth cuts that fit one 80 GB card: ServingLM holds fp32 weights and a bf16
+# copy, 6 bytes a weight (mixtral 6 of 32 layers: 8.97 G parameters, 53.8 GB;
+# pixtral 20 of 40: 6.79 G, 40.8 GB); widths, experts, top-k, capacity,
+# window, heads and vocab are the published ones
+MOE_ARCH, MOE_LAYERS = "mixtral-8x7b", 6
+VLM_ARCH, VLM_LAYERS = "pixtral-12b", 20
+FAMILY_PARITY_LAYERS = 2
+MOE_LAYOUTS = ("contiguous", "int8", "paged16", "paged16_int8")
+VLM_LAYOUTS = ("contiguous", "paged16")
+FAMILY_ENGINE_LAYOUTS = ("contiguous", "paged16")
+# full width and depth: stablelm-1.6b (D 64, 32 heads = kv heads) and
+# internlm2-1.8b (D 128, G 2); stablelm-3b (D 80) and kimi-k2 (D 112) are
+# refused by the kernels (a card test holds the ValueError)
+ARCHS = ("stablelm-1.6b", "internlm2-1.8b")
+
+
+def _load_cut(arch, layers, seed, **replace):
+    """``arch`` at full width, its depth cut to ``layers``, on the card,
+    weights drawn in place from ``seed``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import load_model
+    full = get_config(arch)
+    cfg = full.replace(num_layers=layers, **replace)
+    t0 = time.perf_counter()
+    model = load_model(arch, smoke=False, seed=seed, device=DEVICE, cfg=cfg)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    cut = (f"depth cut {full.num_layers} -> {layers} layers"
+           if layers < full.num_layers else f"{layers} layers (full depth)")
+    log(arch, f"{arch} {cut}, full "
+        f"width (d_model {cfg.d_model}, {cfg.num_heads} q / "
+        f"{cfg.num_kv_heads} kv heads of {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, experts {cfg.num_experts} top-{cfg.experts_per_token}, "
+        f"vocab {cfg.vocab_size}, window {cfg.sliding_window if cfg.attention_kind == 'sliding' else 0}"
+        f"): {n} params, compute {cfg.compute_dtype}, built in "
+        f"{time.perf_counter() - t0:.2f}s; device memory "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB (peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
+    return model
+
+
+def _fp32_view(model):
+    """``model``'s weights (held in fp32) computing in fp32: no copy."""
+    m = copy.copy(model)
+    m.cfg = model.cfg.replace(compute_dtype="float32")
+    m.cdtype = torch.float32
+    m._cast = {}
+    return m
+
+
+def _family_drains(model, smi, label, seed, reqs, prefix_hits) -> dict:
+    """The graph against the eager body over ``reqs`` in the contiguous and
+    paged16 layouts (8 slots, a 512 bucket, up to 64 new tokens); returns
+    each layout's graph engine."""
+    from repro_torch.launch.serve import make_queue_engine
+    engines = {}
+    for layout in FAMILY_ENGINE_LAYOUTS:
+        kv_quant, page_size, decode_kernel = LAYOUTS[layout]
+
+        def make():
+            return make_queue_engine(model=model, slots=8, prompt_len=512,
+                                     gen=64, chunk=8, seed=seed,
+                                     kv_quant=kv_quant, page_size=page_size)
+        s, _, eng = _drain_pair(make, reqs, f"{label}/{layout}",
+                                decode_kernel, prefix_hits, keep=True)
+        log(f"{label}/{layout}", f"{smi}: drain {s['tokens_per_second']:.1f} "
+            f"tokens/s ({s['tokens_out']} tokens, wall "
+            f"{s['wall_seconds']:.3f} s with the capture's "
+            f"{s['capture_seconds']:.3f} s)")
+        engines[layout] = eng
+    return engines
+
+
+def phase_moe(smi: str, seed: int) -> dict:
+    """mixtral-8x7b at full width, 6 of 32 layers: batch 8 x 512 + 64 in
+    four layouts and 2 x 4200 + 32 past the window, three ways each, exact
+    launches; the engine phase's requests drained graph against eager body;
+    a profile. Returns the launches of the graph runs."""
+    model = _load_cut(MOE_ARCH, MOE_LAYERS, seed)
+    launches = {}
+    for layout in MOE_LAYOUTS:
+        kv_quant, page_size, decode_kernel = LAYOUTS[layout]
+        launches[f"moe/{layout}"] = _serve_engines(
+            model, smi, f"moe/{layout}", decode_kernel, batch=8,
+            prompt_len=512, gen=64, chunk=8, seed=0, kv_quant=kv_quant,
+            page_size=page_size)
+    W = model.cfg.sliding_window
+    if model.cache_len(4200 + 32) != W:
+        raise AssertionError(f"moe long: ring of {model.cache_len(4232)} "
+                             f"slots, not the window {W}")
+    launches["moe/long"] = _serve_engines(model, smi, "moe/long", batch=2,
+                                          prompt_len=4200, gen=32, chunk=8,
+                                          seed=1)
+    _family_drains(model, smi, "engine_moe", seed,
+                   _engine_requests(model, seed), prefix_hits=True)
+    phase_profile(model, smi, "profile_moe")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _vlm_requests(model, seed: int) -> list:
+    """24 mixed requests, each with its 256-row patch prefix (the 512
+    bucket's), prompts up to the 256-token field."""
+    from repro_torch.launch.serve import synth_requests
+    return synth_requests(cfg=model.cfg, requests=24, prompt_len=512, gen=64,
+                          seed=seed)
+
+
+def phase_vlm(smi: str, seed: int) -> dict:
+    """pixtral-12b at full width, 20 of 40 layers: batch 8 x 512 (256
+    patches + 256 tokens) + 64, contiguous and paged16, and 2 x 2048 with
+    the full 1024-patch prefix, three ways each, exact launches;
+    ``serve(spec="ngram")`` against speculation off (bf16 recorded, fp32
+    gated); drains of patch-prefixed requests (no prefix hits) and a
+    malformed extra. Returns the launches of the graph runs."""
+    from repro_torch.launch.engine import Request
+    model = _load_cut(VLM_ARCH, VLM_LAYERS, seed)
+    launches = {}
+    kw = dict(batch=8, prompt_len=512, gen=64, chunk=8, seed=0)
+    for layout in VLM_LAYOUTS:
+        kv_quant, page_size, decode_kernel = LAYOUTS[layout]
+        launches[f"vlm/{layout}"] = _serve_engines(
+            model, smi, f"vlm/{layout}", decode_kernel, kv_quant=kv_quant,
+            page_size=page_size, **kw)
+    launches["vlm/long"] = _serve_engines(model, smi, "vlm/long", batch=2,
+                                          prompt_len=2048, gen=32, chunk=8,
+                                          seed=1)
+    cfg = model.cfg
+    for m, dtype in ((model, "bf16"), (_fp32_view(model), "fp32")):
+        label = f"vlm/spec_{dtype}"
+        off = _serve_as("graph", model=m, **kw)
+        _reset()
+        on = _serve_as("graph", model=m, spec="ngram", spec_k=SPEC_K, **kw)
+        _check_launches(label, m.cfg, on["prefills"], on["decode_steps"])
+        same = np.array_equal(on["tokens"], off["tokens"])
+        log(label, f"{smi}: serve(spec='ngram') tokens == speculation off: "
+            f"{same}" + ("" if same else " (" + _first_differences(
+                on["tokens"], off["tokens"]) + ")")
+            + f"; accepted_len_per_draft {on['accepted_len_per_draft']:.4f}"
+            f", decode {on['decode_s_per_tok'] * 1e3:.4f} ms/token-step "
+            f"({off['decode_s_per_tok'] * 1e3:.4f} off)")
+        if dtype == "fp32" and not same:
+            raise AssertionError(f"{label}: fp32 greedy tokens with "
+                                 "speculation differ from speculation off")
+    engines = _family_drains(model, smi, "engine_vlm", seed,
+                             _vlm_requests(model, seed), prefix_hits=False)
+    eng = engines["contiguous"]
+    P = eng._prefix_len
+    bad = Request(uid=999, tokens=np.arange(1, 9, dtype=np.int32),
+                  max_new_tokens=4, extras={"patch_embeds": np.zeros(
+                      (1, P - 1, cfg.d_model), np.float32)})
+    _reset()
+    c = eng.run([bad])[-1]
+    counted = sum(n for counter in _counters() for n in counter.values())
+    log("engine_vlm", f"a patch prefix of {P - 1} rows (the bucket's {P}): "
+        f"{c.finish_reason} / {c.reason} ({c.error}); launches {counted}")
+    if c.uid != 999 or c.reason != "bad_request" or counted:
+        raise AssertionError(f"engine_vlm: malformed extra gave {c}, "
+                             f"{counted} launches")
+    del model, engines, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def recorded_routing(calls: list):
+    """Inside, every MoE layer's routing (probs, gate, idx, pos, keep) is
+    appended to ``calls``, copied to the host (eager runs only)."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def recording(cfg, router, xt):
+        out = route(cfg, router, xt)
+        calls.append(tuple(t.detach().cpu() for t in out))
+        return out
+    moe.route = recording
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def _routing_diff(label, cpu_calls, gpu_calls) -> None:
+    """idx, pos and keep of every MoE call equal, card against CPU; a flip
+    is reported with its router margin (the CPU's gap between the k-th and
+    the next probability of that token)."""
+    if len(cpu_calls) != len(gpu_calls):
+        raise AssertionError(f"{label}: {len(cpu_calls)} MoE calls on the "
+                             f"CPU, {len(gpu_calls)} on the card")
+    flips = []
+    margins = []
+    for i, (c, g) in enumerate(zip(cpu_calls, gpu_calls)):
+        probs = c[0]
+        top = torch.sort(probs, dim=-1, descending=True).values
+        K = c[2].shape[1]
+        gap = top[:, K - 1] - top[:, K]
+        margins.append(gap.min().item())
+        for name, j in (("idx", 2), ("pos", 3), ("keep", 4)):
+            bad = (c[j] != g[j]).any(-1).nonzero().flatten().tolist()
+            if bad:
+                flips.append(f"call {i} {name} tokens {bad[:6]} (router "
+                             f"margin {gap[bad[0]].item():.3e})")
+    log(label, f"routing card vs CPU over {len(cpu_calls)} MoE calls "
+        f"({sum(c[2].shape[0] for c in cpu_calls)} tokens): equal "
+        f"{not flips}; smallest router margin (k-th minus next probability) "
+        f"{min(margins):.3e}" + ("" if not flips else "; " + "; ".join(flips)))
+    if flips:
+        raise AssertionError(f"{label}: routing differs: {flips}")
+
+
+def _parity_family(label, arch, seed, patch_rows=0) -> dict:
+    """``arch`` at full width, FAMILY_PARITY_LAYERS layers, fp32 (TF32
+    off): logits of a 64-token prefill (after ``patch_rows`` patch
+    embeddings) and 8 decode steps, card against CPU, contiguous and
+    paged16, within PARITY_ATOL; an MoE model's routing equal. Returns the
+    card side's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import load_model
+    from repro_torch.models import build_model
+    full = get_config(arch)
+    cfg = full.replace(num_layers=FAMILY_PARITY_LAYERS,
+                       compute_dtype="float32")
+    t0 = time.perf_counter()
+    # drawn on the card (the host's generator takes ~25 s for mixtral's
+    # 3.2 G parameters), copied to the host
+    gpu0 = load_model(arch, smoke=False, seed=seed, device=DEVICE, cfg=cfg)
+    cpu0 = build_model(cfg, "cpu")
+    cpu0.load_state_dict(gpu0.state_dict())
+    n = sum(p.numel() for p in cpu0.parameters())
+    log(label, f"{arch} depth cut {full.num_layers} -> "
+        f"{cfg.num_layers} layers, full width, fp32: {n} params "
+        f"({4 * n / 1e9:.1f} GB on the host and on the card), built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64))
+                              .astype(np.int32))
+    feed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8))
+                            .astype(np.int32))
+    extras = {}
+    if patch_rows:
+        extras["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, patch_rows, cfg.d_model)).astype(np.float32))
+    max_len = 64 + patch_rows + 8
+    layouts = ("contiguous", "paged16")
+    _reset()
+    for layout in layouts:
+        kv_quant, page_size, _ = LAYOUTS[layout]
+        cpu = cpu0.with_kv_layout(kv_quant, page_size)
+        gpu = gpu0.with_kv_layout(kv_quant, page_size)
+        rc, rg = [], []
+        with recorded_routing(rc):
+            lc, cc = cpu.prefill(prompt, max_len=max_len, **extras)
+            pc = [lc]
+            for i in range(feed.shape[1]):
+                lc, cc = cpu.decode_step(cc, feed[:, i:i + 1])
+                pc.append(lc)
+        with recorded_routing(rg):
+            lg, cg = gpu.prefill(prompt.to(DEVICE), max_len=max_len,
+                                 **{k: x.to(DEVICE) for k, x in extras.items()})
+            pg = [lg]
+            for i in range(feed.shape[1]):
+                lg, cg = gpu.decode_step(cg, feed[:, i:i + 1].to(DEVICE))
+                pg.append(lg)
+        if cfg.num_experts:
+            _routing_diff(f"{label}/{layout}", rc, rg)
+        errs = [(c - g.cpu()).abs().max().item() for c, g in zip(pc, pg)]
+        agree = np.mean([float((c.argmax(-1) == g.cpu().argmax(-1)).all())
+                         for c, g in zip(pc, pg)])
+        kv, _, _ = _cache_diff(cc, cg)
+        log(f"{label}/{layout}", f"fp32 logits card vs CPU, prefill "
+            f"{patch_rows} patches + 64 tokens, 8 decode steps: max_abs_err "
+            f"per call {['%.2e' % e for e in errs]} (tol "
+            f"{PARITY_ATOL:.0e}), logit scale {pc[0].abs().max().item():.3e}, "
+            f"cache {kv:.2e}, top-1 agreement {agree:.3f}")
+        if max(errs) > PARITY_ATOL or kv > PARITY_ATOL:
+            raise AssertionError(f"{label}/{layout}: card vs CPU differ: "
+                                 f"logits {max(errs)}, cache {kv}")
+    launches = _check_fp32_prefills(label, cfg, len(layouts))
+    del cpu0, gpu0
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_archs(smi: str, seed: int) -> dict:
+    """stablelm-1.6b and internlm2-1.8b at full width and depth, batch 8 x
+    512 + 64, three ways, exact launches. Returns the graph runs'
+    launches."""
+    from repro_torch.configs import get_config
+    launches = {}
+    for arch in ARCHS:
+        model = _load_cut(arch, get_config(arch).num_layers, seed)
+        launches[f"archs/{arch}"] = _serve_engines(
+            model, smi, f"archs/{arch}", batch=8, prompt_len=512, gen=64,
+            chunk=8, seed=0)
+        del model
+        torch.cuda.empty_cache()
+    return launches
+
+
 # counter -> the kernel whose launches the profiler counts for it
 PROFILED = {"flash_attention_fwd": "flash_prefill_kernel<",
             "flash_decode_fwd": "flash_decode_kernel<",
@@ -2519,42 +3088,36 @@ def phase_profile(model, smi: str, label: str = "profile") -> None:
     chunk: busy share, kernels by device time, and the launches of the
     prefill, decode and RG-LRU kernels by the profiler's kernel events
     against the launch counters."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import serve
     kw = dict(model=model, batch=8, prompt_len=512, gen=16, chunk=8, seed=0)
     serve(engine="fused", **kw)                   # allocator and cuBLAS warm
     torch.cuda.synchronize()
     for name in ("graph", "eager"):
+        tag = f"{label}/{name}"
         _reset()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with traced() as prof:
             t0 = time.perf_counter()
             out = _serve_as(name, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        kern = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.self_device_time_total > 0]
+        kern = kernel_events(prof.key_averages())
         busy_us = sum(e.self_device_time_total for e in kern)
         launches = sum(e.count for e in kern)
-        tag = f"{label}/{name}"
-        log(tag, f"{smi}: {model.cfg.name} serve B=8 prompt 512, prefill + "
-            f"warm-up chunk + 2 chunks of 8: wall {wall * 1e3:.3f} ms (the "
-            f"capture {out['capture_s'] * 1e3:.3f} ms), device busy "
+        log(tag, f"{smi}: {model.cfg.name} serve B=8 prompt 512, "
+            f"prefill + warm-up chunk + 2 chunks of 8: wall "
+            f"{wall * 1e3:.3f} ms (the capture "
+            f"{out['capture_s'] * 1e3:.3f} ms), device busy "
             f"{busy_us / 1e3:.3f} ms ({busy_us / 1e4 / wall:.1f}% busy; "
-            f"{busy_us / 1e4 / (wall - out['capture_s']):.1f}% of the wall "
-            f"outside the capture), {launches} kernel launches of "
+            f"{busy_us / 1e4 / (wall - out['capture_s']):.1f}% of the "
+            f"wall outside the capture), {launches} kernel launches of "
             f"{len(kern)} kernels; decode "
             f"{out['decode_s_per_tok'] * 1e3:.4f} ms/token-step")
-        counted = {n: c for counter in _counters() for n, c in counter.items()}
+        counted = {n: c for counter in _counters()
+                   for n, c in counter.items()}
         seen = {n: sum(e.count for e in kern if k in e.key)
                 for n, k in PROFILED.items()}
         want = {n: counted[n] for n in PROFILED}
-        log(tag, f"launches by the profiler's kernel events {seen}, by the "
-            f"counters {want}")
-        if seen != want:
-            raise AssertionError(f"{tag}: the profiler counted {seen}, the "
-                                 f"counters {want}")
+        _profiled_launches(tag, prof, kern, seen, want)
         ranked = sorted(kern, key=lambda e: -e.self_device_time_total)
         # the top twelve, and every attention and RG-LRU kernel of the port
         for e in ranked[:12] + [e for e in ranked[12:]
@@ -2920,7 +3483,6 @@ def phase_train(smi: str, seed: int) -> dict:
     ``remat="block"``, a checkpoint every 4 steps; then one profiled step.
     Returns the launches of the run."""
     import tempfile
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import TRAIN_4K, RunConfig, ShapeConfig, get_config
     from repro_torch.data import make_batch_fn
     from repro_torch.launch.steps import make_train_step
@@ -3009,15 +3571,13 @@ def phase_train(smi: str, seed: int) -> dict:
     del out
     torch.cuda.synchronize()
     _reset()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with traced() as prof:
         t0 = time.perf_counter()
         params, opt, m = step_fn(params, opt, b)
         loss = m["loss"].item()
         wall = time.perf_counter() - t0
     avg = prof.key_averages()
-    kern = [e for e in avg if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    kern = kernel_events(avg)
     busy_us = sum(e.self_device_time_total for e in kern)
     counted = _flat_counts()
     seen = {n: sum(e.count for e in kern if k in e.key)
@@ -3027,7 +3587,8 @@ def phase_train(smi: str, seed: int) -> dict:
         f"({busy_us / 1e4 / wall:.1f}%), {sum(e.count for e in kern)} kernel "
         f"launches of {len(kern)} kernels; launches by the profiler's kernel "
         f"events {seen}, by the counters "
-        f"{ {n: counted[n] for n in PROFILED} }")
+        f"{ {n: counted[n] for n in PROFILED} }; the trace kept "
+        f"{lead_kept(kern)} of its {TRACE_LEAD_KERNELS} lead kernels")
     if seen != {n: counted[n] for n in PROFILED} or \
             seen["flash_attention_fwd"] != 2 * L:
         raise AssertionError(f"train/profile: the profiler counted {seen}, "
@@ -3362,6 +3923,18 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "parity_griffin" in phases:
         launches["parity_griffin"] = phase_parity_griffin(args.seed)
+    for name, run in (("archs", lambda: phase_archs(smi, args.seed)),
+                      ("moe", lambda: phase_moe(smi, args.seed)),
+                      ("parity_moe", lambda: {"parity_moe": _parity_family(
+                          "parity_moe", MOE_ARCH, args.seed)}),
+                      ("vlm", lambda: phase_vlm(smi, args.seed)),
+                      ("parity_vlm", lambda: {"parity_vlm": _parity_family(
+                          "parity_vlm", VLM_ARCH, args.seed,
+                          patch_rows=32)})):
+        if name in phases:
+            t0 = time.perf_counter()
+            launches.update(run())
+            log(name, f"phase took {time.perf_counter() - t0:.1f} s")
 
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name],

@@ -125,12 +125,16 @@ class RunConfig:
 def param_count(cfg: ModelConfig) -> int:
     """Analytic parameter count (embedding + blocks + head) as the reference
     counts it for the ported families: every layer is counted as an
-    attention block with a gated MLP (the hybrid family too), the head is
-    counted unless ``tie_embeddings``, and the final norm's scale is left
-    out."""
+    attention block with a gated MLP (the hybrid family too), or with
+    ``num_experts`` of them and the router (MoE), the head is counted unless
+    ``tie_embeddings``, and the final norm's scale is left out."""
     d, h = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     attn = d * (nq * h) + 2 * d * (nkv * h) + (nq * h) * d
-    blk = attn + 3 * d * cfg.d_ff + 2 * d
+    if cfg.num_experts > 0:
+        ffn = 3 * d * cfg.d_ff * cfg.num_experts + d * cfg.num_experts
+    else:
+        ffn = 3 * d * cfg.d_ff
+    blk = attn + ffn + 2 * d
     head = 0 if cfg.tie_embeddings else cfg.vocab_size * d
     return cfg.vocab_size * d + head + cfg.num_layers * blk

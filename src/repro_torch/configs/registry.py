@@ -1,6 +1,7 @@
 """Architecture registry: ``--arch <id>`` -> config (counterpart:
 ``repro/configs/registry.py``). Only the architectures the port runs are
-listed; the others raise until their model family is ported."""
+listed: the dense, MoE, VLM and hybrid families; the others (``xlstm-125m``,
+``seamless-m4t-large-v2``) raise until their model family is ported."""
 from __future__ import annotations
 
 import importlib
@@ -9,8 +10,15 @@ from typing import Dict
 from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES: Dict[str, str] = {
-    "pimref-100m": "repro_torch.configs.pimref_100m",
+    "stablelm-3b": "repro_torch.configs.stablelm_3b",
+    "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+    "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
+    "deepseek-coder-33b": "repro_torch.configs.deepseek_coder_33b",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "pixtral-12b": "repro_torch.configs.pixtral_12b",
+    "pimref-100m": "repro_torch.configs.pimref_100m",
 }
 
 ALL_IDS = tuple(_ARCH_MODULES)

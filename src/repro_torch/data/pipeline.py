@@ -15,6 +15,7 @@ from typing import Dict, Tuple
 import numpy as np
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.launch.specs import input_specs
 
 
 @dataclass
@@ -85,16 +86,17 @@ def make_batch_fn(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0):
     """Returns batch(step) -> dict of numpy arrays matching input_specs."""
     ds = SyntheticLMDataset(cfg.vocab_size, shape.seq_len, shape.global_batch,
                             seed)
+    spec = input_specs(cfg, shape.replace(mode="train"))
 
     def fn(step: int) -> Dict[str, np.ndarray]:
         b = ds.batch(step)
         rng = np.random.default_rng(seed + 7 * step + 13)
-        if cfg.family == "vlm":
-            P = min(cfg.num_patches, shape.seq_len // 2)
-            b["tokens"] = b["tokens"][:, : shape.seq_len - P]
-            b["labels"] = b["labels"][:, : shape.seq_len - P]
+        if "patch_embeds" in spec:
+            n = spec["tokens"].shape[1]
+            b["tokens"] = b["tokens"][:, :n]
+            b["labels"] = b["labels"][:, :n]
             b["patch_embeds"] = rng.standard_normal(
-                (shape.global_batch, P, cfg.d_model)).astype(np.float32)
+                spec["patch_embeds"].shape).astype(np.float32)
         if cfg.family == "audio":
             src = int(shape.seq_len * cfg.src_len_ratio)
             b["src_embeds"] = rng.standard_normal(

@@ -18,7 +18,10 @@ The cache is laid out as the model says (``kv_quant``, ``page_size``):
 
 * contiguous (ring per slot, values or Proteus codes and scales, and the
   hybrid family's recurrent states): each prompt is left-padded to the
-  ``prompt_len`` bucket, the pads run through the model like tokens, and
+  ``prompt_len`` bucket (a ``vlm`` prompt's token field to what its patch
+  prefix leaves: patches, pads, tokens), the pads run through the model like
+  tokens (in an MoE model they take expert capacity, as the reference's
+  do), and
   the prefill cache's rows are copied into the slot's rows along each
   leaf's batch axis (``model.cache_batch_axes()``);
 * paged: fixed-size pages live in one pool per leaf and each slot holds a
@@ -91,10 +94,12 @@ from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.distributed.chaos import (ChaosConfig, ChaosMonkey,
                                            TransientStepError,
                                            nan_logits_hook)
 from repro_torch.distributed.fault_tolerance import StragglerMonitor
+from repro_torch.launch.specs import input_specs
 from repro_torch.launch.steps import make_generate_step, spec_config
 from repro_torch.models.layers import (PagedKVCache, QKVCache, TRASH_PAGE,
                                        kv_zeros)
@@ -120,7 +125,10 @@ class ErrorReason(str, enum.Enum):
 @dataclass
 class Request:
     """One generation request; ``tokens`` is a 1-D int prompt. Prompts longer
-    than the bucket complete with a ``prompt_too_long`` error.
+    than the bucket complete with a ``prompt_too_long`` error. ``extras``:
+    further prefill inputs shaped for the bucket, which only the ``vlm``
+    family takes (``patch_embeds`` (1, P, d_model), its patch prefix); a
+    missing, unknown or misshaped extra completes with ``bad_request``.
     ``deadline_ms``: wall-clock budget from submission; expiry retires the
     request with a ``deadline`` error carrying the tokens produced."""
 
@@ -308,6 +316,13 @@ class ServeEngine:
         self.max_new, self.eos_id = max_new, eos_id
         self.max_len = prompt_len + max_new
         self.paged = model.page_size > 0
+        # the bucket's inputs: a vlm prompt reserves its patch prefix inside
+        # the bucket (a shorter token field)
+        self._batch_template = input_specs(model.cfg, ShapeConfig(
+            "engine_prefill", seq_len=prompt_len, global_batch=1,
+            mode="prefill"))
+        self._tok_len = self._batch_template["tokens"].shape[1]
+        self._prefix_len = prompt_len - self._tok_len
         self.seed, self._temperature, self._top_k = seed, temperature, top_k
         self.max_queue, self.deadline_ms = max_queue, deadline_ms
         self.max_retries, self.retry_backoff_s = max_retries, retry_backoff_s
@@ -363,9 +378,11 @@ class ServeEngine:
             self._alloc = _PageAllocator(self.n_phys_pages)
             self._host_table = np.zeros((slots, self.n_logical_pages),
                                         np.int32)
-            # prefix sharing needs page <-> position identity: a bucket
+            # prefix sharing needs pure-token prompts (patch extras are not
+            # in the hash key) and page <-> position identity: a bucket
             # prefill that never ring-wraps
-            self._share_ok = self.cache_pos_len >= self.prompt_len
+            self._share_ok = (set(self._batch_template) == {"tokens"}
+                              and self.cache_pos_len >= self.prompt_len)
         else:
             self.cache = model.init_cache(slots, self._cache_max)
             self.cache["pos_ids"].zero_()
@@ -382,8 +399,9 @@ class ServeEngine:
         self._spec_state: Tuple[torch.Tensor, ...] = ()
         if self.spec != "off":
             # the drafter's history: each slot's prompt and committed
-            # tokens, room for the bucket, the cap and a chunk's overshoot
-            self.hist_cap = prompt_len + max_new + self.chunk_span
+            # tokens, room for the token field, the cap and a chunk's
+            # overshoot
+            self.hist_cap = self._tok_len + max_new + self.chunk_span
             self._spec_state = (
                 torch.zeros((slots, self.hist_cap), dtype=torch.int32,
                             device=self.device),
@@ -481,33 +499,51 @@ class ServeEngine:
                 self._retire(slot, "error", reason=ErrorReason.DEADLINE,
                              error="deadline expired during decode")
 
-    def _prefill_tokens(self, req: Request
-                        ) -> Tuple[torch.Tensor, int, np.ndarray]:
-        """The prompt padded to the (1, prompt_len) bucket (left-padded, or
-        right-padded when paged), its true length and the flat prompt."""
+    def _prefill_tokens(self, req: Request) -> Tuple[
+            torch.Tensor, Dict[str, torch.Tensor], int, np.ndarray]:
+        """The prompt's token field padded to the bucket (left-padded, or
+        right-padded when paged), its extras (a vlm request's
+        ``patch_embeds``, checked against the bucket's template), its true
+        length in the bucket (patch prefix + tokens) and the flat prompt."""
         t = np.asarray(req.tokens, np.int32).reshape(-1)
-        if len(t) > self.prompt_len:
+        if len(t) > self._tok_len:
             raise PromptTooLongError(
                 f"request {req.uid}: prompt has {len(t)} tokens, engine "
-                f"bucket holds {self.prompt_len} (submit shorter prompts or "
+                f"bucket holds {self._tok_len} (submit shorter prompts or "
                 "build the engine with a larger prompt_len)")
-        if len(t) < 1:
+        n = self._prefix_len + len(t)
+        if n < 1:
             raise ValueError(f"request {req.uid}: empty prompt")
         vocab = self.model.cfg.vocab_size
-        if t.min() < 0 or t.max() >= vocab:
+        if len(t) and (t.min() < 0 or t.max() >= vocab):
             # an out-of-range id would fault the embedding gather on the card
             raise ValueError(f"request {req.uid}: token ids must lie in "
                              f"[0, {vocab}), got [{t.min()}, {t.max()}]")
-        if req.extras:
-            raise ValueError(f"request {req.uid}: family "
-                             f"{self.model.cfg.family!r} takes no extras, got "
-                             f"{sorted(req.extras)}")
-        toks = np.zeros((1, self.prompt_len), np.int32)
+        family = self.model.cfg.family
+        extras = dict(req.extras or {})
+        unknown = sorted(set(extras) - set(self._batch_template))
+        if unknown:
+            raise ValueError(f"request {req.uid}: family {family!r} takes "
+                             f"no extras {unknown}")
+        for k, sd in self._batch_template.items():
+            if k == "tokens":
+                continue
+            if k not in extras:
+                raise ValueError(f"request {req.uid}: family {family!r} "
+                                 f"needs extras[{k!r}] shaped {sd.shape}")
+            if tuple(np.shape(extras[k])) != sd.shape:
+                raise ValueError(
+                    f"request {req.uid}: input {k!r} has shape "
+                    f"{tuple(np.shape(extras[k]))}, engine bucket needs "
+                    f"{sd.shape}")
+            extras[k] = torch.as_tensor(np.asarray(extras[k]),
+                                        dtype=sd.dtype).to(self.device)
+        toks = np.zeros((1, self._tok_len), np.int32)
         if self.paged:
             toks[0, :len(t)] = t          # right-pad; decode overwrites pads
         else:
-            toks[0, self.prompt_len - len(t):] = t
-        return torch.from_numpy(toks).to(self.device), len(t), t
+            toks[0, self._tok_len - len(t):] = t
+        return torch.from_numpy(toks).to(self.device), extras, n, t
 
     # -- pages -------------------------------------------------------------
     def _worst_pages(self, n: int, cap: int) -> int:
@@ -594,13 +630,14 @@ class ServeEngine:
 
     # -- admission ---------------------------------------------------------
     def _insert(self, slot: int, small, first: torch.Tensor, t: np.ndarray,
-                dest: Optional[np.ndarray], trow: Optional[np.ndarray]) -> None:
+                n: int, dest: Optional[np.ndarray],
+                trow: Optional[np.ndarray]) -> None:
         """Copy a batch-1 prefill cache into slot ``slot``: its rows along
         each leaf's batch axis (contiguous), or its owned pages into the
         pool rows ``dest`` plus the slot's table row (paged; pages resolved
-        by sharing and unclaimed tails are not written). With speculation
-        the slot's drafter history becomes the prompt ``t``."""
-        n = len(t)
+        by sharing and unclaimed tails are not written; decode resumes at
+        ``n``, the prompt's end). With speculation the slot's drafter history
+        becomes the prompt's tokens ``t``."""
         c = self.cache
         if self.paged:
             own = np.nonzero(dest)[0]
@@ -619,15 +656,15 @@ class ServeEngine:
         if self._spec_state:
             hist, hist_len = self._spec_state
             row = np.zeros(self.hist_cap, np.int32)
-            row[:n] = t
+            row[:len(t)] = t
             hist[slot] = torch.from_numpy(row).to(self.device)
-            hist_len[slot] = n
+            hist_len[slot] = len(t)
 
     def _admit(self) -> None:
         while self._free and self._queue:
             req = self._queue[0]
             try:
-                toks, n, t = self._prefill_tokens(req)
+                toks, extras, n, t = self._prefill_tokens(req)
             except PromptTooLongError as e:
                 self._queue.popleft()
                 self._error(req.uid, (), ErrorReason.PROMPT_TOO_LONG, str(e))
@@ -657,7 +694,8 @@ class ServeEngine:
             self._queue.popleft()
             slot = self._free.pop()
             logits, small = self.model.prefill(toks, max_len=self._cache_max,
-                                               full_logits=self.paged)
+                                               full_logits=self.paged,
+                                               **extras)
             if self.paged:
                 first = torch.argmax(logits[0, n - 1], dim=-1)
                 try:
@@ -670,10 +708,10 @@ class ServeEngine:
                     continue
                 self._reserved[slot] = need
                 self._reserved_total += need
-                self._insert(slot, small, first, t, dest, trow)
+                self._insert(slot, small, first, t, n, dest, trow)
             else:
                 first = torch.argmax(logits[0, -1], dim=-1)
-                self._insert(slot, small, first, t, None, None)
+                self._insert(slot, small, first, t, n, None, None)
             self._active[slot] = _Slot(request=req, cap=cap, n=n)
             if self._hook is not None:
                 # absolute positions: the true prompt end (paged right-pad)

@@ -15,10 +15,15 @@ explicit:
 ``kv_quant`` (``off|int8|int4|auto``, the Proteus narrow-value cache) and
 ``page_size`` (0 = contiguous ring, else the paged cache with prefix
 sharing); the reference reads them from ``REPRO_KV_QUANT`` /
-``REPRO_KV_PAGES``. ``--arch`` names a ported model: ``pimref-100m``
-(dense, every KV layout) or ``recurrentgemma-2b`` (hybrid Griffin,
-contiguous KV only; the layout flags raise for it). Runs on the card
-unless asked for the CPU:
+``REPRO_KV_PAGES``. ``--arch`` names a ported model: the dense
+``pimref-100m``, ``internlm2-1.8b``, ``stablelm-1.6b``, ``stablelm-3b`` and
+``deepseek-coder-33b``, the MoE ``mixtral-8x7b`` and ``kimi-k2-1t-a32b``,
+the VLM ``pixtral-12b`` (every KV layout; on the card the attention kernels
+take head_dim 64, 128 and 256, which ``stablelm-3b``'s 80 and kimi's 112
+are not) or ``recurrentgemma-2b`` (hybrid Griffin, contiguous KV only; the
+layout flags raise for it). A ``vlm`` prompt holds a patch prefix (random
+patch embeddings here, the vision tower being a stub in the reference
+too). Runs on the card unless asked for the CPU:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch pimref-100m \\
       [--mode batch|queue] [--kv-quant int8] [--kv-page-size 16] \\
@@ -41,22 +46,24 @@ import argparse
 import os
 import signal
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import ALL_IDS, ModelConfig, get_config
+from repro_torch.configs import (ALL_IDS, ModelConfig, ShapeConfig,
+                                 get_config)
 from repro_torch.distributed.chaos import ChaosConfig, ShardChaosConfig
 from repro_torch.distributed.fault_tolerance import (PreemptionHandler,
                                                      RestartManifest)
 from repro_torch.kernels.common import KV_QUANT_MODES, SPEC_DECODE_MODES
 from repro_torch.launch.engine import Request, ServeEngine
 from repro_torch.launch.fleet import ServeFleet
+from repro_torch.launch.specs import input_specs
 from repro_torch.launch.steps import (clone_cache, make_generate_step,
                                       sample_tokens, spec_config)
-from repro_torch.models import build_model, init_params, load_jax_params
+from repro_torch.models import build_model, init_params_, load_jax_params
 
 
 def _sync(dev: torch.device) -> None:
@@ -75,8 +82,7 @@ def load_model(arch: str, *, smoke: bool, seed: int, device,
     cfg = cfg or get_config(arch, smoke=smoke)
     model = build_model(cfg, dev, kv_quant=kv_quant, page_size=page_size)
     if params is None:
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        model.load_state_dict(init_params(cfg, gen, dev))
+        init_params_(model, torch.Generator(device=dev).manual_seed(seed))
     else:
         load_jax_params(model, params)
     return model
@@ -90,6 +96,25 @@ def _model(model, arch, *, smoke, seed, device, cfg, params, kv_quant,
                           cfg=cfg, params=params, kv_quant=kv_quant,
                           page_size=page_size)
     return model.with_kv_layout(kv_quant, page_size)
+
+
+def serve_batch(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
+                device) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``serve()``'s synthetic prompts (B, prompt_len) from ``seed``, and the
+    prefill's extras, laid out as ``input_specs`` gives them: a ``vlm``
+    batch holds a patch prefix, so its tokens are cut to the template's
+    token field and ``patch_embeds`` come from the same draw, as the
+    reference's ``serve`` makes them."""
+    spec = input_specs(cfg, ShapeConfig("serve", seq_len=prompt_len,
+                                        global_batch=batch, mode="prefill"))
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (batch, prompt_len)).astype(
+        np.int32)[:, :spec["tokens"].shape[1]]
+    extras = {}
+    if "patch_embeds" in spec:
+        extras["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            spec["patch_embeds"].shape).astype(np.float32)).to(device)
+    return torch.from_numpy(np.ascontiguousarray(tokens)).to(device), extras
 
 
 def serve(arch: str = "pimref-100m", *, smoke: bool = True, batch: int = 4,
@@ -133,14 +158,13 @@ def serve(arch: str = "pimref-100m", *, smoke: bool = True, batch: int = 4,
     n_chunks = -(-gen // chunk)
     draft_steps_per_chunk = chunk * spec_k if spec == "draft" else 0
 
-    rng = np.random.default_rng(seed)
-    tokens = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).to(dev)
+    tokens, extras = serve_batch(cfg, batch, prompt_len, seed, dev)
+    n_tok = tokens.shape[1]
 
     _sync(dev)
     t0 = time.perf_counter()
     # the cache holds the k-ahead writes of a verify block too
-    logits, cache = model.prefill(tokens, max_len=max_len + spec_k)
+    logits, cache = model.prefill(tokens, max_len=max_len + spec_k, **extras)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     decode_steps = draft_steps = 0
@@ -150,10 +174,10 @@ def serve(arch: str = "pimref-100m", *, smoke: bool = True, batch: int = 4,
     eos = -1                       # batch mode: length-only stopping
     state = ()
     if spec != "off":              # the drafter's history: the prompts
-        hist = torch.zeros((batch, prompt_len + gen + generate.span),
+        hist = torch.zeros((batch, n_tok + gen + generate.span),
                            dtype=torch.int32, device=dev)
-        hist[:, :prompt_len] = tokens
-        state = (hist, torch.full((batch,), prompt_len, dtype=torch.int32,
+        hist[:, :n_tok] = tokens
+        state = (hist, torch.full((batch,), n_tok, dtype=torch.int32,
                                   device=dev))
     # warmup (and on the card the capture): first-call costs outside the
     # timed region
@@ -262,13 +286,20 @@ def synth_requests(arch: str = "pimref-100m", *, smoke: bool = True,
     stream as the reference's for the same arguments. ``shared_prefix > 0``
     gives every request the same first tokens (a common system prompt),
     which the paged cache shares; ``repeat_period > 0`` tiles each prompt
-    from a short period of its own (what the n-gram drafter finds)."""
+    from a short period of its own (what the n-gram drafter finds). A
+    ``vlm`` request's prompt fills at most the token field its patch prefix
+    leaves in the bucket, and carries the prefix's ``patch_embeds`` (drawn
+    after its budget); the reference's stream has no patches, so every vlm
+    request of its queue mode ends in ``bad_request``."""
     cfg = cfg or get_config(arch, smoke=smoke)
+    spec = input_specs(cfg, ShapeConfig("request", seq_len=prompt_len,
+                                        global_batch=1, mode="prefill"))
+    n_tok = spec["tokens"].shape[1]
     rng = np.random.default_rng(seed)
     prefix = rng.integers(1, cfg.vocab_size, shared_prefix).astype(np.int32)
     reqs = []
     for i in range(requests):
-        n = int(rng.integers(max(4, shared_prefix + 1), prompt_len + 1))
+        n = int(rng.integers(max(4, shared_prefix + 1), n_tok + 1))
         if repeat_period > 0:
             period = rng.integers(1, cfg.vocab_size,
                                   repeat_period).astype(np.int32)
@@ -279,6 +310,9 @@ def synth_requests(arch: str = "pimref-100m", *, smoke: bool = True,
         reqs.append(Request(
             uid=i, tokens=toks,
             max_new_tokens=int(rng.integers(max(gen // 2, 1), gen + 1))))
+        if "patch_embeds" in spec:
+            reqs[-1].extras = {"patch_embeds": rng.standard_normal(
+                spec["patch_embeds"].shape).astype(np.float32)}
     return reqs
 
 

@@ -336,13 +336,36 @@ def kv_cache_store(k: torch.Tensor, total: int, cache_len: int,
     return ring if check_kv_quant(mode) == "off" else kv_quantize(ring, mode)
 
 
+def paged_last_writers(cache: KVLeaf, slot: torch.Tensor
+                       ) -> Optional[torch.Tensor]:
+    """For a paged leaf, the (B * S,) index of the row, in (b, s) order,
+    whose write a sequential scatter (the reference's on the CPU) leaves at
+    each row's destination ``pool[table[b, slot // ps], slot % ps]``: the
+    row's own, except where rows collide on the trash page, where it is the
+    last of them. Gathering the rows by it before :func:`kv_cache_update`
+    makes what the trash page holds independent of the order the card runs
+    the writes in. None for a leaf that is not paged. Rows of a dense model
+    never read another row's trash; an MoE model's free slots read it back
+    and take expert capacity beside the live ones."""
+    if not isinstance(cache, PagedKVCache):
+        return None
+    ps = cache.page_size
+    s = slot.long()
+    if s.dim() == 1:
+        s = s[:, None]
+    b = torch.arange(cache.table.shape[-2], device=s.device)[:, None]
+    dest = (cache.table[b, s // ps].long() * ps + s % ps).flatten()
+    rows = torch.arange(dest.numel(), device=dest.device)
+    return torch.where(dest[:, None] == dest[None, :], rows, -1).amax(1)
+
+
 def kv_cache_update(cache: KVLeaf, new: torch.Tensor, slot: torch.Tensor,
                     mode: str = "off") -> KVLeaf:
     """Write ``new`` (B, S, H, D) at ring slots ``slot`` ((B,) for S == 1,
     or (B, S)), in place: quantized row-wise first when the cache holds
     codes; through the table into ``pool[table[b, slot // ps], slot % ps]``
     when it is paged (rows whose table entry is the trash page collide
-    there harmlessly). Returns ``cache``."""
+    there: :func:`paged_last_writers`). Returns ``cache``."""
     if isinstance(cache, PagedKVCache):
         ps = cache.page_size
         s = slot.long()

@@ -1,5 +1,11 @@
-"""Dense decoder-only transformer LM (counterpart: ``repro/models/model.py``,
-``TransformerLM`` with ``family="dense"``).
+"""Decoder-only transformer LM (counterpart: ``repro/models/model.py``,
+``TransformerLM``): the ``dense``, ``moe`` and ``vlm`` families.
+
+One block stack for all three: an MoE block (``num_experts > 0``) holds a
+``moe`` group (``models/moe.py``: router and stacked experts) in place of
+the gated MLP, in every layer (the reference ignores ``moe_every``, and so
+does the port); a VLM model takes precomputed ``patch_embeds`` (B, P, D),
+cast to the compute dtype and prepended to the embedded tokens.
 
 An ``nn.Module`` whose parameters carry the reference's keys
 (``blocks.<i>.attn.w_q`` ...), held in ``param_dtype`` and applied in
@@ -9,7 +15,7 @@ Training is functional over a parameter tree in the reference's layout
 axis), as the reference's ``forward(params, tokens)`` / ``loss(params,
 batch)`` are:
 
-    forward(tokens, params) -> logits        # differentiable
+    forward(tokens, params, patch_embeds) -> logits   # differentiable
     loss(params, batch) -> scalar            # mean next-token xent, fp32
 
 The compute-dtype casts happen inside the autograd graph, each block is
@@ -18,7 +24,7 @@ the attention kernel too), and attention runs the prefill kernel under
 autograd (``kernels/flash_attention/autograd.py``). Serving uses a
 pre-sized ring KV cache:
 
-    prefill(tokens, max_len) -> (last_logits, cache)
+    prefill(tokens, max_len, patch_embeds=...) -> (last_logits, cache)
     decode_step(cache, tokens) -> (logits, cache)   # cache updated in place
     init_cache(batch, max_len) -> cache
 
@@ -53,12 +59,14 @@ from repro_torch.models.layers import (aligned_cache_len, chunked_attention,
                                        dense, gated_mlp, kv_cache_init,
                                        kv_cache_len, kv_cache_store,
                                        kv_cache_update, kv_cast,
+                                       paged_last_writers,
                                        ring_cache_update, ring_position_ids,
                                        rms_norm, rope, softmax_xent,
                                        stack_kv)
 from repro_torch.models.module import (attn_param_specs, block_specs,
-                                       mlp_param_specs, param_specs,
-                                       torch_dtype)
+                                       mlp_param_specs, moe_param_specs,
+                                       param_specs, torch_dtype)
+from repro_torch.models.moe import moe_ffn
 
 Cache = Dict[str, Any]
 
@@ -77,7 +85,8 @@ class _Group(nn.Module):
 
 
 class Block(nn.Module):
-    """ln1, attn.{w_q,w_k,w_v,w_o}, ln2, mlp.{wi_gate,wi_up,wo}."""
+    """ln1, attn.{w_q,w_k,w_v,w_o}, ln2, and mlp.{wi_gate,wi_up,wo} or, with
+    experts, moe.{router,wi_gate,wi_up,wo}."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -85,7 +94,10 @@ class Block(nn.Module):
         specs = block_specs(cfg)
         _add_params(self, {k: specs[k] for k in ("ln1", "ln2")}, device)
         self.attn = _Group(attn_param_specs(cfg, dtype), device)
-        self.mlp = _Group(mlp_param_specs(cfg, dtype), device)
+        if cfg.num_experts > 0:
+            self.moe = _Group(moe_param_specs(cfg, dtype), device)
+        else:
+            self.mlp = _Group(mlp_param_specs(cfg, dtype), device)
 
 
 def qkv(cfg: ModelConfig, p, xn: torch.Tensor, positions: torch.Tensor):
@@ -145,22 +157,30 @@ class ServingLM(nn.Module):
         """The group's own weights in compute dtype, by name."""
         return {n: self._w(t) for n, t in group.named_parameters(recurse=False)}
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self._w(self.embed)[tokens.long()]
+    def _embed(self, tokens: torch.Tensor,
+               patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self._w(self.embed)[tokens.long()]
+        if patch_embeds is None:
+            return x
+        return torch.cat([patch_embeds.to(device=x.device, dtype=x.dtype), x],
+                         dim=1)
 
     def _mlp_residual(self, blk: nn.Module, h: torch.Tensor) -> torch.Tensor:
         xn2 = rms_norm(h, blk.ln2, self.cfg.norm_eps)
+        if self.cfg.num_experts > 0:
+            return h + moe_ffn(self.cfg, self._ws(blk.moe), xn2)
         m = self._ws(blk.mlp)
         return h + gated_mlp(xn2, m["wi_gate"], m["wi_up"], m["wo"])
 
 
 class TransformerLM(ServingLM):
-    """Dense decoder LM on one device (``"cuda"`` by default), serving from
-    a KV cache laid out as ``kv_quant`` and ``page_size`` say."""
+    """Decoder LM (dense, MoE or VLM) on one device (``"cuda"`` by
+    default), serving from a KV cache laid out as ``kv_quant`` and
+    ``page_size`` say."""
 
     def __init__(self, cfg: ModelConfig, device="cuda", *,
                  kv_quant: str = "off", page_size: int = 0):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe", "vlm"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is ported in a later slice")
         super().__init__(cfg, device, kv_quant=kv_quant, page_size=page_size)
@@ -187,24 +207,36 @@ class TransformerLM(ServingLM):
 
     # -- full-sequence forward and loss ------------------------------------
     def forward(self, tokens: torch.Tensor,
-                params: Optional[Dict[str, Any]] = None) -> torch.Tensor:
-        """(B, S) tokens -> (B, S, V) logits, differentiable in ``params``
-        (a parameter tree in the reference's layout); without ``params``,
-        from the module's own weights under ``no_grad``."""
+                params: Optional[Dict[str, Any]] = None,
+                patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, S) tokens (after ``patch_embeds`` (B, P, D), if given) ->
+        (B, P + S, V) logits, differentiable in ``params`` (a parameter tree
+        in the reference's layout); without ``params``, from the module's own
+        weights under ``no_grad``."""
         if params is None:
             with torch.no_grad():
                 return self._tree_forward(
-                    reference_tree(dict(self.named_parameters())), tokens)
-        return self._tree_forward(params, tokens)
+                    reference_tree(dict(self.named_parameters())), tokens,
+                    patch_embeds)
+        return self._tree_forward(params, tokens, patch_embeds)
 
-    # counterpart: the reference's forward / _block over a parameter tree
-    BLOCK_LEAVES = ("ln1", "ln2", "attn.w_q", "attn.w_k", "attn.w_v",
-                    "attn.w_o", "mlp.wi_gate", "mlp.wi_up", "mlp.wo")
+    # counterpart: the reference's forward / _block over a parameter tree;
+    # the block's leaves in _tree_block's argument order
+    ATTN_LEAVES = ("ln1", "ln2", "attn.w_q", "attn.w_k", "attn.w_v",
+                   "attn.w_o")
+    MLP_LEAVES = ("mlp.wi_gate", "mlp.wi_up", "mlp.wo")
+    MOE_LEAVES = ("moe.router", "moe.wi_gate", "moe.wi_up", "moe.wo")
+
+    @property
+    def block_leaves(self) -> Tuple[str, ...]:
+        return self.ATTN_LEAVES + (self.MOE_LEAVES if self.cfg.num_experts > 0
+                                   else self.MLP_LEAVES)
 
     def _tree_block(self, x, positions, ln1, ln2, w_q, w_k, w_v, w_o,
-                    wi_gate, wi_up, wo) -> torch.Tensor:
+                    *ffn) -> torch.Tensor:
         """One block from fp32 weights; ``dense`` casts each to the compute
-        dtype inside the graph (and inside the recompute)."""
+        dtype inside the graph (and inside the recompute). ``ffn``: the MLP's
+        or the MoE group's leaves."""
         cfg = self.cfg
         xn = rms_norm(x, ln1, cfg.norm_eps)
         q, k, v = qkv(cfg, {"w_q": w_q, "w_k": w_k, "w_v": w_v}, xn,
@@ -214,16 +246,22 @@ class TransformerLM(ServingLM):
                               chunk_kv=cfg.attn_chunk_kv)
         x = x + attn_out({"w_o": w_o}, o)
         xn2 = rms_norm(x, ln2, cfg.norm_eps)
-        return x + gated_mlp(xn2, wi_gate, wi_up, wo)
+        if cfg.num_experts > 0:
+            p = {k.split(".")[1]: w for k, w in zip(self.MOE_LEAVES, ffn)}
+            return x + moe_ffn(cfg, p, xn2)
+        return x + gated_mlp(xn2, *ffn)
 
-    def _tree_forward(self, params: Dict[str, Any],
-                      tokens: torch.Tensor) -> torch.Tensor:
+    def _tree_forward(self, params: Dict[str, Any], tokens: torch.Tensor,
+                      patch_embeds: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
         cfg = self.cfg
         x = F.embedding(tokens.long(), params["embed"].to(self.cdtype))
+        if patch_embeds is not None:
+            x = torch.cat([patch_embeds.to(x.device, self.cdtype), x], dim=1)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
         layers = []
-        for name in self.BLOCK_LEAVES:
+        for name in self.block_leaves:
             leaf = params["blocks"]
             for k in name.split("."):
                 leaf = leaf[k]
@@ -274,11 +312,14 @@ class TransformerLM(ServingLM):
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None,
-                full_logits: bool = False) -> Tuple[torch.Tensor, Cache]:
-        """Run the prompt (B, S); return last-token logits (B, 1, V) (every
-        position with ``full_logits``) and the cache pre-sized for
-        ``max_len`` positions."""
-        x = self._embed(tokens)
+                full_logits: bool = False,
+                patch_embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Cache]:
+        """Run the prompt (B, S), after ``patch_embeds`` (B, P, D) if given;
+        return last-position logits (B, 1, V) (every position with
+        ``full_logits``) and the cache pre-sized for ``max_len`` positions
+        (the patch prefix holds positions 0 .. P - 1)."""
+        x = self._embed(tokens, patch_embeds)
         B, S, _ = x.shape
         T = self.cache_len(max(max_len or S, S))
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -319,10 +360,17 @@ class TransformerLM(ServingLM):
                                                 device=pos.device)
         slot = block_pos % T
         ring_cache_update(cache["pos_ids"], block_pos, slot)
+        # rows share expert capacity, so colliding trash-page writes must
+        # land as the reference's do: one gather index for every layer
+        last = (paged_last_writers(cache["k"][0], slot)
+                if self.cfg.num_experts > 0 else None)
         blocks = self.blocks if layers is None else self.blocks[:layers]
         for i, blk in enumerate(blocks):
             xn = rms_norm(x, blk.ln1, self.cfg.norm_eps)
             q, k, v = self._qkv(blk, xn, block_pos)
+            if last is not None:
+                k = k.flatten(0, 1)[last].view_as(k)
+                v = v.flatten(0, 1)[last].view_as(v)
             ck = kv_cache_update(cache["k"][i], k, slot, self.kv_quant)
             cv = kv_cache_update(cache["v"][i], v, slot, self.kv_quant)
             o = chunked_attention(q, kv_cast(ck, x.dtype), kv_cast(cv, x.dtype),
@@ -342,7 +390,7 @@ class TransformerLM(ServingLM):
 
 def build_model(cfg: ModelConfig, device="cuda", *, kv_quant: str = "off",
                 page_size: int = 0) -> ServingLM:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         return TransformerLM(cfg, device, kv_quant=kv_quant,
                              page_size=page_size)
     if cfg.family == "hybrid":

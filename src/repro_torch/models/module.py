@@ -3,7 +3,9 @@ and the spec functions of ``repro/models/model.py``).
 
 Names follow the reference's parameter keys, flattened with dots, with the
 stacked ``blocks`` / ``groups`` axis unrolled and list indices spelled out:
-``embed``, ``final_norm``, ``head``, ``blocks.<i>.attn.w_q``, ... (dense);
+``embed``, ``final_norm``, ``head``, ``blocks.<i>.attn.w_q``, ... (dense,
+MoE and VLM; an MoE block holds ``moe.router`` and the stacked experts
+``moe.wi_gate`` ... in place of ``mlp.*``);
 ``groups.<g>.rec1.rec.w_x``, ``groups.<g>.attn.attn.w_q``,
 ``tail.<i>.mlp.wo``, ... (hybrid, specs in ``recurrent_lm.py``).
 
@@ -12,7 +14,8 @@ stacked ``blocks`` / ``groups`` axis unrolled and list indices spelled out:
 ``rglru_lambda`` (``logit(u)``, ``u ~ U[0.9, 0.999]``, so that the RG-LRU's
 decay ``sigmoid(lam)`` starts where Griffin starts it) and
 ``normal / sqrt(fan_in)`` with fan-in read off the axis the reference names
-for it (``w_o``: the heads axis, all others: axis 0) of the per-layer shape.
+for it (``w_o``: the heads axis; the stacked experts of an MoE block: axis
+1; all others: axis 0) of the per-layer shape.
 The reference applies the same axis to its layer-stacked shape, where axis 0
 is the layer axis; weights for parity tests come through ``bridge.py``.
 """
@@ -59,6 +62,19 @@ def mlp_param_specs(cfg: ModelConfig, dtype) -> Dict[str, ParamSpec]:
     }
 
 
+def moe_param_specs(cfg: ModelConfig, dtype) -> Dict[str, ParamSpec]:
+    """``router`` (D, E) and the stacked experts ``wi_gate`` / ``wi_up``
+    (E, D, F) and ``wo`` (E, F, D), fan-in on axis 1 of the expert
+    weights."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    return {
+        "router": ParamSpec((d, e), dtype),
+        "wi_gate": ParamSpec((e, d, f), dtype, ("normal", 1)),
+        "wi_up": ParamSpec((e, d, f), dtype, ("normal", 1)),
+        "wo": ParamSpec((e, f, d), dtype, ("normal", 1)),
+    }
+
+
 def block_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     dtype = torch_dtype(cfg.param_dtype)
     specs = {
@@ -66,7 +82,12 @@ def block_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
         "ln2": ParamSpec((cfg.d_model,), torch.float32, ("ones",)),
     }
     specs.update({f"attn.{k}": s for k, s in attn_param_specs(cfg, dtype).items()})
-    specs.update({f"mlp.{k}": s for k, s in mlp_param_specs(cfg, dtype).items()})
+    if cfg.num_experts > 0:
+        specs.update({f"moe.{k}": s
+                      for k, s in moe_param_specs(cfg, dtype).items()})
+    else:
+        specs.update({f"mlp.{k}": s
+                      for k, s in mlp_param_specs(cfg, dtype).items()})
     return specs
 
 
@@ -77,7 +98,7 @@ def param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
         # the family's module imports this one
         from repro_torch.models.recurrent_lm import griffin_param_specs
         return griffin_param_specs(cfg)
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is ported in a later slice")
     dtype = torch_dtype(cfg.param_dtype)
@@ -122,3 +143,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def count_params(cfg: ModelConfig) -> int:
     return sum(math.prod(s.shape) for s in param_specs(cfg).values())
+
+
+@torch.no_grad()
+def init_params_(model: torch.nn.Module, generator: torch.Generator) -> None:
+    """Draw the parameters of ``model`` in place, in spec order from
+    ``generator``: the values of ``init_params(model.cfg, generator, ...)``,
+    one tensor at a time, so the peak memory is the model's plus its largest
+    parameter rather than two copies of the model."""
+    own = dict(model.named_parameters())
+    specs = param_specs(model.cfg)
+    if set(own) != set(specs):
+        raise KeyError(f"parameters differ from the specs: "
+                       f"{sorted(set(own) ^ set(specs))}")
+    for name, s in specs.items():
+        own[name].copy_(init_tensor(s, generator))

@@ -414,6 +414,26 @@ def test_kernels_reject_other_head_dims(cuda):
             fn(q, k, k, qp, kp)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["stablelm-3b", "kimi-k2-1t-a32b"])
+def test_models_with_unported_head_dims_are_refused(cuda, arch):
+    """stablelm-3b's head_dim 80 (2560 / 32) and kimi-k2's 112: the
+    attention kernels take 64, 128 and 256, so serving them on the card
+    raises ValueError in the prefill (its smoke config at the published
+    head_dim), with no fallback to the plain path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, init_params_
+    full = get_config(arch)
+    cfg = get_config(arch, smoke=True).replace(
+        head_dim=full.resolved_head_dim, compute_dtype="bfloat16")
+    assert cfg.resolved_head_dim in (80, 112)
+    m = build_model(cfg, cuda)
+    init_params_(m, torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        m.prefill(toks, max_len=12)
+
+
 # ---------------------------------------------------------------------------
 # head_dim 256 with MQA (recurrentgemma's local attention)
 # ---------------------------------------------------------------------------

@@ -186,6 +186,39 @@ def test_paged_update_writes_through_table(mode):
         assert float(after.scale[1, 5].max()) == pytest.approx(3 / 127)
 
 
+@pytest.mark.parametrize("mode", ["off", "int8"])
+def test_paged_update_collisions_write_the_last_row(mode):
+    """Slots on the trash page at the same offset (free engine slots, and a
+    verify block's rows) collide: gathered by ``paged_last_writers`` (an
+    MoE model's decode) every colliding row writes the last one's, so the
+    trash row is the reference's sequential scatter's whatever order the
+    card runs the writes in; the rest land as before."""
+    B, S = 4, 2
+    cache = tl.kv_cache_init((B, 8, 2, 4), torch.float32, mode, PS)
+    jcache = jl.kv_cache_init((B, 8, 2, 4), jnp.float32, mode=mode,
+                              page_size=PS)
+    cache.table[[0, 2, 3]] = tl.TRASH_PAGE
+    jcache = jl.PagedKVCache(jcache.pages, jnp.asarray(cache.table.numpy()))
+    new = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (B, S, 2, 4)).astype(np.float32))
+    slot = torch.tensor([[1, 2], [5, 6], [1, 2], [5, 1]], dtype=torch.int32)
+    last = tl.paged_last_writers(cache, slot)
+    assert last.tolist() == [7, 5, 2, 3, 7, 5, 7, 7]
+    assert tl.paged_last_writers(cache.pages, slot) is None
+    tl.kv_cache_update(cache, new.flatten(0, 1)[last].view_as(new), slot,
+                       mode)
+    jupd = jl.kv_cache_update(jcache, jnp.asarray(new.numpy()),
+                              jnp.asarray(slot.numpy()), mode=mode)
+    if mode == "off":
+        _eq(cache.pages, jupd.pages)
+        # trash offsets 1 ((0,0), (2,0), (3,0), (3,1)) and 2 ((0,1), (2,1))
+        _eq(cache.pages[tl.TRASH_PAGE, 1], new[3, 1])
+        _eq(cache.pages[tl.TRASH_PAGE, 2], new[2, 1])
+    else:
+        _eq(cache.pages.codes, jupd.pages.codes)
+        _eq(cache.pages.scale, jupd.pages.scale)
+
+
 def test_cache_helpers_match_reference():
     assert tl.aligned_cache_len(13, PS) == jl.aligned_cache_len(13, PS) == 16
     assert tl.aligned_cache_len(16, PS) == 16

@@ -74,14 +74,24 @@ def _tokens(seed, shape, vocab):
 # ---------------------------------------------------------------------------
 # configs, specs, init, bridge
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("smoke", [False, True])
-def test_config_copy_matches_reference(smoke):
-    j = get_config("pimref-100m", smoke=smoke)
-    t = tconfigs.get_config("pimref-100m", smoke=smoke)
+# the port's architectures; pimref-100m's cases keep their ids
+COPIED = [pytest.param("pimref-100m", smoke, id=str(smoke))
+          for smoke in (False, True)] + [
+    pytest.param(arch, smoke, id=f"{arch}-{smoke}")
+    for arch in tconfigs.ALL_IDS if arch != "pimref-100m"
+    for smoke in (False, True)]
+
+
+@pytest.mark.parametrize("arch,smoke", COPIED)
+def test_config_copy_matches_reference(arch, smoke):
+    j = get_config(arch, smoke=smoke)
+    t = tconfigs.get_config(arch, smoke=smoke)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert tconfigs.param_count(t) == param_count(j)
-    # the analytic count leaves out the final norm's scale
-    assert count_params(t) == param_count(j) + t.d_model
+    # the analytic count leaves out the final norm's scale (and counts the
+    # hybrid family's layers as attention blocks)
+    if t.family != "hybrid":
+        assert count_params(t) == param_count(j) + t.d_model
     shape = dict(name="s", seq_len=8, global_batch=2, mode="decode")
     assert dataclasses.asdict(tconfigs.ShapeConfig(**shape)) == \
         dataclasses.asdict(ShapeConfig(**shape))
@@ -100,9 +110,11 @@ def test_run_config_copy_matches_reference():
 
 
 def test_registry_knows_only_ported_archs():
-    assert tconfigs.ALL_IDS == ("pimref-100m", "recurrentgemma-2b")
+    from repro.configs import ALL_IDS
+    assert tconfigs.ALL_IDS == tuple(
+        a for a in ALL_IDS if a not in ("xlstm-125m", "seamless-m4t-large-v2"))
     with pytest.raises(KeyError, match="not yet ported"):
-        tconfigs.get_config("mixtral-8x7b")
+        tconfigs.get_config("xlstm-125m")
 
 
 def test_param_specs_match_reference():
@@ -120,6 +132,87 @@ def test_param_specs_match_reference():
             flat[name] = (s.shape, s.init)
     mine = {n: (s.shape, s.init) for n, s in param_specs(tcfg).items()}
     assert mine == flat
+
+
+def _flat_specs(jspecs):
+    flat = {}
+    for path, s in jax.tree_util.tree_flatten_with_path(
+            jspecs, is_leaf=lambda x: hasattr(x, "logical_axes"))[0]:
+        name = ".".join(p.key for p in path)
+        if name.startswith("blocks."):
+            for i in range(s.shape[0]):
+                flat[name.replace("blocks.", f"blocks.{i}.", 1)] = (
+                    s.shape[1:], s.init)
+        else:
+            flat[name] = (s.shape, s.init)
+    return flat
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "kimi-k2-1t-a32b",
+                                  "pixtral-12b", "deepseek-coder-33b"])
+def test_family_param_specs_match_reference(arch):
+    """The MoE block's router and stacked experts (fan-in on axis 1) and
+    the vlm and dense blocks: names, per-layer shapes and init kinds."""
+    jcfg = get_config(arch, smoke=True)
+    tcfg = tconfigs.get_config(arch, smoke=True)
+    mine = {n: (s.shape, s.init) for n, s in param_specs(tcfg).items()}
+    assert mine == _flat_specs(build_model(jcfg).param_specs())
+
+
+@pytest.mark.parametrize("arch", ["pimref-100m", "recurrentgemma-2b",
+                                  "mixtral-8x7b"])
+def test_load_model_draws_in_place_as_init_params(arch):
+    """load_model draws each parameter straight into the model, in spec
+    order from the seed's generator: bitwise the state init_params gives,
+    so every served model keeps its weights."""
+    from repro_torch.launch.serve import load_model
+    m = load_model(arch, smoke=True, seed=3, device="cpu")
+    want = tinit_params(m.cfg, torch.Generator().manual_seed(3), "cpu")
+    got = dict(m.named_parameters())
+    assert list(got) == list(want) or sorted(got) == sorted(want)
+    for name, t in want.items():
+        assert torch.equal(got[name], t), name
+
+
+# the dense architectures beside pimref-100m, at their smoke configs
+DENSE_ARCHS = ["internlm2-1.8b", "stablelm-1.6b", "stablelm-3b",
+               "deepseek-coder-33b"]
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_dense_arch_matches_reference(arch):
+    """prefill (every position), then greedy decode steps and a verify
+    block: logits within 1e-4, tokens and caches equal."""
+    jcfg = get_config(arch, smoke=True).replace(compute_dtype="float32")
+    tcfg = tconfigs.get_config(arch, smoke=True).replace(
+        compute_dtype="float32")
+    plan = plan_sharding(jcfg, ShapeConfig("serve", 32, 2, "decode"), None)
+    jm = build_model(jcfg)
+    with use_plan(plan):
+        params = init_params(jm.param_specs(), jax.random.PRNGKey(0))
+    tm = tbuild_model(tcfg, device="cpu")
+    load_jax_params(tm, jax.tree_util.tree_map(np.asarray, params))
+    toks = _tokens(7, (2, 10), tcfg.vocab_size)
+    with use_plan(plan):
+        jl, jc = jm.prefill(params, {"tokens": jnp.asarray(toks)},
+                            max_len=24, full_logits=True)
+    tl, tc = tm.prefill(torch.from_numpy(toks), max_len=24, full_logits=True)
+    _close(tl, jl)
+    jl, tl = jl[:, -1:], tl[:, -1:]
+    for step in range(5):
+        jt = jnp.argmax(jl[:, -1:], axis=-1).astype(jnp.int32)
+        tt = torch.argmax(tl[:, -1:], dim=-1).to(torch.int32)
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+        if step == 4:                    # a verify block of 3
+            jt = jnp.concatenate([jt, jt, jt], axis=1)
+            tt = torch.cat([tt, tt, tt], dim=1)
+        with use_plan(plan):
+            jl, jc = jm.decode_step(params, jc, jt)
+        tl, tc = tm.decode_step(tc, tt)
+        _close(tl, jl)
+    _close(tc["k"], jc["k"])
+    np.testing.assert_array_equal(tc["pos_ids"].numpy(),
+                                  np.asarray(jc["pos_ids"]))
 
 
 def test_init_params_scale_and_seed():
@@ -154,7 +247,7 @@ def test_bridge_rejects_bad_trees(pair):
 def test_build_model_and_device_guards():
     _, tcfg = _cfgs()
     with pytest.raises(NotImplementedError, match="later slice"):
-        tbuild_model(tcfg.replace(family="moe"), device="cpu")
+        tbuild_model(tcfg.replace(family="ssm"), device="cpu")
     assert resolve_device("cpu").type == "cpu"
     with pytest.raises(ValueError):
         resolve_device("mps")

@@ -254,8 +254,9 @@ def test_port_imports_no_jax_and_no_reference():
     narrow-value and quantized-matmul kernels, the Proteus host layer and
     the training stack: train loop, optimizers, data, checkpoints, fault
     tolerance and chaos, the attention kernel under autograd, the fleet and
-    its dispatcher, among them) and chip_smoke.py's imports load without
-    jax or the reference package."""
+    its dispatcher, the MoE layer and every architecture's config and
+    smoke model, among them) and chip_smoke.py's imports load without jax
+    or the reference package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -279,7 +280,19 @@ def test_port_imports_no_jax_and_no_reference():
         "       'repro_torch.distributed.chaos',\n"
         "       'repro_torch.distributed.fault_tolerance',\n"
         "       'repro_torch.kernels.flash_attention.autograd',\n"
-        "       'repro_torch.launch.fleet', 'repro_torch.distributed.dispatcher')\n"
+        "       'repro_torch.launch.fleet', 'repro_torch.distributed.dispatcher',\n"
+        "       'repro_torch.models.moe', 'repro_torch.launch.specs',\n"
+        "       'repro_torch.configs.mixtral_8x7b',\n"
+        "       'repro_torch.configs.pixtral_12b',\n"
+        "       'repro_torch.configs.kimi_k2_1t',\n"
+        "       'repro_torch.configs.internlm2_1_8b',\n"
+        "       'repro_torch.configs.stablelm_1_6b',\n"
+        "       'repro_torch.configs.stablelm_3b',\n"
+        "       'repro_torch.configs.deepseek_coder_33b')\n"
+        "from repro_torch.configs import ALL_IDS, get_config\n"
+        "from repro_torch.models import build_model\n"
+        "for a in ALL_IDS:\n"
+        "    build_model(get_config(a, smoke=True), 'cpu')\n"
         "from repro_torch.kernels.flash_attention import (attention_ref_bh,\n"
         "    flash_attention_bh)\n"
         "assert all(n in sys.modules for n in new), new\n"
