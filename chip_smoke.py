@@ -202,6 +202,42 @@ kv heads of 128, window 4096) and times rows ``flash_attention_fwd_d128``
 (B 8 x S = T = 512) and ``flash_decode_fwd_d128`` (B 8, T 576, S 1)
 beside SDPA with ``enable_gqa``.
 
+Phases ``encdec``, ``parity_encdec`` and ``xlstm`` run after
+``parity_vlm``: the last two architectures of the reference, random
+weights from ``--seed``, at full size. ``encdec``: ``seamless-m4t-large-v2``
+(24 encoder and 24 decoder layers, d_model 1024, 16 heads of 64, d_ff
+8192, vocab 256206; 2,034,784,256 parameters), ``serve()`` of batch 8 x
+512 tokens over 512 source frames + 64 new in the contiguous, int8,
+paged16 and paged16-int8 layouts as the graph replay and the eager chunk
+(the per-token loop too in the contiguous layout): identical tokens, exact
+launches (72 of the prefill kernel a prefill: the encoder's self-attention
+and each decoder layer's self- and cross-attention, 0 of its fp32 route;
+per step 24 of the self cache's decode kernel and 24 of the cross cache's,
+contiguous always, over codes when the layout quantizes), the graph's
+device ms a step against its byte bound (the decoder's weights but the
+cross K / V projections, the head, both caches); 24 requests with their
+source frames drained graph against eager body (contiguous, paged16; no
+prefix hits); a misshaped source extra (``bad_request``, nothing
+launched); a profile. ``parity_encdec``: 2 + 2 layers at full width,
+fp32, card against CPU, 64 tokens over 64 frames + 8 decode steps,
+contiguous / paged16 logits within 1e-3, int8 within 2e-2 (codes within
+one step), every prefill 6 launches of the fp32 route. ``xlstm``:
+``xlstm-125m`` (12 layers, 9 mLSTM and 3 sLSTM, d_model 768, 4 heads,
+vocab 50304; 74,106,696 parameters), ``prefill`` of 8 x 512 then 64
+tokens by the captured chunk, its eager body and a per-token
+``decode_step`` loop: identical tokens, no kernel launched (the blocks
+are plain PyTorch, as the reference's are jnp); prefill ms, ms a
+token-step, the graph's device ms; then fp32 card against CPU at full
+depth (2 x 512, two mLSTM chunks, + 8 steps): logits and every block's
+states within 5e-4 of their largest |value|, the card's also within it of
+a float64 run of the port (each fp32 side lies up to ~2e-4 from it: the
+model is ill-conditioned in fp32). The kernels phase checks
+both attention kernels with ``causal=False`` at the encoder-decoder's
+shapes: the prefill at S = T = 512 and S 500 over T 512 (bf16 and fp32),
+the decode kernels over the cross cache (values, codes, pages), and times
+rows ``flash_attention_fwd_noncausal``, ``flash_attention_fwd_fp32_noncausal``,
+``flash_decode_fwd_cross`` and ``flash_decode_quant_fwd_cross``.
+
 The second-to-last line is a JSON object of per-kernel numbers, the last is
 ``{"ok": true, "device": {...}}``. Any failure raises.
 
@@ -230,7 +266,8 @@ PHASES = ("device", "build", "kernels", "serve", "engine", "robust", "fleet",
           "spec", "profile",
           "parity", "train", "train_kernels", "train_parity", "proteus",
           "serve_griffin", "engine_griffin", "parity_griffin", "archs",
-          "moe", "parity_moe", "vlm", "parity_vlm")
+          "moe", "parity_moe", "vlm", "parity_vlm", "encdec", "parity_encdec",
+          "xlstm")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # the fp32 prefill route's products: q, k, p and v each as three exact bf16
@@ -305,7 +342,11 @@ SOURCES = {"flash_attention_fwd": PREFILL_SOURCE,
            "quant_matmul_decode": QMM_SOURCE,
            "required_bits": NV_SOURCE, "pack_int4": NV_SOURCE,
            "unpack_int4": NV_SOURCE,
-           "flash_attention_fwd_train": PREFILL_SOURCE}
+           "flash_attention_fwd_train": PREFILL_SOURCE,
+           "flash_attention_fwd_noncausal": PREFILL_SOURCE,
+           "flash_attention_fwd_fp32_noncausal": PREFILL_SOURCE,
+           "flash_decode_fwd_cross": DECODE_SOURCE,
+           "flash_decode_quant_fwd_cross": DECODE_SOURCE}
 REPLACES = {
     "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:126",
     "flash_attention_fwd_d256":
@@ -341,6 +382,13 @@ REPLACES = {
     "unpack_int4": "src/repro/kernels/narrow_value/kernel.py:79",
     "flash_attention_fwd_train":
         "src/repro/kernels/flash_attention/kernel.py:126",
+    "flash_attention_fwd_noncausal":
+        "src/repro/kernels/flash_attention/kernel.py:126",
+    "flash_attention_fwd_fp32_noncausal":
+        "src/repro/kernels/flash_attention/kernel.py:126",
+    "flash_decode_fwd_cross": "src/repro/kernels/flash_attention/kernel.py:174",
+    "flash_decode_quant_fwd_cross":
+        "src/repro/kernels/flash_attention/kernel.py:262",
 }
 # the serving layouts: (kv_quant, page_size, the decode kernel of each step)
 LAYOUTS = {
@@ -373,7 +421,15 @@ MAIN_LAYOUT = {"flash_attention_fwd": "contiguous",
                "quant_matmul_griffin": "proteus",
                "quant_matmul_decode": "proteus", "required_bits": "proteus",
                "pack_int4": "proteus", "unpack_int4": "proteus",
-               "flash_attention_fwd_train": "train"}
+               "flash_attention_fwd_train": "train",
+               # the encoder-decoder's non-causal calls: its prefills (a
+               # third of them cross-attention, a third the encoder's); the
+               # cross cache's decode kernel in the paged layouts, where the
+               # contiguous kernels read the cross cache alone
+               "flash_attention_fwd_noncausal": "encdec/contiguous",
+               "flash_attention_fwd_fp32_noncausal": "parity_encdec",
+               "flash_decode_fwd_cross": "encdec/paged16",
+               "flash_decode_quant_fwd_cross": "encdec/paged16_int8"}
 # rows whose launches are another row's counter: the prefill and decode
 # kernels at the Griffin shapes, the RG-LRU kernel at the long prompt, the
 # quantized matmul at its other timed shapes, the adapter's fp32 calls
@@ -389,7 +445,11 @@ COUNTER = {"flash_attention_fwd_d256": "flash_attention_fwd",
            "quant_matmul_bf16": "quant_matmul",
            "quant_matmul_griffin": "quant_matmul",
            "quant_matmul_decode": "quant_matmul",
-           "flash_attention_fwd_train": "flash_attention_fwd"}
+           "flash_attention_fwd_train": "flash_attention_fwd",
+           "flash_attention_fwd_noncausal": "flash_attention_fwd",
+           "flash_attention_fwd_fp32_noncausal": "flash_attention_fwd_fp32",
+           "flash_decode_fwd_cross": "flash_decode_fwd",
+           "flash_decode_quant_fwd_cross": "flash_decode_quant_fwd"}
 NO_LIBRARY = ("no single PyTorch call computes attention over quantized "
               "codes or through a page table")
 NO_LIBRARY_RGLRU = "no single PyTorch call computes a linear recurrence"
@@ -597,18 +657,20 @@ def fp32_route_bound(nbytes: int, flops: float) -> tuple:
             bound_ms(nbytes, flops, torch.float32))
 
 
-def fp32_prefill_row(gen, label, B, Hkv, G, S, D, window) -> dict:
+def fp32_prefill_row(gen, label, B, Hkv, G, S, D, window,
+                     causal=True) -> dict:
     """The prefill kernel's fp32 route at a main-path shape in the model's
     layout (strided views of (B, S, H, D) projections): out and lse within
     TOL of the plain version, two calls bitwise equal, then device times of
     the kernel call (positions made once), the plain version and SDPA on
     fp32 inputs (K/V expanded to the q heads as views; ``is_causal``, which
-    is the same function while S <= window). Returns the row."""
+    is the same function while S <= window; none with ``causal=False``).
+    Returns the row."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ref
     H, dt = Hkv * G, torch.float32
-    kw = dict(causal=True, window=window)
+    kw = dict(causal=causal, window=window)
 
     def inputs():
         q = randn(gen, (B, S, H, D), dt)
@@ -637,13 +699,13 @@ def fp32_prefill_row(gen, label, B, Hkv, G, S, D, window) -> dict:
               *(x[:, :, None].expand(B, Hkv, G, S, D).reshape(B, H, S, D)
                 for x in (k4, v4))) for q5, k4, v4 in sets5]
     t_l = device_ms(lambda i: F.scaled_dot_product_attention(
-        *sets4[i], is_causal=True), n_sets, 5)
+        *sets4[i], is_causal=causal), n_sets, 5)
     split = kernel_split_us(lambda i: fk.flash_attention_fwd(
         *sets5[i], posc, posc, **kw), n_sets)
     del sets4, sets5
     nbytes = 2 * o.nbytes + 2 * 4 * B * S * Hkv * D + lse.nbytes \
         + 2 * pos.nbytes
-    flops = 4.0 * D * H * visible_pairs(pos, pos, True, window)
+    flops = 4.0 * D * H * visible_pairs(pos, pos, causal, window)
     (b_ms, b_by), (c_ms, c_by) = fp32_route_bound(nbytes, flops)
     log("kernels", f"{name} times: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
         f"sdpa fp32 {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
@@ -890,6 +952,7 @@ def phase_kernels(seed: int) -> dict:
     rows.update(kernels_kv_layouts(gen))
     rows.update(kernels_griffin(gen))
     rows.update(kernels_d128(gen))
+    rows.update(kernels_noncausal(gen))
     return rows
 
 
@@ -1237,6 +1300,158 @@ def kernels_d128(gen) -> dict:
     return rows
 
 
+# the encoder-decoder's attention: seamless-m4t-large-v2's 16 heads of 64
+# (G 1), a 512-token prompt over a 512-frame source
+ENCDEC_ATTN = (8, 16, 512, 64)       # (B, H, S = T, D)
+
+
+def kernels_noncausal(gen) -> dict:
+    """The kernels with ``causal=False``, as the encoder-decoder calls
+    them: the prefill (the encoder's self-attention and the decoder's
+    cross-attention) at B 8, S = T = 512, 16 heads of 64, bf16 (model
+    layout, every kv tile live) and its fp32 route (the parity phase's),
+    both also at S 500 over T 512 (a partial last kv tile); the decode
+    kernel of the cross cache, one q row a slot over every source row (B 8,
+    T 512), over values and int8 codes; the paged kernels non-causal at
+    that shape with their bitwise identities. Checked against the plain
+    versions, timed beside them and SDPA (no mask: every pair visible).
+    Returns the rows ``flash_attention_fwd_noncausal``,
+    ``flash_attention_fwd_fp32_noncausal``, ``flash_decode_fwd_cross`` and
+    ``flash_decode_quant_fwd_cross``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.models.layers import kv_quantize
+    B, H, S, D = ENCDEC_ATTN
+    dt = torch.bfloat16
+    rows = {}
+    split = lambda x, n: x.reshape(B, n, H, 1, D).permute(0, 2, 3, 1, 4)
+    to4 = lambda x, n: x.permute(0, 3, 1, 2, 4).reshape(B, n, H, D)
+
+    # -- prefill: S = T = 512 and S 500 over T 512, bf16 and fp32 -----------
+    for S_q in (S, 500):
+        for pdt in (torch.bfloat16, torch.float32):
+            q = randn(gen, (B, S_q, H, D), pdt)
+            k, v = (randn(gen, (B, S, H, D), pdt) for _ in range(2))
+            out, lse = ops.flash_attention_gqa_fwd(q, k, v, causal=False)
+            qp = torch.arange(S_q, dtype=torch.int32,
+                              device=DEVICE).expand(B, S_q)
+            kp = torch.arange(S, dtype=torch.int32, device=DEVICE).expand(B, S)
+            args5 = (split(q, S_q), k.transpose(1, 2), v.transpose(1, 2), qp,
+                     kp)
+            r_out, r_lse = ref.flash_attention_fwd_ref(*args5, causal=False)
+            name = (f"prefill non-causal B8 H16 S{S_q} T{S} D64 "
+                    f"{str(pdt)[6:]} (model layout)")
+            if pdt == torch.bfloat16:
+                e = _check_bf16(name, out, to4(r_out, S_q),
+                                to4(_abs_v_out(*args5, causal=False), S_q),
+                                lse, r_lse)
+                if S_q == S:
+                    err = e
+            else:
+                _check(name, out, to4(r_out, S_q), TOL[pdt])
+                _check(name, lse, r_lse, TOL[pdt], "lse")
+    n_sets = n_sets_for(4 * B * S * H * D * 2)
+    sets = [[randn(gen, (B, S, H, D), dt) for _ in range(3)]
+            for _ in range(n_sets)]
+    pos = torch.arange(S, dtype=torch.int32, device=DEVICE).expand(B, S)
+    sets5 = [(split(a, S), b.transpose(1, 2), c.transpose(1, 2))
+             for a, b, c in sets]
+    t_k = device_ms(lambda i: ops.flash_attention_gqa_fwd(*sets[i],
+                                                          causal=False),
+                    n_sets, 20)
+    t_p = device_ms(lambda i: ref.flash_attention_fwd_ref(
+        *sets5[i], pos, pos, causal=False), n_sets, 4)
+    sets4 = [tuple(x.transpose(1, 2).contiguous() for x in st) for st in sets]
+    t_l = device_ms(lambda i: F.scaled_dot_product_attention(*sets4[i]),
+                    n_sets, 20)
+    del sets, sets4, sets5
+    q_bytes = B * S * H * D * 2
+    nbytes = 4 * q_bytes + B * H * S * 4 + 2 * pos.nbytes
+    flops = 4.0 * D * H * visible_pairs(pos, pos, False, 0)
+    b_ms, b_by = bound_ms(nbytes, flops, dt)
+    rows["flash_attention_fwd_noncausal"] = dict(
+        max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+        library_ms=t_l)
+    log("kernels", f"prefill non-causal times (B8 H16 S=T=512 D64 bf16): "
+        f"kernel {t_k:.4f} ms (through ops), plain {t_p:.4f} ms, sdpa "
+        f"{t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
+        f"{flops:.3e} FLOP)")
+    rows["flash_attention_fwd_fp32_noncausal"] = fp32_prefill_row(
+        gen, "non-causal B8 H16 S=T=512 D64", B, H, 1, S, D, 0,
+        causal=False)
+
+    # -- decode over the cross cache: q position 0, every source row --------
+    T = S
+    qp = torch.zeros((B, 1), dtype=torch.int32, device=DEVICE)
+    kp = torch.arange(T, dtype=torch.int32, device=DEVICE).expand(B, T) \
+        .contiguous()
+    to5 = lambda x: x.reshape(B, 1, H, 1, D).permute(0, 2, 3, 1, 4)
+    merge = lambda x: x.permute(0, 3, 1, 2, 4).reshape(B, 1, H, D)
+    flops = 4.0 * D * H * B * T
+    base_bytes = 2 * B * H * D * 2 + qp.nbytes + kp.nbytes   # q, out, pos
+
+    def quant_set():
+        kq, vq = (kv_quantize(randn(gen, (B, T, H, D), dt), "int8")
+                  for _ in range(2))
+        return (randn(gen, (B, 1, H, D), dt), kq.codes, kq.scale, vq.codes,
+                vq.scale)
+
+    cases = {
+        # name: (make one input set, kernel call, plain call, library call,
+        #        K / V bytes)
+        "flash_decode_fwd_cross": (
+            lambda: (randn(gen, (B, 1, H, D), dt),
+                     randn(gen, (B, T, H, D), dt),
+                     randn(gen, (B, T, H, D), dt)),
+            lambda st: ops.flash_decode(*st, qp, kp, causal=False),
+            lambda st: merge(ref.flash_decode_fwd_ref(
+                to5(st[0]), st[1].transpose(1, 2), st[2].transpose(1, 2),
+                qp, kp, causal=False)),
+            lambda st: F.scaled_dot_product_attention(st[0], st[1], st[2]),
+            2 * B * T * H * D * 2),
+        "flash_decode_quant_fwd_cross": (
+            quant_set,
+            lambda st: ops.flash_decode_quant(*st, qp, kp, causal=False),
+            lambda st: merge(ref.flash_decode_quant_fwd_ref(
+                to5(st[0]), *(x.transpose(1, 2) for x in st[1:]), qp, kp,
+                causal=False)),
+            None,
+            B * T * H * (2 * D + 2 * 4)),
+    }
+    for name, (make, kern, plain_fn, lib_fn, kv_bytes) in cases.items():
+        sample = make()
+        e = _check(f"{name} B8 H16 T512 S1 D64 bf16 non-causal",
+                   kern(sample), plain_fn(sample), TOL[dt])
+        n_sets = n_sets_for(sum(x.nbytes for x in sample))
+        sets = [sample] + [make() for _ in range(n_sets - 1)]
+        t_k = device_ms(lambda i: kern(sets[i]), n_sets, 50)
+        t_p = device_ms(lambda i: plain_fn(sets[i]), n_sets, 10)
+        t_l = None
+        if lib_fn is not None:
+            sets4 = [tuple(x.transpose(1, 2).contiguous() for x in st)
+                     for st in sets]
+            t_l = device_ms(lambda i: lib_fn(sets4[i]), n_sets, 50)
+            del sets4
+        del sets
+        nbytes = kv_bytes + base_bytes
+        b_ms, b_by = bound_ms(nbytes, flops, dt)
+        rows[name] = dict(max_abs_err=e, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=t_l)
+        log("kernels", f"{name} times (B8 H16 T512 S1 D64 bf16, non-causal)"
+            f": kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+            + (f"sdpa (no mask) {t_l:.4f} ms" if t_l is not None
+               else f"library: none ({NO_LIBRARY})")
+            + f", bound {b_ms:.4f} ms ({b_by}: {nbytes} B, {flops:.3e} FLOP)")
+    # the paged kernels non-causal at this shape: full and partly empty
+    # slots, paged == dense and paged-quant == quant bit for bit
+    for cdt in (torch.bfloat16, torch.float32):
+        _check_layouts_case(gen, cdt, B, H, 1, 1, T, D, 16,
+                            [511, 100, 511, 300, 511, 0, 511, 450],
+                            dict(causal=False, window=0, softcap=0.0),
+                            share=3)
+    return rows
+
+
 def kernels_verify(gen) -> dict:
     """The decode kernel at the speculative verify block's shape: B 8, H 12,
     S = k + 1 = 4 q rows a slot, T 579 (512 + 64 + k ring slots), D 64,
@@ -1447,11 +1662,32 @@ def _reset():
 
 
 def _layer_counts(cfg) -> tuple:
-    """(attention layers, RG-LRU layers) of a model."""
+    """(attention layers, RG-LRU layers) of a model: the layers that hold
+    a KV cache (an encoder-decoder's decoder layers), the decode kernel's
+    launches of a step in the cache's layout."""
     if cfg.family == "hybrid":
         n_attn = cfg.num_layers // 3
         return n_attn, cfg.num_layers - n_attn
+    if cfg.family == "ssm":
+        return 0, 0
     return cfg.num_layers, 0
+
+
+def _prefill_attentions(cfg) -> int:
+    """Prefill-kernel launches of one prefill: one per attention layer; an
+    encoder-decoder's encoder layers and each decoder layer's self- and
+    cross-attention."""
+    if cfg.family == "audio":
+        return cfg.num_encoder_layers + 2 * cfg.num_layers
+    return _layer_counts(cfg)[0]
+
+
+def _cross_kernel(decode_kernel: str) -> str:
+    """The decode kernel of an encoder-decoder's cross cache beside the self
+    cache's ``decode_kernel``: contiguous always, codes when the self cache
+    holds codes."""
+    return ("flash_decode_quant_fwd" if "quant" in decode_kernel
+            else "flash_decode_fwd")
 
 
 def _check_launches(phase, cfg, prefills, decode_steps,
@@ -1465,16 +1701,21 @@ def _check_launches(phase, cfg, prefills, decode_steps,
     once per layer of its first ``draft_layers``; no other kernel ran."""
     got = {n: c for counter in _counters() for n, c in counter.items()}
     n_attn, n_rec = _layer_counts(cfg)
+    n_pre = _prefill_attentions(cfg)
     want = dict.fromkeys(got, 0)
-    want["flash_attention_fwd"] = n_attn * prefills
+    want["flash_attention_fwd"] = n_pre * prefills
     if cfg.compute_dtype == "float32":
-        want["flash_attention_fwd_fp32"] = n_attn * prefills
+        want["flash_attention_fwd_fp32"] = n_pre * prefills
     want[decode_kernel] = n_attn * decode_steps + draft_layers * draft_steps
+    if cfg.family == "audio":
+        want[_cross_kernel(decode_kernel)] += n_attn * decode_steps
     want["rglru_scan"] = n_rec * prefills
-    log(phase, f"launches {got} (want {want}: {n_attn} attention + {n_rec} "
-        f"recurrent layers x {prefills} prefills / {decode_steps} decode "
-        f"steps" + (f", {draft_layers} layers x {draft_steps} draft steps"
-                    if draft_steps else "") + ")")
+    log(phase, f"launches {got} (want {want}: {n_pre} prefill attentions + "
+        f"{n_rec} recurrent layers x {prefills} prefills, {n_attn} "
+        + ("self + cross " if cfg.family == "audio" else "")
+        + f"attention layers x {decode_steps} decode steps"
+        + (f", {draft_layers} layers x {draft_steps} draft steps"
+           if draft_steps else "") + ")")
     if got != want:
         raise AssertionError(f"{phase}: launches {got} != {want}")
     return got
@@ -1493,10 +1734,13 @@ def phase_serve(model, smi: str) -> dict:
 
 def _cache_diff(cc, cg):
     """(max |CPU - card| over the K/V values or scales, codes that differ,
-    largest code difference) of two caches of one layout."""
+    largest code difference) of two caches of one layout (an
+    encoder-decoder's cross cache too)."""
     from repro_torch.models.layers import PagedKVCache, QKVCache
     err, flips, code_max = 0.0, 0, 0
-    for n in ("k", "v"):
+    for n in ("k", "v", "xk", "xv"):
+        if n not in cc:
+            continue
         a, b = cc[n], cg[n]
         if isinstance(a, PagedKVCache):
             if not torch.equal(a.table, b.table.cpu()):
@@ -1518,7 +1762,7 @@ def _check_fp32_prefills(phase, cfg, prefills) -> dict:
     from repro_torch.kernels.flash_attention import LAUNCHES
     torch.cuda.synchronize()
     got = {n: c for counter in _counters() for n, c in counter.items()}
-    want = _layer_counts(cfg)[0] * prefills
+    want = _prefill_attentions(cfg) * prefills
     log(phase, f"launches {got} (want flash_attention_fwd = "
         f"flash_attention_fwd_fp32 = {want}: {prefills} fp32 prefills)")
     if not LAUNCHES["flash_attention_fwd"] == \
@@ -2174,7 +2418,8 @@ def _spec_start(m, toks, spec, gen, chunk, eager=False,
     k = SPEC_K if spec != "off" else 0
     extras = extras or {}
     B, P = toks.shape
-    n = P + sum(x.shape[1] for x in extras.values())
+    n = P + (extras["patch_embeds"].shape[1] if "patch_embeds" in extras
+             else 0)
     step = (eager_step if eager else make_generate_step)(
         m, chunk=chunk, spec=spec, spec_k=k, draft_layers=draft_layers,
         logits_hook=logits_hook)
@@ -2590,19 +2835,26 @@ def graph_device_ms(m, toks, gen, chunk, spec="off",
             ev[0].elapsed_time(ev[1]))
 
 
-def step_bytes(model, batch: int, depth: int) -> int:
+def step_bytes(model, batch: int, depth: int, src: int = 0) -> int:
     """The bytes a decode step of ``batch`` rows must move at least: every
     weight once in the compute dtype (the embedding's ``batch`` rows only,
     unless it is also the head; an MoE layer's experts all, since the
     batch's choices reach every expert at these shapes), and the K/V rows
     each row holds at ``depth`` positions (the window's at most) in the
     model's KV layout (int8 / int4 codes with an fp32 scale a row and
-    head). Norm scales count at 4 bytes."""
+    head). Norm scales count at 4 bytes. An encoder-decoder's step reads its
+    decoder (the cross-attention's K / V projections not: the cross cache
+    holds their products), its head, and beside the self cache its cross
+    cache of ``src`` rows."""
     cfg = model.cfg
     es = torch.finfo(model.cdtype).bits // 8
     n = 0
     for name, p in model.named_parameters():
-        if name == "embed" and not cfg.tie_embeddings:
+        if name.startswith("enc_") or ".cross_attn.w_k" in name \
+                or ".cross_attn.w_v" in name:
+            continue
+        if name == "embed" and (not cfg.tie_embeddings
+                                or cfg.family == "audio"):
             n += batch * cfg.d_model * es
         else:
             n += p.numel() * (4 if p.dtype == torch.float32 and p.ndim == 1
@@ -2613,20 +2865,21 @@ def step_bytes(model, batch: int, depth: int) -> int:
            "int4": cfg.resolved_head_dim // 2 + 4}.get(model.kv_quant,
                                                        cfg.resolved_head_dim)
     n_attn = _layer_counts(cfg)[0]
-    return n + 2 * n_attn * batch * depth * cfg.num_kv_heads * row
+    return n + 2 * n_attn * batch * (depth + src) * cfg.num_kv_heads * row
 
 
 def _serve_engines(model, smi, label, decode_kernel="flash_decode_fwd",
-                   **kw) -> dict:
-    """Batch serving with each of ENGINES after a short warm-up run: exact
-    launches, tokens in range, graph == eager chunk == loop tokens, the
-    graph's decode ms per token-step below the eager chunk's; logs the
-    graph's device ms per step; returns the graph run's launches."""
+                   engines=ENGINES, **kw) -> dict:
+    """Batch serving with each of ``engines`` (ENGINES, or the first two)
+    after a short warm-up run: exact launches, tokens in range, the same
+    tokens from every engine, the graph's decode ms per token-step below
+    the eager chunk's; logs the graph's device ms per step; returns the
+    graph run's launches."""
     from repro_torch.launch.serve import serve
     cfg = model.cfg
     serve(model=model, engine="fused", **{**kw, "gen": 8})   # first calls
     runs, launches = {}, None
-    for name in ENGINES:
+    for name in engines:
         _reset()
         out = _serve_as(name, model=model, **kw)
         got = _check_launches(f"{label}/{name}", cfg, out["prefills"],
@@ -2648,10 +2901,10 @@ def _serve_engines(model, smi, label, decode_kernel="flash_decode_fwd",
                "warm-up chunk included)" if name == "graph" else ""))
         runs[name] = out
     same = all(np.array_equal(runs["graph"]["tokens"], runs[n]["tokens"])
-               for n in ENGINES[1:])
-    log(label, f"graph == eager chunk == loop tokens: {same}")
+               for n in engines[1:])
+    log(label, f"{' == '.join(engines)} tokens: {same}")
     if not same:
-        raise AssertionError(f"{label}: greedy tokens of {ENGINES} differ")
+        raise AssertionError(f"{label}: greedy tokens of {engines} differ")
     from repro_torch.launch.serve import serve_batch
     m = model.with_kv_layout(kw.get("kv_quant", "off"),
                              kw.get("page_size", 0))
@@ -2660,7 +2913,9 @@ def _serve_engines(model, smi, label, decode_kernel="flash_decode_fwd",
     dev, first = graph_device_ms(m, toks, kw["gen"], kw["chunk"],
                                  extras=extras)
     g, e = (runs[n]["decode_s_per_tok"] * 1e3 for n in ("graph", "eager"))
-    nbytes = step_bytes(m, kw["batch"], kw["prompt_len"] + kw["gen"] // 2)
+    src = extras.get("src_embeds")
+    nbytes = step_bytes(m, kw["batch"], kw["prompt_len"] + kw["gen"] // 2,
+                        0 if src is None else src.shape[1])
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     log(label, f"{smi}: decode ms per token-step: graph {g:.4f}, its device "
         f"time {dev:.4f} (wall / device {g / dev:.2f}; a first replay "
@@ -2987,18 +3242,23 @@ def _routing_diff(label, cpu_calls, gpu_calls) -> None:
         raise AssertionError(f"{label}: routing differs: {flips}")
 
 
-def _parity_family(label, arch, seed, patch_rows=0) -> dict:
-    """``arch`` at full width, FAMILY_PARITY_LAYERS layers, fp32 (TF32
-    off): logits of a 64-token prefill (after ``patch_rows`` patch
-    embeddings) and 8 decode steps, card against CPU, contiguous and
-    paged16, within PARITY_ATOL; an MoE model's routing equal. Returns the
-    card side's launches."""
+def _parity_family(label, arch, seed, patch_rows=0, src_rows=0,
+                   layouts=FAMILY_ENGINE_LAYOUTS) -> dict:
+    """``arch`` at full width, FAMILY_PARITY_LAYERS layers (an
+    encoder-decoder's encoder too), fp32 (TF32 off): logits of a 64-token
+    prefill (after ``patch_rows`` patch embeddings; over ``src_rows``
+    source frames) and 8 decode steps, card against CPU, in ``layouts``,
+    within PARITY_ATOL (an int8 cache: PARITY_INT8_ATOL, codes within one
+    step); an MoE model's routing equal. Returns the card side's
+    launches."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import load_model
     from repro_torch.models import build_model
     full = get_config(arch)
     cfg = full.replace(num_layers=FAMILY_PARITY_LAYERS,
                        compute_dtype="float32")
+    if cfg.is_encoder_decoder:
+        cfg = cfg.replace(num_encoder_layers=FAMILY_PARITY_LAYERS)
     t0 = time.perf_counter()
     # drawn on the card (the host's generator takes ~25 s for mixtral's
     # 3.2 G parameters), copied to the host
@@ -3007,7 +3267,10 @@ def _parity_family(label, arch, seed, patch_rows=0) -> dict:
     cpu0.load_state_dict(gpu0.state_dict())
     n = sum(p.numel() for p in cpu0.parameters())
     log(label, f"{arch} depth cut {full.num_layers} -> "
-        f"{cfg.num_layers} layers, full width, fp32: {n} params "
+        f"{cfg.num_layers} layers" + (
+            f" (encoder {full.num_encoder_layers} -> "
+            f"{cfg.num_encoder_layers})" if cfg.is_encoder_decoder else "")
+        + f", full width, fp32: {n} params "
         f"({4 * n / 1e9:.1f} GB on the host and on the card), built in "
         f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(seed)
@@ -3019,8 +3282,10 @@ def _parity_family(label, arch, seed, patch_rows=0) -> dict:
     if patch_rows:
         extras["patch_embeds"] = torch.from_numpy(rng.standard_normal(
             (2, patch_rows, cfg.d_model)).astype(np.float32))
+    if src_rows:
+        extras["src_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, src_rows, cfg.d_model)).astype(np.float32))
     max_len = 64 + patch_rows + 8
-    layouts = ("contiguous", "paged16")
     _reset()
     for layout in layouts:
         kv_quant, page_size, _ = LAYOUTS[layout]
@@ -3045,19 +3310,291 @@ def _parity_family(label, arch, seed, patch_rows=0) -> dict:
         errs = [(c - g.cpu()).abs().max().item() for c, g in zip(pc, pg)]
         agree = np.mean([float((c.argmax(-1) == g.cpu().argmax(-1)).all())
                          for c, g in zip(pc, pg)])
-        kv, _, _ = _cache_diff(cc, cg)
+        kv, flips, code_max = _cache_diff(cc, cg)
+        tol = PARITY_INT8_ATOL if kv_quant != "off" else PARITY_ATOL
         log(f"{label}/{layout}", f"fp32 logits card vs CPU, prefill "
-            f"{patch_rows} patches + 64 tokens, 8 decode steps: max_abs_err "
-            f"per call {['%.2e' % e for e in errs]} (tol "
-            f"{PARITY_ATOL:.0e}), logit scale {pc[0].abs().max().item():.3e}, "
-            f"cache {kv:.2e}, top-1 agreement {agree:.3f}")
-        if max(errs) > PARITY_ATOL or kv > PARITY_ATOL:
+            f"{patch_rows} patches + 64 tokens" + (
+                f" over {src_rows} source frames" if src_rows else "")
+            + f", 8 decode steps: max_abs_err per call "
+            f"{['%.2e' % e for e in errs]} (tol {tol:.0e}), logit scale "
+            f"{pc[0].abs().max().item():.3e}, cache {kv:.2e}, codes "
+            f"differing {flips} (largest difference {code_max}), top-1 "
+            f"agreement {agree:.3f}")
+        if max(errs) > tol or kv > PARITY_ATOL or code_max > 1:
             raise AssertionError(f"{label}/{layout}: card vs CPU differ: "
-                                 f"logits {max(errs)}, cache {kv}")
+                                 f"logits {max(errs)}, cache {kv}, code "
+                                 f"{code_max}")
     launches = _check_fp32_prefills(label, cfg, len(layouts))
     del cpu0, gpu0
     torch.cuda.empty_cache()
     return launches
+
+
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_LAYOUTS = ("contiguous", "int8", "paged16", "paged16_int8")
+ENCDEC_PARITY_LAYOUTS = ("contiguous", "paged16", "int8")
+
+
+def phase_encdec(smi: str, seed: int) -> dict:
+    """seamless-m4t-large-v2 at full size (24 encoder and 24 decoder
+    layers): batch 8 x 512 tokens over 512 source frames + 64 in four
+    layouts, graph and eager chunk (and the per-token loop, contiguous),
+    identical tokens (72 prefill launches a prefill; per step the
+    self cache's decode kernel and the cross cache's contiguous one, 24
+    each), the graph's device ms a step against its byte bound; 24
+    requests with their source frames drained graph against eager body
+    (contiguous, paged16; no prefix hits), a misshaped source extra
+    (``bad_request``, nothing launched); a profile. Returns the launches of
+    the graph runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import Request
+    from repro_torch.launch.serve import synth_requests
+    model = _load_cut(ENCDEC_ARCH, get_config(ENCDEC_ARCH).num_layers, seed)
+    launches = {}
+    for layout in ENCDEC_LAYOUTS:
+        kv_quant, page_size, decode_kernel = LAYOUTS[layout]
+        # the per-token loop (5 s a layout) in the contiguous layout only:
+        # the run's time limit (the CPU tests hold loop == fused in six)
+        launches[f"encdec/{layout}"] = _serve_engines(
+            model, smi, f"encdec/{layout}", decode_kernel,
+            engines=ENGINES if layout == "contiguous" else ENGINES[:2],
+            batch=8, prompt_len=512, gen=64, chunk=8, seed=0,
+            kv_quant=kv_quant, page_size=page_size)
+    cfg = model.cfg
+    reqs = synth_requests(cfg=cfg, requests=24, prompt_len=512, gen=64,
+                          seed=seed)
+    engines = _family_drains(model, smi, "engine_encdec", seed, reqs,
+                             prefix_hits=False)
+    eng = engines["contiguous"]
+    src = eng._batch_template["src_embeds"].shape
+    bad = Request(uid=999, tokens=np.arange(1, 9, dtype=np.int32),
+                  max_new_tokens=4, extras={"src_embeds": np.zeros(
+                      (1, src[1] - 1, cfg.d_model), np.float32)})
+    _reset()
+    c = eng.run([bad])[-1]
+    counted = sum(n for counter in _counters() for n in counter.values())
+    log("engine_encdec", f"source frames {src[1] - 1} (the bucket's "
+        f"{src[1]}): {c.finish_reason} / {c.reason} ({c.error}); launches "
+        f"{counted}")
+    if c.uid != 999 or c.reason != "bad_request" or counted:
+        raise AssertionError(f"engine_encdec: malformed extra gave {c}, "
+                             f"{counted} launches")
+    del engines, eng
+    # the graph serve only, chunks of 4: reading a trace takes ~0.7 ms a
+    # launch (the eager serve's 61,866 took ~60 s; 8-step chunks' ~48 s)
+    phase_profile(model, smi, "profile_encdec", engines=("graph",), chunk=4)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+XLSTM_ARCH = "xlstm-125m"
+XLSTM_SHAPE = (8, 512, 64)          # batch, prompt, new tokens
+XLSTM_PARITY_SHAPE = (2, 512, 8)    # two mLSTM chunks, then decode steps
+# fp32 card vs CPU, and the card against a float64 run of the port on the
+# CPU: of a tensor's largest |value| (logits; each block's C / n / m or c /
+# n / m / h). Not the 1e-4 of the smoke-size CPU tests: at full width the
+# model is ill-conditioned in fp32 (an mLSTM's denominator max(|q.n|,
+# exp(-m)) divides by a dot product that cancels; 12 layers over 512
+# steps), and each fp32 side lies up to ~2e-4 from the float64 run (the
+# phase logs both distances; the H100 read 2.2e-4 for the card, 1.8e-4
+# for the CPU, 2.3e-4 card against CPU)
+XLSTM_PARITY_REL = 5e-4
+
+
+def _xlstm_tokens(cfg, batch, n, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, n))
+                            .astype(np.int32)).to(DEVICE)
+
+
+def _xlstm_run(model, toks, gen, chunk, how) -> tuple:
+    """``gen`` greedy tokens after a prefill of ``toks``: ``graph`` (the
+    captured chunk, captured before the timed region), ``eager`` (its body)
+    or ``loop`` (one ``decode_step`` a token). Returns (tokens, prefill s,
+    decode s, capture s)."""
+    from repro_torch.launch.steps import make_generate_step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(toks)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    cap = 0.0
+    out = []
+    if how == "loop":
+        t0 = time.perf_counter()
+        for _ in range(gen):
+            out.append(tok.cpu().numpy())
+            logits, cache = model.decode_step(cache, tok)
+            tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+    else:
+        step = (eager_step if how == "eager" else make_generate_step)(
+            model, chunk=chunk)
+        t0 = time.perf_counter()
+        step.prepare(cache, tok, None)
+        torch.cuda.synchronize()
+        cap = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(gen // chunk):
+            o = step(cache, tok, None, -1)
+            tok = o[1]
+            out.append(o[5].cpu().numpy())
+    t_dec = time.perf_counter() - t0
+    return np.concatenate(out, axis=1), t_pre, t_dec, cap
+
+
+@contextlib.contextmanager
+def float64_port(model):
+    """A float64 run of the port's xLSTM on the CPU: a float64 copy of
+    ``model`` (weights, compute dtype, the recurrent states) with the
+    model code's fp32 upcasts (``Tensor.float``) promoted to float64 while
+    inside. The yardstick of the fp32 parity's tolerance."""
+    from repro_torch.models import recurrent_lm
+    m = copy.deepcopy(model).double()
+    m.cdtype, m._cast = torch.float64, {}
+    inits = {n: getattr(recurrent_lm, n)
+             for n in ("init_mlstm_state", "init_slstm_state")}
+    upcast = torch.Tensor.float
+    torch.Tensor.float = lambda t: t.to(torch.float64)
+    for n, f in inits.items():
+        setattr(recurrent_lm, n, lambda *a, f=f, **k: {
+            name: v.double() for name, v in f(*a, **k).items()})
+    try:
+        yield m
+    finally:
+        torch.Tensor.float = upcast
+        for n, f in inits.items():
+            setattr(recurrent_lm, n, f)
+
+
+def phase_xlstm(smi: str, seed: int) -> dict:
+    """xlstm-125m at full size (12 layers: 9 mLSTM, 3 sLSTM): ``prefill``
+    8 x 512, then 64 greedy tokens by the captured chunk, its eager body
+    and a per-token ``decode_step`` loop: identical tokens, no kernel
+    launched; prefill ms, ms a token-step and the graph's device ms a step.
+    Then fp32 card against CPU at full depth (2 x 512, two mLSTM chunks,
+    then 8 decode steps): logits and every block's states within
+    XLSTM_PARITY_REL of their largest |value|, and the card's within it of
+    a float64 run of the port (both fp32 sides' distances logged)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import clone_cache, make_generate_step
+    from repro_torch.models import build_model, init_params_
+    model = _load_cut(XLSTM_ARCH, get_config(XLSTM_ARCH).num_layers, seed)
+    cfg = model.cfg
+    B, P, gen = XLSTM_SHAPE
+    chunk = 8
+    toks = _xlstm_tokens(cfg, B, P, seed)
+    _xlstm_run(model, toks, chunk, chunk, "graph")          # first calls
+    runs = {}
+    for how in ENGINES:
+        _reset()
+        runs[how] = _xlstm_run(model, toks, gen, chunk, how)
+        counted = {n: c for counter in _counters()
+                   for n, c in counter.items() if c}
+        t, t_pre, t_dec, cap = runs[how]
+        log(f"xlstm/{how}", f"{smi}: prefill {t_pre * 1e3:.3f} ms (B={B} x "
+            f"{P}), decode {t_dec / gen * 1e3:.4f} ms/token-step"
+            + (f", capture {cap * 1e3:.3f} ms (its eager warm-up chunk "
+               "included)" if how == "graph" else "")
+            + f"; kernel launches {counted or 0}")
+        if counted:
+            raise AssertionError(f"xlstm/{how}: launched {counted}")
+        if t.shape != (B, gen) or t.min() < 0 or t.max() >= cfg.vocab_size:
+            raise AssertionError(f"xlstm/{how}: bad tokens {t.shape}")
+    same = all(np.array_equal(runs["graph"][0], runs[n][0])
+               for n in ENGINES[1:])
+    log("xlstm", f"graph == eager chunk == loop tokens: {same}")
+    if not same:
+        raise AssertionError("xlstm: greedy tokens of the three ways differ")
+    # the graph's device time a step: back-to-back replays
+    logits, cache = model.prefill(toks)
+    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    step = make_generate_step(model, chunk=chunk)
+    step.prepare(cache, tok, None)
+    graph = step._captured.graph
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    graph.replay()
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(gen // chunk):
+        graph.replay()
+    ev[1].record()
+    torch.cuda.synchronize()
+    dev = ev[0].elapsed_time(ev[1]) / gen
+    g = runs["graph"][2] / gen * 1e3
+    e = runs["eager"][2] / gen * 1e3
+    nbytes = sum(p.numel() * (4 if p.ndim == 1 else 2)
+                 for p in model.parameters()) \
+        + 2 * sum(t.nbytes for st in cache["blocks"] for t in st.values())
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log("xlstm", f"{smi}: decode ms per token-step: graph {g:.4f}, its "
+        f"device time {dev:.4f}; eager chunk {e:.4f} ({e / g:.2f}x the "
+        f"graph); the step's byte bound {b_ms:.4f} ms ({nbytes} B: the "
+        f"weights in bf16 (the tied embedding read whole as the head), the "
+        f"states read and written in fp32; device / bound {dev / b_ms:.2f})")
+    del step, graph, cache, model
+    torch.cuda.empty_cache()
+
+    # -- fp32, card against CPU, full depth ----------------------------------
+    cfg32 = get_config(XLSTM_ARCH).replace(compute_dtype="float32")
+    gpu = build_model(cfg32, DEVICE)
+    init_params_(gpu, torch.Generator(device=DEVICE).manual_seed(seed))
+    cpu = build_model(cfg32, "cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    B, P, steps = XLSTM_PARITY_SHAPE
+    prompt = _xlstm_tokens(cfg32, B, P, seed + 1).cpu()
+    feed = _xlstm_tokens(cfg32, B, steps, seed + 2).cpu()
+
+    def drive(m):
+        """Logits of the prefill and each step; states after both."""
+        lg, c = m.prefill(prompt.to(m.device))
+        logits, states = [lg], [clone_cache(c)]
+        for i in range(steps):
+            lg, c = m.decode_step(c, feed[:, i:i + 1].to(m.device))
+            logits.append(lg)
+        return logits, states + [c]
+
+    t0 = time.perf_counter()
+    pc, sc = drive(cpu)
+    t_cpu = time.perf_counter() - t0
+    pg, sg = drive(gpu)
+    with float64_port(cpu) as cpu64:
+        p64, s64 = drive(cpu64)
+
+    def rel(c, g):
+        c, g = c.double(), g.double().cpu()
+        return ((c - g).abs().max() / c.abs().max().clamp(min=1e-30)).item()
+
+    def dists(a, b, sa, sb):
+        """(logit distance per call, worst state and its distance)."""
+        st = {f"{when} {i}.{k}": rel(x["blocks"][i][k], y["blocks"][i][k])
+              for when, x, y in zip(("prefill", "last step"), sa, sb)
+              for i in range(cfg32.num_layers) for k in x["blocks"][i]}
+        worst = max(st, key=st.get)
+        return [rel(x, y) for x, y in zip(a, b)], worst, st[worst]
+    errs, worst, w_err = dists(pc, pg, sc, sg)
+    log("xlstm/parity", f"fp32 card vs CPU, full depth, prefill {B} x {P} "
+        f"+ {steps} decode steps (CPU side {t_cpu:.1f} s): logits error / "
+        f"largest |logit| per call {['%.1e' % e for e in errs]} (largest "
+        f"|logit| {pc[0].abs().max().item():.3e}); states after the prefill "
+        f"and the last step, worst: {worst} {w_err:.2e} of its largest "
+        f"|value| (tol {XLSTM_PARITY_REL:.0e})")
+    far = {}
+    for side, lo, so in (("card", pg, sg), ("CPU", pc, sc)):
+        e64, w64, we64 = dists(p64, lo, s64, so)
+        far[side] = max(max(e64), we64)
+        log("xlstm/parity", f"fp32 {side} vs a float64 run of the port (on "
+            f"the CPU): logits per call {['%.1e' % e for e in e64]}, states "
+            f"worst {w64} {we64:.2e}")
+    if max(max(errs), w_err, far["card"]) > XLSTM_PARITY_REL:
+        raise AssertionError(f"xlstm parity: card vs CPU logits "
+                             f"{max(errs)}, states {worst} {w_err}; card vs "
+                             f"float64 {far['card']}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return {}
 
 
 def phase_archs(smi: str, seed: int) -> dict:
@@ -3082,17 +3619,20 @@ PROFILED = {"flash_attention_fwd": "flash_prefill_kernel<",
             "rglru_scan": "rglru_scan_kernel<"}
 
 
-def phase_profile(model, smi: str, label: str = "profile") -> None:
+def phase_profile(model, smi: str, label: str = "profile",
+                  engines=("graph", "eager"), chunk: int = 8) -> None:
     """``torch.profiler`` over one batch-mode serve (B 8 x 512, prefill, the
     warm-up chunk and two chunks of 8) with the graph and with the eager
     chunk: busy share, kernels by device time, and the launches of the
     prefill, decode and RG-LRU kernels by the profiler's kernel events
-    against the launch counters."""
+    against the launch counters; ``engines`` names the runs profiled,
+    ``chunk`` the chunk's steps."""
     from repro_torch.launch.serve import serve
-    kw = dict(model=model, batch=8, prompt_len=512, gen=16, chunk=8, seed=0)
+    kw = dict(model=model, batch=8, prompt_len=512, gen=2 * chunk,
+              chunk=chunk, seed=0)
     serve(engine="fused", **kw)                   # allocator and cuBLAS warm
     torch.cuda.synchronize()
-    for name in ("graph", "eager"):
+    for name in engines:
         tag = f"{label}/{name}"
         _reset()
         with traced() as prof:
@@ -3104,7 +3644,7 @@ def phase_profile(model, smi: str, label: str = "profile") -> None:
         busy_us = sum(e.self_device_time_total for e in kern)
         launches = sum(e.count for e in kern)
         log(tag, f"{smi}: {model.cfg.name} serve B=8 prompt 512, "
-            f"prefill + warm-up chunk + 2 chunks of 8: wall "
+            f"prefill + warm-up chunk + 2 chunks of {chunk}: wall "
             f"{wall * 1e3:.3f} ms (the capture "
             f"{out['capture_s'] * 1e3:.3f} ms), device busy "
             f"{busy_us / 1e3:.3f} ms ({busy_us / 1e4 / wall:.1f}% busy; "
@@ -3930,7 +4470,13 @@ def main() -> int:
                       ("vlm", lambda: phase_vlm(smi, args.seed)),
                       ("parity_vlm", lambda: {"parity_vlm": _parity_family(
                           "parity_vlm", VLM_ARCH, args.seed,
-                          patch_rows=32)})):
+                          patch_rows=32)}),
+                      ("encdec", lambda: phase_encdec(smi, args.seed)),
+                      ("parity_encdec", lambda: {
+                          "parity_encdec": _parity_family(
+                              "parity_encdec", ENCDEC_ARCH, args.seed,
+                              src_rows=64, layouts=ENCDEC_PARITY_LAYOUTS)}),
+                      ("xlstm", lambda: phase_xlstm(smi, args.seed))):
         if name in phases:
             t0 = time.perf_counter()
             launches.update(run())

@@ -123,18 +123,28 @@ class RunConfig:
 
 
 def param_count(cfg: ModelConfig) -> int:
-    """Analytic parameter count (embedding + blocks + head) as the reference
-    counts it for the ported families: every layer is counted as an
-    attention block with a gated MLP (the hybrid family too), or with
-    ``num_experts`` of them and the router (MoE), the head is counted unless
-    ``tie_embeddings``, and the final norm's scale is left out."""
+    """Analytic parameter count (embedding + blocks + head), as the
+    reference counts it: an ``ssm`` (xLSTM) layer as ``4 d^2 + 2 d``; every
+    other layer as an attention block with a gated MLP (the hybrid family's
+    too), or with ``num_experts`` of them and the router (MoE); an
+    encoder-decoder adds its encoder layers (attention + gated MLP) and a
+    cross-attention per decoder layer. The head is counted unless
+    ``tie_embeddings`` (xLSTM's too, though its logits read the embedding);
+    final norms and the decoder's cross-attention norms are left out."""
     d, h = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     attn = d * (nq * h) + 2 * d * (nkv * h) + (nq * h) * d
-    if cfg.num_experts > 0:
-        ffn = 3 * d * cfg.d_ff * cfg.num_experts + d * cfg.num_experts
+    if cfg.family == "ssm":
+        total_blocks = cfg.num_layers * (4 * d * d + 2 * d)
     else:
-        ffn = 3 * d * cfg.d_ff
-    blk = attn + ffn + 2 * d
+        if cfg.num_experts > 0:
+            ffn = 3 * d * cfg.d_ff * cfg.num_experts + d * cfg.num_experts
+        else:
+            ffn = 3 * d * cfg.d_ff
+        total_blocks = cfg.num_layers * (attn + ffn + 2 * d)
+        if cfg.is_encoder_decoder:
+            total_blocks += cfg.num_encoder_layers * (
+                attn + 3 * d * cfg.d_ff + 2 * d)
+            total_blocks += cfg.num_layers * attn
     head = 0 if cfg.tie_embeddings else cfg.vocab_size * d
-    return cfg.vocab_size * d + head + cfg.num_layers * blk
+    return cfg.vocab_size * d + head + total_blocks

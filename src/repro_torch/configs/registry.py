@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` -> config (counterpart:
-``repro/configs/registry.py``). Only the architectures the port runs are
-listed: the dense, MoE, VLM and hybrid families; the others (``xlstm-125m``,
-``seamless-m4t-large-v2``) raise until their model family is ported."""
+``repro/configs/registry.py``). Every architecture of the reference is
+listed: the dense, MoE, VLM, hybrid (Griffin), ssm (xLSTM) and audio
+(encoder-decoder) families."""
 from __future__ import annotations
 
 import importlib
@@ -17,6 +17,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "seamless-m4t-large-v2": "repro_torch.configs.seamless_m4t_large",
+    "xlstm-125m": "repro_torch.configs.xlstm_125m",
     "pixtral-12b": "repro_torch.configs.pixtral_12b",
     "pimref-100m": "repro_torch.configs.pimref_100m",
 }
@@ -26,7 +28,7 @@ ALL_IDS = tuple(_ARCH_MODULES)
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if arch not in _ARCH_MODULES:
-        raise KeyError(f"arch {arch!r} not yet ported to repro_torch; "
-                       f"ported: {sorted(_ARCH_MODULES)}")
+        raise KeyError(f"unknown arch {arch!r}; known: "
+                       f"{sorted(_ARCH_MODULES)}")
     mod = importlib.import_module(_ARCH_MODULES[arch])
     return mod.SMOKE_CONFIG if smoke else mod.CONFIG

@@ -16,8 +16,9 @@ positions are written in place into the tensors the graph reads.
 
 The cache is laid out as the model says (``kv_quant``, ``page_size``):
 
-* contiguous (ring per slot, values or Proteus codes and scales, and the
-  hybrid family's recurrent states): each prompt is left-padded to the
+* contiguous (ring per slot, values or Proteus codes and scales, the
+  hybrid family's recurrent states, an encoder-decoder's self and cross
+  caches): each prompt is left-padded to the
   ``prompt_len`` bucket (a ``vlm`` prompt's token field to what its patch
   prefix leaves: patches, pads, tokens), the pads run through the model like
   tokens (in an MoE model they take expert capacity, as the reference's
@@ -33,7 +34,11 @@ The cache is laid out as the model says (``kv_quant``, ``page_size``):
   sharing, reference-counted, copied before a divergent write), and pool
   row 0 is the trash page: unused and retired slots point there. Admission
   reserves each request's worst-case pages, so decode can never run out of
-  pages; a request that can never fit ends in a ``page_pool`` error.
+  pages; a request that can never fit ends in a ``page_pool`` error. An
+  encoder-decoder's cross cache stays contiguous beside the pages, a row
+  per slot. As in the reference, the two layouts decode an encoder-decoder
+  differently: its self-attention reads every bucket position up to the
+  decode position, the left pads of the contiguous layout included.
 
 With speculative decoding (``spec``: ``ngram`` or ``draft``) each chunk
 iteration drafts ``spec_k`` tokens and verifies them in one (k + 1)-token
@@ -126,9 +131,11 @@ class ErrorReason(str, enum.Enum):
 class Request:
     """One generation request; ``tokens`` is a 1-D int prompt. Prompts longer
     than the bucket complete with a ``prompt_too_long`` error. ``extras``:
-    further prefill inputs shaped for the bucket, which only the ``vlm``
-    family takes (``patch_embeds`` (1, P, d_model), its patch prefix); a
-    missing, unknown or misshaped extra completes with ``bad_request``.
+    further prefill inputs shaped for the bucket, which the ``vlm`` family
+    (``patch_embeds`` (1, P, d_model), its patch prefix) and the ``audio``
+    family (``src_embeds`` (1, src_len, d_model), the encoder's frames)
+    take; a missing, unknown or misshaped extra completes with
+    ``bad_request``.
     ``deadline_ms``: wall-clock budget from submission; expiry retires the
     request with a ``deadline`` error carrying the tokens produced."""
 
@@ -229,6 +236,20 @@ class _PageAllocator:
         return int((self.refs > 0).sum())
 
 
+def check_servable(cfg) -> None:
+    """Refuse a model family the reference cannot serve: its serving
+    programs call ``prefill(..., full_logits=...)``, which the xLSTM model
+    (``ssm``) does not take, so the reference's ``serve()`` and
+    ``ServeEngine`` raise ``TypeError`` for it. The port raises a
+    ``ValueError`` before any model work; the family's path is ``prefill``
+    and ``make_generate_step``'s chunk."""
+    if cfg.family == "ssm":
+        raise ValueError(
+            f"{cfg.name}: the reference cannot build serving programs for "
+            "the ssm (xLSTM) family (its prefill takes no full_logits); "
+            "run model.prefill and make_generate_step instead")
+
+
 def _pools(pages) -> List[torch.Tensor]:
     """The tensors of a pool: values, or codes and scales."""
     return [pages.codes, pages.scale] if isinstance(pages, QKVCache) \
@@ -254,9 +275,10 @@ class ServeEngine:
     """Slot-based continuous batching over :func:`make_generate_step`.
 
     Args:
-      model: a ``TransformerLM`` or ``GriffinLM``; the engine runs on its
-        device and serves from the KV layout of its ``kv_quant`` and
-        ``page_size``.
+      model: a ``TransformerLM``, ``GriffinLM`` or ``EncDecLM``; the engine
+        runs on its device and serves from the KV layout of its
+        ``kv_quant`` and ``page_size``. An ``XLSTMLM`` is refused
+        (:func:`check_servable`).
       slots: concurrently decoded sequences (cache batch rows).
       prompt_len: prompt bucket (longer prompts are rejected).
       max_new: per-request generation cap; the cache holds
@@ -307,6 +329,7 @@ class ServeEngine:
                  max_retries: int = 2, retry_backoff_s: float = 0.02,
                  straggler_threshold: float = 3.0, shed_after: int = 2,
                  clock: Optional[Callable[[], float]] = None):
+        check_servable(model.cfg)
         if max_new < 1 or prompt_len < 1:
             raise ValueError(f"prompt_len {prompt_len} and max_new {max_new} "
                              "must be positive")
@@ -352,6 +375,10 @@ class ServeEngine:
         self._spec_live, self._chunk_live = self.spec, chunk
         self._gen_shed = None
         self._cache_max = self.max_len + self.spec_k
+        # an encoder-decoder's cross cache holds the bucket's source frames
+        # (the batch-1 prefill's shape, which the reference tiles)
+        src = self._batch_template.get("src_embeds")
+        self._batch_axes = model.cache_batch_axes()
         # empty slot rows are zeros, like the reference's tiled template
         if self.paged:
             cfg, dev = model.cfg, self.device
@@ -370,11 +397,20 @@ class ServeEngine:
                 return PagedKVCache(
                     kv_zeros(pool, model.cdtype, model.kv_quant, dev),
                     torch.zeros(table, dtype=torch.int32, device=dev))
-            self.cache = {
-                "k": leaf(), "v": leaf(),
-                "pos_ids": torch.zeros((slots, self.cache_pos_len),
-                                       dtype=torch.int32, device=dev),
-                "pos": torch.zeros((slots,), dtype=torch.int32, device=dev)}
+            self.cache = {"k": leaf(), "v": leaf()}
+            if src is not None:
+                # the cross cache stays contiguous: a row per slot
+                xkv = (cfg.num_layers, slots, src.shape[1], cfg.num_kv_heads,
+                       cfg.resolved_head_dim)
+                for name in ("xk", "xv"):
+                    self.cache[name] = kv_zeros(xkv, model.cdtype,
+                                                model.kv_quant, dev)
+            if "pos_ids" in self._batch_axes:
+                self.cache["pos_ids"] = torch.zeros(
+                    (slots, self.cache_pos_len), dtype=torch.int32,
+                    device=dev)
+            self.cache["pos"] = torch.zeros((slots,), dtype=torch.int32,
+                                            device=dev)
             self._alloc = _PageAllocator(self.n_phys_pages)
             self._host_table = np.zeros((slots, self.n_logical_pages),
                                         np.int32)
@@ -384,9 +420,11 @@ class ServeEngine:
             self._share_ok = (set(self._batch_template) == {"tokens"}
                               and self.cache_pos_len >= self.prompt_len)
         else:
-            self.cache = model.init_cache(slots, self._cache_max)
-            self.cache["pos_ids"].zero_()
-            self._batch_axes = model.cache_batch_axes()
+            self.cache = model.init_cache(
+                slots, self._cache_max,
+                **({} if src is None else {"src_len": src.shape[1]}))
+            if "pos_ids" in self.cache:
+                self.cache["pos_ids"].zero_()
         self._tok = torch.zeros((slots, 1), dtype=torch.int32,
                                 device=self.device)
         # the EOS id as the chunk reads it, so setting eos_id between chunks
@@ -430,15 +468,19 @@ class ServeEngine:
             self.stats["spec_draft_iters"] = 0
             self.stats["spec_emitted_tokens"] = 0
             self.stats["spec_accept_hist"] = [0] * (self.spec_k + 1)
-        kv = [t for name in ("k", "v") for t in self._leaf_tensors(name)]
         if self.paged:
-            self._page_bytes = sum(t.nbytes // t.shape[1] for t in kv)
+            # the pages only: the contiguous cross cache is not counted, as
+            # in the reference
+            self._page_bytes = sum(t.nbytes // t.shape[1] for name in
+                                   ("k", "v") for t in self._leaf_tensors(name))
             self.stats["kv_hbm_bytes"] = 0
         else:
-            # contiguous: the whole cache is committed up front (the ring
-            # positions count, as in the reference)
-            self.stats["kv_hbm_bytes"] = (sum(t.nbytes for t in kv)
-                                          + self.cache["pos_ids"].nbytes)
+            # contiguous: the whole cache is committed up front; every leaf
+            # with a sequence axis counts (K / V, the cross cache and the
+            # ring positions), as in the reference
+            self.stats["kv_hbm_bytes"] = sum(
+                t.nbytes for name in ("k", "v", "xk", "xv", "pos_ids")
+                if name in self.cache for t in self._leaf_tensors(name))
         self.stats["kv_hbm_bytes_peak"] = self.stats["kv_hbm_bytes"]
 
     def _leaf_tensors(self, name: str) -> List[torch.Tensor]:
@@ -503,7 +545,8 @@ class ServeEngine:
             torch.Tensor, Dict[str, torch.Tensor], int, np.ndarray]:
         """The prompt's token field padded to the bucket (left-padded, or
         right-padded when paged), its extras (a vlm request's
-        ``patch_embeds``, checked against the bucket's template), its true
+        ``patch_embeds``, an audio request's ``src_embeds``, checked against
+        the bucket's template), its true
         length in the bucket (patch prefix + tokens) and the flat prompt."""
         t = np.asarray(req.tokens, np.int32).reshape(-1)
         if len(t) > self._tok_len:
@@ -649,7 +692,9 @@ class ServeEngine:
                     pool[:, dst] = spool[:, src]
             self._set_table_row(slot, torch.from_numpy(trow).to(self.device))
             c["pos"][slot] = n      # decode resumes at the true prompt end
-            c["pos_ids"][slot] = small["pos_ids"][0]
+            rows = [k for k in ("xk", "xv", "pos_ids") if k in c]
+            _put_rows({k: c[k] for k in rows}, {k: small[k] for k in rows},
+                      self._batch_axes, slot)
         else:
             _put_rows(c, small, self._batch_axes, slot)
         self._tok[slot, 0] = first

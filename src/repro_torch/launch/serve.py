@@ -18,12 +18,18 @@ sharing); the reference reads them from ``REPRO_KV_QUANT`` /
 ``REPRO_KV_PAGES``. ``--arch`` names a ported model: the dense
 ``pimref-100m``, ``internlm2-1.8b``, ``stablelm-1.6b``, ``stablelm-3b`` and
 ``deepseek-coder-33b``, the MoE ``mixtral-8x7b`` and ``kimi-k2-1t-a32b``,
-the VLM ``pixtral-12b`` (every KV layout; on the card the attention kernels
-take head_dim 64, 128 and 256, which ``stablelm-3b``'s 80 and kimi's 112
-are not) or ``recurrentgemma-2b`` (hybrid Griffin, contiguous KV only; the
-layout flags raise for it). A ``vlm`` prompt holds a patch prefix (random
-patch embeddings here, the vision tower being a stub in the reference
-too). Runs on the card unless asked for the CPU:
+the VLM ``pixtral-12b``, the encoder-decoder ``seamless-m4t-large-v2``
+(every KV layout; on the card the attention kernels take head_dim 64, 128
+and 256, which ``stablelm-3b``'s 80 and kimi's 112 are not) or
+``recurrentgemma-2b`` (hybrid Griffin, contiguous KV only; the layout flags
+raise for it). A ``vlm`` prompt holds a patch prefix, an ``audio`` prompt
+comes with the encoder's frames (random embeddings here, the vision tower
+and the audio frontend being stubs in the reference too). ``xlstm-125m``
+is listed but not served: the reference cannot build serving programs for
+it (its ``prefill`` takes no ``full_logits``), and ``serve()``,
+``ServeEngine`` and this CLI refuse it with a ``ValueError``; its path is
+``prefill`` and ``make_generate_step``'s chunk. Runs on the card unless
+asked for the CPU:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch pimref-100m \\
       [--mode batch|queue] [--kv-quant int8] [--kv-page-size 16] \\
@@ -58,7 +64,7 @@ from repro_torch.distributed.chaos import ChaosConfig, ShardChaosConfig
 from repro_torch.distributed.fault_tolerance import (PreemptionHandler,
                                                      RestartManifest)
 from repro_torch.kernels.common import KV_QUANT_MODES, SPEC_DECODE_MODES
-from repro_torch.launch.engine import Request, ServeEngine
+from repro_torch.launch.engine import Request, ServeEngine, check_servable
 from repro_torch.launch.fleet import ServeFleet
 from repro_torch.launch.specs import input_specs
 from repro_torch.launch.steps import (clone_cache, make_generate_step,
@@ -90,7 +96,10 @@ def load_model(arch: str, *, smoke: bool, seed: int, device,
 
 def _model(model, arch, *, smoke, seed, device, cfg, params, kv_quant,
            page_size):
-    """``model`` in the asked KV layout (weights shared), or a new one."""
+    """``model`` in the asked KV layout (weights shared), or a new one; a
+    family the reference cannot serve is refused before any model work."""
+    check_servable(model.cfg if model is not None
+                   else cfg or get_config(arch, smoke=smoke))
     if model is None:
         return load_model(arch, smoke=smoke, seed=seed, device=device,
                           cfg=cfg, params=params, kv_quant=kv_quant,
@@ -103,8 +112,9 @@ def serve_batch(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
     """``serve()``'s synthetic prompts (B, prompt_len) from ``seed``, and the
     prefill's extras, laid out as ``input_specs`` gives them: a ``vlm``
     batch holds a patch prefix, so its tokens are cut to the template's
-    token field and ``patch_embeds`` come from the same draw, as the
-    reference's ``serve`` makes them."""
+    token field and ``patch_embeds`` come from the same draw; an ``audio``
+    batch's ``src_embeds`` (B, prompt_len, d_model) come from it after the
+    tokens, as the reference's ``serve`` makes them."""
     spec = input_specs(cfg, ShapeConfig("serve", seq_len=prompt_len,
                                         global_batch=batch, mode="prefill"))
     rng = np.random.default_rng(seed)
@@ -114,6 +124,10 @@ def serve_batch(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
     if "patch_embeds" in spec:
         extras["patch_embeds"] = torch.from_numpy(rng.standard_normal(
             spec["patch_embeds"].shape).astype(np.float32)).to(device)
+    if "src_embeds" in spec:
+        # the reference draws prompt_len frames, whatever src_len_ratio is
+        extras["src_embeds"] = torch.from_numpy(rng.standard_normal(
+            (batch, prompt_len, cfg.d_model)).astype(np.float32)).to(device)
     return torch.from_numpy(np.ascontiguousarray(tokens)).to(device), extras
 
 
@@ -288,9 +302,11 @@ def synth_requests(arch: str = "pimref-100m", *, smoke: bool = True,
     which the paged cache shares; ``repeat_period > 0`` tiles each prompt
     from a short period of its own (what the n-gram drafter finds). A
     ``vlm`` request's prompt fills at most the token field its patch prefix
-    leaves in the bucket, and carries the prefix's ``patch_embeds`` (drawn
-    after its budget); the reference's stream has no patches, so every vlm
-    request of its queue mode ends in ``bad_request``."""
+    leaves in the bucket, and carries the prefix's ``patch_embeds``; an
+    ``audio`` request carries its ``src_embeds`` (1, src_len, d_model)
+    (each drawn after the request's budget). The reference's stream has no
+    such extras, so every vlm or audio request of its queue mode ends in
+    ``bad_request``."""
     cfg = cfg or get_config(arch, smoke=smoke)
     spec = input_specs(cfg, ShapeConfig("request", seq_len=prompt_len,
                                         global_batch=1, mode="prefill"))
@@ -310,9 +326,10 @@ def synth_requests(arch: str = "pimref-100m", *, smoke: bool = True,
         reqs.append(Request(
             uid=i, tokens=toks,
             max_new_tokens=int(rng.integers(max(gen // 2, 1), gen + 1))))
-        if "patch_embeds" in spec:
-            reqs[-1].extras = {"patch_embeds": rng.standard_normal(
-                spec["patch_embeds"].shape).astype(np.float32)}
+        for name in ("patch_embeds", "src_embeds"):
+            if name in spec:
+                reqs[-1].extras = {name: rng.standard_normal(
+                    spec[name].shape).astype(np.float32)}
     return reqs
 
 

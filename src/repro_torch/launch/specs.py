@@ -5,7 +5,9 @@ Only the batch template is ported: the inputs a prefill or training batch
 of one shape cell holds, which ``serve()``, ``ServeEngine`` and the data
 pipeline build their batches from. A ``vlm`` batch reserves a patch prefix
 of ``P = min(num_patches, S // 2)`` positions inside the sequence:
-``tokens`` (B, S - P) and ``patch_embeds`` (B, P, d_model). The
+``tokens`` (B, S - P) and ``patch_embeds`` (B, P, d_model); an
+``audio`` batch adds the encoder's frames ``src_embeds`` (B,
+``int(S * src_len_ratio)``, d_model). The
 reference's decode template and dry-run helpers (partition specs, cache
 stand-ins) are not ported.
 """
@@ -43,4 +45,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, InputSpec]:
         if shape.mode == "train":
             batch["labels"] = tok(B, S - P)
         batch["patch_embeds"] = InputSpec((B, P, cfg.d_model), torch.float32)
+    if cfg.family == "audio":
+        batch["src_embeds"] = InputSpec(
+            (B, int(S * cfg.src_len_ratio), cfg.d_model), torch.float32)
     return batch

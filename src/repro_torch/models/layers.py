@@ -420,19 +420,25 @@ def stack_kv(leaves: List[KVLeaf]) -> KVLeaf:
 def _decode_positions(q_offset, kv_positions, kv_valid_len, B: int, S: int,
                       T: int, device):
     """Per-sequence (B, S) q positions and (B, T) kv positions for the decode
-    kernel; kv_valid_len folds into the -1 sentinel."""
-    q_off = torch.as_tensor(q_offset, dtype=torch.int32,
-                            device=device).expand(B)
-    q_pos = q_off[:, None] + torch.arange(S, dtype=torch.int32,
-                                          device=device)[None, :]
+    kernel; kv_valid_len folds into the -1 sentinel. A Python int offset
+    (the cross-attention's 0) is added on the device: a tensor made from
+    it would be a host-to-device copy, which a CUDA graph capture
+    refuses."""
+    steps = torch.arange(S, dtype=torch.int32, device=device)
+    if isinstance(q_offset, int):
+        q_pos = (steps + q_offset).expand(B, S)
+    else:
+        q_off = q_offset.to(device=device, dtype=torch.int32).expand(B)
+        q_pos = q_off[:, None] + steps[None, :]
     if kv_positions is None:
         kv_pos = torch.arange(T, dtype=torch.int32, device=device).expand(B, T)
     else:
         kv_pos = kv_positions.to(torch.int32).expand(B, T)
     if kv_valid_len is not None:
-        valid = torch.as_tensor(kv_valid_len, dtype=torch.int32,
-                                device=device).expand(B)
-        kv_pos = torch.where(kv_pos < valid[:, None], kv_pos,
+        valid = (kv_valid_len if isinstance(kv_valid_len, int) else
+                 kv_valid_len.to(device=device, dtype=torch.int32)
+                 .expand(B)[:, None])
+        kv_pos = torch.where(kv_pos < valid, kv_pos,
                              torch.full_like(kv_pos, -1))
     return q_pos.contiguous(), kv_pos.contiguous()
 

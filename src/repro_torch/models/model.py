@@ -37,9 +37,11 @@ D)`` of either kind and tables ``(L, B, NP)``; the reference's
 ``REPRO_KV_QUANT`` / ``REPRO_KV_PAGES`` knobs).
 
 ``ServingLM`` holds what every family shares (device, KV layout, the
-cached weight casts); ``qkv`` and ``attn_out`` are the attention
-projections the hybrid family's ``GriffinLM`` uses too, and
-``build_model`` picks the family.
+top-level parameters, the cached weight casts, the embedding and the
+gated-MLP residual); ``qkv`` and ``attn_out`` are the attention
+projections the hybrid family's ``GriffinLM`` and the audio family's
+``EncDecLM`` use too, and ``build_model`` picks the family (``XLSTMLM``
+for ssm).
 """
 from __future__ import annotations
 
@@ -181,8 +183,8 @@ class TransformerLM(ServingLM):
     def __init__(self, cfg: ModelConfig, device="cuda", *,
                  kv_quant: str = "off", page_size: int = 0):
         if cfg.family not in ("dense", "moe", "vlm"):
-            raise NotImplementedError(
-                f"family {cfg.family!r} is ported in a later slice")
+            raise ValueError(f"TransformerLM is the dense, moe and vlm "
+                             f"families, not {cfg.family!r}")
         super().__init__(cfg, device, kv_quant=kv_quant, page_size=page_size)
         self.blocks = nn.ModuleList(Block(cfg, self.device)
                                     for _ in range(cfg.num_layers))
@@ -393,8 +395,14 @@ def build_model(cfg: ModelConfig, device="cuda", *, kv_quant: str = "off",
     if cfg.family in ("dense", "moe", "vlm"):
         return TransformerLM(cfg, device, kv_quant=kv_quant,
                              page_size=page_size)
+    # the other families' modules build on this one
     if cfg.family == "hybrid":
-        # recurrent_lm builds on this module
         from repro_torch.models.recurrent_lm import GriffinLM
         return GriffinLM(cfg, device, kv_quant=kv_quant, page_size=page_size)
-    raise NotImplementedError(f"family {cfg.family!r} is ported in a later slice")
+    if cfg.family == "ssm":
+        from repro_torch.models.recurrent_lm import XLSTMLM
+        return XLSTMLM(cfg, device, kv_quant=kv_quant, page_size=page_size)
+    if cfg.family == "audio":
+        from repro_torch.models.encdec import EncDecLM
+        return EncDecLM(cfg, device, kv_quant=kv_quant, page_size=page_size)
+    raise ValueError(f"unknown model family {cfg.family!r}")

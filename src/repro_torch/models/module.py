@@ -7,7 +7,12 @@ stacked ``blocks`` / ``groups`` axis unrolled and list indices spelled out:
 MoE and VLM; an MoE block holds ``moe.router`` and the stacked experts
 ``moe.wi_gate`` ... in place of ``mlp.*``);
 ``groups.<g>.rec1.rec.w_x``, ``groups.<g>.attn.attn.w_q``,
-``tail.<i>.mlp.wo``, ... (hybrid, specs in ``recurrent_lm.py``).
+``tail.<i>.mlp.wo``, ... (hybrid, specs in ``recurrent_lm.py``);
+``blocks.<i>.ln``, ``blocks.<i>.mlstm.w_q``, ``blocks.<i>.slstm.w_z``, ...
+(ssm, the reference's list of unlike blocks; specs in ``recurrent_lm.py``
+and ``xlstm.py``); ``enc_blocks.<i>.attn.w_q``, ``enc_norm``,
+``dec_blocks.<i>.self_attn.w_q``, ``dec_blocks.<i>.cross_attn.w_q``, ...
+(audio, both stacks unrolled; specs in ``encdec.py``).
 
 ``init_params`` is the port's own initialisation (it does not reproduce
 ``jax.random``) with the reference's init kinds: ``ones``, ``zeros``,
@@ -94,13 +99,18 @@ def block_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 def param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     """Flat ``name -> ParamSpec`` of the model of ``cfg``, in a fixed
     order."""
+    # the other families' modules import this one
     if cfg.family == "hybrid":
-        # the family's module imports this one
         from repro_torch.models.recurrent_lm import griffin_param_specs
         return griffin_param_specs(cfg)
+    if cfg.family == "ssm":
+        from repro_torch.models.recurrent_lm import xlstm_param_specs
+        return xlstm_param_specs(cfg)
+    if cfg.family == "audio":
+        from repro_torch.models.encdec import encdec_param_specs
+        return encdec_param_specs(cfg)
     if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is ported in a later slice")
+        raise ValueError(f"unknown model family {cfg.family!r}")
     dtype = torch_dtype(cfg.param_dtype)
     specs = {"embed": ParamSpec((cfg.vocab_size, cfg.d_model), dtype),
              "final_norm": ParamSpec((cfg.d_model,), torch.float32, ("ones",))}

@@ -24,6 +24,22 @@ layer through the flash prefill kernel; a one-token decode step updates the
 recurrent states elementwise and reads the ring through the decode kernel.
 The KV cache is contiguous here: quantized and paged KV for this family
 come in a later slice.
+
+``XLSTMLM`` is the ssm family (``xlstm-125m``): interleaved mLSTM and
+sLSTM blocks (``xlstm.py``), layer i an sLSTM block when ``(i + 1) %
+slstm_every == 0``, each ``x + block(rms_norm(x))``, logits from the tied
+embedding. Its parameters are ``blocks.<i>.ln`` and
+``blocks.<i>.mlstm.*`` / ``blocks.<i>.slstm.*``: the reference keeps the
+unlike blocks in a list (``scan_layers=False``), not a stack. Its cache
+holds every block's recurrent state, O(1) in the sequence length:
+
+    blocks  [{"C": (B, H, Dk, Dv), "n": (B, H, Dk), "m": (B, H)}  (mLSTM)
+             or {"c", "n", "m", "h": (B, D)}, ...]                (sLSTM)
+    pos     (B,) int32
+
+all fp32. As in the reference, ``prefill`` takes no ``full_logits``, so
+the reference's serving programs (``serve()``, ``ServeEngine``) cannot be
+built for it; its path is ``prefill`` and the fused decode chunk.
 """
 from __future__ import annotations
 
@@ -43,6 +59,10 @@ from repro_torch.models.module import (ParamSpec, block_specs,
                                        mlp_param_specs, torch_dtype)
 from repro_torch.models.rglru import (init_rglru_state, recurrent_block,
                                       rglru_param_specs)
+from repro_torch.models.xlstm import (init_mlstm_state, init_slstm_state,
+                                      mlstm_chunked, mlstm_param_specs,
+                                      mlstm_step, slstm_param_specs,
+                                      slstm_scan)
 
 Cache = Dict[str, Any]
 
@@ -293,4 +313,148 @@ class GriffinLM(ServingLM):
         for layer, st in zip(self.tail, cache["tail"]):
             x = self._rec_step(layer, x, st)
         pos.add_(S)
+        return self._logits(x), cache
+
+
+# ===========================================================================
+# XLSTMLM: interleaved mLSTM / sLSTM blocks, unrolled
+# ===========================================================================
+def is_slstm(cfg: ModelConfig, i: int) -> bool:
+    k = cfg.slstm_every
+    return k > 0 and (i + 1) % k == 0
+
+
+def xlstm_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    """Flat ``name -> ParamSpec`` of ``XLSTMLM(cfg)``, in a fixed order."""
+    dtype = torch_dtype(cfg.param_dtype)
+    norm = ParamSpec((cfg.d_model,), torch.float32, ("ones",))
+    specs = {"embed": ParamSpec((cfg.vocab_size, cfg.d_model), dtype)}
+    for i in range(cfg.num_layers):
+        kind, sub = (("slstm", slstm_param_specs(cfg, dtype))
+                     if is_slstm(cfg, i)
+                     else ("mlstm", mlstm_param_specs(cfg, dtype)))
+        specs[f"blocks.{i}.ln"] = norm
+        specs.update({f"blocks.{i}.{kind}.{k}": s for k, s in sub.items()})
+    specs["final_norm"] = norm
+    return specs
+
+
+class XBlock(nn.Module):
+    """ln, and mlstm.{w_q, w_k, w_v, w_i, w_f, b_i, b_f, w_gate, w_out,
+    norm} or slstm.{w_z, w_i, w_f, w_o, r_z, r_i, r_f, r_o, w_out, norm}."""
+
+    def __init__(self, cfg: ModelConfig, slstm: bool, device):
+        super().__init__()
+        dtype = torch_dtype(cfg.param_dtype)
+        _add_params(self, {"ln": ParamSpec((cfg.d_model,), torch.float32)},
+                    device)
+        self.kind = "slstm" if slstm else "mlstm"
+        specs = (slstm_param_specs if slstm else mlstm_param_specs)(cfg, dtype)
+        setattr(self, self.kind, _Group(specs, device))
+
+
+class XLSTMLM(ServingLM):
+    """The xLSTM LM on one device (``"cuda"`` by default). It holds no KV
+    cache, so it takes no KV layout."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda", *,
+                 kv_quant: str = "off", page_size: int = 0):
+        if cfg.family != "ssm":
+            raise ValueError(f"XLSTMLM is the ssm family, not {cfg.family!r}")
+        self._check_layout(kv_quant, page_size)
+        super().__init__(cfg, device)
+        self.blocks = nn.ModuleList(XBlock(cfg, is_slstm(cfg, i), self.device)
+                                    for i in range(cfg.num_layers))
+
+    @staticmethod
+    def _check_layout(kv_quant: str, page_size: int) -> None:
+        if kv_quant != "off" or page_size != 0:
+            raise ValueError(
+                f"XLSTMLM with kv_quant={kv_quant!r}, page_size={page_size}: "
+                "the xLSTM model holds recurrent states, no KV cache")
+
+    def with_kv_layout(self, kv_quant: str = "off",
+                       page_size: int = 0) -> "XLSTMLM":
+        self._check_layout(kv_quant, page_size)
+        return self
+
+    def _block_params(self, blk: XBlock) -> Dict[str, torch.Tensor]:
+        """The block's weights in compute dtype; its fp32 vectors (biases,
+        recurrent weights, norm) stay fp32, as the reference reads them."""
+        return {n: t if t.ndim == 1 else self._w(t)
+                for n, t in getattr(blk, blk.kind).named_parameters(
+                    recurse=False)}
+
+    def _apply_block(self, blk: XBlock, x: torch.Tensor, state=None):
+        cfg = self.cfg
+        p = self._block_params(blk)
+        xn = rms_norm(x, blk.ln, cfg.norm_eps)
+        if blk.kind == "slstm":
+            y, st = slstm_scan(cfg, p, xn, state)
+        elif x.shape[1] == 1 and state is not None:
+            y, st = mlstm_step(cfg, p, xn, state)
+        else:
+            y, st = mlstm_chunked(cfg, p, xn, state,
+                                  chunk=min(256, x.shape[1]))
+        return x + y, st
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return dense(x, self._w(self.embed).T, "bsd,dv->bsv")
+
+    def _state_zero(self, blk: XBlock, batch: int) -> Dict[str, torch.Tensor]:
+        init = init_slstm_state if blk.kind == "slstm" else init_mlstm_state
+        return init(self.cfg, batch, self.device)
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """(B, S) tokens -> (B, S, V) logits, every block from zero state
+        (S a multiple of ``min(256, S)``)."""
+        x = self._embed(tokens)
+        for blk in self.blocks:
+            x, _ = self._apply_block(blk, x)
+        return self._logits(x)
+
+    def init_cache(self, batch: int, max_len: int = 0) -> Cache:
+        """Zero states; the state is O(1) in the sequence: ``max_len`` is
+        not used."""
+        return {"blocks": [self._state_zero(blk, batch) for blk in self.blocks],
+                "pos": torch.zeros((batch,), dtype=torch.int32,
+                                   device=self.device)}
+
+    def cache_batch_axes(self) -> Cache:
+        """The batch axis of every cache leaf (all 0), the counterpart of
+        the reference's ``cache_logical_axes``."""
+        return {"blocks": [dict.fromkeys(st, 0) for st in
+                           self.init_cache(1)["blocks"]], "pos": 0}
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Cache]:
+        """Run the prompt (B, S) from zero states; return the last
+        position's logits (B, 1, V) and the states after the prompt.
+        ``max_len`` is not used (the state does not grow)."""
+        x = self._embed(tokens)
+        B, S = tokens.shape
+        states = []
+        for blk in self.blocks:
+            x, st = self._apply_block(blk, x, self._state_zero(blk, B))
+            states.append(st)
+        return self._logits(x[:, -1:]), {
+            "blocks": states,
+            "pos": torch.full((B,), S, dtype=torch.int32, device=x.device)}
+
+    @torch.no_grad()
+    def decode_step(self, cache: Cache,
+                    tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+        """tokens (B, S) from the cached states (S == 1: the mLSTM's O(1)
+        step); returns their logits (B, S, V). Updates ``cache`` in place:
+        each new state is copied into the cache's tensors, which stay the
+        same objects (``pos`` advances by S)."""
+        x = self._embed(tokens)
+        for blk, state in zip(self.blocks, cache["blocks"]):
+            x, new = self._apply_block(blk, x, state)
+            for n, t in new.items():
+                state[n].copy_(t)
+        cache["pos"].add_(tokens.shape[1])
         return self._logits(x), cache

@@ -1,7 +1,8 @@
 """The fused decode chunk as a CUDA graph replay against the same chunk run
 eagerly, on a card, at smoke size with head_dim 64 (a width the kernels
-take): ``pimref-100m`` in its six KV layouts and ``recurrentgemma-2b``
-across a window wrap, the engine, EOS set between chunks, a weight load
+take): ``pimref-100m`` in its six KV layouts, ``recurrentgemma-2b``
+across a window wrap, the encoder-decoder in four layouts and xLSTM, the
+engine, EOS set between chunks, a weight load
 after the capture, sampled decoding, speculative decoding (both drafters;
 contiguous, int8 and pages of 16; a new history; the engine), and the
 robust-serving layer (the NaN hook as a static input of the graph, a shed
@@ -122,6 +123,73 @@ def test_graph_equals_eager_chunk(cuda, kv_quant, page_size):
     want_launches = dict.fromkeys(_launches(), 0)
     want_launches[kernel] = 3 * 4 * model.cfg.num_layers
     assert _launches() == want_launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant,page_size", [("off", 0), ("int8", 0),
+                                                ("off", PAGE), ("int8", PAGE)])
+def test_encdec_graph_equals_eager_chunk(cuda, kv_quant, page_size):
+    """The encoder-decoder (seamless-m4t-large-v2 at smoke width, heads of
+    64) in four layouts: three chunks of 4 replayed equal the eager body
+    (tokens, flags, counts, the self and cross caches byte for byte); each
+    step launched the self cache's decode kernel and the cross cache's
+    contiguous one once per layer."""
+    model = _model("seamless-m4t-large-v2", cuda, kv_quant, page_size)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (2, 20))
+                            .astype(np.int32)).to(cuda)
+    src = torch.from_numpy(rng.standard_normal((2, 24, model.cfg.d_model))
+                           .astype(np.float32)).to(cuda)
+    logits, cache = model.prefill(toks, max_len=32, src_embeds=src)
+    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    assert tuple(cache["xk"].shape if kv_quant == "off"
+                 else cache["xk"].codes.shape)[2] == 24
+    eager_cache, eager_tok = clone_cache(cache), tok.clone()
+    want, eager_cache = _run(EagerChunk(model, chunk=4), eager_cache,
+                             eager_tok, 3)
+    step = make_generate_step(model, chunk=4)
+    step.prepare(cache, tok, None)
+    _reset()
+    got, _ = _run(step, cache, tok, 3)
+    assert torch.equal(got, want)
+    _same_cache(cache, eager_cache)
+    assert step.captures == 1
+    self_kernel = {("off", 0): "flash_decode_fwd",
+                   ("int8", 0): "flash_decode_quant_fwd",
+                   ("off", PAGE): "flash_decode_paged_fwd",
+                   ("int8", PAGE): "flash_decode_paged_quant_fwd"}
+    cross = "flash_decode_quant_fwd" if kv_quant != "off" else \
+        "flash_decode_fwd"
+    L = model.cfg.num_layers
+    want_l = {n: 0 for n in _launches()}
+    want_l[self_kernel[(kv_quant, page_size)]] += 12 * L
+    want_l[cross] += 12 * L
+    assert _launches() == want_l
+
+
+@pytest.mark.cuda
+def test_xlstm_graph_equals_eager_chunk(cuda):
+    """xlstm-125m at smoke size (layer 3 sLSTM): three chunks of 4 replayed
+    equal the eager body, tokens and every block's state byte for byte; no
+    kernel launched."""
+    model = tserve.load_model("xlstm-125m", smoke=True, seed=0, device=cuda)
+    toks = np.random.default_rng(3).integers(
+        0, model.cfg.vocab_size, (3, 32)).astype(np.int32)
+    logits, cache = model.prefill(torch.from_numpy(toks).to(cuda))
+    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    eager_cache, eager_tok = clone_cache(cache), tok.clone()
+    want, eager_cache = _run(EagerChunk(model, chunk=4), eager_cache,
+                             eager_tok, 3)
+    step = make_generate_step(model, chunk=4)
+    ptrs = [t.data_ptr() for t in cache_tensors(cache)]
+    step.prepare(cache, tok, None)
+    _reset()
+    got, _ = _run(step, cache, tok, 3)
+    assert torch.equal(got, want)
+    _same_cache(cache, eager_cache)
+    assert [t.data_ptr() for t in cache_tensors(cache)] == ptrs
+    assert step.captures == 1
+    assert not any(_launches().values())
 
 
 @pytest.mark.cuda

@@ -921,3 +921,84 @@ def test_guarded_train_step_card_vs_cpu(cuda):
             tight = 1e-4 * b.abs().max().item()
             assert d.max().item() <= tight + slack
             assert (d > tight).float().mean().item() <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# causal=False, as the encoder-decoder calls the kernels: the encoder's
+# self-attention and the decoder's cross-attention (prefill, every kv tile
+# live, S and T apart), and the cross cache's decode
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,S,T,D", [
+    (1, 512, 512, 64), (1, 500, 512, 64), (1, 512, 333, 64),
+    (2, 77, 203, 128), (1, 1, 64, 64), (4, 130, 70, 256)])
+def test_prefill_noncausal(cuda, dtype, G, S, T, D):
+    """The prefill kernel without the causal mask, S = T and S != T (a
+    partial last kv tile; q tiles past the kv length), with and without -1
+    rows and slots: out and lse against the plain version at the route's
+    limits."""
+    gen = torch.Generator(device=cuda).manual_seed(S + T + D)
+    kw = dict(causal=False, window=0, softcap=0.0)
+    for holes in (False, True):
+        q, k, v, qp, kp = _prefill_case(gen, cuda, 2, 2, G, S, T, D, dtype,
+                                        shift=0)
+        if not holes:
+            qp = torch.arange(S, dtype=torch.int32, device=cuda).repeat(2, 1)
+            kp = torch.arange(T, dtype=torch.int32, device=cuda).repeat(2, 1)
+        n = tk.LAUNCHES["flash_attention_fwd"]
+        o, lse = tk.flash_attention_fwd(q, k, v, qp, kp, **kw)
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES["flash_attention_fwd"] == n + 1
+        _assert_prefill(dtype, o, lse, q, k, v, qp, kp, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,D,T,ps", [(1, 64, 512, 16), (2, 128, 203, 8),
+                                      (1, 256, 96, 32)])
+def test_decode_kernels_noncausal(cuda, dtype, G, D, T, ps):
+    """Every decode layout with causal=False, one q row a slot at q
+    position 0 (the cross-attention's call) over every source row, and
+    over slots partly empty: values, int8 / int4 codes, pages and pages of
+    codes against their plain versions, and the paged kernels bitwise
+    equal to the dense ones on the gathered pages."""
+    gen = torch.Generator(device=cuda).manual_seed(G + D + T)
+    B, H = 4, 4
+    Tp = -(-T // ps) * ps
+    q = _randn(gen, (B, H, G, 1, D), dtype, cuda)
+    qp = torch.zeros((B, 1), dtype=torch.int32, device=cuda)
+    kp = torch.arange(Tp, dtype=torch.int32, device=cuda).repeat(B, 1)
+    kp[:, T:] = -1                       # the source ends inside a page
+    kp[2, 5:] = -1                       # a short source
+    kw = dict(causal=False, window=0, softcap=0.0)
+    k, v = (_randn(gen, (B, H, Tp, D), dtype, cuda) for _ in range(2))
+    o = tk.flash_decode_fwd(q, k, v, qp, kp, **kw)
+    assert _err(o, ref.flash_decode_fwd_ref(q, k, v, qp, kp, **kw)) \
+        <= TOL[dtype]
+    table = _table(gen, kp, ps)
+    P = 1 + B * (Tp // ps)
+    gather = ref.gather_pages
+    kpool, vpool = (_randn(gen, (P, ps, H, D), dtype, cuda) for _ in range(2))
+    o = tk.flash_decode_paged_fwd(q, kpool, vpool, table, qp, kp, **kw)
+    assert _err(o, ref.flash_decode_paged_fwd_ref(q, kpool, vpool, table, qp,
+                                                  kp, **kw)) <= TOL[dtype]
+    assert torch.equal(o, tk.flash_decode_fwd(q, gather(kpool, table),
+                                              gather(vpool, table), qp, kp,
+                                              **kw))
+    for mode in ("int8", "int4"):
+        kq, vq = (kv_quantize(_randn(gen, (B, H, Tp, D), torch.float32,
+                                     cuda), mode) for _ in range(2))
+        dq = (kq.codes, kq.scale, vq.codes, vq.scale)
+        o = tk.flash_decode_quant_fwd(q, *dq, qp, kp, **kw)
+        assert _err(o, ref.flash_decode_quant_fwd_ref(q, *dq, qp, kp, **kw)) \
+            <= TOL[dtype]
+        kq, vq = (kv_quantize(_randn(gen, (P, ps, H, D), torch.float32,
+                                     cuda), mode) for _ in range(2))
+        pq = (kq.codes, kq.scale, vq.codes, vq.scale)
+        o = tk.flash_decode_paged_quant_fwd(q, *pq, table, qp, kp, **kw)
+        assert _err(o, ref.flash_decode_paged_quant_fwd_ref(
+            q, *pq, table, qp, kp, **kw)) <= TOL[dtype]
+        gq = tuple(gather(x, table) for x in pq)
+        assert torch.equal(o, tk.flash_decode_quant_fwd(q, *gq, qp, kp,
+                                                        **kw))

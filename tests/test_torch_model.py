@@ -89,9 +89,15 @@ def test_config_copy_matches_reference(arch, smoke):
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert tconfigs.param_count(t) == param_count(j)
     # the analytic count leaves out the final norm's scale (and counts the
-    # hybrid family's layers as attention blocks)
-    if t.family != "hybrid":
+    # hybrid family's layers as attention blocks, an xLSTM layer as 4 d^2 +
+    # 2 d with a head its logits do not use, and no encoder-decoder norm);
+    # the port's count is the reference's model's, leaf by leaf
+    if t.family not in ("hybrid", "ssm", "audio"):
         assert count_params(t) == param_count(j) + t.d_model
+    jspecs = build_model(j).param_specs()
+    assert count_params(t) == sum(
+        int(np.prod(s.shape)) for s in jax.tree_util.tree_leaves(
+            jspecs, is_leaf=lambda x: hasattr(x, "logical_axes")))
     shape = dict(name="s", seq_len=8, global_batch=2, mode="decode")
     assert dataclasses.asdict(tconfigs.ShapeConfig(**shape)) == \
         dataclasses.asdict(ShapeConfig(**shape))
@@ -110,11 +116,15 @@ def test_run_config_copy_matches_reference():
 
 
 def test_registry_knows_only_ported_archs():
+    """Every architecture of the reference is ported: the registries list
+    the same ids in the same order, and an unknown id raises as the
+    reference's does."""
     from repro.configs import ALL_IDS
-    assert tconfigs.ALL_IDS == tuple(
-        a for a in ALL_IDS if a not in ("xlstm-125m", "seamless-m4t-large-v2"))
-    with pytest.raises(KeyError, match="not yet ported"):
-        tconfigs.get_config("xlstm-125m")
+    from repro.configs import get_config as jget
+    assert tconfigs.ALL_IDS == ALL_IDS
+    for get in (jget, tconfigs.get_config):
+        with pytest.raises(KeyError, match="unknown arch"):
+            get("xlstm-1b")
 
 
 def test_param_specs_match_reference():
@@ -246,8 +256,8 @@ def test_bridge_rejects_bad_trees(pair):
 
 def test_build_model_and_device_guards():
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tbuild_model(tcfg.replace(family="ssm"), device="cpu")
+    with pytest.raises(ValueError, match="unknown model family"):
+        tbuild_model(tcfg.replace(family="rnn"), device="cpu")
     assert resolve_device("cpu").type == "cpu"
     with pytest.raises(ValueError):
         resolve_device("mps")

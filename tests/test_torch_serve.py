@@ -254,9 +254,9 @@ def test_port_imports_no_jax_and_no_reference():
     narrow-value and quantized-matmul kernels, the Proteus host layer and
     the training stack: train loop, optimizers, data, checkpoints, fault
     tolerance and chaos, the attention kernel under autograd, the fleet and
-    its dispatcher, the MoE layer and every architecture's config and
-    smoke model, among them) and chip_smoke.py's imports load without jax
-    or the reference package."""
+    its dispatcher, the MoE layer, the encoder-decoder and xLSTM models and
+    every architecture's config and smoke model, among them) and
+    chip_smoke.py's imports load without jax or the reference package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -288,7 +288,10 @@ def test_port_imports_no_jax_and_no_reference():
         "       'repro_torch.configs.internlm2_1_8b',\n"
         "       'repro_torch.configs.stablelm_1_6b',\n"
         "       'repro_torch.configs.stablelm_3b',\n"
-        "       'repro_torch.configs.deepseek_coder_33b')\n"
+        "       'repro_torch.configs.deepseek_coder_33b',\n"
+        "       'repro_torch.models.encdec', 'repro_torch.models.xlstm',\n"
+        "       'repro_torch.configs.xlstm_125m',\n"
+        "       'repro_torch.configs.seamless_m4t_large')\n"
         "from repro_torch.configs import ALL_IDS, get_config\n"
         "from repro_torch.models import build_model\n"
         "for a in ALL_IDS:\n"
