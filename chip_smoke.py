@@ -100,7 +100,8 @@ adds a chaos drain (``nan=2,fail=1``) and a snapshot / restore.
 Phase ``spec`` runs after the fleet: speculative decoding (k 3, the
 ``ngram`` and ``draft`` drafters) on full-width ``pimref-100m``, batch 8 x
 prompt 512 (rows 0-3 a period-4 tile, rows 4-7 random, from ``--seed``) +
-64 new tokens in chunks of 8, in every KV layout, as the captured chunk
+16 new tokens (``SPEC_GEN``) in chunks of 8, in every KV layout, as the
+captured chunk
 and as its eager body: tokens and accepted lengths identical, exact
 decode-kernel launches (one verify block through every layer and, for
 ``draft``, k steps through the first half, per iteration: 96 and 240 a
@@ -180,14 +181,14 @@ last: the other families of ``TransformerLM``, random weights from
 ``--seed``, at full width with depth cut to fit one card (fp32 weights and
 their bf16 copies, 6 bytes a weight). ``archs``: ``stablelm-1.6b`` (D 64)
 and ``internlm2-1.8b`` (D 128, G 2) at full depth, batch 8 x 512 + 64,
-three ways with exact launches. ``moe``: ``mixtral-8x7b`` at 6 of 32
+three ways with exact launches. ``moe``: ``mixtral-8x7b`` at 2 of 32
 layers (8 experts, top 2, capacity factor 1.25, window 4096), batch 8 x
 512 + 64 in the contiguous, int8, paged16 and paged16-int8 layouts and one
 long request (2 x 4200 + 32, past the window, so the ring wraps), three
 ways each: identical tokens, exact launches, the graph's device ms a step
 against its byte bound (``step_bytes``: every expert's weights each step);
 the engine phase's requests drained graph against eager body (contiguous,
-paged16); a profile. ``vlm``: ``pixtral-12b`` at 20 of 40 layers, batch 8 x
+paged16); a profile. ``vlm``: ``pixtral-12b`` at 4 of 40 layers, batch 8 x
 512 (256 patch embeddings + 256 tokens) + 64, contiguous and paged16, and
 2 x 2048 with the full 1024-row patch prefix, three ways; ``serve(spec=
 "ngram")`` against speculation off (bf16 recorded, fp32 identical);
@@ -204,9 +205,10 @@ beside SDPA with ``enable_gqa``.
 
 Phases ``encdec``, ``parity_encdec`` and ``xlstm`` run after
 ``parity_vlm``: the last two architectures of the reference, random
-weights from ``--seed``, at full size. ``encdec``: ``seamless-m4t-large-v2``
-(24 encoder and 24 decoder layers, d_model 1024, 16 heads of 64, d_ff
-8192, vocab 256206; 2,034,784,256 parameters), ``serve()`` of batch 8 x
+weights from ``--seed``. ``encdec``: ``seamless-m4t-large-v2`` at full
+width (d_model 1024, 16 heads of 64, d_ff 8192, vocab 256206), 4 of 24
+encoder and 4 of 24 decoder layers (full depth has 2,034,784,256
+parameters), ``serve()`` of batch 8 x
 512 tokens over 512 source frames + 64 new in the contiguous, int8,
 paged16 and paged16-int8 layouts as the graph replay and the eager chunk
 (the per-token loop too in the contiguous layout): identical tokens, exact
@@ -238,6 +240,37 @@ the decode kernels over the cross cache (values, codes, pages), and times
 rows ``flash_attention_fwd_noncausal``, ``flash_attention_fwd_fp32_noncausal``,
 ``flash_decode_fwd_cross`` and ``flash_decode_quant_fwd_cross``.
 
+Phases ``train_families`` and ``train_families_parity`` run after
+``train_parity``. ``train_families``: each non-dense family trained
+through ``train()`` on the card at full width, bf16 compute, guarded AdamW
+(warm-up 2, lr 3e-4), one warm-up step and four more, the batch with the
+family's extras: ``xlstm-125m`` 12 layers at 8 x 512, seamless 24 + 24 at
+4 x 512 over 512 frames, ``pixtral-12b`` 4 of 40 layers at 2 x 2048 (1024
+patches + 1024 tokens), ``mixtral-8x7b`` 2 of 32 at 4 x 1024, Griffin 26
+layers at 1 x 4096 (past its 2048 window); depths cut only to keep a
+family's 16 bytes a weight (fp32 weights, gradients, both moments: the
+model holds none) under 75 GB. Every loss finite, none skipped, exact
+launches a step (the prefill kernel twice per attention layer, the RG-LRU
+kernel three times per grouped recurrent layer and twice per tail layer),
+one profiled step whose kernel events equal the counters (not for the
+xLSTM, which launches none); step wall, the numpy batch's share, tokens
+a second, the model-FLOP share and the peak memory logged.
+``train_families_parity``: fp32 card against CPU at full width and cut
+depth (Griffin 5 layers, mixtral and pixtral 2, seamless 2 + 2, xLSTM 4
+with an sLSTM block), batch 2 x 64, three guarded steps on the card with
+the CPU's loss and gradients at the card's weights before each (before
+the first only for mixtral and pixtral, for the time limit; loss 1e-5
+relative, gradients 1e-4 of a leaf's largest |value|, Griffin 1e-3,
+xLSTM 5e-4), MoE routing equal; the host also takes the xLSTM's three
+AdamW steps and seamless's first from its own gradients, the card's
+weights and moments after each held to the limits (a weight whose update
+is set by gradient noise within 2 lr more), and the xLSTM's gradients
+against a float64 run of the port. ``train_kernels`` adds the kernel under autograd at the families'
+train shapes (rows ``flash_attention_fwd_train_d256``, ``_d128``,
+``_noncausal``, ``_cross``) and the RG-LRU backward (row
+``rglru_scan_bwd``: the kernel over the reversed sequences, bit for bit
+``rglru_scan_bwd_ref``, at 1 x 4096 x 2560).
+
 The second-to-last line is a JSON object of per-kernel numbers, the last is
 ``{"ok": true, "device": {...}}``. Any failure raises.
 
@@ -264,7 +297,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("device", "build", "kernels", "serve", "engine", "robust", "fleet",
           "spec", "profile",
-          "parity", "train", "train_kernels", "train_parity", "proteus",
+          "parity", "train", "train_kernels", "train_parity",
+          "train_families", "train_families_parity", "proteus",
           "serve_griffin", "engine_griffin", "parity_griffin", "archs",
           "moe", "parity_moe", "vlm", "parity_vlm", "encdec", "parity_encdec",
           "xlstm")
@@ -346,7 +380,12 @@ SOURCES = {"flash_attention_fwd": PREFILL_SOURCE,
            "flash_attention_fwd_noncausal": PREFILL_SOURCE,
            "flash_attention_fwd_fp32_noncausal": PREFILL_SOURCE,
            "flash_decode_fwd_cross": DECODE_SOURCE,
-           "flash_decode_quant_fwd_cross": DECODE_SOURCE}
+           "flash_decode_quant_fwd_cross": DECODE_SOURCE,
+           "flash_attention_fwd_train_d256": PREFILL_SOURCE,
+           "flash_attention_fwd_train_d128": PREFILL_SOURCE,
+           "flash_attention_fwd_train_noncausal": PREFILL_SOURCE,
+           "flash_attention_fwd_train_cross": PREFILL_SOURCE,
+           "rglru_scan_bwd": RGLRU_SOURCE}
 REPLACES = {
     "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:126",
     "flash_attention_fwd_d256":
@@ -389,6 +428,15 @@ REPLACES = {
     "flash_decode_fwd_cross": "src/repro/kernels/flash_attention/kernel.py:174",
     "flash_decode_quant_fwd_cross":
         "src/repro/kernels/flash_attention/kernel.py:262",
+    "flash_attention_fwd_train_d256":
+        "src/repro/kernels/flash_attention/kernel.py:126",
+    "flash_attention_fwd_train_d128":
+        "src/repro/kernels/flash_attention/kernel.py:126",
+    "flash_attention_fwd_train_noncausal":
+        "src/repro/kernels/flash_attention/kernel.py:126",
+    "flash_attention_fwd_train_cross":
+        "src/repro/kernels/flash_attention/kernel.py:126",
+    "rglru_scan_bwd": "src/repro/kernels/rglru/kernel.py:44",
 }
 # the serving layouts: (kv_quant, page_size, the decode kernel of each step)
 LAYOUTS = {
@@ -429,7 +477,16 @@ MAIN_LAYOUT = {"flash_attention_fwd": "contiguous",
                "flash_attention_fwd_noncausal": "encdec/contiguous",
                "flash_attention_fwd_fp32_noncausal": "parity_encdec",
                "flash_decode_fwd_cross": "encdec/paged16",
-               "flash_decode_quant_fwd_cross": "encdec/paged16_int8"}
+               "flash_decode_quant_fwd_cross": "encdec/paged16_int8",
+               # the train runs of phase train_families
+               "flash_attention_fwd_train_d256":
+                   "train_families/recurrentgemma-2b",
+               "flash_attention_fwd_train_d128": "train_families/pixtral-12b",
+               "flash_attention_fwd_train_noncausal":
+                   "train_families/seamless-m4t-large-v2",
+               "flash_attention_fwd_train_cross":
+                   "train_families/seamless-m4t-large-v2",
+               "rglru_scan_bwd": "train_families/recurrentgemma-2b"}
 # rows whose launches are another row's counter: the prefill and decode
 # kernels at the Griffin shapes, the RG-LRU kernel at the long prompt, the
 # quantized matmul at its other timed shapes, the adapter's fp32 calls
@@ -449,7 +506,11 @@ COUNTER = {"flash_attention_fwd_d256": "flash_attention_fwd",
            "flash_attention_fwd_noncausal": "flash_attention_fwd",
            "flash_attention_fwd_fp32_noncausal": "flash_attention_fwd_fp32",
            "flash_decode_fwd_cross": "flash_decode_fwd",
-           "flash_decode_quant_fwd_cross": "flash_decode_quant_fwd"}
+           "flash_decode_quant_fwd_cross": "flash_decode_quant_fwd",
+           "flash_attention_fwd_train_d256": "flash_attention_fwd",
+           "flash_attention_fwd_train_d128": "flash_attention_fwd",
+           "flash_attention_fwd_train_noncausal": "flash_attention_fwd",
+           "flash_attention_fwd_train_cross": "flash_attention_fwd"}
 NO_LIBRARY = ("no single PyTorch call computes attention over quantized "
               "codes or through a page table")
 NO_LIBRARY_RGLRU = "no single PyTorch call computes a linear recurrence"
@@ -481,10 +542,78 @@ TRAIN_GRAD_TOL = 3e-2
 # gradient is below that noise (AdamW's first steps divide by |g|)
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_TREE_RTOL = 1e-4
+# training of the non-dense families (phase train_families): full width,
+# bf16 compute, AdamW, guarded, one warm-up step and four more; depth cut
+# only where a family's 16 bytes a weight (fp32 weights, gradients and both
+# AdamW moments) with the step's transients pass TRAIN_FAMILIES_PEAK
+# arch: (decoder layers, encoder layers or None, batch, seq)
+TRAIN_FAMILIES = {
+    "xlstm-125m": (12, None, 8, 512),
+    "seamless-m4t-large-v2": (24, 24, 4, 512),
+    "pixtral-12b": (4, None, 2, 2048),
+    "mixtral-8x7b": (2, None, 4, 1024),
+    "recurrentgemma-2b": (26, None, 1, 4096),
+}
+TRAIN_FAMILIES_STEPS = 5
+TRAIN_FAMILIES_PEAK = 75e9
+# fp32 card vs CPU (phase train_families_parity): full width, these depths,
+# batch 2 x seq 64, three guarded steps. The host's memory would hold seq
+# 256 (its peak was 37 GB at seq 64), its time would not: its forward and
+# backward at full width take most of the phase (mixtral's ~11 s a step at
+# seq 64, about four times that at 256), and the run has a time limit
+TRAIN_FAMILIES_PARITY = {
+    "xlstm-125m": (4, None),               # layer 3 an sLSTM block
+    "seamless-m4t-large-v2": (2, 2),
+    "pixtral-12b": (2, None),
+    "mixtral-8x7b": (2, None),
+    "recurrentgemma-2b": (5, None),        # one (r, r, a) group + 2 tail
+}
+TRAIN_FAMILIES_PARITY_SHAPE = (2, 64)
+ADAMW_EPS = 1e-8                     # optim.adamw's eps
+TRAIN_FAMILIES_PARITY_STEPS = 3
+# the first n steps that the host also takes (AdamW from the CPU's own
+# gradients at the card's weights), its weights and moments held against
+# the card's: the host's AdamW takes ~23 ns a weight (73 s a mixtral step),
+# so the xLSTM (50 M weights) takes every step and seamless (651 M, leaves
+# of 262 M elements updated in pieces) the first
+TRAIN_FAMILIES_HOST_STEPS = {"xlstm-125m": 3, "seamless-m4t-large-v2": 1}
+# the steps before which the CPU computes the loss and the gradients at the
+# card's weights (every step where not named): mixtral's and pixtral's
+# host forward and backward (~11 s and ~5 s a step) and the copies of
+# their weights (12.7 and 7.5 GB) fit the time limit once
+TRAIN_FAMILIES_GRAD_STEPS = {"mixtral-8x7b": 1, "pixtral-12b": 1}
+# per family, of a leaf's largest |value|: the gradients and the gradient
+# norm (and the xLSTM's weights and moments); Griffin's sqrt(1 - a^2) as in
+# its serving parity (PARITY_GRIFFIN_REL); the xLSTM's as its serving parity
+# (XLSTM_PARITY_REL, set from a float64 run), held by both sides
+# against a float64 run of the port as well
+TRAIN_FAMILIES_REL = {"xlstm-125m": 5e-4, "recurrentgemma-2b": 1e-3}
+# the prefill kernel under autograd at the families' train shapes (phase
+# train_kernels): (B, S, T, Hq, Hkv, D, causal, window)
+TRAIN_ATTN_SHAPES = {
+    "flash_attention_fwd_train_d256": (1, 4096, 4096, 10, 1, 256, True, 2048),
+    "flash_attention_fwd_train_d128": (2, 2048, 2048, 32, 8, 128, True, 0),
+    "flash_attention_fwd_train_noncausal": (4, 512, 512, 16, 16, 64, False,
+                                            0),
+    "flash_attention_fwd_train_cross": (4, 512, 768, 16, 16, 64, False, 0),
+}
+TRAIN_ATTN_LABELS = {
+    "flash_attention_fwd_train_d256": "recurrentgemma-2b local MQA",
+    "flash_attention_fwd_train_d128": "pixtral-12b GQA",
+    "flash_attention_fwd_train_noncausal": "seamless encoder",
+    "flash_attention_fwd_train_cross": "seamless cross-attention, S != T",
+}
+RGLRU_BWD_SHAPE = (1, 4096, 2560)      # Griffin's train batch, d_model
 # speculative decoding (phase spec): the reference's draft length, its two
 # drafters; the batch rows 0-3 a period-4 tile, rows 4-7 random
 SPEC_K = 3
 SPEC_MODES = ("ngram", "draft")
+# new tokens of a spec drain: 16 keeps the run inside its time limit (64,
+# with every other phase as it is, ran past it on the H100)
+SPEC_GEN = 16
+# decode steps of a chunk in the profiled serves and the spec profile: 4
+# for the time limit too (8 ran past it)
+PROFILE_CHUNK = 4
 T_START = time.perf_counter()
 
 
@@ -728,26 +857,30 @@ def fp32_prefill_row(gen, label, B, Hkv, G, S, D, window,
 # the check logs how many lead kernels each trace kept (``lead_kept``).
 # TRACE_PAD_S of idle time follows the block.
 TRACE_LEAD_KERNELS = 50
+# the families' train traces follow a run of train() (tens of GB allocated
+# and freed): runs on the H100 kept 8-10 of 50 lead kernels there, so they
+# take a longer lead-in
+TRAIN_TRACE_LEAD = 120
 TRACE_LEAD_GAP_S = 0.05
 TRACE_PAD_S = 0.1
 LEAD_KERNEL = "lgamma"
 
 
 @contextlib.contextmanager
-def traced():
+def traced(lead: int = TRACE_LEAD_KERNELS):
     """``torch.profiler`` (CPU and CUDA activities) over the block, started
-    through one warm-up step of the profiler's schedule and the lead-in
-    above, so that the block's kernels lie well inside the trace's window
-    (ROADMAP §C)."""
+    through one warm-up step of the profiler's schedule and a lead-in of
+    ``lead`` kernels, so that the block's kernels lie well inside the
+    trace's window (ROADMAP §C)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1)) as prof:
         torch.ones(1, device=DEVICE).add_(1)
         torch.cuda.synchronize()
         prof.step()
-        lead = torch.full((1,), 2.0, device=DEVICE)
-        for _ in range(TRACE_LEAD_KERNELS):
-            lead.lgamma_()
+        x = torch.full((1,), 2.0, device=DEVICE)
+        for _ in range(lead):
+            x.lgamma_()
             torch.cuda.synchronize()
             time.sleep(TRACE_LEAD_GAP_S)
         yield prof
@@ -771,7 +904,8 @@ def kernel_events(averages) -> list:
             and not e.key.startswith("ProfilerStep")]
 
 
-def _profiled_launches(label, prof, kern, seen, want) -> None:
+def _profiled_launches(label, prof, kern, seen, want,
+                       lead: int = TRACE_LEAD_KERNELS) -> None:
     """The profiler's kernel events ``seen`` must equal the counters
     ``want``; the lead kernels the trace kept are logged beside them. On a
     disagreement the trace's records of the counted kernels are logged in
@@ -779,7 +913,7 @@ def _profiled_launches(label, prof, kern, seen, want) -> None:
     records in all, before it raises (ROADMAP §C)."""
     log(label, f"launches by the profiler's kernel events {seen}, by the "
         f"counters {want}; the trace kept {lead_kept(kern)} of its "
-        f"{TRACE_LEAD_KERNELS} lead kernels")
+        f"{lead} lead kernels")
     if seen == want:
         return
     raw = [e for e in prof.profiler.kineto_results.events()
@@ -2477,12 +2611,14 @@ def spec_drain(m, toks, spec, gen=64, chunk=8, eager=False,
 
 
 def _spec_profile(m, toks, spec, label) -> None:
-    """The captured spec chunk under ``torch.profiler``: prefill, warm-up
-    and capture, two replays; the prefill and decode kernels' launches by
-    the profiler's kernel events equal the counters."""
+    """The captured spec chunk (``PROFILE_CHUNK`` iterations) under
+    ``torch.profiler``: prefill, warm-up and capture, two replays; the
+    prefill and decode kernels' launches by the profiler's kernel events
+    equal the counters."""
+    chunk = PROFILE_CHUNK
     _reset()
     with traced() as prof:
-        step, cache, tok, state = _spec_start(m, toks, spec, 16, 8)
+        step, cache, tok, state = _spec_start(m, toks, spec, 16, chunk)
         for _ in range(2):
             tok = step(cache, tok, None, -1, *state)[1]
         torch.cuda.synchronize()
@@ -2492,7 +2628,7 @@ def _spec_profile(m, toks, spec, label) -> None:
     seen = {n: sum(e.count for e in kern if PROFILED[n] in e.key)
             for n in names}
     want = {n: counted[n] for n in names}
-    per_chunk = 8 * (m.cfg.num_layers + SPEC_K * step.draft_layers)
+    per_chunk = chunk * (m.cfg.num_layers + SPEC_K * step.draft_layers)
     if want["flash_decode_fwd"] != 3 * per_chunk:
         raise AssertionError(f"{label}: the counters {want}, not "
                              f"{per_chunk} decode launches a chunk")
@@ -2568,7 +2704,8 @@ def phase_spec(model, smi: str, seed: int, engine_want=None) -> dict:
     """Speculative decoding (k 3) on full-width pimref-100m, both drafters.
 
     In the serving dtype (bf16): batch 8 x prompt 512 (``spec_prompts``) +
-    64 new tokens in chunks of 8 in every KV layout, the graph replay and
+    ``SPEC_GEN`` new tokens in chunks of 8 in every KV layout, the graph
+    replay and
     the eager body (tokens and accepted lengths identical, exact launches,
     96 / 240 a chunk, also by the profiler's kernel events), beside the
     graph with speculation off; serve() with speculation (its draft drafter
@@ -2585,7 +2722,7 @@ def phase_spec(model, smi: str, seed: int, engine_want=None) -> dict:
     from repro_torch.launch.serve import serve
     launches, failed = {}, []
     toks = spec_prompts(model.cfg.vocab_size, seed=seed)
-    gen, chunk = 64, 8
+    gen, chunk = SPEC_GEN, 8
     for layout, (kv_quant, page_size, decode_kernel) in LAYOUTS.items():
         m = model.with_kv_layout(kv_quant, page_size)
         _reset()
@@ -2710,21 +2847,22 @@ def spec_fp32(smi: str, seed: int) -> list:
     offs = {}
     for layout, (kv_quant, page_size, decode_kernel) in LAYOUTS.items():
         m = model.with_kv_layout(kv_quant, page_size)
-        off = offs[layout] = spec_drain(m, toks, "off")
+        off = offs[layout] = spec_drain(m, toks, "off", SPEC_GEN)
         for mode in SPEC_MODES:
             label = f"spec_fp32/{layout}/{mode}"
-            g = spec_drain(m, toks, mode)
+            g = spec_drain(m, toks, mode, SPEC_GEN)
             same = np.array_equal(g["tokens"], off["tokens"])
             log(label, f"{smi}: fp32 tokens == speculation off: {same}"
                 + ("" if same else " (" + _first_differences(
                     g["tokens"], off["tokens"]) + ")")
                 + f"; accepted_len_per_draft {g['accepted_len']:.4f}, "
-                f"decode {g['wall_s'] * 1e3 / 64:.4f} ms/token-step "
-                f"({off['wall_s'] * 1e3 / 64:.4f} off)")
+                f"decode {g['wall_s'] * 1e3 / SPEC_GEN:.4f} ms/token-step "
+                f"({off['wall_s'] * 1e3 / SPEC_GEN:.4f} off)")
             if not same and kv_quant != "auto":
                 failed.append(f"{label}: fp32 greedy tokens differ from "
                               "speculation off")
-    step_all = spec_drain(model, toks, "draft", draft_layers=cfg.num_layers)
+    step_all = spec_drain(model, toks, "draft", SPEC_GEN,
+                          draft_layers=cfg.num_layers)
     same = np.array_equal(step_all["tokens"], offs["contiguous"]["tokens"])
     log("spec_fp32/contiguous/draft_all_layers", f"draft through all "
         f"{cfg.num_layers} layers: accepted_len_per_draft "
@@ -3033,10 +3171,12 @@ def phase_parity_griffin(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 # depth cuts that fit one 80 GB card: ServingLM holds fp32 weights and a bf16
 # copy, 6 bytes a weight (mixtral 6 of 32 layers: 8.97 G parameters, 53.8 GB;
-# pixtral 20 of 40: 6.79 G, 40.8 GB); widths, experts, top-k, capacity,
+# pixtral 20 of 40: 6.79 G, 40.8 GB); cut again to 2 and 4 so that
+# the run with the families' training stays inside its time limit; widths,
+# experts, top-k, capacity,
 # window, heads and vocab are the published ones
-MOE_ARCH, MOE_LAYERS = "mixtral-8x7b", 6
-VLM_ARCH, VLM_LAYERS = "pixtral-12b", 20
+MOE_ARCH, MOE_LAYERS = "mixtral-8x7b", 2
+VLM_ARCH, VLM_LAYERS = "pixtral-12b", 4
 FAMILY_PARITY_LAYERS = 2
 MOE_LAYOUTS = ("contiguous", "int8", "paged16", "paged16_int8")
 VLM_LAYOUTS = ("contiguous", "paged16")
@@ -3105,7 +3245,7 @@ def _family_drains(model, smi, label, seed, reqs, prefix_hits) -> dict:
 
 
 def phase_moe(smi: str, seed: int) -> dict:
-    """mixtral-8x7b at full width, 6 of 32 layers: batch 8 x 512 + 64 in
+    """mixtral-8x7b at full width, 2 of 32 layers: batch 8 x 512 + 64 in
     four layouts and 2 x 4200 + 32 past the window, three ways each, exact
     launches; the engine phase's requests drained graph against eager body;
     a profile. Returns the launches of the graph runs."""
@@ -3141,7 +3281,7 @@ def _vlm_requests(model, seed: int) -> list:
 
 
 def phase_vlm(smi: str, seed: int) -> dict:
-    """pixtral-12b at full width, 20 of 40 layers: batch 8 x 512 (256
+    """pixtral-12b at full width, 4 of 40 layers: batch 8 x 512 (256
     patches + 256 tokens) + 64, contiguous and paged16, and 2 x 2048 with
     the full 1024-patch prefix, three ways each, exact launches;
     ``serve(spec="ngram")`` against speculation off (bf16 recorded, fp32
@@ -3331,25 +3471,28 @@ def _parity_family(label, arch, seed, patch_rows=0, src_rows=0,
 
 
 ENCDEC_ARCH = "seamless-m4t-large-v2"
+# 4 of its 24 encoder and 24 decoder layers: the run with the families'
+# training stays inside its time limit
+ENCDEC_LAYERS = 4
 ENCDEC_LAYOUTS = ("contiguous", "int8", "paged16", "paged16_int8")
 ENCDEC_PARITY_LAYOUTS = ("contiguous", "paged16", "int8")
 
 
 def phase_encdec(smi: str, seed: int) -> dict:
-    """seamless-m4t-large-v2 at full size (24 encoder and 24 decoder
-    layers): batch 8 x 512 tokens over 512 source frames + 64 in four
-    layouts, graph and eager chunk (and the per-token loop, contiguous),
-    identical tokens (72 prefill launches a prefill; per step the
-    self cache's decode kernel and the cross cache's contiguous one, 24
-    each), the graph's device ms a step against its byte bound; 24
+    """seamless-m4t-large-v2 at full width, ``ENCDEC_LAYERS`` encoder and
+    decoder layers (4 of 24 each): batch 8 x 512 tokens over 512 source
+    frames + 64 in four layouts, graph and eager chunk (and the per-token
+    loop, contiguous), identical tokens (12 prefill launches a prefill;
+    per step the self cache's decode kernel and the cross cache's
+    contiguous one, 4 each), the graph's device ms a step against its byte bound; 24
     requests with their source frames drained graph against eager body
     (contiguous, paged16; no prefix hits), a misshaped source extra
     (``bad_request``, nothing launched); a profile. Returns the launches of
     the graph runs."""
-    from repro_torch.configs import get_config
     from repro_torch.launch.engine import Request
     from repro_torch.launch.serve import synth_requests
-    model = _load_cut(ENCDEC_ARCH, get_config(ENCDEC_ARCH).num_layers, seed)
+    model = _load_cut(ENCDEC_ARCH, ENCDEC_LAYERS, seed,
+                      num_encoder_layers=ENCDEC_LAYERS)
     launches = {}
     for layout in ENCDEC_LAYOUTS:
         kv_quant, page_size, decode_kernel = LAYOUTS[layout]
@@ -3448,25 +3591,26 @@ def _xlstm_run(model, toks, gen, chunk, how) -> tuple:
 @contextlib.contextmanager
 def float64_port(model):
     """A float64 run of the port's xLSTM on the CPU: a float64 copy of
-    ``model`` (weights, compute dtype, the recurrent states) with the
-    model code's fp32 upcasts (``Tensor.float``) promoted to float64 while
-    inside. The yardstick of the fp32 parity's tolerance."""
-    from repro_torch.models import recurrent_lm
+    ``model`` (weights, compute dtype, the recurrent states: the serving
+    cache's and a training forward's zero states) with the model code's
+    fp32 upcasts (``Tensor.float``) promoted to float64 while inside. The
+    yardstick of the fp32 parity's tolerance."""
+    from repro_torch.models import recurrent_lm, xlstm
     m = copy.deepcopy(model).double()
     m.cdtype, m._cast = torch.float64, {}
-    inits = {n: getattr(recurrent_lm, n)
+    inits = {(mod, n): getattr(mod, n) for mod in (recurrent_lm, xlstm)
              for n in ("init_mlstm_state", "init_slstm_state")}
     upcast = torch.Tensor.float
     torch.Tensor.float = lambda t: t.to(torch.float64)
-    for n, f in inits.items():
-        setattr(recurrent_lm, n, lambda *a, f=f, **k: {
+    for (mod, n), f in inits.items():
+        setattr(mod, n, lambda *a, f=f, **k: {
             name: v.double() for name, v in f(*a, **k).items()})
     try:
         yield m
     finally:
         torch.Tensor.float = upcast
-        for n, f in inits.items():
-            setattr(recurrent_lm, n, f)
+        for (mod, n), f in inits.items():
+            setattr(mod, n, f)
 
 
 def phase_xlstm(smi: str, seed: int) -> dict:
@@ -3620,9 +3764,10 @@ PROFILED = {"flash_attention_fwd": "flash_prefill_kernel<",
 
 
 def phase_profile(model, smi: str, label: str = "profile",
-                  engines=("graph", "eager"), chunk: int = 8) -> None:
+                  engines=("graph", "eager"),
+                  chunk: int = PROFILE_CHUNK) -> None:
     """``torch.profiler`` over one batch-mode serve (B 8 x 512, prefill, the
-    warm-up chunk and two chunks of 8) with the graph and with the eager
+    warm-up chunk and two chunks of ``chunk``) with the graph and with the eager
     chunk: busy share, kernels by device time, and the launches of the
     prefill, decode and RG-LRU kernels by the profiler's kernel events
     against the launch counters; ``engines`` names the runs profiled,
@@ -4378,6 +4523,633 @@ def phase_train_parity(smi: str, seed: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# training of the non-dense families
+# ---------------------------------------------------------------------------
+def _family_cfg(arch, layers, enc_layers=None, **kw):
+    """``arch`` at full width with ``layers`` decoder layers (and
+    ``enc_layers`` encoder layers)."""
+    from repro_torch.configs import get_config
+    rep = dict(num_layers=layers, **kw)
+    if enc_layers is not None:
+        rep["num_encoder_layers"] = enc_layers
+    return get_config(arch).replace(**rep)
+
+
+def _depth(cfg) -> str:
+    from repro_torch.configs import get_config
+    full = get_config(cfg.name)
+    d = f"{cfg.num_layers} of {full.num_layers} layers"
+    if cfg.family == "audio":
+        d = (f"{cfg.num_encoder_layers} of {full.num_encoder_layers} "
+             f"encoder + {d}")
+    return d
+
+
+def _train_step_launches(cfg, nm: int = 1) -> dict:
+    """Launches of one train step, remat per block: the prefill kernel twice
+    per attention layer (forward, recompute); the RG-LRU kernel three times
+    per recurrent layer of a recomputed group (forward, recompute, the
+    reversed backward) and twice per tail layer, which the reference does
+    not recompute; of those, the backward's once per recurrent layer
+    (``rglru_scan_bwd``); nothing else."""
+    want = dict.fromkeys(_flat_counts(), 0)
+    want["flash_attention_fwd"] = nm * 2 * _prefill_attentions(cfg)
+    if cfg.family == "hybrid":
+        groups = cfg.num_layers // 3
+        want["rglru_scan"] = nm * (3 * 2 * groups
+                                   + 2 * (cfg.num_layers - 3 * groups))
+        want["rglru_scan_bwd"] = nm * _layer_counts(cfg)[1]
+    return want
+
+
+def _device_tree(cfg, seed):
+    """``cfg``'s weights drawn on the card from ``seed`` (the port's init
+    kinds), as the reference's tree."""
+    from repro_torch.models import init_params, reference_tree
+    from repro_torch.models.model import model_class
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return reference_tree(init_params(cfg, gen, DEVICE),
+                          model_class(cfg).LISTS)
+
+
+def _active_params(cfg, n: int) -> int:
+    """Weights a token reads: an MoE layer's experts at k of E."""
+    if cfg.num_experts <= 0:
+        return n
+    experts = 3 * cfg.num_experts * cfg.d_model * cfg.d_ff * cfg.num_layers
+    return int(n - experts * (1 - cfg.experts_per_token / cfg.num_experts))
+
+
+def phase_train_families(smi: str, seed: int) -> dict:
+    """Every non-dense family trained through
+    ``repro_torch.launch.train.train`` on the card at full width: one
+    warm-up step and four more, guarded AdamW, bf16 compute, remat per
+    block, the batch with the family's extras; then one profiled step.
+    Returns the launches of each run."""
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.data import make_batch_fn
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.models import count_params
+    from repro_torch.models.model import training_model
+    from repro_torch.optim import make_optimizer
+    n_steps = TRAIN_FAMILIES_STEPS
+    launches = {}
+    for arch, (layers, enc, B, S) in TRAIN_FAMILIES.items():
+        label = f"train_families/{arch}"
+        cfg = _family_cfg(arch, layers, enc)
+        n = count_params(cfg)
+        run = RunConfig(warmup_steps=2, learning_rate=3e-4, microbatches=1,
+                        total_steps=n_steps, seed=seed)
+        shape = ShapeConfig("custom", S, B, "train")
+        extras = {k: tuple(v.shape) for k, v in make_batch_fn(
+            cfg, ShapeConfig("custom", 8, 1, "train"), seed)(0).items()
+            if k not in ("tokens", "labels")}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset()
+        t0 = time.perf_counter()
+        out = train(arch, cfg=cfg, steps=n_steps, batch=B, seq=S, run=run,
+                    device=DEVICE, params=_device_tree(cfg, seed),
+                    log_every=n_steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _flat_counts()
+        peak = torch.cuda.max_memory_allocated()
+        losses = np.asarray(out["losses"])
+        log(label, f"{smi}: {arch} full width, {_depth(cfg)}, {n} params "
+            f"({n * 16 / 1e9:.1f} GB of fp32 weights, gradients and AdamW "
+            f"moments), compute {cfg.compute_dtype}, batch {B} x seq {S} "
+            f"(extras at seq 8: {extras}); {n_steps} steps in {wall:.2f} s "
+            f"(init and the first step's warm-up included); losses "
+            f"{[float('%.4f' % x) for x in losses]}; skipped "
+            f"{out['skipped_steps']}; peak device memory {peak / 1e9:.2f} GB")
+        if len(losses) != n_steps or not np.isfinite(losses).all() \
+                or out["skipped_steps"]:
+            raise AssertionError(f"{label}: losses {losses}, skipped "
+                                 f"{out['skipped_steps']}")
+        if peak > TRAIN_FAMILIES_PEAK:
+            raise AssertionError(f"{label}: peak {peak / 1e9:.2f} GB over "
+                                 f"{TRAIN_FAMILIES_PEAK / 1e9:.0f} GB: cut "
+                                 "the depth")
+        step_want = _train_step_launches(cfg)
+        want = {k: v * n_steps for k, v in step_want.items()}
+        if counts != want:
+            raise AssertionError(f"{label}: launches {counts}, want {want}")
+        # host share: the numpy batch of a step
+        bf = make_batch_fn(cfg, shape, seed=seed)
+        t0 = time.perf_counter()
+        host_batch = bf(n_steps)
+        batch_s = time.perf_counter() - t0
+        secs = np.asarray(out["step_seconds"][1:])
+        step_s = float(np.median(secs))
+        positions = B * S + (B * int(S * cfg.src_len_ratio)
+                             if cfg.family == "audio" else 0)
+        active = _active_params(cfg, n)
+        mfu = 6.0 * active * positions / (step_s * PEAK_FLOPS[torch.bfloat16])
+        log(label, f"{smi}: step wall (host clock) median {step_s * 1e3:.1f} "
+            f"ms of steps 1-{n_steps - 1} ({', '.join('%.1f' % (x * 1e3) for x in secs)} "
+            f"ms; step 0 {out['step_seconds'][0] * 1e3:.1f} ms); the numpy "
+            f"batch {batch_s * 1e3:.1f} ms ({batch_s / step_s:.1%} of a "
+            f"step); {positions / step_s:.1f} positions/s ({positions} a "
+            f"step{', encoder frames included' if cfg.family == 'audio' else ''}); "
+            f"model-FLOP share 6 N_active positions / (step s x 989e12) "
+            f"= {mfu:.2%} (N_active {active}); launches "
+            f"{ {k: v for k, v in counts.items() if v} }: "
+            f"{ {k: v for k, v in step_want.items() if v} } a step")
+        launches[label] = counts
+        if not any(step_want.values()):
+            # the xLSTM reaches none of the port's kernels (nor does the
+            # reference's reach a Pallas kernel): its counters read 0, and
+            # a profile of its step (~210,000 kernel events, two minutes of
+            # the profiler's processing) would compare 0 with 0
+            log(label, "no port kernel on this path: the profiled step is "
+                "left out")
+            del out
+            torch.cuda.empty_cache()
+            continue
+        # one profiled step from the trained state
+        step_fn = make_train_step(training_model(cfg),
+                                  make_optimizer(cfg.optimizer, run), run,
+                                  guard=True)
+        b = {k: torch.from_numpy(v).to(DEVICE) for k, v in host_batch.items()}
+        params, opt = out["params"], out["opt_state"]
+        del out
+        torch.cuda.synchronize()
+        _reset()
+        with traced(TRAIN_TRACE_LEAD) as prof:
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, b)
+            loss = m["loss"].item()
+            pwall = time.perf_counter() - t0
+        kern = kernel_events(prof.key_averages())
+        busy_us = sum(e.self_device_time_total for e in kern)
+        counted = _flat_counts()
+        seen = {k: sum(e.count for e in kern if name in e.key)
+                for k, name in PROFILED.items()}
+        log(label, f"{smi}: profiled step (loss {loss:.4f}, skipped "
+            f"{bool(m['skipped'])}): wall {pwall * 1e3:.1f} ms, device busy "
+            f"{busy_us / 1e3:.1f} ms ({busy_us / 1e4 / pwall:.1f}%), "
+            f"{sum(e.count for e in kern)} kernel launches")
+        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]:
+            log(label, f"  {e.self_device_time_total / 1e3:9.3f} ms "
+                f"{e.count:6d}x  {e.key[:90]}")
+        if counted != step_want or bool(m["skipped"]):
+            raise AssertionError(f"{label}: profiled step launches "
+                                 f"{counted}, want {step_want}")
+        _profiled_launches(label, prof, kern, seen,
+                           {k: counted[k] for k in PROFILED},
+                           TRAIN_TRACE_LEAD)
+        del params, opt, b, step_fn, prof, kern
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _rel_dist(a, b) -> float:
+    """max |a - b| relative to b's largest |value|."""
+    return (a.float() - b.float()).abs().max().item() / max(
+        b.float().abs().max().item(), 1e-30)
+
+
+def _grads_close(label, step, got, want, rel) -> float:
+    """Every gradient leaf on the card within ``rel`` of the CPU's largest
+    |value| in it (compared on the card); returns the largest reading."""
+    from repro_torch.tree import leaves_with_path
+    worst = 0.0
+    for (path, g), (_, c) in zip(leaves_with_path(got),
+                                 leaves_with_path(want)):
+        c = c.to(DEVICE)
+        r = (g - c).abs().max().item() / max(c.abs().max().item(), 1e-30)
+        worst = max(worst, r)
+        if r > rel:
+            raise AssertionError(f"{label}: step {step} gradient {path}: "
+                                 f"max |card - cpu| {r:.3e} of its largest "
+                                 f"|value| > {rel}")
+    return worst
+
+
+def _state_close(label, step, card, cpu, rel, run) -> tuple:
+    """The card's parameters and AdamW state after a step against the
+    CPU's from the same state: every element within the per-family limit
+    of its leaf's largest |value| (``tight``; nu, which holds g^2, twice
+    it). Two exceptions. A weight whose AdamW update is set by noise may
+    differ by up to tight + 2 lr: its momentum within the gradients' noise
+    (|mu| <= 2 rel of the leaf's largest |mu|; the first step's mu is
+    (1 - b1) g), or its gradient scale sqrt(nu / (1 - b2^t)) within 100
+    times the update's eps, which the update's division amplifies. A
+    moment may have at most 1e-3 of its elements past tight, none past
+    twice it. Returns (the largest reading by leaf group, the weights past
+    tight that the noise rule let through, the weights it covers)."""
+    from repro_torch.tree import leaves_with_path
+    mu = dict(leaves_with_path(cpu["opt"]["mu"]))
+    nu = dict(leaves_with_path(cpu["opt"]["nu"]))
+    bc2 = 1 - run.b2 ** int(cpu["opt"]["step"])
+    lr = run.learning_rate
+    worst, exempted, noisy = {}, 0, 0
+    for (path, c), (_, g) in zip(leaves_with_path(cpu),
+                                 leaves_with_path(card)):
+        c = c.to(DEVICE)
+        if c.dtype == torch.int32:
+            if not torch.equal(c, g):
+                raise AssertionError(f"{label}: {path} differs")
+            continue
+        d = (g - c).abs()
+        scale = max(c.abs().max().item(), 1e-30)
+        tight = rel * scale * (2 if "['nu']" in path else 1)
+        past = d > tight
+        if path.startswith("['params']"):
+            key = path[len("['params']"):]
+            m = mu[key].to(DEVICE).abs()
+            noise = (m <= 2 * rel * m.max()) | (
+                torch.sqrt(nu[key].to(DEVICE) / bc2) <= 100 * ADAMW_EPS)
+            noisy += int(noise.sum().item())
+            exempted += int((past & noise).sum().item())
+            bad = (past & ~noise).sum().item() \
+                + (d > tight + 2 * lr).sum().item()
+        else:
+            bad = (d > 2 * tight).sum().item() \
+                + int(past.float().mean().item() > 1e-3)
+        key = path.split("]")[1] + "]"
+        worst[key] = max(worst.get(key, 0.0), d.max().item() / scale)
+        if bad:
+            raise AssertionError(
+                f"{label}: step {step} {path}: max |card - cpu| "
+                f"{d.max().item():.3e} (tight {tight:.3e}), "
+                f"{past.float().mean().item():.2e} of the elements past "
+                f"tight, {bad} outside the limits")
+    return worst, exempted, noisy
+
+
+def _family_step_launches(label, cfg, i, metrics) -> None:
+    """A card step of phase train_families_parity launched exactly a train
+    step's kernels (the prefill kernel on its fp32 route) and was not
+    skipped."""
+    got = _flat_counts()
+    want = _train_step_launches(cfg)
+    want["flash_attention_fwd_fp32"] = want["flash_attention_fwd"]
+    if got != want or bool(metrics["skipped"]) or \
+            not np.isfinite(float(metrics["loss"])):
+        raise AssertionError(f"{label}: step {i} launches {got}, want "
+                             f"{want}, skipped {bool(metrics['skipped'])}, "
+                             f"loss {float(metrics['loss'])}")
+
+
+def phase_train_families_parity(smi: str, seed: int) -> dict:
+    """Card against CPU in fp32 (TF32 off) for each non-dense family at full
+    width and cut depth, over three guarded AdamW steps on the card: before
+    each step the CPU computes the loss and the gradients at the card's
+    weights, held against the card's (the loss within 1e-5 relative, the
+    gradient norm and every gradient within the family's limit of a leaf's
+    largest |value|; mixtral and pixtral before the first step only,
+    ``TRAIN_FAMILIES_GRAD_STEPS``); MoE routing equal card vs CPU. In its first
+    ``TRAIN_FAMILIES_HOST_STEPS`` steps the CPU also takes the AdamW step
+    from its own gradients, and the card's weights and moments after the
+    step are held to the limits (``_state_close``); the xLSTM's gradients
+    are also held against a float64 run of the port. Weights are drawn on
+    the card. Returns the card's launches of a step."""
+    import resource
+
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.data import make_batch_fn
+    from repro_torch.launch.steps import _loss_and_grads, make_train_step
+    from repro_torch.models.model import training_model
+    from repro_torch.optim import global_norm, make_optimizer
+    from repro_torch.tree import tree_map
+    B, S = TRAIN_FAMILIES_PARITY_SHAPE
+    n_steps = TRAIN_FAMILIES_PARITY_STEPS
+    launches = {}
+    for arch, (layers, enc) in TRAIN_FAMILIES_PARITY.items():
+        label = f"train_families_parity/{arch}"
+        cfg = _family_cfg(arch, layers, enc, compute_dtype="float32")
+        rel = TRAIN_FAMILIES_REL.get(arch, TRAIN_TREE_RTOL)
+        host_steps = TRAIN_FAMILIES_HOST_STEPS.get(arch, 0)
+        grad_steps = TRAIN_FAMILIES_GRAD_STEPS.get(arch, n_steps)
+        run = RunConfig(total_steps=n_steps, warmup_steps=1, microbatches=1,
+                        seed=seed)
+        bf = make_batch_fn(cfg, ShapeConfig("custom", S, B, "train"),
+                           seed=seed)
+        model = training_model(cfg)
+        opt = make_optimizer(cfg.optimizer, run)
+        step = make_train_step(model, opt, run, guard=True)
+        t0 = time.perf_counter()
+        p_card = _device_tree(cfg, seed)
+        s_card = opt.init(p_card)
+        worst = {}
+        if cfg.family == "ssm":
+            worst.update(_xlstm_f64_reading(label, cfg, model, tree_map(
+                lambda t: t.cpu(), p_card), bf, rel))
+        t_card = t_cpu = 0.0
+        to_cpu = lambda t: t.to("cpu", copy=True)
+        for i in range(n_steps):
+            b = bf(i)
+            bc = {k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()}
+            if i >= grad_steps:
+                # the card's step alone: finite, not skipped, its launches
+                t1 = time.perf_counter()
+                _reset()
+                p_card, s_card, m_card = step(p_card, s_card, bc)
+                torch.cuda.synchronize()
+                t_card += time.perf_counter() - t1
+                _family_step_launches(label, cfg, i, m_card)
+                continue
+            p_cpu = tree_map(to_cpu, p_card)
+            routes = {"card": [], "cpu": []}
+            t1 = time.perf_counter()
+            with recorded_routing(routes["cpu"]):
+                l_cpu, g_cpu = _loss_and_grads(model, p_cpu, {
+                    k: torch.from_numpy(v) for k, v in b.items()}, 1)
+            t_cpu += time.perf_counter() - t1
+            t1 = time.perf_counter()
+            with recorded_routing(routes["card"]):
+                l_card, g_card = _loss_and_grads(model, p_card, bc, 1)
+            if cfg.num_experts > 0 and i == 0:
+                _routing_diff(label, routes["cpu"], routes["card"])
+            for k, a, c, tol in (
+                    ("loss", l_card, l_cpu, TRAIN_LOSS_RTOL),
+                    ("grad_norm", global_norm(g_card), global_norm(g_cpu),
+                     rel)):
+                r = abs(float(a) - float(c)) / abs(float(c))
+                worst[f"{k}"] = max(worst.get(k, 0.0), r)
+                if r > tol or not np.isfinite(float(c)):
+                    raise AssertionError(f"{label}: step {i} {k} card "
+                                         f"{float(a)} cpu {float(c)} (rel "
+                                         f"{r:.2e} > {tol})")
+            worst["grads"] = max(worst.get("grads", 0.0), _grads_close(
+                label, i, g_card, g_cpu, rel))
+            del g_card
+            if i >= host_steps:
+                del g_cpu
+            _reset()
+            p_card, s_card, m_card = step(p_card, s_card, bc)
+            torch.cuda.synchronize()
+            t_card += time.perf_counter() - t1
+            _family_step_launches(label, cfg, i, m_card)
+            if i < host_steps:
+                # the state the card's step started from: fresh at step 0,
+                # else the card's (its weights p_cpu are copied above)
+                t1 = time.perf_counter()
+                s_cpu = opt.init(p_cpu) if i == 0 else s_prev
+                s_prev = None
+                opt.update_(g_cpu, s_cpu, p_cpu, None)
+                t_cpu += time.perf_counter() - t1
+                del g_cpu
+                w, exempted, noisy = _state_close(
+                    label, i, {"params": p_card, "opt": s_card},
+                    {"params": p_cpu, "opt": s_cpu}, rel, run)
+                log(label, f"step {i}: weights and moments after the card's "
+                    f"and the host's AdamW step within the limits; "
+                    f"{exempted} weights past tight let through by the "
+                    f"noise rule (of {noisy} it covers); largest readings "
+                    + ", ".join(f"{k} {v:.2e}" for k, v in w.items()))
+                for k, v in w.items():
+                    worst[k] = max(worst.get(k, 0.0), v)
+                del s_cpu
+            if i + 1 < host_steps:
+                s_prev = tree_map(to_cpu, s_card)
+            del p_cpu
+        peak_rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+        host = (f" and its own AdamW step{'s' if host_steps > 1 else ''} "
+                f"{', '.join(str(j + 1) for j in range(host_steps))}"
+                if host_steps else "")
+        got = _flat_counts()
+        launches[label] = got
+        at = ("each" if grad_steps >= n_steps else
+              f"the first {grad_steps}" if grad_steps > 1 else "the first")
+        log(label, f"{smi}: {arch} full width, {_depth(cfg)}, fp32, batch "
+            f"{B} x seq {S}: {n_steps} guarded AdamW steps on the card, CPU "
+            f"loss and gradients at {at}{host}"
+            f": card {t_card:.1f} s, CPU {t_cpu:.1f} s "
+            f"({time.perf_counter() - t0:.1f} s in all); limit {rel} of a "
+            f"leaf's largest |value| (loss {TRAIN_LOSS_RTOL}); largest "
+            "readings " + ", ".join(f"{k} {v:.2e}" for k, v in sorted(
+                worst.items(), key=lambda kv: -kv[1])[:7])
+            + f"; host peak RSS {peak_rss:.1f} GB; launches a step "
+            f"{ {k: v for k, v in got.items() if v} }")
+        del p_card, s_card
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _xlstm_f64_reading(label, cfg, model, p, bf, rel) -> dict:
+    """The xLSTM's first-step gradients on the card and the CPU (fp32)
+    against a float64 run of the port from the same weights ``p`` (on the
+    CPU): each side's distance from it, and the limit held against
+    both."""
+    from repro_torch.launch.steps import _loss_and_grads
+    from repro_torch.tree import leaves, tree_map
+    b = bf(0)
+    grads = {}
+    for side, dev in (("card", DEVICE), ("cpu", "cpu")):
+        _, g = _loss_and_grads(model, tree_map(lambda t: t.to(dev), p), {
+            k: torch.from_numpy(v).to(dev) for k, v in b.items()}, 1)
+        grads[side] = tree_map(lambda t: t.cpu(), g)
+    with float64_port(model) as m64:
+        _, g64 = _loss_and_grads(m64, tree_map(lambda t: t.double(), p), {
+            k: (torch.from_numpy(v).double() if v.dtype == np.float32
+                else torch.from_numpy(v)) for k, v in b.items()}, 1)
+    out = {f"{side} vs float64": max(
+        _rel_dist(a, w) for a, w in zip(leaves(grads[side]), leaves(g64)))
+        for side in ("card", "cpu")}
+    out["card vs cpu"] = max(_rel_dist(a, w) for a, w in zip(
+        leaves(grads["card"]), leaves(grads["cpu"])))
+    log(label, f"xLSTM gradients: card {out['card vs float64']:.2e} and CPU "
+        f"{out['cpu vs float64']:.2e} from a float64 run of the port (of a "
+        f"leaf's largest |value|), card vs CPU {out['card vs cpu']:.2e}; "
+        f"limit {rel}")
+    if max(out.values()) > rel:
+        raise AssertionError(f"{label}: xLSTM gradients {out} over {rel}")
+    return out
+
+
+def _attention_train_row(gen, name) -> dict:
+    """The prefill kernel under autograd at one of TRAIN_ATTN_SHAPES: out
+    and lse against the plain version, dq / dk / dv of the kernel forward +
+    plain backward against the all-plain pair, two calls bitwise equal;
+    device times of the kernel forward, the plain backward, both through
+    the Function, the all-plain pair and SDPA forward and forward +
+    backward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.kernels.flash_attention.autograd import (
+        flash_attention_bwd_ref, flash_attention_train)
+    B, S, T, Hq, Hkv, D, causal, window = TRAIN_ATTN_SHAPES[name]
+    G, dt = Hq // Hkv, torch.bfloat16
+    cq, ck = min(512, S), min(1024, T)
+    kw = dict(causal=causal, window=window)
+    q, do = (randn(gen, (B, S, Hq, D), dt) for _ in range(2))
+    k, v = (randn(gen, (B, T, Hkv, D), dt) for _ in range(2))
+    label = (f"{TRAIN_ATTN_LABELS[name]}: B{B} {Hq} q / {Hkv} kv heads "
+             f"S{S} T{T} D{D} {'causal' if causal else 'non-causal'}"
+             f"{f' window {window}' if window else ''} bf16")
+    out, lse = ops.flash_attention_gqa_fwd(q, k, v, **kw)
+    qp = torch.arange(S, dtype=torch.int32, device=DEVICE).expand(B, S)
+    kp = torch.arange(T, dtype=torch.int32, device=DEVICE).expand(B, T)
+    q5 = q.reshape(B, S, Hkv, G, D).permute(0, 2, 3, 1, 4)
+    k4, v4 = k.transpose(1, 2), v.transpose(1, 2)
+    to4 = lambda x: x.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D)
+    r_out, r_lse = ref.flash_attention_fwd_ref(q5, k4, v4, qp, kp, **kw)
+    err = _check_bf16(f"train attention {label} forward", out, to4(r_out),
+                      to4(_abs_v_out(q5, k4, v4, qp, kp, **kw)), lse, r_lse,
+                      phase="train_kernels")
+    plain_out, plain_lse = to4(r_out).contiguous(), r_lse
+    del r_out, r_lse
+
+    def kernel_pair():
+        xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        o = flash_attention_train(*xs, chunk_q=cq, chunk_kv=ck, **kw)
+        return (o.detach(),) + torch.autograd.grad(o, xs, do)
+
+    def plain_bwd(o, l):
+        five = lambda t: t.reshape(B, S, Hkv, G, D)
+        dq, dk_, dv_ = flash_attention_bwd_ref(
+            five(q), k, v, five(o), l, five(do), softcap=0.0, cq=cq, ck=ck,
+            **kw)
+        return dq.reshape(B, S, Hq, D), dk_, dv_
+
+    before = _flat_counts()["flash_attention_fwd"]
+    got = kernel_pair()
+    if _flat_counts()["flash_attention_fwd"] != before + 1:
+        raise AssertionError(f"train_kernels {name}: the Function did not "
+                             "launch the prefill kernel once")
+    want = plain_bwd(plain_out, plain_lse)
+    errs = []
+    for g_name, g, w in zip(("dq", "dk", "dv"), got[1:], want):
+        scale = w.float().abs().max().item()
+        errs.append(_check(f"train attention {label} {g_name} (kernel "
+                           f"forward + plain backward vs all plain; "
+                           f"{TRAIN_GRAD_TOL} x max|plain| = "
+                           f"{TRAIN_GRAD_TOL * scale:.3e})", g, w,
+                           TRAIN_GRAD_TOL * scale, phase="train_kernels"))
+    for g_name, a, b in zip(("out", "dq", "dk", "dv"), got, kernel_pair()):
+        _identical(f"train attention {name} {g_name}: two calls", b, a,
+                   "train_kernels")
+    del got, want
+    t_fwd = device_ms(lambda i: ops.flash_attention_gqa_fwd(q, k, v, **kw),
+                      1, 4)
+    t_plain_fwd = _event_ms(lambda: ref.flash_attention_fwd_ref(
+        q5, k4, v4, qp, kp, **kw), 2)
+    t_bwd = _event_ms(lambda: plain_bwd(out, lse), 2)
+    t_pair = _event_ms(kernel_pair, 2)
+
+    def plain_pair():
+        o, l = ref.flash_attention_fwd_ref(q5, k4, v4, qp, kp, **kw)
+        return plain_bwd(to4(o), l)
+
+    t_plain_pair = _event_ms(plain_pair, 2)
+    qs, ks, vs, dos = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    mask = None
+    if window:
+        i = torch.arange(S, device=DEVICE)[:, None]
+        j = torch.arange(T, device=DEVICE)[None, :]
+        mask = (j <= i) & (j > i - window)
+    sdpa_kw = dict(attn_mask=mask, is_causal=causal and mask is None,
+                   enable_gqa=G > 1)
+    t_sdpa = device_ms(lambda i: F.scaled_dot_product_attention(
+        qs, ks, vs, **sdpa_kw), 1, 4)
+
+    def sdpa_pair():
+        xs = [x.detach().requires_grad_(True) for x in (qs, ks, vs)]
+        o = F.scaled_dot_product_attention(*xs, **sdpa_kw)
+        return torch.autograd.grad(o, xs, dos)
+
+    t_sdpa_pair = _event_ms(sdpa_pair, 3)
+    f_fwd, f_pair = _attention_train_flops(
+        B, Hq, D, visible_pairs(qp[:1], kp[:1], causal, window))
+    nbytes_fwd = 2 * q.nbytes + k.nbytes + v.nbytes + lse.nbytes
+    # the pair: q, k, v, do read; out, lse, dq, dk, dv written, once each
+    nbytes_pair = 4 * q.nbytes + 2 * (k.nbytes + v.nbytes) + lse.nbytes
+    b_fwd, by_fwd = bound_ms(nbytes_fwd, f_fwd, dt)
+    b_pair, by_pair = bound_ms(nbytes_pair, f_pair, dt)
+    log("train_kernels", f"{label}: kernel forward {t_fwd:.4f} ms, plain "
+        f"forward {t_plain_fwd:.4f}, sdpa forward {t_sdpa:.4f}, bound "
+        f"{b_fwd:.4f} ({by_fwd}: {nbytes_fwd} B, {f_fwd:.3e} FLOP); plain "
+        f"backward {t_bwd:.4f}; forward + backward: the Function "
+        f"{t_pair:.4f}, all plain {t_plain_pair:.4f}, sdpa {t_sdpa_pair:.4f}"
+        f" ({'mask' if mask is not None else 'no mask'}"
+        f"{', enable_gqa' if G > 1 else ''}), bound {b_pair:.4f} ms "
+        f"({by_pair}: {nbytes_pair} B, {f_pair:.3e} FLOP)")
+    row = dict(max_abs_err=err, ms=t_fwd, plain_ms=t_plain_fwd,
+               bound_ms=b_fwd, bound_by=by_fwd, library_ms=t_sdpa,
+               grad_max_abs_err=max(errs), backward_ms=t_bwd, pair_ms=t_pair,
+               plain_pair_ms=t_plain_pair, library_pair_ms=t_sdpa_pair,
+               pair_bound_ms=b_pair)
+    del q, k, v, do, out, lse, plain_out, plain_lse, q5, k4, v4
+    torch.cuda.empty_cache()
+    return row
+
+
+def _rglru_bwd_row(gen) -> dict:
+    """The RG-LRU recurrence under autograd at Griffin's train shape: the
+    backward (the kernel over the reversed sequences, the flips, da and db)
+    bit for bit ``rglru_scan_bwd_ref`` and two calls bitwise equal; its
+    device time against the byte bound, the plain reversed loop's time."""
+    from repro_torch.kernels.rglru import (RglruScanFn, rglru_scan,
+                                           rglru_scan_bwd_ref)
+    from repro_torch.kernels.rglru.autograd import (grads_from_adjoint,
+                                                    reversed_inputs)
+    B, T, D = RGLRU_BWD_SHAPE
+    a = 0.9 + 0.099 * torch.rand((B, T, D), generator=gen, device=DEVICE)
+    b = 0.1 * torch.randn((B, T, D), generator=gen, device=DEVICE)
+    dh = torch.randn((B, T, D), generator=gen, device=DEVICE)
+
+    def fn_pair():
+        xa, xb = (x.clone().requires_grad_(True) for x in (a, b))
+        h = RglruScanFn.apply(xa, xb)
+        return (h.detach(),) + torch.autograd.grad(h, (xa, xb), dh)
+
+    before = _flat_counts()
+    h, da, db = fn_pair()
+    torch.cuda.synchronize()
+    after = _flat_counts()
+    if after["rglru_scan"] != before["rglru_scan"] + 2 or \
+            after["rglru_scan_bwd"] != before["rglru_scan_bwd"] + 1:
+        raise AssertionError("train_kernels rglru_scan_bwd: forward and "
+                             "backward did not launch the kernel once each")
+    wa, wb = rglru_scan_bwd_ref(a, h, dh)
+    err = max(_rel_dist(da, wa), _rel_dist(db, wb))
+    _identical("rglru_scan_bwd da vs rglru_scan_bwd_ref", da, wa,
+               "train_kernels")
+    _identical("rglru_scan_bwd db vs rglru_scan_bwd_ref", db, wb,
+               "train_kernels")
+    for n_, x, y in zip(("h", "da", "db"), fn_pair(), (h, da, db)):
+        _identical(f"rglru_scan_bwd {n_}: two calls", x, y, "train_kernels")
+
+    def bwd(i):
+        g = torch.flip(rglru_scan(*reversed_inputs(a, dh)), dims=[1])
+        return grads_from_adjoint(g, h)
+
+    t_bwd = device_ms(bwd, 1, 4)
+    t_kernel = device_ms(lambda i: rglru_scan(a, b), 1, 4)
+    t_plain = _event_ms(lambda: rglru_scan_bwd_ref(a, h, dh), 1)
+    # the function reads a, h and dh and writes da and db, once each; the
+    # port's flips, roll and shift (a twice, dh, g and h, each a read and a
+    # write) are its design's, not the function's, so the bound leaves
+    # them out, and they are timed in the backward
+    nbytes = 5 * a.nbytes
+    copies = 10 * a.nbytes
+    b_ms, b_by = bound_ms(nbytes, 0.0, torch.float32)
+    log("train_kernels", f"rglru_scan_bwd B{B} T{T} D{D} fp32: backward "
+        f"{t_bwd:.4f} ms (the forward kernel alone {t_kernel:.4f}), plain "
+        f"reversed loop {t_plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{nbytes} B: a, h, dh read, da, db written); the backward at "
+        f"{b_ms / t_bwd:.1%} of the bound; it also moves {copies} B of "
+        f"copies around the kernel ({bound_ms(copies, 0.0, torch.float32)[0]:.4f} "
+        f"ms at the memory rate); library: none ({NO_LIBRARY_RGLRU})")
+    return dict(max_abs_err=err, ms=t_bwd, plain_ms=t_plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def train_kernels_families(seed: int) -> dict:
+    """The rows of the non-dense families' train kernels."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    rows = {name: _attention_train_row(gen, name)
+            for name in TRAIN_ATTN_SHAPES}
+    rows["rglru_scan_bwd"] = _rglru_bwd_row(gen)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -4430,8 +5202,17 @@ def main() -> int:
         launches["train"] = phase_train(smi, args.seed)
     if "train_kernels" in phases:
         rows.update(phase_train_kernels(args.seed))
+        rows.update(train_kernels_families(args.seed))
     if "train_parity" in phases:
         launches["train_parity"] = phase_train_parity(smi, args.seed)
+    # the other families' training next, while the run is young: the
+    # profiler's traces keep their lead-in best early in a run (ROADMAP §C)
+    for name, run in (("train_families", phase_train_families),
+                      ("train_families_parity", phase_train_families_parity)):
+        if name in phases:
+            t0 = time.perf_counter()
+            launches.update(run(smi, args.seed))
+            log(name, f"phase took {time.perf_counter() - t0:.1f} s")
     if "proteus" in phases:
         from repro_torch.launch.serve import load_model
         model = load_model("pimref-100m", smoke=False, seed=args.seed,
@@ -4482,6 +5263,7 @@ def main() -> int:
             launches.update(run())
             log(name, f"phase took {time.perf_counter() - t0:.1f} s")
 
+    log("run", f"the whole run took {time.perf_counter() - T_START:.1f} s")
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name],
                     launches=launches.get(MAIN_LAYOUT[name], {}).get(

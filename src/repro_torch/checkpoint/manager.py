@@ -57,10 +57,13 @@ def _flatten(tree: Any) -> Dict[str, Any]:
 
 
 def _host(x: Any) -> np.ndarray:
-    """A leaf as a numpy array on the host (a tensor is copied off its
-    device)."""
+    """A leaf as a numpy array on the host, a copy of a tensor (a CPU
+    tensor's ``numpy()`` is a view of its storage, which a donated train
+    step overwrites while the writer thread reads it)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach()
+        return x.numpy().copy() if x.device.type == "cpu" else \
+            x.cpu().numpy()
     return np.asarray(x)
 
 

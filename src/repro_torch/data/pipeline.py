@@ -1,6 +1,8 @@
 """Data pipeline: deterministic synthetic LM corpus + document packing
 (counterpart: ``repro/data/pipeline.py``, a copy: pure numpy, so every
-batch is byte-identical to the reference's for the same seed and step).
+batch is byte-identical to the reference's for the same seed and step; the
+unigram draw takes ``rng.choice``'s cdf once instead of once a position,
+the same numbers from the same generator state).
 
 Determinism contract (fault-tolerance substrate): batch(step) is a pure
 function of (seed, step, global shape) — a restarted job resumes the exact
@@ -38,6 +40,11 @@ class SyntheticLMDataset:
         # zipf unigram over vocab
         ranks = np.arange(1, V + 1)
         self.unigram = (1.0 / ranks) / np.sum(1.0 / ranks)
+        # rng.choice(V, p=unigram)'s own cdf, computed once: a draw is
+        # cdf.searchsorted(rng.random(B), side="right"), the same numbers
+        # from the same generator state without an O(V) pass a position
+        self._cdf = self.unigram.cumsum()
+        self._cdf /= self._cdf[-1]
         # low-rank markov structure: state -> preferred token band
         self.state_of = rng.integers(0, self.n_states, size=V)
         self.next_state = rng.permutation(self.n_states)
@@ -52,7 +59,7 @@ class SyntheticLMDataset:
             # with p=0.75 sample from the state's token band, else unigram
             use_band = rng.random(B) < 0.75
             band_tok = (cur * band + rng.integers(0, band, size=B)) % V
-            uni_tok = rng.choice(V, size=B, p=self.unigram)
+            uni_tok = self._cdf.searchsorted(rng.random(B), side="right")
             toks[:, t] = np.where(use_band, band_tok, uni_tok)
             cur = self.next_state[self.state_of[toks[:, t]]]
         return {"tokens": toks, "labels": toks.copy()}

@@ -16,7 +16,9 @@ Bound on the H100: bytes (two fp32 reads and one write per element).
 :func:`rglru_scan_kernel` launches the kernel or raises: on a tensor that
 is not on the card, not fp32, not contiguous or not 3-D. ``ops.rglru_scan``
 chooses between it and the plain version by the device of the inputs.
-``LAUNCHES`` counts launches, one per call that launches.
+``LAUNCHES`` counts launches, one per call that launches; of those, the
+launches for the backward of ``autograd.RglruScanFn`` also count under
+``rglru_scan_bwd``.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import torch
 
 from repro_torch.kernels import build
 
-LAUNCHES: Dict[str, int] = {"rglru_scan": 0}
+LAUNCHES: Dict[str, int] = {"rglru_scan": 0, "rglru_scan_bwd": 0}
 
 TILE = 32                    # channels a block: one warp, 128 bytes a row
 ROWS = 32                    # time rows a ring stage

@@ -4,10 +4,10 @@
 ``sample_tokens``, ``spec_config``, ``ngram_draft`` and
 ``make_generate_step``).
 
-A train step takes and returns the parameter tree and optimizer state in
-the reference's layout; gradients accumulate over microbatches in fp32, and
-the guard's choice between the new and the old state is made on the device
-(no host read inside the step).
+A train step takes the parameter tree and optimizer state in the
+reference's layout and updates them in place; gradients accumulate over
+microbatches in fp32, and the guard's choice between the new and the old
+state is made on the device (no host read inside the step).
 
 A chunk is ``chunk`` decode iterations that stay on the device: EOS
 detection, the finite guard, sampling and, with speculation, drafting,
@@ -84,10 +84,14 @@ def _loss_and_grads(model, params, batch, nm: int):
                                           device=p.device), params)
     for mb in mbs:
         loss, g = _value_and_grad(model, params, mb)
-        gsum = tree_map(lambda a, b: a + b.to(a.dtype), gsum, g)
+        for a, b in zip(leaves(gsum), leaves(g)):
+            a.add_(b.to(a.dtype))
+        del g
         lsum = lsum + loss
     inv = 1.0 / nm
-    return lsum * inv, tree_map(lambda g: g * inv, gsum)
+    for a in leaves(gsum):
+        a.mul_(inv)
+    return lsum * inv, gsum
 
 
 def make_train_step(model, optimizer: Optimizer, run: RunConfig, *,
@@ -95,9 +99,15 @@ def make_train_step(model, optimizer: Optimizer, run: RunConfig, *,
     """``train_step(params, opt_state, batch[, arm]) -> (params', opt_state',
     metrics)`` on one device (the reference's GSPMD step without a mesh).
 
+    The update is written into ``params`` and ``opt_state`` in place
+    (``optimizer.update_``), which the step returns: the reference's train
+    loop donates both to its jitted step, so the step holds the weights,
+    the optimizer state and the gradients once. A caller that needs the old
+    state keeps a copy.
+
     ``guard=True`` arms the non-finite guard: the step still computes the
     gradients and the candidate update, but a non-finite loss or gradient
-    norm selects the *old* params / opt_state for every leaf
+    norm keeps the *old* value of every params / opt_state element
     (``torch.where`` on the device, so a clean step is bitwise-identical to
     the unguarded step and nothing is read back inside the step). Guarded
     metrics are ``{"loss", "grad_norm", "skipped"}``, device scalars.
@@ -112,19 +122,14 @@ def make_train_step(model, optimizer: Optimizer, run: RunConfig, *,
         loss, grads = _loss_and_grads(model, params, batch, nm)
         if grad_hook is not None:
             loss, grads = grad_hook(loss, grads, arm)
-        if not guard:
-            new_params, new_opt = optimizer.update(grads, opt_state, params)
-            return new_params, new_opt, {"loss": loss}
-        gnorm = global_norm(grads)
-        ok = torch.isfinite(loss) & torch.isfinite(gnorm)
-        new_params, new_opt = optimizer.update(grads, opt_state, params)
-
-        def sel(new, old):
-            return tree_map(lambda n, o: torch.where(ok, n, o), new, old)
-
-        metrics = {"loss": loss, "grad_norm": gnorm,
-                   "skipped": torch.logical_not(ok)}
-        return sel(new_params, params), sel(new_opt, opt_state), metrics
+        ok, metrics = None, {"loss": loss}
+        if guard:
+            gnorm = global_norm(grads)
+            ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+            metrics = {"loss": loss, "grad_norm": gnorm,
+                       "skipped": torch.logical_not(ok)}
+        optimizer.update_(grads, opt_state, params, ok)
+        return params, opt_state, metrics
 
     return train_step
 

@@ -2,9 +2,15 @@
 bitwise-identical resume, chaos injection, and a bounded-restart supervisor
 (counterpart: ``repro/launch/train.py``).
 
-Trains the dense decoder on one device, the card unless ``--device cpu``
-is asked for; attention runs the hand-written prefill kernel under
-autograd. The loop is the reference's:
+Trains every family of the reference (dense, MoE, VLM, the hybrid
+Griffin, the xLSTM, the encoder-decoder) on one device, the card unless
+``--device cpu`` is asked for; attention runs the hand-written prefill
+kernel under autograd, Griffin's recurrences the RG-LRU kernel. The batch
+carries the family's extras (``patch_embeds``, ``src_embeds``) as the
+reference's stream makes them. The model holds no weights of its own (the
+tree being trained is the only copy) and the step updates the tree and the
+optimizer state in place, as the reference donates both to its jitted
+step. The loop is the reference's:
 
 * every step carries an on-device non-finite guard — a NaN/Inf loss or
   gradient skips the optimizer update (params pass through unchanged) and
@@ -20,6 +26,8 @@ autograd. The loop is the reference's:
   loop resuming from the last *verified* checkpoint.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 5
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \
+      --device cpu --steps 5
   PYTHONPATH=src python -m repro_torch.launch.train --full --steps 200
   PYTHONPATH=src python -m repro_torch.launch.train --steps 10 \
       --checkpoint-dir /tmp/ck --checkpoint-every 3 --preempt-after 5 \
@@ -52,7 +60,8 @@ from repro_torch.distributed import (PreemptionHandler, RestartManifest,
                                      TrainChaosMonkey)
 from repro_torch.distributed.chaos import nan_grad_hook
 from repro_torch.launch.steps import make_train_step
-from repro_torch.models import build_model, init_params, reference_tree
+from repro_torch.models import init_params, reference_tree
+from repro_torch.models.model import model_class, training_model
 from repro_torch.optim import make_optimizer
 from repro_torch.tree import leaves, tree_map
 
@@ -75,14 +84,19 @@ def _to_device(host: Any, device) -> Any:
 def initial_params(cfg, seed: int, device, params=None) -> Dict[str, Any]:
     """The parameter tree to train from: the port's init drawn from
     ``seed`` on the CPU (so one seed gives the same weights on every
-    device), or ``params``, a tree in the reference's layout (numpy arrays
-    or tensors, e.g. the reference's own init carried across)."""
+    device), or a copy of ``params``, a tree in the reference's layout
+    (numpy arrays or tensors, e.g. the reference's own init carried
+    across; copied, since the train step updates its tree in place). The
+    family's list keys (``model_class(cfg).LISTS``: Griffin's ``tail``,
+    the xLSTM's ``blocks``) are lists, as in the reference."""
     if params is None:
         flat = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
-        params = reference_tree(flat)
-    return tree_map(lambda a: (a if isinstance(a, torch.Tensor)
-                               else torch.from_numpy(np.array(a))
-                               ).to(device), params)
+        return tree_map(lambda t: t.to(device),
+                        reference_tree(flat, model_class(cfg).LISTS))
+    return tree_map(lambda a: (a.detach().to(device, copy=True)
+                               if isinstance(a, torch.Tensor)
+                               else torch.from_numpy(np.array(a)).to(device)),
+                    params)
 
 
 def _salted_seed(seed: int, salt: int) -> int:
@@ -109,24 +123,22 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
     attempts, so fire-once faults stay fired). ``preempt_after`` requests a
     clean preemption once the run first crosses that absolute step; a
     resumed run past it never re-fires. ``params`` is the tree to start
-    from (``initial_params``; default: the port's init from ``run.seed``),
-    ``cfg`` a model config to train in place of ``arch``'s (a cut depth).
+    from (``initial_params``, which copies it; default: the port's init
+    from ``run.seed``), ``cfg`` a model config to train in place of
+    ``arch``'s (a cut depth).
     The returned ``step_seconds`` holds each step's host wall time, from
     its start to its loss read, beside ``losses``.
     The reference's ``use_mesh`` and ``proteus`` have no counterpart: the
     port trains on one device without a mesh."""
     dev = resolve_device(device)
     cfg = cfg or get_config(arch, smoke=smoke)
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"training family {cfg.family!r} is ported in a later slice")
     run = run or RunConfig(total_steps=steps, microbatches=1)
     shape = ShapeConfig("custom", seq_len=seq, global_batch=batch,
                         mode="train")
     print(f"train {arch} on {dev}"
           + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda"
              else ""))
-    model = build_model(cfg, dev)
+    model = training_model(cfg)
     optimizer = make_optimizer(cfg.optimizer, run)
 
     params = initial_params(cfg, run.seed, dev, params)

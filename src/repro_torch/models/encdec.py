@@ -11,6 +11,12 @@ RoPE) and a gated MLP, then ``final_norm`` and an untied ``head``.
 Parameters carry the reference's keys with both layer stacks unrolled:
 ``enc_blocks.<i>.attn.w_q``, ``dec_blocks.<i>.cross_attn.w_k``, ...
 
+Training is functional over the reference's tree (``enc_blocks`` and
+``dec_blocks`` stacked on a leading axis): ``forward(tokens, src_embeds,
+params)`` and ``loss(params, batch)`` with ``batch["src_embeds"]``, each
+layer of both stacks recomputed in the backward as the reference
+checkpoints its scan bodies.
+
 Serving keeps two caches per decoder layer:
 
     k / v    (L, B, T, H, D)    the self-attention cache, in the model's KV
@@ -35,16 +41,17 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (aligned_cache_len, chunked_attention,
-                                       dense, kv_cache_init, kv_cache_len,
-                                       kv_cache_store, kv_cache_update,
-                                       kv_cast, kv_quantize, rms_norm,
-                                       stack_kv)
+                                       dense, gated_mlp, kv_cache_init,
+                                       kv_cache_len, kv_cache_store,
+                                       kv_cache_update, kv_cast, kv_quantize,
+                                       rms_norm, softmax_xent, stack_kv)
 from repro_torch.models.model import (Block, ServingLM, _add_params, _Group,
-                                      attn_out, qkv)
+                                      attn_out, layer_trees, qkv, remat_call)
 from repro_torch.models.module import (ParamSpec, attn_param_specs,
                                        block_specs, mlp_param_specs,
                                        torch_dtype)
@@ -164,18 +171,75 @@ class EncDecLM(ServingLM):
                              "(B, src_len, d_model)")
         return src_embeds
 
-    # -- full-sequence forward ---------------------------------------------
-    @torch.no_grad()
+    # -- full-sequence forward and loss (counterpart: encode / forward /
+    # loss) -----------------------------------------------------------------
     def forward(self, tokens: torch.Tensor,
-                src_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(B, S) tokens over (B, src, D) frames -> (B, S, V) logits."""
-        enc_out = self.encode(self._src(src_embeds))
-        h = self._embed(tokens)
+                src_embeds: Optional[torch.Tensor] = None,
+                params: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+        """(B, S) tokens over (B, src, D) frames -> (B, S, V) logits,
+        differentiable in ``params`` (a tree in the reference's layout);
+        without ``params``, from the module's own weights under
+        ``no_grad``."""
+        if params is None:
+            with torch.no_grad():
+                return self._tree_forward(self.own_tree(), tokens,
+                                          self._src(src_embeds))
+        return self._tree_forward(params, tokens, self._src(src_embeds))
+
+    def _tree_enc_block(self, h: torch.Tensor, p, positions) -> torch.Tensor:
+        """An encoder layer (the reference's ``encode`` scan body) from
+        weights in any dtype."""
+        cfg = self.cfg
+        q, k, v = qkv(cfg, p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
+                      positions)
+        h = h + attn_out(p["attn"], chunked_attention(q, k, v, causal=False))
+        m = p["mlp"]
+        return h + gated_mlp(rms_norm(h, p["ln2"], cfg.norm_eps),
+                             m["wi_gate"], m["wi_up"], m["wo"])
+
+    def _tree_dec_block(self, h: torch.Tensor, p, enc_out: torch.Tensor,
+                        positions) -> torch.Tensor:
+        """A decoder layer (the reference's ``_dec_block``): causal
+        self-attention, cross-attention without RoPE, the MLP."""
+        cfg = self.cfg
+        sa, xa = p["self_attn"], p["cross_attn"]
+        q, k, v = qkv(cfg, sa, rms_norm(h, p["ln1"], cfg.norm_eps), positions)
+        h = h + attn_out(sa, chunked_attention(q, k, v, causal=True))
+        qx = dense(rms_norm(h, p["ln_x"], cfg.norm_eps), xa["w_q"],
+                   "bsd,dhe->bshe")
+        kx = dense(enc_out, xa["w_k"], "bsd,dhe->bshe")
+        vx = dense(enc_out, xa["w_v"], "bsd,dhe->bshe")
+        h = h + attn_out(xa, chunked_attention(qx, kx, vx, causal=False))
+        m = p["mlp"]
+        return h + gated_mlp(rms_norm(h, p["ln2"], cfg.norm_eps),
+                             m["wi_gate"], m["wi_up"], m["wo"])
+
+    def _tree_forward(self, params: Dict[str, Any], tokens: torch.Tensor,
+                      src_embeds: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = src_embeds.to(self.cdtype)
         positions = torch.arange(h.shape[1], dtype=torch.int32,
                                  device=h.device)
-        for blk in self.dec_blocks:
-            h, _ = self._dec_block(blk, h, enc_out, positions)
-        return self._logits(h)
+        for p in layer_trees(params["enc_blocks"], cfg.num_encoder_layers):
+            h = remat_call(cfg, self._tree_enc_block, h, p, positions)
+        enc_out = rms_norm(h, params["enc_norm"], cfg.norm_eps)
+        x = F.embedding(tokens.long(), params["embed"].to(self.cdtype))
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        for p in layer_trees(params["dec_blocks"], cfg.num_layers):
+            x = remat_call(cfg, self._tree_dec_block, x, p, enc_out,
+                           positions)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return dense(x, params["head"], "bsd,dv->bsv")
+
+    def loss(self, params: Dict[str, Any],
+             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean next-token cross-entropy of the decoder over
+        ``batch["src_embeds"]`` under ``params``; ``loss_mask`` unsliced,
+        as the reference passes it (ROADMAP §C)."""
+        logits = self.forward(batch["tokens"], batch["src_embeds"], params)
+        return softmax_xent(logits[:, :-1], batch["labels"][:, 1:],
+                            batch.get("loss_mask"))
 
     # -- serving -----------------------------------------------------------
     def cache_len(self, max_len: int) -> int:

@@ -502,10 +502,10 @@ def chunked_attention(
 # ---------------------------------------------------------------------------
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean next-token cross-entropy in fp32. logits (B, S, V) of any float
-    dtype; labels (B, S); ``mask`` (B, S) weights each position (the mean
-    is over its sum, at least 1)."""
-    lf = logits.to(torch.float32)
+    """Mean next-token cross-entropy in fp32 (float64 for float64 logits).
+    logits (B, S, V) of any float dtype; labels (B, S); ``mask`` (B, S)
+    weights each position (the mean is over its sum, at least 1)."""
+    lf = logits.to(torch.promote_types(logits.dtype, torch.float32))
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     nll = lse - ll

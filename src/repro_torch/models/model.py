@@ -46,7 +46,7 @@ for ssm).
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -69,6 +69,7 @@ from repro_torch.models.module import (attn_param_specs, block_specs,
                                        mlp_param_specs, moe_param_specs,
                                        param_specs, torch_dtype)
 from repro_torch.models.moe import moe_ffn
+from repro_torch.tree import leaves, tree_map, unflatten
 
 Cache = Dict[str, Any]
 
@@ -116,16 +117,49 @@ def attn_out(p, o: torch.Tensor) -> torch.Tensor:
     return dense(o, p["w_o"], "bshe,hed->bsd")
 
 
+def layer_trees(stacked: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
+    """The ``n`` per-layer trees of a tree whose leaves carry a leading
+    layer axis: one ``unbind`` per leaf, whose backward stacks the layers'
+    gradients once."""
+    per = tree_map(torch.unbind, stacked)
+    return [tree_map(lambda t: t[i], per, is_leaf=lambda x: isinstance(
+        x, tuple)) for i in range(n)]
+
+
+def remat_call(cfg: ModelConfig, fn: Callable, x: torch.Tensor,
+               tree: Any, *args) -> torch.Tensor:
+    """``fn(x, tree, *args)``, recomputed in the backward when gradients
+    are on and ``cfg.remat`` is not ``"none"`` (the reference wraps the
+    same body in ``jax.checkpoint``). ``tree``'s leaves are passed to the
+    checkpoint as arguments, so the recompute sees them."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(x, tree, *args)
+    ws = leaves(tree)
+    n = len(args)
+
+    def body(x, *rest):
+        return fn(x, unflatten(tree, list(rest[n:])), *rest[:n])
+    return checkpoint(body, x, *args, *ws, use_reentrant=False)
+
+
 class ServingLM(nn.Module):
     """What the model families share: the device, the KV layout, the
     top-level parameters of ``param_specs`` and the compute-dtype weight
-    copies."""
+    copies. ``LISTS`` are the top-level keys the reference keeps as a
+    list of unlike layers, not a stack (``bridge.reference_tree``).
+
+    On the ``meta`` device the model holds no weights: a train step's
+    ``loss(params, batch)`` reads only the tree it is given
+    (``training_model``)."""
+
+    LISTS: Tuple[str, ...] = ()
 
     def __init__(self, cfg: ModelConfig, device="cuda", *,
                  kv_quant: str = "off", page_size: int = 0):
         super().__init__()
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = (torch.device("meta") if str(device) == "meta"
+                       else resolve_device(device))
         self.kv_quant = check_kv_quant(kv_quant)
         if page_size < 0:
             raise ValueError(f"page_size {page_size}: expected >= 0")
@@ -134,6 +168,11 @@ class ServingLM(nn.Module):
         _add_params(self, {k: s for k, s in param_specs(cfg).items()
                            if "." not in k}, self.device)
         self._cast: Dict[int, Tuple[int, int, torch.Tensor]] = {}
+
+    def own_tree(self) -> Dict[str, Any]:
+        """The module's own weights as the reference's parameter tree (the
+        stacked layers copied into one tensor a leaf)."""
+        return reference_tree(dict(self.named_parameters()), self.LISTS)
 
     def with_kv_layout(self, kv_quant: str = "off", page_size: int = 0):
         """This model (weights shared, not copied) serving from another KV
@@ -217,41 +256,26 @@ class TransformerLM(ServingLM):
         weights under ``no_grad``."""
         if params is None:
             with torch.no_grad():
-                return self._tree_forward(
-                    reference_tree(dict(self.named_parameters())), tokens,
-                    patch_embeds)
+                return self._tree_forward(self.own_tree(), tokens,
+                                          patch_embeds)
         return self._tree_forward(params, tokens, patch_embeds)
 
-    # counterpart: the reference's forward / _block over a parameter tree;
-    # the block's leaves in _tree_block's argument order
-    ATTN_LEAVES = ("ln1", "ln2", "attn.w_q", "attn.w_k", "attn.w_v",
-                   "attn.w_o")
-    MLP_LEAVES = ("mlp.wi_gate", "mlp.wi_up", "mlp.wo")
-    MOE_LEAVES = ("moe.router", "moe.wi_gate", "moe.wi_up", "moe.wo")
-
-    @property
-    def block_leaves(self) -> Tuple[str, ...]:
-        return self.ATTN_LEAVES + (self.MOE_LEAVES if self.cfg.num_experts > 0
-                                   else self.MLP_LEAVES)
-
-    def _tree_block(self, x, positions, ln1, ln2, w_q, w_k, w_v, w_o,
-                    *ffn) -> torch.Tensor:
-        """One block from fp32 weights; ``dense`` casts each to the compute
-        dtype inside the graph (and inside the recompute). ``ffn``: the MLP's
-        or the MoE group's leaves."""
+    def _tree_block(self, x, p, positions) -> torch.Tensor:
+        """One block (counterpart: the reference's ``_block``) from weights
+        in any dtype; ``dense`` casts each to the compute dtype inside the
+        graph (and inside the recompute)."""
         cfg = self.cfg
-        xn = rms_norm(x, ln1, cfg.norm_eps)
-        q, k, v = qkv(cfg, {"w_q": w_q, "w_k": w_k, "w_v": w_v}, xn,
-                      positions)
+        xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = qkv(cfg, p["attn"], xn, positions)
         o = chunked_attention(q, k, v, causal=True, window=self.window,
                               chunk_q=cfg.attn_chunk_q,
                               chunk_kv=cfg.attn_chunk_kv)
-        x = x + attn_out({"w_o": w_o}, o)
-        xn2 = rms_norm(x, ln2, cfg.norm_eps)
+        x = x + attn_out(p["attn"], o)
+        xn2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         if cfg.num_experts > 0:
-            p = {k.split(".")[1]: w for k, w in zip(self.MOE_LEAVES, ffn)}
-            return x + moe_ffn(cfg, p, xn2)
-        return x + gated_mlp(xn2, *ffn)
+            return x + moe_ffn(cfg, p["moe"], xn2)
+        m = p["mlp"]
+        return x + gated_mlp(xn2, m["wi_gate"], m["wi_up"], m["wo"])
 
     def _tree_forward(self, params: Dict[str, Any], tokens: torch.Tensor,
                       patch_embeds: Optional[torch.Tensor] = None
@@ -262,19 +286,8 @@ class TransformerLM(ServingLM):
             x = torch.cat([patch_embeds.to(x.device, self.cdtype), x], dim=1)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
-        layers = []
-        for name in self.block_leaves:
-            leaf = params["blocks"]
-            for k in name.split("."):
-                leaf = leaf[k]
-            layers.append(torch.unbind(leaf))
-        for i in range(cfg.num_layers):
-            ws = [per_layer[i] for per_layer in layers]
-            if cfg.remat != "none" and torch.is_grad_enabled():
-                x = checkpoint(self._tree_block, x, positions, *ws,
-                               use_reentrant=False)
-            else:
-                x = self._tree_block(x, positions, *ws)
+        for p in layer_trees(params["blocks"], cfg.num_layers):
+            x = remat_call(cfg, self._tree_block, x, p, positions)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         head = params["embed"].T if cfg.tie_embeddings else params["head"]
         return dense(x, head, "bsd,dv->bsv")
@@ -282,8 +295,13 @@ class TransformerLM(ServingLM):
     def loss(self, params: Dict[str, Any],
              batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Mean next-token cross-entropy of ``batch`` (``tokens``,
-        ``labels``, optional ``loss_mask``) under ``params``."""
-        logits = self.forward(batch["tokens"], params)
+        ``labels``, optional ``loss_mask`` and, for a VLM, ``patch_embeds``
+        (B, P, D), whose P positions' logits are dropped before the shift)
+        under ``params``."""
+        patch = batch.get("patch_embeds")
+        logits = self.forward(batch["tokens"], params, patch)
+        if patch is not None:
+            logits = logits[:, patch.shape[1]:]
         mask = batch.get("loss_mask")
         return softmax_xent(logits[:, :-1], batch["labels"][:, 1:],
                             None if mask is None else mask[:, 1:])
@@ -390,19 +408,31 @@ class TransformerLM(ServingLM):
         return {"k": 1, "v": 1, "pos_ids": 0, "pos": 0}
 
 
-def build_model(cfg: ModelConfig, device="cuda", *, kv_quant: str = "off",
-                page_size: int = 0) -> ServingLM:
+def model_class(cfg: ModelConfig) -> type:
+    """The module class of ``cfg``'s family."""
     if cfg.family in ("dense", "moe", "vlm"):
-        return TransformerLM(cfg, device, kv_quant=kv_quant,
-                             page_size=page_size)
+        return TransformerLM
     # the other families' modules build on this one
     if cfg.family == "hybrid":
         from repro_torch.models.recurrent_lm import GriffinLM
-        return GriffinLM(cfg, device, kv_quant=kv_quant, page_size=page_size)
+        return GriffinLM
     if cfg.family == "ssm":
         from repro_torch.models.recurrent_lm import XLSTMLM
-        return XLSTMLM(cfg, device, kv_quant=kv_quant, page_size=page_size)
+        return XLSTMLM
     if cfg.family == "audio":
         from repro_torch.models.encdec import EncDecLM
-        return EncDecLM(cfg, device, kv_quant=kv_quant, page_size=page_size)
+        return EncDecLM
     raise ValueError(f"unknown model family {cfg.family!r}")
+
+
+def build_model(cfg: ModelConfig, device="cuda", *, kv_quant: str = "off",
+                page_size: int = 0) -> ServingLM:
+    return model_class(cfg)(cfg, device, kv_quant=kv_quant,
+                            page_size=page_size)
+
+
+def training_model(cfg: ModelConfig) -> ServingLM:
+    """``cfg``'s model with no weights of its own (on the ``meta``
+    device): what a train step's ``loss(params, batch)`` needs, so that the
+    tree being trained is the only copy of the weights."""
+    return build_model(cfg, "meta")

@@ -10,6 +10,12 @@ at ``logit_softcap``. Parameter names carry the reference's keys with the
 stacked group axis unrolled: ``groups.<g>.rec1.rec.w_x``,
 ``groups.<g>.attn.attn.w_q``, ``tail.<i>.mlp.wo``, ...
 
+Training is functional over the reference's tree (``groups`` stacked on a
+leading axis, ``tail`` a list): ``forward(tokens, params)`` and
+``loss(params, batch)``, each group recomputed in the backward as the
+reference checkpoints its ``group_body``; the recurrences run the RG-LRU
+kernel under autograd, the attention layers the prefill kernel.
+
 Serving keeps a cache with an O(1) recurrent state per layer and a ring KV
 cache of ``min(max_len, local_window)`` slots per attention layer:
 
@@ -30,7 +36,8 @@ sLSTM blocks (``xlstm.py``), layer i an sLSTM block when ``(i + 1) %
 slstm_every == 0``, each ``x + block(rms_norm(x))``, logits from the tied
 embedding. Its parameters are ``blocks.<i>.ln`` and
 ``blocks.<i>.mlstm.*`` / ``blocks.<i>.slstm.*``: the reference keeps the
-unlike blocks in a list (``scan_layers=False``), not a stack. Its cache
+unlike blocks in a list (``scan_layers=False``), not a stack. It trains
+as the reference does, each block recomputed in the backward. Its cache
 holds every block's recurrent state, O(1) in the sequence length:
 
     blocks  [{"C": (B, H, Dk, Dv), "n": (B, H, Dk), "m": (B, H)}  (mLSTM)
@@ -46,15 +53,17 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (aligned_cache_len, chunked_attention,
-                                       dense, kv_cache_store,
+                                       dense, gated_mlp, kv_cache_store,
                                        kv_cache_update, ring_cache_update,
-                                       ring_position_ids, rms_norm)
+                                       ring_position_ids, rms_norm,
+                                       softmax_xent)
 from repro_torch.models.model import (Block, ServingLM, _add_params, _Group,
-                                      attn_out, qkv)
+                                      attn_out, layer_trees, qkv, remat_call)
 from repro_torch.models.module import (ParamSpec, block_specs,
                                        mlp_param_specs, torch_dtype)
 from repro_torch.models.rglru import (init_rglru_state, recurrent_block,
@@ -121,6 +130,8 @@ class GriffinLM(ServingLM):
     """Hybrid RG-LRU / local-attention LM on one device (``"cuda"`` by
     default), serving from the contiguous KV cache."""
 
+    LISTS = ("tail",)
+
     def __init__(self, cfg: ModelConfig, device="cuda", *,
                  kv_quant: str = "off", page_size: int = 0):
         if cfg.family != "hybrid":
@@ -170,34 +181,76 @@ class GriffinLM(ServingLM):
                      o: torch.Tensor) -> torch.Tensor:
         return self._mlp_residual(blk, x + attn_out(self._ws(blk.attn), o))
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        """Tied-embedding logits, soft-capped as the reference caps them:
-        tanh in fp32, cast back, then scaled in the logits' dtype."""
-        cfg = self.cfg
-        x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        logits = dense(x, self._w(self.embed).T, "bsd,dv->bsv")
-        cap = cfg.logit_softcap
+    def _capped(self, logits: torch.Tensor) -> torch.Tensor:
+        """Soft-capped as the reference caps logits: tanh in fp32, cast
+        back, then scaled in the logits' dtype."""
+        cap = self.cfg.logit_softcap
         if cap > 0:
             logits = cap * torch.tanh(logits.float() / cap).to(logits.dtype)
         return logits
 
-    # -- full-sequence forward -------------------------------------------------
-    @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """(B, S) tokens -> (B, S, V) logits."""
-        x = self._embed(tokens)
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Tied-embedding logits, soft-capped."""
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return self._capped(dense(x, self._w(self.embed).T, "bsd,dv->bsv"))
+
+    # -- full-sequence forward and loss (counterpart: forward / loss) ----------
+    def forward(self, tokens: torch.Tensor,
+                params: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+        """(B, S) tokens -> (B, S, V) logits, differentiable in ``params``
+        (a tree in the reference's layout); without ``params``, from the
+        module's own weights under ``no_grad``."""
+        if params is None:
+            with torch.no_grad():
+                return self._tree_forward(self.own_tree(), tokens)
+        return self._tree_forward(params, tokens)
+
+    def _tree_rec(self, x: torch.Tensor, p) -> torch.Tensor:
+        """A recurrent layer (the reference's ``_rec_layer`` from zero
+        state) from weights in any dtype."""
+        cfg = self.cfg
+        y, _ = recurrent_block(cfg, p["rec"], rms_norm(x, p["ln1"],
+                                                       cfg.norm_eps))
+        x = x + y
+        m = p["mlp"]
+        return x + gated_mlp(rms_norm(x, p["ln2"], cfg.norm_eps),
+                             m["wi_gate"], m["wi_up"], m["wo"])
+
+    def _tree_group(self, x: torch.Tensor, gp, positions) -> torch.Tensor:
+        """(rec1, rec2, local attention): the reference's ``group_body``."""
+        cfg = self.cfg
+        x = self._tree_rec(x, gp["rec1"])
+        x = self._tree_rec(x, gp["rec2"])
+        p = gp["attn"]
+        q, k, v = qkv(cfg, p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                      positions)
+        o = chunked_attention(q, k, v, causal=True, window=cfg.local_window)
+        x = x + attn_out(p["attn"], o)
+        m = p["mlp"]
+        return x + gated_mlp(rms_norm(x, p["ln2"], cfg.norm_eps),
+                             m["wi_gate"], m["wi_up"], m["wo"])
+
+    def _tree_forward(self, params: Dict[str, Any],
+                      tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = F.embedding(tokens.long(), params["embed"].to(self.cdtype))
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
-        window = self.cfg.local_window
-        for g in self.groups:
-            x, _ = self._rec_layer(g.rec1, x)
-            x, _ = self._rec_layer(g.rec2, x)
-            q, k, v = self._attn_qkv(g.attn, x, positions)
-            o = chunked_attention(q, k, v, causal=True, window=window)
-            x = self._attn_finish(g.attn, x, o)
-        for layer in self.tail:
-            x, _ = self._rec_layer(layer, x)
-        return self._logits(x)
+        for gp in layer_trees(params["groups"], self.n_groups):
+            x = remat_call(cfg, self._tree_group, x, gp, positions)
+        for tp in params["tail"]:
+            x = self._tree_rec(x, tp)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return self._capped(dense(x, params["embed"].T, "bsd,dv->bsv"))
+
+    def loss(self, params: Dict[str, Any],
+             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean next-token cross-entropy under ``params``. ``loss_mask``
+        is passed unsliced, as the reference passes it (ROADMAP §C: a
+        (B, S) mask does not match the (B, S - 1) losses)."""
+        logits = self.forward(batch["tokens"], params)
+        return softmax_xent(logits[:, :-1], batch["labels"][:, 1:],
+                            batch.get("loss_mask"))
 
     # -- serving ---------------------------------------------------------------
     def cache_len(self, max_len: int) -> int:
@@ -357,6 +410,8 @@ class XLSTMLM(ServingLM):
     """The xLSTM LM on one device (``"cuda"`` by default). It holds no KV
     cache, so it takes no KV layout."""
 
+    LISTS = ("blocks",)
+
     def __init__(self, cfg: ModelConfig, device="cuda", *,
                  kv_quant: str = "off", page_size: int = 0):
         if cfg.family != "ssm":
@@ -406,14 +461,45 @@ class XLSTMLM(ServingLM):
         init = init_slstm_state if blk.kind == "slstm" else init_mlstm_state
         return init(self.cfg, batch, self.device)
 
-    @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor,
+                params: Optional[Dict[str, Any]] = None) -> torch.Tensor:
         """(B, S) tokens -> (B, S, V) logits, every block from zero state
-        (S a multiple of ``min(256, S)``)."""
-        x = self._embed(tokens)
-        for blk in self.blocks:
-            x, _ = self._apply_block(blk, x)
-        return self._logits(x)
+        (S a multiple of ``min(256, S)``), differentiable in ``params`` (a
+        tree in the reference's layout, ``blocks`` a list); without
+        ``params``, from the module's own weights under ``no_grad``."""
+        if params is None:
+            with torch.no_grad():
+                return self._tree_forward(self.own_tree(), tokens)
+        return self._tree_forward(params, tokens)
+
+    def _tree_block(self, x: torch.Tensor, p, i: int) -> torch.Tensor:
+        """Block ``i`` from zero state (the reference's ``_apply_block``)
+        from weights in any dtype."""
+        cfg = self.cfg
+        xn = rms_norm(x, p["ln"], cfg.norm_eps)
+        if is_slstm(cfg, i):
+            y, _ = slstm_scan(cfg, p["slstm"], xn)
+        else:
+            y, _ = mlstm_chunked(cfg, p["mlstm"], xn,
+                                 chunk=min(256, x.shape[1]))
+        return x + y
+
+    def _tree_forward(self, params: Dict[str, Any],
+                      tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = F.embedding(tokens.long(), params["embed"].to(self.cdtype))
+        for i, p in enumerate(params["blocks"]):
+            x = remat_call(cfg, self._tree_block, x, p, i)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return dense(x, params["embed"].T, "bsd,dv->bsv")
+
+    def loss(self, params: Dict[str, Any],
+             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean next-token cross-entropy under ``params``; ``loss_mask``
+        unsliced, as the reference passes it (ROADMAP §C)."""
+        logits = self.forward(batch["tokens"], params)
+        return softmax_xent(logits[:, :-1], batch["labels"][:, 1:],
+                            batch.get("loss_mask"))
 
     def init_cache(self, batch: int, max_len: int = 0) -> Cache:
         """Zero states; the state is O(1) in the sequence: ``max_len`` is

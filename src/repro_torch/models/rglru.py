@@ -4,9 +4,11 @@
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t),
     a_t = exp(-c * softplus(lam) * sigmoid(r_t))
 
-Prefill runs the recurrence through ``kernels.rglru.ops.rglru_scan`` (the
-CUDA kernel on the card, its plain version on the CPU); a one-token decode
-step is the elementwise update, as in the reference. ``p`` maps parameter
+Prefill and training run the recurrence through
+``kernels.rglru.autograd.RglruScanFn`` (the CUDA kernel on the card, its
+plain version on the CPU; the backward is the same op run backwards in
+time); a one-token decode step is the elementwise update, as in the
+reference. ``p`` maps parameter
 names to weights in compute dtype, except ``lam``, which stays fp32.
 """
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.rglru.ops import rglru_scan as rglru_scan_op
+from repro_torch.kernels.rglru.autograd import RglruScanFn
 from repro_torch.models.layers import dense
 from repro_torch.models.module import ParamSpec
 
@@ -60,12 +62,13 @@ def rglru_scan(cfg: ModelConfig, p, xb: torch.Tensor,
                h0: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The recurrence over a whole block. xb: (B, S, D) -> (out in xb's
-    dtype, h_last (B, D) fp32). ``h0`` folds into ``b[:, 0]``."""
+    dtype, h_last (B, D) fp32). ``h0`` (serving from a cached state, never
+    under autograd) folds into ``b[:, 0]`` in place."""
     log_a, b = _gates(cfg, p, xb)
     a = torch.exp(log_a)
     if h0 is not None:
         b[:, 0] = b[:, 0] + a[:, 0] * h0.float()
-    h = rglru_scan_op(a, b)
+    h = RglruScanFn.apply(a, b)
     return h.to(xb.dtype), h[:, -1].contiguous()
 
 

@@ -16,6 +16,9 @@ input's dtype. ``log sigmoid`` is ``F.logsigmoid``, the stable form of the
 reference's ``-softplus(-x)`` (``F.softplus`` switches to ``x`` above its
 threshold, jax's does not). ``p`` maps parameter names to weights in
 compute dtype, except the fp32 biases, recurrent weights and norms.
+Training differentiates these ops with autograd, as the reference
+differentiates its jnp; the stabilisers' maxima split their gradient at
+ties as ``jnp.maximum`` does.
 """
 from __future__ import annotations
 
@@ -202,7 +205,9 @@ def _slstm_cell(p, zi, ii, fi, oi, state):
     decay, inp = torch.exp(log_f + m - m_new), torch.exp(log_i - m_new)
     c_new = decay * c + inp * z
     n_new = decay * n + inp
-    h_new = o * c_new / torch.clamp(n_new, min=1.0)
+    # maximum, not clamp: at n_new == 1 (the first step's normaliser)
+    # the gradient splits in half, as jnp.maximum's does
+    h_new = o * c_new / torch.maximum(n_new, torch.ones_like(n_new))
     return c_new, n_new, m_new, h_new
 
 

@@ -1,11 +1,17 @@
 """Optimizers: AdamW, Adafactor (factored 2nd moment), SGD (counterpart:
 ``repro/optim/optimizers.py``).
 
-Functional updates over a parameter tree in the reference's layout (nested
-dicts, blocks stacked on a leading layer axis): ``init(params) -> state``
-and ``update(grads, state, params) -> (params', state')`` return new
-tensors and read nothing back to the host. State is fp32 (``step`` an
-int32 scalar on the parameters' device); the order of operations is the
+Updates over a parameter tree in the reference's layout (nested dicts,
+blocks stacked on a leading layer axis): ``init(params) -> state`` and
+``update_(grads, state, params, keep)``, which writes the update into
+``state`` and ``params`` in place where ``keep`` holds (a bool device
+scalar, the train step's guard, or None for always) and reads nothing back
+to the host. That is the counterpart of the reference's train step, which
+donates its parameter and optimizer buffers: a step holds the weights, the
+moments and the gradients once (AdamW and SGD a piece of a leaf at a time,
+Adafactor a leaf at a time). ``update(grads, state, params) -> (params',
+state')`` is the same update on copies. State is fp32 (``step`` an int32
+scalar on the parameters' device); the order of operations is the
 reference's: clip by the global norm, then the moments and their bias
 correction, then the decoupled weight decay inside ``delta``. Adafactor's
 factored moments, its update RMS and its parameter scale are taken over
@@ -43,10 +49,15 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(s)
 
 
+def _clip_scale(n: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The factor that clips a tree of global norm ``n`` to ``max_norm``."""
+    return torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(tree: Any, max_norm: float
                         ) -> Tuple[Any, torch.Tensor]:
     n = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
+    scale = _clip_scale(n, max_norm)
     return tree_map(lambda g: g * scale.to(g.dtype), tree), n
 
 
@@ -54,7 +65,19 @@ def clip_by_global_norm(tree: Any, max_norm: float
 class Optimizer:
     name: str
     init: Callable[[Any], Any]                          # params -> state
-    update: Callable[[Any, Any, Any], Tuple[Any, Any]]  # (g, s, p) -> (p', s')
+    # (g, s, p, keep) -> None: the update written into s and p in place,
+    # where ``keep`` (a bool device scalar, or None for always) holds
+    update_: Callable[[Any, Any, Any, Any], None]
+
+    def update(self, grads: Any, state: Any, params: Any
+               ) -> Tuple[Any, Any]:
+        """(params', state'): the update on copies; the inputs are left
+        as they were."""
+        params, state = (tree_map(lambda t: t.clone(
+            memory_format=torch.contiguous_format), x)
+            for x in (params, state))
+        self.update_(grads, state, params, None)
+        return params, state
 
 
 def _step0(params: Any) -> torch.Tensor:
@@ -65,10 +88,46 @@ def _f32_zeros(p: torch.Tensor) -> torch.Tensor:
     return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
 
-def _unzip(out: Any, n: int) -> list:
-    """A tree of ``n``-tuples -> ``n`` trees."""
-    return [tree_map(lambda o: o[i], out, is_leaf=lambda x: isinstance(x, tuple))
-            for i in range(n)]
+# elements of a leaf an in-place elementwise update takes at a time (256 MB
+# of fp32): its temporaries are a few pieces, not a few leaves
+PIECE = 1 << 26
+
+
+def _write(dst: torch.Tensor, new: torch.Tensor, keep) -> None:
+    """``dst`` := ``new`` where ``keep`` holds (everywhere for None), in
+    place."""
+    dst.copy_(new if keep is None else torch.where(keep, new, dst))
+
+
+def _pieces(g: torch.Tensor, *ts: torch.Tensor):
+    """Matching flat slices of a gradient (read) and of the contiguous
+    tensors of its size that the update writes (views)."""
+    for t in ts:
+        if not t.is_contiguous():
+            raise ValueError("an in-place update needs contiguous leaves")
+    flat = [g.reshape(-1)] + [t.view(-1) for t in ts]
+    for i in range(0, max(g.numel(), 1), PIECE):
+        yield [f[i:i + PIECE] for f in flat]
+
+
+def _elementwise(leaf_fn: Callable, begin: Callable,
+                 moments: Tuple[str, ...]) -> Callable:
+    """``update_`` of an optimizer whose per-leaf update is elementwise:
+    ``leaf_fn(c, g, *moments, p) -> (p', *moments')`` with the step's
+    constants ``c`` from ``begin(grads, state) -> (c, step)``, run on each
+    leaf piece by piece (every element's arithmetic is that of the whole
+    leaf)."""
+    def update_(grads, state, params, keep):
+        c, step = begin(grads, state)
+        for ts in zip(leaves(grads), *(leaves(state[k]) for k in moments),
+                      leaves(params)):
+            for g, *rest in _pieces(*ts):
+                new = leaf_fn(c, g, *rest)
+                # leaf_fn returns (p', *moments'); rest is (*moments, p)
+                for dst, n in zip(rest[-1:] + rest[:-1], new):
+                    _write(dst, n, keep)
+        _write(state["step"], step, keep)
+    return update_
 
 
 # ---------------------------------------------------------------------------
@@ -82,29 +141,24 @@ def adamw(run: RunConfig) -> Optimizer:
         return {"step": _step0(params), "mu": tree_map(_f32_zeros, params),
                 "nu": tree_map(_f32_zeros, params)}
 
-    def update(grads, state, params):
-        grads, _ = clip_by_global_norm(grads, run.grad_clip)
+    def begin(grads, state):
         step = state["step"] + 1
-        lr = lr_fn(step)
         t = step.to(torch.float32)
-        bc1 = 1 - b1 ** t
-        bc2 = 1 - b2 ** t
+        scale = _clip_scale(global_norm(grads), run.grad_clip)
+        return (scale, lr_fn(step), 1 - b1 ** t, 1 - b2 ** t), step
 
-        def upd(g, m, v, p):
-            gf = g.to(torch.float32)
-            m = b1 * m + (1 - b1) * gf
-            v = b2 * v + (1 - b2) * gf * gf
-            mh = m / bc1
-            vh = v / bc2
-            pf = p.to(torch.float32)
-            delta = mh / (torch.sqrt(vh) + eps) + wd * pf
-            return (pf - lr * delta).to(p.dtype), m, v
+    def upd(c, g, m, v, p):
+        scale, lr, bc1, bc2 = c
+        gf = (g * scale.to(g.dtype)).to(torch.float32)
+        m = b1 * m + (1 - b1) * gf
+        v = b2 * v + (1 - b2) * gf * gf
+        mh = m / bc1
+        vh = v / bc2
+        pf = p.to(torch.float32)
+        delta = mh / (torch.sqrt(vh) + eps) + wd * pf
+        return (pf - lr * delta).to(p.dtype), m, v
 
-        new_p, mu, nu = _unzip(
-            tree_map(upd, grads, state["mu"], state["nu"], params), 3)
-        return new_p, {"step": step, "mu": mu, "nu": nu}
-
-    return Optimizer("adamw", init, update)
+    return Optimizer("adamw", init, _elementwise(upd, begin, ("mu", "nu")))
 
 
 # ---------------------------------------------------------------------------
@@ -127,41 +181,51 @@ def adafactor(run: RunConfig) -> Optimizer:
             return {"v": _f32_zeros(p)}
         return {"step": _step0(params), "v": tree_map(st, params)}
 
-    def update(grads, state, params):
-        grads, _ = clip_by_global_norm(grads, run.grad_clip)
+    def begin(grads, state):
         step = state["step"] + 1
         t = step.to(torch.float32)
-        lr = lr_fn(step)
-        b2 = 1.0 - t ** -0.8
+        scale = _clip_scale(global_norm(grads), run.grad_clip)
+        return (scale, lr_fn(step), 1.0 - t ** -0.8), step
 
-        def upd(g, p, s):
-            gf = g.to(torch.float32)
-            g2 = gf * gf + eps1
-            if _factored(p.shape):
-                vr = b2 * s["vr"] + (1 - b2) * g2.mean(dim=-1)
-                vc = b2 * s["vc"] + (1 - b2) * g2.mean(dim=-2)
-                denom = vr.sum(dim=-1, keepdim=True)
-                vhat = (vr[..., None] * vc[..., None, :]
-                        / torch.clamp(denom[..., None], min=eps1))
-                u = gf * torch.rsqrt(torch.clamp(vhat, min=eps1))
-                ns = {"vr": vr, "vc": vc}
-            else:
-                v = b2 * s["v"] + (1 - b2) * g2
-                u = gf * torch.rsqrt(torch.clamp(v, min=eps1))
-                ns = {"v": v}
-            rms_u = torch.sqrt(torch.mean(u * u) + eps1)
-            u = u / torch.clamp(rms_u / clip_d, min=1.0)
-            pf = p.to(torch.float32)
-            scale = torch.clamp(torch.sqrt(torch.mean(pf * pf)), min=eps2)
-            new_p = pf - lr * scale * u - lr * wd * pf
-            return new_p.to(p.dtype), ns
+    def upd(c, g, p, s):
+        scale, lr, b2 = c
+        gf = (g * scale.to(g.dtype)).to(torch.float32)
+        g2 = gf * gf + eps1
+        if _factored(p.shape):
+            vr = b2 * s["vr"] + (1 - b2) * g2.mean(dim=-1)
+            vc = b2 * s["vc"] + (1 - b2) * g2.mean(dim=-2)
+            denom = vr.sum(dim=-1, keepdim=True)
+            vhat = (vr[..., None] * vc[..., None, :]
+                    / torch.clamp(denom[..., None], min=eps1))
+            u = gf * torch.rsqrt(torch.clamp(vhat, min=eps1))
+            ns = {"vr": vr, "vc": vc}
+        else:
+            v = b2 * s["v"] + (1 - b2) * g2
+            u = gf * torch.rsqrt(torch.clamp(v, min=eps1))
+            ns = {"v": v}
+        rms_u = torch.sqrt(torch.mean(u * u) + eps1)
+        u = u / torch.clamp(rms_u / clip_d, min=1.0)
+        pf = p.to(torch.float32)
+        scale = torch.clamp(torch.sqrt(torch.mean(pf * pf)), min=eps2)
+        new_p = pf - lr * scale * u - lr * wd * pf
+        return new_p.to(p.dtype), ns
 
-        # the moments are a dict per parameter: the walk follows the
-        # gradients, so each call gets its parameter's dict whole
-        new_p, v = _unzip(tree_map(upd, grads, params, state["v"]), 2)
-        return new_p, {"step": step, "v": v}
+    def update_(grads, state, params, keep):
+        # the update RMS and the parameter scale are means over the whole
+        # leaf: one leaf at a time. The moments are a dict per parameter:
+        # the walk follows the gradients, so each leaf gets its dict whole
+        c, step = begin(grads, state)
+        per_leaf = []
+        tree_map(lambda g, p, s: per_leaf.append((g, p, s)), grads, params,
+                 state["v"])
+        for g, p, s in per_leaf:
+            new_p, ns = upd(c, g, p, s)
+            _write(p, new_p, keep)
+            for k, t in ns.items():
+                _write(s[k], t, keep)
+        _write(state["step"], step, keep)
 
-    return Optimizer("adafactor", init, update)
+    return Optimizer("adafactor", init, update_)
 
 
 # ---------------------------------------------------------------------------
@@ -173,19 +237,17 @@ def sgd(run: RunConfig, momentum: float = 0.9) -> Optimizer:
     def init(params):
         return {"step": _step0(params), "mu": tree_map(_f32_zeros, params)}
 
-    def update(grads, state, params):
-        grads, _ = clip_by_global_norm(grads, run.grad_clip)
+    def begin(grads, state):
         step = state["step"] + 1
-        lr = lr_fn(step)
+        scale = _clip_scale(global_norm(grads), run.grad_clip)
+        return (scale, lr_fn(step)), step
 
-        def upd(g, m, p):
-            m = momentum * m + g.to(torch.float32)
-            return (p.to(torch.float32) - lr * m).to(p.dtype), m
+    def upd(c, g, m, p):
+        scale, lr = c
+        m = momentum * m + (g * scale.to(g.dtype)).to(torch.float32)
+        return (p.to(torch.float32) - lr * m).to(p.dtype), m
 
-        new_p, mu = _unzip(tree_map(upd, grads, state["mu"], params), 2)
-        return new_p, {"step": step, "mu": mu}
-
-    return Optimizer("sgd", init, update)
+    return Optimizer("sgd", init, _elementwise(upd, begin, ("mu",)))
 
 
 def make_optimizer(name: str, run: RunConfig) -> Optimizer:

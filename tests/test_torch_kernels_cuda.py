@@ -871,6 +871,76 @@ def test_flash_attention_train_on_card(cuda, dtype, B, S, Hq, Hkv, D, window,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,D,causal,window,cq,ck", [
+    (1, 700, 700, 10, 1, 256, True, 256, 256, 256),   # Griffin: MQA, window
+    (1, 512, 512, 32, 8, 128, True, 0, 512, 1024),    # mixtral / pixtral
+    (2, 300, 300, 16, 16, 64, False, 0, 512, 1024),   # the encoder
+    (2, 300, 450, 16, 16, 64, False, 0, 128, 128),    # cross: T padded
+])
+def test_flash_attention_train_family_modes_on_card(cuda, dtype, B, S, T,
+                                                    Hq, Hkv, D, causal,
+                                                    window, cq, ck):
+    """The Function in the modes the non-dense families train: the kernel
+    forward and plain backward on the card against the all-plain pair on
+    the CPU, one launch a call, two calls bitwise equal."""
+    from repro_torch.kernels.flash_attention.autograd import (
+        flash_attention_train)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q = _randn(gen, (B, S, Hq, D), dtype, cuda)
+    k, v = (_randn(gen, (B, T, Hkv, D), dtype, cuda) for _ in range(2))
+    do = _randn(gen, (B, S, Hq, D), dtype, cuda)
+    kw = dict(causal=causal, window=window, chunk_q=cq, chunk_kv=ck)
+
+    def run(*xs):
+        xs = [x.detach().clone().requires_grad_(True) for x in xs]
+        out = flash_attention_train(*xs, **kw)
+        return (out.detach(),) + torch.autograd.grad(out, xs, do.to(
+            xs[0].device))
+
+    before = tk.LAUNCHES["flash_attention_fwd"]
+    got = run(q, k, v)
+    assert tk.LAUNCHES["flash_attention_fwd"] == before + 1
+    want = run(q.cpu(), k.cpu(), v.cpu())
+    assert _err(got[0], want[0].to(cuda)) <= TOL[dtype]
+    for g, w in zip(got[1:], want[1:]):
+        w = w.to(cuda)
+        assert _err(g, w) <= GRAD_TOL[dtype] * w.float().abs().max().item()
+    again = run(q, k, v)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D", [(1, 4096, 2560), (2, 37, 100), (1, 1, 64),
+                                   (3, 513, 2560)])
+def test_rglru_backward_on_card_bitwise(cuda, B, T, D):
+    """The recurrence under autograd on the card: the forward and the
+    backward each launch the kernel once (the backward over the reversed
+    sequences, counted under ``rglru_scan_bwd`` as well), and da, db equal ``rglru_scan_bwd_ref`` bit for bit; two
+    calls give the same bits."""
+    from repro_torch.kernels.rglru import RglruScanFn, rglru_scan_bwd_ref
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    a = 0.7 + 0.299 * torch.rand((B, T, D), generator=gen, device=cuda)
+    b = 0.1 * torch.randn((B, T, D), generator=gen, device=cuda)
+    dh = torch.randn((B, T, D), generator=gen, device=cuda)
+
+    def run():
+        xa, xb = (x.clone().requires_grad_(True) for x in (a, b))
+        h = RglruScanFn.apply(xa, xb)
+        return (h.detach(),) + torch.autograd.grad(h, (xa, xb), dh)
+
+    n, n_bwd = rk.LAUNCHES["rglru_scan"], rk.LAUNCHES["rglru_scan_bwd"]
+    h, da, db = run()
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["rglru_scan"] == n + 2
+    assert rk.LAUNCHES["rglru_scan_bwd"] == n_bwd + 1
+    wa, wb = rglru_scan_bwd_ref(a, h, dh)
+    assert torch.equal(da, wa) and torch.equal(db, wb), (_err(da, wa),
+                                                         _err(db, wb))
+    assert all(torch.equal(x, y) for x, y in zip(run(), (h, da, db)))
+
+
+@pytest.mark.cuda
 def test_guarded_train_step_card_vs_cpu(cuda):
     """One guarded AdamW step of a two-layer model (head_dim 64, fp32
     compute) on the card and on the CPU from the same weights and batch:

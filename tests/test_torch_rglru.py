@@ -3,13 +3,18 @@ repro_torch.models.rglru) against the JAX reference, in fp32 on the CPU:
 the plain version of the recurrence kernel against the reference's
 associative-scan oracle and its Pallas kernel in interpret mode, the
 folding of an initial state, the gates, the causal conv and the recurrent
-block with and without a carried state. Inputs are seeded numpy."""
+block with and without a carried state; the recurrence under autograd
+(``RglruScanFn``: the op run backwards in time) against ``jax.grad`` of the
+reference's associative scan and autograd through the plain loop, in
+float64 by ``gradcheck``, and bit for bit against ``rglru_scan_bwd_ref``.
+Inputs are seeded numpy."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config  # noqa: E402
@@ -17,7 +22,8 @@ from repro.kernels.rglru import rglru_scan as jrglru_kernel  # noqa: E402
 from repro.kernels.rglru import rglru_scan_ref as jrglru_ref  # noqa: E402
 from repro.models import rglru as jr  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
-from repro_torch.kernels.rglru import (LAUNCHES, rglru_scan,  # noqa: E402
+from repro_torch.kernels.rglru import (LAUNCHES, RglruScanFn,  # noqa: E402
+                                       rglru_scan, rglru_scan_bwd_ref,
                                        rglru_scan_kernel, rglru_scan_ref)
 from repro_torch.kernels.rglru import kernel as rk  # noqa: E402
 from repro_torch.models import rglru as tr  # noqa: E402
@@ -208,3 +214,110 @@ def test_init_rglru_state_matches(cfgs):
         assert tuple(t[n].shape) == j[n].shape
         assert str(t[n].dtype).split(".")[-1] == str(j[n].dtype)
         assert not t[n].any()
+
+
+# ---------------------------------------------------------------------------
+# the recurrence under autograd
+# ---------------------------------------------------------------------------
+def _abg(seed, B, T, D):
+    a, b = _ab(seed, B, T, D)
+    dh = np.random.default_rng(seed + 7).standard_normal((B, T, D)).astype(
+        np.float32)
+    return a, b, dh
+
+
+def _fn_grads(a, b, dh):
+    ta, tb = (torch.from_numpy(x).requires_grad_(True) for x in (a, b))
+    h = RglruScanFn.apply(ta, tb)
+    return (h.detach(),) + torch.autograd.grad(h, (ta, tb),
+                                               torch.from_numpy(dh))
+
+
+@pytest.mark.parametrize("B,T,D", [(1, 1, 8), (2, 37, 64), (1, 512, 96)])
+def test_scan_grads_match_reference_and_autograd_of_loop(B, T, D):
+    """da, db of the Function against ``jax.grad`` of the reference's
+    associative scan (``repro.models.rglru.rglru_scan``'s combine) and
+    against autograd through the plain loop."""
+    a, b, dh = _abg(2, B, T, D)
+    h, da, db = _fn_grads(a, b, dh)
+
+    def scan(a_, b_):
+        def op(e1, e2):
+            return e1[0] * e2[0], e2[0] * e1[1] + e2[1]
+        return jax.lax.associative_scan(op, (a_, b_), axis=1)[1]
+
+    jh, vjp = jax.vjp(scan, jnp.asarray(a), jnp.asarray(b))
+    jda, jdb = vjp(jnp.asarray(dh))
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), atol=SCAN_ATOL,
+                               rtol=0)
+    # the adjoint sums dh over up to T steps of decay a <= 0.999
+    scale = max(np.abs(np.asarray(jdb)).max(), 1.0)
+    np.testing.assert_allclose(db.numpy(), np.asarray(jdb),
+                               atol=SCAN_ATOL * scale, rtol=0)
+    np.testing.assert_allclose(da.numpy(), np.asarray(jda),
+                               atol=SCAN_ATOL * scale, rtol=0)
+    ta, tb = (torch.from_numpy(x).requires_grad_(True) for x in (a, b))
+    la, lb = torch.autograd.grad(rglru_scan_ref(ta, tb), (ta, tb),
+                                 torch.from_numpy(dh))
+    np.testing.assert_allclose(db.numpy(), lb.numpy(),
+                               atol=SCAN_ATOL * scale, rtol=0)
+    np.testing.assert_allclose(da.numpy(), la.numpy(),
+                               atol=SCAN_ATOL * scale, rtol=0)
+
+
+def test_scan_gradcheck_float64():
+    a, b, _ = _abg(3, 2, 9, 5)
+    args = (torch.from_numpy(a.astype(np.float64)).requires_grad_(True),
+            torch.from_numpy(b.astype(np.float64)).requires_grad_(True))
+    assert torch.autograd.gradcheck(RglruScanFn.apply, args, eps=1e-6,
+                                    atol=1e-7)
+
+
+@pytest.mark.parametrize("B,T,D", [(1, 1, 8), (2, 37, 64), (1, 300, 100)])
+def test_scan_backward_bitwise_bwd_ref(B, T, D):
+    """The Function's backward on the CPU (the plain loop over the
+    reversed sequences) equals ``rglru_scan_bwd_ref`` bit for bit, -0.0
+    included: the card's kernel backward is held to the same function. No
+    kernel launched, so neither count moves."""
+    a, b, dh = _abg(4, B, T, D)
+    dh[0, -1, :3] = -0.0
+    before = dict(LAUNCHES)
+    h, da, db = _fn_grads(a, b, dh)
+    assert LAUNCHES == before
+    wa, wb = rglru_scan_bwd_ref(*(torch.from_numpy(x) for x in (a, h.numpy(),
+                                                                dh)))
+    assert da.numpy().tobytes() == wa.numpy().tobytes()
+    assert db.numpy().tobytes() == wb.numpy().tobytes()
+
+
+def test_block_grads_match_reference(cfgs):
+    """Gradients of the recurrent block (gates, conv, the recurrence)
+    through the Function against ``jax.grad`` of the reference's block."""
+    jcfg, tcfg = cfgs
+    rng = np.random.default_rng(9)
+    D = jcfg.d_model
+    x = (rng.standard_normal((2, 24, D)) * 0.5).astype(np.float32)
+    dy = rng.standard_normal((2, 24, D)).astype(np.float32)
+    from repro_torch.models.module import init_tensor
+    specs = tr.rglru_param_specs(tcfg, torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    p = {k: init_tensor(s, gen).numpy() for k, s in specs.items()}
+
+    def jblock(p_, x_):
+        return jr.recurrent_block(jcfg, p_, x_)[0]
+
+    _, vjp = jax.vjp(jblock, {k: jnp.asarray(v) for k, v in p.items()},
+                     jnp.asarray(x))
+    jgp, jgx = vjp(jnp.asarray(dy))
+    tp = {k: torch.from_numpy(v).requires_grad_(True) for k, v in p.items()}
+    tx = torch.from_numpy(x).requires_grad_(True)
+    y = tr.recurrent_block(tcfg, tp, tx)[0]
+    names = sorted(tp)
+    grads = torch.autograd.grad(y, [tp[k] for k in names] + [tx],
+                                torch.from_numpy(dy))
+    for name, g, jg in zip(names + ["x"], grads,
+                           [jgp[k] for k in names] + [jgx]):
+        jg = np.asarray(jg)
+        np.testing.assert_allclose(g.numpy(), jg, rtol=0,
+                                   atol=BLOCK_RTOL * np.abs(jg).max(),
+                                   err_msg=name)

@@ -254,8 +254,9 @@ def test_port_imports_no_jax_and_no_reference():
     narrow-value and quantized-matmul kernels, the Proteus host layer and
     the training stack: train loop, optimizers, data, checkpoints, fault
     tolerance and chaos, the attention kernel under autograd, the fleet and
-    its dispatcher, the MoE layer, the encoder-decoder and xLSTM models and
-    every architecture's config and smoke model, among them) and
+    its dispatcher, the MoE layer, the encoder-decoder and xLSTM models,
+    every architecture's config, smoke model and weightless training
+    model, the RG-LRU recurrence under autograd, among them) and
     chip_smoke.py's imports load without jax or the reference package."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -291,11 +292,15 @@ def test_port_imports_no_jax_and_no_reference():
         "       'repro_torch.configs.deepseek_coder_33b',\n"
         "       'repro_torch.models.encdec', 'repro_torch.models.xlstm',\n"
         "       'repro_torch.configs.xlstm_125m',\n"
-        "       'repro_torch.configs.seamless_m4t_large')\n"
+        "       'repro_torch.configs.seamless_m4t_large',\n"
+        "       'repro_torch.kernels.rglru.autograd', 'repro_torch.models.model',\n"
+        "       'repro_torch.models.bridge', 'repro_torch.launch.steps')\n"
         "from repro_torch.configs import ALL_IDS, get_config\n"
         "from repro_torch.models import build_model\n"
+        "from repro_torch.models.model import training_model\n"
         "for a in ALL_IDS:\n"
         "    build_model(get_config(a, smoke=True), 'cpu')\n"
+        "    training_model(get_config(a, smoke=True))\n"
         "from repro_torch.kernels.flash_attention import (attention_ref_bh,\n"
         "    flash_attention_bh)\n"
         "assert all(n in sys.modules for n in new), new\n"

@@ -266,14 +266,20 @@ def test_guard_clean_step_bitwise_and_nan_step_skipped(ref):
     guarded = tsteps.make_train_step(tm, opt, trun, guard=True)
     hooked = tsteps.make_train_step(tm, opt, trun, guard=True,
                                     grad_hook=tnan_grad_hook)
-    pu, su, _ = plain(p0, s0, b)
-    pg, sg, mg = guarded(p0, s0, b)
-    ph, sh, mh = hooked(p0, s0, b, torch.tensor(0, dtype=torch.int32))
+    # the step updates its inputs in place: each call gets copies of
+    # (p0, s0)
+    def copies():
+        return tree_map(torch.clone, p0), tree_map(torch.clone, s0)
+
+    pu, su, _ = plain(*copies(), b)
+    pg, sg, mg = guarded(*copies(), b)
+    ph, sh, mh = hooked(*copies(), b, torch.tensor(0, dtype=torch.int32))
     assert not bool(mg["skipped"]) and not bool(mh["skipped"])
     assert _bitwise(pu, pg) and _bitwise(su, sg)
     assert _bitwise(pu, ph) and _bitwise(su, sh)
+    assert not _bitwise(pu, p0)
     # armed: every output leaf is the input leaf, bit for bit
-    pn, sn, mn = hooked(p0, s0, b, torch.tensor(1, dtype=torch.int32))
+    pn, sn, mn = hooked(*copies(), b, torch.tensor(1, dtype=torch.int32))
     assert bool(mn["skipped"]) and not np.isfinite(mn["grad_norm"].item())
     assert _bitwise(pn, p0) and _bitwise(sn, s0)
     # the same as the reference's armed step
