@@ -73,8 +73,8 @@ Runs on one NVIDIA GPU; exits non-zero without one. Phases:
    fp32 route once (its one attention layer).
 
 Phases ``robust`` and ``fleet`` run after ``engine``, on full-width
-``pimref-100m`` with the engine phase's 24 requests in a 512-token bucket
-on 8 slots. ``robust``, in the contiguous, paged16 and paged16-int8
+``pimref-100m`` (``robust`` at 6 of 12 layers, ``CUT_PIMREF_LAYERS``) with
+the engine phase's 24 requests in a 512-token bucket on 8 slots. ``robust``, in the contiguous, paged16 and paged16-int8
 layouts and with an ``ngram`` engine (the NaN hook in the verify block):
 a clean drain, then a seeded chaos drain (``nan=2,slow=2,fail=1,pages=4``:
 one completion each, the poisoned uids ``nan_logits`` with a prefix of
@@ -98,18 +98,20 @@ tokens/s and the workers' start-up seconds logged. ``engine_griffin``
 adds a chaos drain (``nan=2,fail=1``) and a snapshot / restore.
 
 Phase ``spec`` runs after the fleet: speculative decoding (k 3, the
-``ngram`` and ``draft`` drafters) on full-width ``pimref-100m``, batch 8 x
+``ngram`` and ``draft`` drafters) on full-width ``pimref-100m`` at 6 of 12
+layers (``CUT_PIMREF_LAYERS``; ``spec_fp32`` too), batch 8 x
 prompt 512 (rows 0-3 a period-4 tile, rows 4-7 random, from ``--seed``) +
 16 new tokens (``SPEC_GEN``) in chunks of 8, in every KV layout, as the
 captured chunk
 and as its eager body: tokens and accepted lengths identical, exact
 decode-kernel launches (one verify block through every layer and, for
-``draft``, k steps through the first half, per iteration: 96 and 240 a
-chunk), also counted from the profiler's kernel events; ms per token-step,
+``draft``, k steps through the first half, per iteration: 48 and 120 a
+chunk at 6 layers), also counted from the profiler's kernel events; ms per token-step,
 per committed token, accepted length per draft and the graph's device ms
 per iteration, beside speculation off. ``serve(spec=...)`` on its own
 batch (its ``draft`` drafter must accept drafts) and ``ServeEngine``
-drains of the engine phase's requests (one capture, every page back). In
+drains of the engine phase's requests against the same model's drains
+with speculation off (one capture, every page back). In
 bf16 the tokens against speculation off are recorded (a verify block's
 kernel shapes differ from a one-token step's, so a rounding can differ;
 ``spec_rounding`` logs which results do); in fp32 they must be identical,
@@ -244,19 +246,20 @@ Phases ``train_families`` and ``train_families_parity`` run after
 ``train_parity``. ``train_families``: each non-dense family trained
 through ``train()`` on the card at full width, bf16 compute, guarded AdamW
 (warm-up 2, lr 3e-4), one warm-up step and four more, the batch with the
-family's extras: ``xlstm-125m`` 12 layers at 8 x 512, seamless 24 + 24 at
-4 x 512 over 512 frames, ``pixtral-12b`` 4 of 40 layers at 2 x 2048 (1024
-patches + 1024 tokens), ``mixtral-8x7b`` 2 of 32 at 4 x 1024, Griffin 26
-layers at 1 x 4096 (past its 2048 window); depths cut only to keep a
-family's 16 bytes a weight (fp32 weights, gradients, both moments: the
-model holds none) under 75 GB. Every loss finite, none skipped, exact
+family's extras: ``xlstm-125m`` 6 of 12 layers at 8 x 512, seamless 12 +
+12 of 24 + 24 at 4 x 512 over 512 frames, ``pixtral-12b`` 4 of 40 layers
+at 2 x 2048 (1024 patches + 1024 tokens), ``mixtral-8x7b`` 2 of 32 at 4 x
+1024, Griffin 26 layers at 1 x 4096 (past its 2048 window); mixtral's and
+pixtral's depths cut to keep a family's 16 bytes a weight (fp32 weights,
+gradients, both moments: the model holds none) under 75 GB, the xLSTM's
+and seamless's for the run's time limit (phase ``paper``). Every loss finite, none skipped, exact
 launches a step (the prefill kernel twice per attention layer, the RG-LRU
 kernel three times per grouped recurrent layer and twice per tail layer),
 one profiled step whose kernel events equal the counters (not for the
 xLSTM, which launches none); step wall, the numpy batch's share, tokens
 a second, the model-FLOP share and the peak memory logged.
 ``train_families_parity``: fp32 card against CPU at full width and cut
-depth (Griffin 5 layers, mixtral and pixtral 2, seamless 2 + 2, xLSTM 4
+depth (Griffin 5 layers, pixtral 2, mixtral 1, seamless 1 + 1, xLSTM 4
 with an sLSTM block), batch 2 x 64, three guarded steps on the card with
 the CPU's loss and gradients at the card's weights before each (before
 the first only for mixtral and pixtral, for the time limit; loss 1e-5
@@ -271,6 +274,18 @@ train shapes (rows ``flash_attention_fwd_train_d256``, ``_d128``,
 ``rglru_scan_bwd``: the kernel over the reversed sequences, bit for bit
 ``rglru_scan_bwd_ref``, at 1 x 4096 x 2560).
 
+Phase ``paper`` runs last: DaPPA's five patterns and the reference's
+distributed pipelines over 2^26 fp32 on the card against the CPU (streams
+bitwise, sums within 32 ulps of sum |v|) and on a one-rank NCCL mesh
+(equal to the local run), each timed beside its bytes over 3.35 TB/s;
+MIMDRAM's plans for every arch the card runs x the four shape cells on a
+one-device CUDA ``DeviceMesh`` equal to the mesh-less plans; DAMOV's rows
+(``core/damov.py``): eight archs counted on ``meta`` at full width and
+depth by worker processes started at the build, their H100 rooflines as
+a table, pimref-100m's beside what phases serve and train measured; and a
+pimref step (2 layers) counted on the card equal to its ``meta`` count,
+the kernels' reports equal to the launches.
+
 The second-to-last line is a JSON object of per-kernel numbers, the last is
 ``{"ok": true, "device": {...}}``. Any failure raises.
 
@@ -281,6 +296,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -301,9 +317,14 @@ PHASES = ("device", "build", "kernels", "serve", "engine", "robust", "fleet",
           "train_families", "train_families_parity", "proteus",
           "serve_griffin", "engine_griffin", "parity_griffin", "archs",
           "moe", "parity_moe", "vlm", "parity_vlm", "encdec", "parity_encdec",
-          "xlstm")
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+          "xlstm", "paper")
+# the H100 SXM's figures (NVIDIA data sheet), one copy for every bound of
+# the run: repro_torch.core.damov's
+from repro_torch.core.damov import H100_SXM  # noqa: E402
+
+HBM_BYTES_PER_S = H100_SXM.hbm_bytes_per_s
+PEAK_FLOPS = {torch.bfloat16: H100_SXM.peak_flops_bf16,
+              torch.float32: H100_SXM.peak_flops_fp32}
 # the fp32 prefill route's products: q, k, p and v each as three exact bf16
 # parts, the six pairs of parts i + j <= 2 (ref.fp32_route_ref)
 FP32_ROUTE_PASSES = 6
@@ -544,12 +565,15 @@ TRAIN_LOSS_RTOL = 1e-5
 TRAIN_TREE_RTOL = 1e-4
 # training of the non-dense families (phase train_families): full width,
 # bf16 compute, AdamW, guarded, one warm-up step and four more; depth cut
-# only where a family's 16 bytes a weight (fp32 weights, gradients and both
+# where a family's 16 bytes a weight (fp32 weights, gradients and both
 # AdamW moments) with the step's transients pass TRAIN_FAMILIES_PEAK
+# (mixtral, pixtral), and to pay for phase paper's ~30 s within the run's
+# time limit (the xLSTM 12 -> 6 layers, ~15 s of its 5.5 s steps; seamless
+# 24 + 24 -> 12 + 12, ~15 s of its steps and profiled step)
 # arch: (decoder layers, encoder layers or None, batch, seq)
 TRAIN_FAMILIES = {
-    "xlstm-125m": (12, None, 8, 512),
-    "seamless-m4t-large-v2": (24, 24, 4, 512),
+    "xlstm-125m": (6, None, 8, 512),
+    "seamless-m4t-large-v2": (12, 12, 4, 512),
     "pixtral-12b": (4, None, 2, 2048),
     "mixtral-8x7b": (2, None, 4, 1024),
     "recurrentgemma-2b": (26, None, 1, 4096),
@@ -563,9 +587,11 @@ TRAIN_FAMILIES_PEAK = 75e9
 # seq 64, about four times that at 256), and the run has a time limit
 TRAIN_FAMILIES_PARITY = {
     "xlstm-125m": (4, None),               # layer 3 an sLSTM block
-    "seamless-m4t-large-v2": (2, 2),
+    # seamless and mixtral at one layer for the run's time limit: the
+    # host's full-width forward and backward set the time
+    "seamless-m4t-large-v2": (1, 1),
     "pixtral-12b": (2, None),
-    "mixtral-8x7b": (2, None),
+    "mixtral-8x7b": (1, None),
     "recurrentgemma-2b": (5, None),        # one (r, r, a) group + 2 tail
 }
 TRAIN_FAMILIES_PARITY_SHAPE = (2, 64)
@@ -614,7 +640,16 @@ SPEC_GEN = 16
 # decode steps of a chunk in the profiled serves and the spec profile: 4
 # for the time limit too (8 ran past it)
 PROFILE_CHUNK = 4
+# pimref-100m's depth in phases robust, spec and spec_fp32 (full width):
+# 6 of 12 layers, for the run's time limit on slower hosts (with phase
+# paper and these phases at 12 layers the run took 1245.9 s on one H100
+# host); serve, engine, profile and fleet keep 12
+CUT_PIMREF_LAYERS = 6
 T_START = time.perf_counter()
+# what the serving and training phases measured, by label, for the paper
+# phase's DAMOV rows: {"prefill_ms", "decode_ms", "decode_device_ms"} of a
+# serve label's graph run, {"step_ms", "batch", "seq"} of "train"
+READINGS: dict = {}
 
 
 def log(phase: str, msg: str) -> None:
@@ -2051,13 +2086,13 @@ def _make_engine(model, seed, layout, **kw):
                              page_size=page_size, **kw)
 
 
-def phase_engine(model, seed: int) -> dict:
+def phase_engine(model, seed: int) -> None:
     """The requests of ``_engine_requests`` on 8 slots, in the contiguous,
-    paged and paged int8 layouts; returns each layout's completions."""
+    paged and paged int8 layouts."""
     reqs = _engine_requests(model, seed)
-    per_token, completions = {}, {}
+    per_token = {}
     for layout in ENGINE_LAYOUTS:
-        s, completions[layout] = _drain_pair(
+        s, _ = _drain_pair(
             lambda: _make_engine(model, seed, layout), reqs,
             f"engine/{layout}", LAYOUTS[layout][2])
         per_token[layout] = s["kv_bytes_per_token"]
@@ -2065,7 +2100,6 @@ def phase_engine(model, seed: int) -> dict:
     log("engine", "kv_bytes_per_token " + ", ".join(
         f"{k} {v:.1f} ({v / base:.3f} of contiguous)"
         for k, v in per_token.items()))
-    return completions
 
 
 # ---------------------------------------------------------------------------
@@ -2394,11 +2428,9 @@ def phase_robust(model, smi: str, seed: int) -> None:
         "capture): " + ", ".join(f"{k} {a:.1f} vs {b:.1f}"
                                  for k, (a, b) in rates.items()))
     # speculation off then the chunk halved, in fp32 (greedy spec == off)
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import load_model
-    cfg = get_config("pimref-100m").replace(compute_dtype="float32")
     m32 = load_model("pimref-100m", smoke=False, seed=seed, device=DEVICE,
-                     cfg=cfg)
+                     cfg=model.cfg.replace(compute_dtype="float32"))
     def make32(**kw):
         return _robust_engine(m32, seed, "contiguous", "ngram", **kw)
     e32 = make32()
@@ -2700,7 +2732,7 @@ def _differing_requests(got: list, want: list) -> str:
         for u, _, t in want if t != by_uid[u])
 
 
-def phase_spec(model, smi: str, seed: int, engine_want=None) -> dict:
+def phase_spec(model, smi: str, seed: int) -> dict:
     """Speculative decoding (k 3) on full-width pimref-100m, both drafters.
 
     In the serving dtype (bf16): batch 8 x prompt 512 (``spec_prompts``) +
@@ -2803,13 +2835,9 @@ def phase_spec(model, smi: str, seed: int, engine_want=None) -> dict:
     # the engine: the engine phase's requests, ngram and draft drains
     reqs = _engine_requests(model, seed)
     for layout in ENGINE_LAYOUTS:
-        if engine_want is None or layout not in engine_want:
-            off = _make_engine(model, seed, layout)
-            _drain(off, reqs, f"spec/engine/{layout}/off",
-                   LAYOUTS[layout][2])
-            want = _completions(off)
-        else:
-            want = engine_want[layout]
+        off = _make_engine(model, seed, layout)
+        _drain(off, reqs, f"spec/engine/{layout}/off", LAYOUTS[layout][2])
+        want = _completions(off)
         for mode in SPEC_MODES:
             label = f"spec/engine/{layout}/{mode}"
             eng = _make_engine(model, seed, layout, spec=mode, spec_k=SPEC_K)
@@ -2840,7 +2868,8 @@ def spec_fp32(smi: str, seed: int) -> list:
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import load_model
     failed = []
-    cfg = get_config("pimref-100m").replace(compute_dtype="float32")
+    cfg = get_config("pimref-100m").replace(num_layers=CUT_PIMREF_LAYERS,
+                                            compute_dtype="float32")
     model = load_model("pimref-100m", smoke=False, seed=seed, device=DEVICE,
                        cfg=cfg)
     toks = spec_prompts(cfg.vocab_size, seed=seed)
@@ -3062,6 +3091,8 @@ def _serve_engines(model, smi, label, decode_kernel="flash_decode_fwd",
         f"{b_ms:.4f} ms ({nbytes} B: the weights in the compute dtype and "
         f"the K/V held at the mean depth, at {HBM_BYTES_PER_S / 1e12:.2f} "
         f"TB/s; device / bound {dev / b_ms:.2f})")
+    READINGS[label] = dict(prefill_ms=runs["graph"]["prefill_s"] * 1e3,
+                           decode_ms=g, decode_device_ms=dev)
     if not g < e:
         raise AssertionError(f"{label}: the graph's decode ({g:.4f} ms per "
                              f"token-step) is not below the eager chunk's "
@@ -4234,17 +4265,20 @@ def phase_train(smi: str, seed: int) -> dict:
                                                   cfg.resolved_head_dim,
                                                   S * (S + 1) // 2, L)
     model_flops = 6.0 * n_params * tokens
+    READINGS["train"] = dict(step_ms=step_s * 1e3, batch=B, seq=S)
     log("train", f"{smi}: step wall (host clock, step start to loss read) median "
         f"{step_s * 1e3:.1f} ms of steps 1-{TRAIN_STEPS - 1} "
         f"({', '.join('%.1f' % (x * 1e3) for x in secs)} ms; step 0 "
         f"{out['step_seconds'][0] * 1e3:.1f} ms); the numpy batch {batch_s * 1e3:.1f} "
         f"ms a step on the host ({batch_s / step_s:.1%} of the step); "
         f"{tokens / step_s:.1f} tokens/s; model-FLOP share 6 N tokens / "
-        f"(step s x 989e12) = {model_flops / (step_s * 989e12):.2%} (N "
+        f"(step s x 989e12) = "
+        f"{model_flops / (step_s * PEAK_FLOPS[torch.bfloat16]):.2%} (N "
         f"{n_params}, {model_flops:.3e} FLOP a step); attention beside it "
         f"{train_attn:.3e} FLOP a step (forward {fwd_attn:.3e}, causal pairs "
         f"only; the plain backward computes every tile), "
-        f"{(model_flops + train_attn) / (step_s * 989e12):.2%} with it")
+        f"{(model_flops + train_attn) / (step_s * PEAK_FLOPS[torch.bfloat16]):.2%}"
+        " with it")
 
     # one profiled step from the trained state
     model = build_model(cfg, DEVICE)
@@ -5150,6 +5184,397 @@ def train_kernels_families(seed: int) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase paper: DaPPA, MIMDRAM and DAMOV on the card
+# ---------------------------------------------------------------------------
+PAPER_N = 1 << 26                    # DaPPA stream elements, fp32 (256 MB)
+# an fp32 reduction of n terms, card against CPU: each side sums in a tree
+# of log2(n) = 26 levels, so each lies within 26 ulps of sum |v| of the
+# exact sum; the limit is 32 ulps of sum |v| (a count is an fp32 sum of
+# ones, as the reference's, inexact past 2^24; max and min: exact)
+PAPER_REDUCE_ULPS = 32
+PAPER_REPS = 3
+# the architectures the card runs, counted at full width and depth on meta:
+# serving at the serve phases' batch 8 x prompt 512 (pixtral 256 patches +
+# 256 tokens, seamless over 512 frames) and a decode step at cache 576;
+# training at the train phases' shapes, but for the phase's time: the
+# xLSTM at 8 x 64 (8 x 512 in train_families; its sLSTM runs ~600 counted
+# ops a position), internlm2 and stablelm, which the card does not train,
+# at 4 x 1024 (the plain attention backward's ops grow with S^2)
+PAPER_SERVE = (8, 512, 64)
+PAPER_TRAIN = {"pimref-100m": (4, 4096), "recurrentgemma-2b": (1, 4096),
+               "mixtral-8x7b": (4, 1024), "pixtral-12b": (2, 2048),
+               "seamless-m4t-large-v2": (4, 512), "xlstm-125m": (8, 64),
+               "internlm2-1.8b": (4, 1024), "stablelm-1.6b": (4, 1024)}
+# worker processes of the DAMOV counts, which run while the kernels build
+# (nvcc leaves most of the host's 8 cores idle after its short sources)
+PAPER_WORKERS = 6
+# the card == meta check: pimref at full width, 2 layers, B 2 x 64 + 8
+PAPER_CHECK = (2, 2, 64, 8)
+
+
+def _dappa_pipelines(d) -> dict:
+    """The five patterns (map, zip, window, filter, reduce) and
+    tests/distributed_worker.py's dappa_distributed pipelines, built with
+    the DaPPA module ``d``. Stream functions are elementwise, in a fixed
+    order, so a stream is the same bits on every device."""
+    x, y = d.input_stream("x"), d.input_stream("y")
+    prod = x.zip(y).map(lambda t: t[..., 0] * t[..., 1])
+    return {
+        "map_reduce": x.map(lambda v: v * 2).reduce("sum"),
+        "zip_filter_mean": prod.filter(lambda v: v > 0).reduce("mean"),
+        "window_sum3": x.window(3, lambda w: w[..., 0] + w[..., 1]
+                                + w[..., 2]),
+        "filter_fill": x.filter(lambda v: v > 0, fill=-1.0),
+        "reductions": {k: y.filter(lambda v: v < 1.5).reduce(k)
+                       for k in ("max", "min", "count")},
+        "dist_dot": prod.reduce("sum"),
+        "dist_moving_max": x.window(4, lambda w: w.amax(-1)),
+        "dist_filter_mean": x.filter(lambda v: v > 0).reduce("mean"),
+    }
+
+
+def _reduce_scale(name: str, host: dict) -> float:
+    """sum |term| / count of a sum or mean pipeline's terms (float64 on the
+    host): the scale of its rounding."""
+    x = host["x"].double()
+    if name == "map_reduce":
+        return float((2 * x).abs().sum())
+    p = x * host["y"].double()
+    if name == "dist_dot":
+        return float(p.abs().sum())
+    kept = p[p > 0] if name == "zip_filter_mean" else x[x > 0]
+    return float(kept.sum() / max(kept.numel(), 1))
+
+
+def _paper_dappa(smi, seed, mesh) -> None:
+    from repro_torch.core import dappa
+    from repro_torch.kernels.accounting import nbytes
+    from repro_torch.tree import leaves
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    xs = randn(gen, (PAPER_N,), torch.float32)
+    ys = 1.0 + randn(gen, (PAPER_N,), torch.float32).abs()
+    host = {"x": xs.cpu(), "y": ys.cpu()}
+    for name, out in _dappa_pipelines(dappa).items():
+        uses = {"x": xs, "y": ys} if name in ("zip_filter_mean", "dist_dot") \
+            else {"y": ys} if name == "reductions" else {"x": xs}
+        f = dappa.compile_pipeline(out)
+        got = f(**uses)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = f(**{k: host[k] for k in uses})
+        cpu_s = time.perf_counter() - t0
+        on_mesh = dappa.compile_pipeline(out, mesh=mesh)(**uses)
+        worst = 0.0
+        for g, w, m, leaf in zip(leaves(got), leaves(want), leaves(on_mesh),
+                                 leaves(out)):
+            if not torch.equal(g, m):
+                raise AssertionError(f"paper/dappa {name}: the one-rank NCCL "
+                                     "mesh run differs from the local run")
+            if g.dim():                                   # a stream
+                if not torch.equal(g.cpu(), w):
+                    raise AssertionError(f"paper/dappa {name}: card and CPU "
+                                         "streams differ")
+                continue
+            scale = (float(w) if leaf.kind == "count"
+                     else 0.0 if leaf.kind in ("max", "min")
+                     else _reduce_scale(name, host))
+            tol = PAPER_REDUCE_ULPS * 2.0 ** -23 * scale
+            err = abs(float(g) - float(w))
+            worst = max(worst, err / tol if tol else err)
+            if err > tol:
+                raise AssertionError(f"paper/dappa {name} {leaf.kind}: card "
+                                     f"{float(g)!r} CPU {float(w)!r}, "
+                                     f"|diff| {err:.3e} > {tol:.3e}")
+        moved = nbytes(*uses.values()) + nbytes(*leaves(got))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(PAPER_REPS):
+            f(**uses)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / PAPER_REPS
+        log("paper/dappa", f"{smi}: {name} over {PAPER_N} fp32: "
+            f"{ms:.3f} ms on the card (eager, CUDA events, mean of "
+            f"{PAPER_REPS}) against its bytes {moved} / "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s = "
+            f"{moved / HBM_BYTES_PER_S * 1e3:.3f} ms; CPU {cpu_s * 1e3:.0f} "
+            f"ms; streams bitwise, reductions within limits (worst "
+            f"{worst:.3f} of its limit); == the one-rank NCCL mesh run")
+    del xs, ys, host
+    torch.cuda.empty_cache()
+
+
+def _paper_mimdram(mesh) -> None:
+    """Every arch the card runs x the four shape cells: the plan on a
+    one-device CUDA DeviceMesh equals the plan without a mesh."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.mimdram import (constrain, plan_sharding, use_plan,
+                                          vf_report)
+    from repro_torch.models import param_pspecs, param_specs
+    n = 0
+    for arch in PAPER_TRAIN:
+        cfg = get_config(arch)
+        specs = param_specs(cfg)
+        for shape in SHAPES:
+            a, b = plan_sharding(cfg, shape, mesh), plan_sharding(cfg, shape)
+            for what in ("rules", "notes", "segment_utilization",
+                         "segments"):
+                if getattr(a, what) != getattr(b, what):
+                    raise AssertionError(f"paper/mimdram {arch} {shape.name}"
+                                         f": {what} {getattr(a, what)} != "
+                                         f"{getattr(b, what)}")
+            if param_pspecs(specs, a) != param_pspecs(specs, b):
+                raise AssertionError(f"paper/mimdram {arch} {shape.name}: "
+                                     "parameter specs differ")
+            n += 1
+        x = torch.ones(2, 3, device=DEVICE)
+        with use_plan(a):
+            if constrain(x, "act_batch", "act_embed") is not x:
+                raise AssertionError("paper/mimdram: constrain moved a tensor "
+                                     "on a one-device mesh")
+        log("paper/mimdram", f"{arch}: vf {vf_report(cfg, SHAPES[0])}; "
+            f"train_4k notes {b.notes}")
+    log("paper/mimdram", f"{n} plans on the one-device CUDA mesh == "
+        f"without a mesh (rules, notes, utilization, segments, every "
+        f"parameter's spec)")
+
+
+def _zero_batch(cfg, shape, dev) -> dict:
+    """``input_specs``' batch of ``shape`` as zeros on ``dev``."""
+    from repro_torch.launch.specs import input_specs
+    return {k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+            for k, s in input_specs(cfg, shape).items()}
+
+
+def _count_serve(cfg, dev, serve) -> dict:
+    """StepStats of a prefill of ``serve`` = (B, prompt, new) on ``dev``
+    and of one decode step after it (cache prompt + new)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core.damov import count_step
+    from repro_torch.models import build_model
+    B, P, G = serve
+    m = build_model(cfg, dev)
+    batch = _zero_batch(cfg, ShapeConfig("serve", P, B, "prefill"), dev)
+    toks = batch.pop("tokens")
+    (_, cache), pre = count_step(m.prefill, toks, P + G, **batch)
+    _, dec = count_step(m.decode_step, cache, toks[:, :1])
+    return {"prefill": pre, "decode": dec}
+
+
+def _count_train(cfg, dev, train) -> dict:
+    """StepStats of an AdamW train step of ``train`` = (B, S) on ``dev``
+    (zero weights and batch)."""
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.core.damov import count_step
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import param_specs, reference_tree
+    from repro_torch.models.model import model_class, training_model
+    from repro_torch.optim import make_optimizer
+    B, S = train
+    params = reference_tree(
+        {n: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+         for n, s in param_specs(cfg).items()}, model_class(cfg).LISTS)
+    opt = make_optimizer(cfg.optimizer, RunConfig())
+    state = opt.init(params)
+    batch = _zero_batch(cfg, ShapeConfig("train", S, B, "train"), dev)
+    step = make_train_step(training_model(cfg), opt, RunConfig())
+    return {"train": count_step(step, params, state, batch)[1]}
+
+
+def _damov_task(arch: str, what: str) -> tuple:
+    """One arch's serving (``what`` "serve") or training counted on meta at
+    full width and depth, in a worker process: (rooflines, log lines,
+    seconds, the end on ``time.perf_counter``'s clock, the host's
+    monotonic one)."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core import damov
+    from repro_torch.models import count_params
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    B, P, G = PAPER_SERVE
+    Bt, St = PAPER_TRAIN[arch]
+    if what == "serve":
+        counts = _count_serve(cfg, "meta", PAPER_SERVE)
+        shapes = {"prefill": ShapeConfig(f"prefill {B}x{P}", P, B, "prefill"),
+                  "decode": ShapeConfig(f"decode {B}@{P + G}", P + G, B,
+                                        "decode")}
+    else:
+        counts = _count_train(cfg, "meta", PAPER_TRAIN[arch])
+        shapes = {"train": ShapeConfig(f"train {Bt}x{St}", St, Bt, "train")}
+    active = _active_params(cfg, count_params(cfg))
+    rows, lines = [], []
+    for mode, st in counts.items():
+        r = damov.make_roofline(arch, shapes[mode].name, mode, "1", 1, st,
+                                damov.model_flops_for(cfg, shapes[mode],
+                                                      active))
+        rows.append(r)
+        lines.append(
+            f"{arch} {shapes[mode].name} ({cfg.num_layers} layers): "
+            f"{st.flops:.4e} FLOP ({st.dot_flops:.4e} in matmuls, kernels "
+            f"{st.kernels}), {st.bytes:.4e} B, {sum(st.ops.values())} ops; "
+            f"roofline {r.step_time_s * 1e3:.4f} ms, {r.bottleneck_class}; "
+            f"{damov.what_would_help(r)}")
+    return rows, lines, time.perf_counter() - t0, time.perf_counter()
+
+
+# the DAMOV tasks, the costliest first (the xLSTM's sLSTM steps)
+PAPER_TASKS = tuple(sorted(((a, w) for a in PAPER_TRAIN
+                            for w in ("train", "serve")),
+                           key=lambda t: t[0] != "xlstm-125m"))
+
+
+def _paper_damov(smi, done, t0) -> None:
+    """The DAMOV rows from the worker processes' ``done`` results (one a
+    PAPER_TASKS entry, started at ``t0``; those not ready are waited for):
+    the H100 rooflines as a table, pimref's beside what phases serve and
+    train measured."""
+    from repro_torch.core import damov
+    tasks = PAPER_TASKS
+    done = list(done)
+    rows = []
+    for (arch, what), (r, lines, secs, _) in zip(tasks, done):
+        rows.extend(r)
+        for line in lines:
+            log("paper/damov", line)
+        log("paper/damov", f"{arch} {what}: counted in {secs:.1f} s")
+    log("paper/damov", f"{len(tasks)} tasks on {PAPER_WORKERS} worker "
+        f"processes, all done {max(d[3] for d in done) - t0:.1f} s after "
+        f"they started (at the build)")
+    order = {m: i for i, m in enumerate(("prefill", "decode", "train"))}
+    rows.sort(key=lambda r: (list(PAPER_TRAIN).index(r.arch),
+                             order[r.shape.split()[0]]))
+    print(damov.render_table(rows), flush=True)
+    by = {(r.arch, r.shape.split()[0]): r for r in rows}
+    serve, train = READINGS.get("serve/contiguous"), READINGS.get("train")
+    pre, dec, tr = (by[("pimref-100m", m)] for m in
+                    ("prefill", "decode", "train"))
+    if serve:
+        log("paper/damov", f"{smi}: pimref-100m measured by phase serve "
+            f"(contiguous, the graph run): prefill {serve['prefill_ms']:.3f} "
+            f"ms against its roofline {pre.step_time_s * 1e3:.4f} ms "
+            f"({serve['prefill_ms'] / (pre.step_time_s * 1e3):.2f}x); "
+            f"decode {serve['decode_ms']:.4f} ms a token-step, device "
+            f"{serve['decode_device_ms']:.4f}, against "
+            f"{dec.step_time_s * 1e3:.4f} ms "
+            f"({serve['decode_device_ms'] / (dec.step_time_s * 1e3):.2f}x)")
+    else:
+        log("paper/damov", "pimref-100m serving: not measured in this run "
+            "(phase serve not run)")
+    if train:
+        log("paper/damov", f"{smi}: pimref-100m measured by phase train "
+            f"({train['batch']} x {train['seq']}): step "
+            f"{train['step_ms']:.1f} ms against its roofline "
+            f"{tr.step_time_s * 1e3:.4f} ms "
+            f"({train['step_ms'] / (tr.step_time_s * 1e3):.2f}x)")
+    else:
+        log("paper/damov", "pimref-100m training: not measured in this run "
+            "(phase train not run)")
+
+
+def _paper_card_equals_meta() -> None:
+    """A pimref step (full width, PAPER_CHECK's depth and batch) counted on
+    the card and on meta: the same FLOPs, bytes, op counts and kernel
+    reports; the reports equal the launch counters' delta."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import SUBCOUNTS
+    L, B, S, G = PAPER_CHECK
+    cfg = get_config("pimref-100m").replace(num_layers=L)
+    _reset()
+    card = {**_count_serve(cfg, DEVICE, (B, S, G)),
+            **_count_train(cfg, DEVICE, (B, S))}
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in _flat_counts().items()
+                if v and k not in SUBCOUNTS}
+    meta = {**_count_serve(cfg, "meta", (B, S, G)),
+            **_count_train(cfg, "meta", (B, S))}
+    reports = {}
+    for mode in card:
+        a, b = (dataclasses.asdict(x[mode]) for x in (card, meta))
+        if a != b:
+            diff = sorted(k for k in a if a[k] != b[k])
+            raise AssertionError(f"paper/damov {mode}: card and meta counts "
+                                 f"differ in {diff}")
+        for k, v in card[mode].kernels.items():
+            reports[k] = reports.get(k, 0) + v
+    if reports != launched:
+        raise AssertionError(f"paper/damov: kernel reports {reports} != "
+                             f"launches {launched}")
+    log("paper/damov", f"pimref-100m at {L} layers, B {B} x {S} + {G}: "
+        f"prefill, decode step and train step count alike on the card and "
+        f"on meta; kernel reports {reports} == the launch counters")
+    # outside a counter a kernel entry refuses meta tensors
+    from repro_torch.kernels.flash_attention import kernel as fa
+    q = torch.zeros((1, 1, 1, 4, 64), device="meta")
+    k = torch.zeros((1, 1, 4, 64), device="meta")
+    p = torch.zeros((1, 4), dtype=torch.int32, device="meta")
+    try:
+        fa.flash_attention_fwd(q, k, k, p, p)
+    except ValueError as e:
+        log("paper/damov", f"meta outside a counter raises: {e}")
+    else:
+        raise AssertionError("paper/damov: a kernel entry took meta tensors "
+                             "outside a counter")
+
+
+@contextlib.contextmanager
+def damov_counts(phases):
+    """Phase paper's DAMOV counts (host-only work, on ``meta``) started on
+    PAPER_WORKERS worker processes: yields (the results in PAPER_TASKS'
+    order, the start time), or None without phase paper. Opened before the
+    build, so the counts run while nvcc leaves cores idle."""
+    if "paper" not in phases:
+        yield None
+        return
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    pool = ProcessPoolExecutor(max_workers=PAPER_WORKERS,
+                               mp_context=mp.get_context("spawn"))
+    try:
+        yield pool.map(_damov_task, *zip(*PAPER_TASKS)), time.perf_counter()
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def phase_paper(smi: str, seed: int, damov) -> None:
+    """DaPPA's patterns on the card against the CPU and on a one-rank NCCL
+    mesh, MIMDRAM's plans on a one-device CUDA mesh, a card == meta count,
+    and DAMOV's rows of every arch the card runs (``damov``: the counts of
+    ``damov_counts``)."""
+    t0 = time.perf_counter()
+    _paper_on_card(smi, seed)
+    t1 = time.perf_counter()
+    _paper_damov(smi, *damov)
+    log("paper", f"DaPPA, MIMDRAM and card == meta {t1 - t0:.1f} s; the "
+        f"DAMOV rows {time.perf_counter() - t1:.1f} s after")
+
+
+def _paper_on_card(smi: str, seed: int) -> None:
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh(DEVICE, (1,), mesh_dim_names=("data",))
+        t0 = time.perf_counter()
+        _paper_dappa(smi, seed, mesh)
+        t1 = time.perf_counter()
+        _paper_mimdram(mesh)
+        t2 = time.perf_counter()
+    finally:
+        dist.destroy_process_group()
+    _paper_card_equals_meta()
+    log("paper", f"dappa {t1 - t0:.1f} s, mimdram {t2 - t1:.1f} s, card == "
+        f"meta {time.perf_counter() - t2:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -5163,6 +5588,11 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     smi = phase_device()
+    with damov_counts(phases) as damov:
+        return run_phases(args, phases, smi, damov)
+
+
+def run_phases(args, phases, smi, damov) -> int:
     if "build" in phases:
         phase_build()
     rows = phase_kernels(args.seed) if "kernels" in phases else {}
@@ -5179,22 +5609,28 @@ def main() -> int:
             f"{time.perf_counter() - t0:.2f}s")
         if "serve" in phases:
             launches = phase_serve(model, smi)
-        engine_want = None
         if "engine" in phases:
-            engine_want = phase_engine(model, args.seed)
+            phase_engine(model, args.seed)
+        cut = None
+        if {"robust", "spec"} & set(phases):
+            from repro_torch.configs import get_config
+            cut = load_model("pimref-100m", smoke=False, seed=args.seed,
+                             device="cuda", cfg=get_config(
+                                 "pimref-100m").replace(
+                                     num_layers=CUT_PIMREF_LAYERS))
         if "robust" in phases:
             t0 = time.perf_counter()
-            phase_robust(model, smi, args.seed)
+            phase_robust(cut, smi, args.seed)
             log("robust", f"phase took {time.perf_counter() - t0:.1f} s")
         if "fleet" in phases:
             t0 = time.perf_counter()
             phase_fleet(model, smi, args.seed)
             log("fleet", f"phase took {time.perf_counter() - t0:.1f} s")
         if "spec" in phases:
-            launches.update(phase_spec(model, smi, args.seed, engine_want))
+            launches.update(phase_spec(cut, smi, args.seed))
         if "profile" in phases:
             phase_profile(model, smi)
-        del model
+        del model, cut
         torch.cuda.empty_cache()
     if "parity" in phases:
         launches["parity"] = phase_parity(args.seed)
@@ -5257,7 +5693,9 @@ def main() -> int:
                           "parity_encdec": _parity_family(
                               "parity_encdec", ENCDEC_ARCH, args.seed,
                               src_rows=64, layouts=ENCDEC_PARITY_LAYOUTS)}),
-                      ("xlstm", lambda: phase_xlstm(smi, args.seed))):
+                      ("xlstm", lambda: phase_xlstm(smi, args.seed)),
+                      ("paper", lambda: phase_paper(smi, args.seed, damov)
+                       or {})):
         if name in phases:
             t0 = time.perf_counter()
             launches.update(run())

@@ -88,8 +88,13 @@ class ShapeConfig:
         return dataclasses.replace(self, **kw)
 
 
-# the reference's training shape cell (the sequence of its train_4k)
+# the reference's four LM shape cells
 TRAIN_4K = ShapeConfig("train_4k", seq_len=4_096, global_batch=256, mode="train")
+PREFILL_32K = ShapeConfig("prefill_32k", seq_len=32_768, global_batch=32, mode="prefill")
+DECODE_32K = ShapeConfig("decode_32k", seq_len=32_768, global_batch=128, mode="decode")
+LONG_500K = ShapeConfig("long_500k", seq_len=524_288, global_batch=1, mode="decode")
+SHAPES: Tuple[ShapeConfig, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
 
 
 @dataclass(frozen=True)

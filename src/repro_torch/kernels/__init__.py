@@ -2,6 +2,15 @@
 version (counterpart: ``repro/kernels``)."""
 from typing import Dict, List
 
+# counters that count launches already counted under another name: the
+# fp32 prefill route's (under flash_attention_fwd), the bh adapter's calls
+# (their launches are the prefill kernel's) and the RG-LRU backward's
+# (under rglru_scan). A kernel entry reports once a launch under the other
+# name (kernels/accounting.py).
+SUBCOUNTS = {"flash_attention_fwd_fp32": "flash_attention_fwd",
+             "flash_attention_bh": "flash_attention_fwd",
+             "rglru_scan_bwd": "rglru_scan"}
+
 
 def launch_counters() -> List[Dict[str, int]]:
     """The ``LAUNCHES`` counter of every kernel module (kernel name ->

@@ -59,7 +59,15 @@ kv head, skip masked tiles (prefill) or rows (decode), and split the decode
 kv axis over blocks so the cache stream occupies every SM.
 
 Selection is by the device of the inputs: CPU tensors go to the plain
-versions in ``ref.py``; CUDA tensors launch the kernels or raise. Inputs may
+versions in ``ref.py``; CUDA tensors launch the kernels or raise; ``meta``
+tensors get empty outputs under a step counter and raise outside one
+(``kernels/accounting.py``). Under a counter every entry reports, once a
+call, the work its function defines: ``4 D`` FLOPs (``q k`` and ``p v``)
+for every (q row, kv row) pair of the shapes, masked pairs and empty cache
+slots included (the positions are data; the report is the shapes', so a
+``meta`` count equals the card's), and the bytes of every input read once
+(a paged cache: the table's ``NP * ps`` rows a slot, not the pool) and every
+output written once. Inputs may
 be strided views with a contiguous last axis (the model passes its
 ``(B, T, Hkv, D)`` cache transposed, without a copy). ``LAUNCHES`` counts
 kernel launches, one per wrapper call that launches;
@@ -74,7 +82,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import accounting, build
 from repro_torch.kernels.flash_attention.ref import (
     flash_attention_fwd_ref, flash_decode_fwd_ref, flash_decode_paged_fwd_ref,
     flash_decode_paged_quant_fwd_ref, flash_decode_quant_fwd_ref)
@@ -203,6 +211,30 @@ def _check_q(q, q_positions, kv_positions, T) -> Tuple[int, ...]:
     return B, H, G, S, D
 
 
+def _attn_flops(B, H, G, S, T, D) -> int:
+    return 4 * B * H * G * S * T * D
+
+
+def _row_bytes(B, H, T, x) -> int:
+    """Bytes of the B x H x T rows of a K/V operand (values, codes or
+    scales: the last axis is the row's, or none for scales) that a call
+    reads."""
+    per_row = x.shape[-1] if x.dim() == 4 else 1
+    return B * H * T * per_row * x.element_size()
+
+
+def _decode_work(q, k, v, k_scale, v_scale, table, q_positions,
+                 kv_positions, T) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one decode call: q, the visible rows of k and v
+    (and their scales), the positions and table read; out written."""
+    B, H, G, S, D = q.shape
+    moved = (2 * accounting.nbytes(q) + accounting.nbytes(
+        q_positions, kv_positions, table)
+             + sum(_row_bytes(B, H, T, x) for x in (k, v, k_scale, v_scale)
+                   if x is not None))
+    return _attn_flops(B, H, G, S, T, D), moved
+
+
 def _check(q, k, v, q_positions, kv_positions) -> Tuple[int, ...]:
     if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"expected q (B,Hkv,G,S,D) and k/v (B,Hkv,T,D); got "
@@ -249,7 +281,7 @@ def _check_table(table, B) -> int:
 def _check_cuda(q, D, operands=(), ints=()) -> None:
     """What the kernels take: a CUDA q of a kernel dtype and head_dim,
     operands with a contiguous last axis, contiguous int32 index arrays."""
-    if q.device.type != "cuda":
+    if not accounting.takes(q):
         raise ValueError(f"no kernel for device {q.device}")
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head_dim {D}: the CUDA kernels take "
@@ -293,15 +325,30 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse (B, Hkv, G, S) fp32). Any S and T. bf16 and fp32 each run on their
     tensor-core route."""
     B, H, G, S, T, D = _check(q, k, v, q_positions, kv_positions)
-    if q.device.type == "cpu":
-        return flash_attention_fwd_ref(q, k, v, q_positions, kv_positions,
-                                       causal=causal, window=window,
-                                       softcap=softcap)
+    moved = (accounting.nbytes(q, k, v, q_positions, kv_positions)
+             + accounting.nbytes(q) + 4 * B * H * G * S)
+    with accounting.launch("flash_attention_fwd",
+                           _attn_flops(B, H, G, S, T, D), moved):
+        if q.device.type == "cpu":
+            return flash_attention_fwd_ref(q, k, v, q_positions,
+                                           kv_positions, causal=causal,
+                                           window=window, softcap=softcap)
+        return _prefill_cuda(q, k, v, q_positions, kv_positions, causal,
+                             window, softcap)
+
+
+def _prefill_cuda(q, k, v, q_positions, kv_positions, causal, window,
+                  softcap) -> Tuple[torch.Tensor, torch.Tensor]:
+    B, H, G, S, D = q.shape
+    T = k.shape[2]
     _check_cuda(q, D, (("k", k), ("v", v)),
                 (("q_positions", q_positions), ("kv_positions", kv_positions)))
     bf16 = q.dtype == torch.bfloat16
     _check_aligned((("q", q), ("k", k), ("v", v)),
                    "bf16 prefill" if bf16 else "fp32 prefill")
+    if q.device.type == "meta":
+        return accounting.meta_outputs((((B, H, G, S, D), q.dtype),
+                                        ((B, H, G, S), torch.float32)))
     out = torch.empty((B, H, G, S, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, G, S), dtype=torch.float32, device=q.device)
     lib = _prefill_lib()
@@ -383,6 +430,8 @@ def _launch_decode(name: str, q, k, v, k_scale, v_scale, table, q_positions,
         ints.append(("table", table))
     _check_cuda(q, D, (("k", k), ("v", v)), ints)
     _check_aligned((("k", k), ("v", v)), "decode")
+    if q.device.type == "meta":
+        return accounting.meta_outputs(((tuple(q.shape), q.dtype),))[0]
     lib = _decode_lib()
     plan = decode_plan(B, H, G * S, T)
     R = G * S
@@ -422,11 +471,14 @@ def flash_decode_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     returns out (B, Hkv, G, S, D) in q's dtype. Any G * S and T."""
     B, H, G, S, T, D = _check(q, k, v, q_positions, kv_positions)
     kw = dict(causal=causal, window=window, softcap=softcap)
-    if q.device.type == "cpu":
-        return flash_decode_fwd_ref(q, k, v, q_positions, kv_positions, **kw)
-    return _launch_decode("flash_decode_fwd", q, k, v, None, None, None,
-                          q_positions, kv_positions, T=T, code_bits=0,
-                          page_size=0, **kw)
+    with accounting.launch("flash_decode_fwd", *_decode_work(
+            q, k, v, None, None, None, q_positions, kv_positions, T)):
+        if q.device.type == "cpu":
+            return flash_decode_fwd_ref(q, k, v, q_positions, kv_positions,
+                                        **kw)
+        return _launch_decode("flash_decode_fwd", q, k, v, None, None, None,
+                              q_positions, kv_positions, T=T, code_bits=0,
+                              page_size=0, **kw)
 
 
 def flash_decode_quant_fwd(q: torch.Tensor, k_codes: torch.Tensor,
@@ -447,13 +499,17 @@ def flash_decode_quant_fwd(q: torch.Tensor, k_codes: torch.Tensor,
     _same_device(q, k_codes, k_scale, v_codes, v_scale, q_positions,
                  kv_positions)
     kw = dict(causal=causal, window=window, softcap=softcap)
-    if q.device.type == "cpu":
-        return flash_decode_quant_fwd_ref(q, k_codes, k_scale, v_codes,
-                                          v_scale, q_positions, kv_positions,
-                                          **kw)
-    return _launch_decode("flash_decode_quant_fwd", q, k_codes, v_codes,
-                          k_scale, v_scale, None, q_positions, kv_positions,
-                          T=T, code_bits=bits, page_size=0, **kw)
+    with accounting.launch("flash_decode_quant_fwd", *_decode_work(
+            q, k_codes, v_codes, k_scale, v_scale, None, q_positions,
+            kv_positions, T)):
+        if q.device.type == "cpu":
+            return flash_decode_quant_fwd_ref(q, k_codes, k_scale, v_codes,
+                                              v_scale, q_positions,
+                                              kv_positions, **kw)
+        return _launch_decode("flash_decode_quant_fwd", q, k_codes, v_codes,
+                              k_scale, v_scale, None, q_positions,
+                              kv_positions, T=T, code_bits=bits, page_size=0,
+                              **kw)
 
 
 def flash_decode_paged_fwd(q: torch.Tensor, k_pages: torch.Tensor,
@@ -478,12 +534,16 @@ def flash_decode_paged_fwd(q: torch.Tensor, k_pages: torch.Tensor,
                         f"{v_pages.dtype}")
     _same_device(q, k_pages, v_pages, table, q_positions, kv_positions)
     kw = dict(causal=causal, window=window, softcap=softcap)
-    if q.device.type == "cpu":
-        return flash_decode_paged_fwd_ref(q, k_pages, v_pages, table,
-                                          q_positions, kv_positions, **kw)
-    return _launch_decode("flash_decode_paged_fwd", q, k_pages, v_pages, None,
-                          None, table, q_positions, kv_positions, T=NP * ps,
-                          code_bits=0, page_size=ps, **kw)
+    with accounting.launch("flash_decode_paged_fwd", *_decode_work(
+            q, k_pages, v_pages, None, None, table, q_positions,
+            kv_positions, NP * ps)):
+        if q.device.type == "cpu":
+            return flash_decode_paged_fwd_ref(q, k_pages, v_pages, table,
+                                              q_positions, kv_positions,
+                                              **kw)
+        return _launch_decode("flash_decode_paged_fwd", q, k_pages, v_pages,
+                              None, None, table, q_positions, kv_positions,
+                              T=NP * ps, code_bits=0, page_size=ps, **kw)
 
 
 def flash_decode_paged_quant_fwd(q: torch.Tensor, k_codes: torch.Tensor,
@@ -509,13 +569,17 @@ def flash_decode_paged_quant_fwd(q: torch.Tensor, k_codes: torch.Tensor,
     _same_device(q, k_codes, k_scale, v_codes, v_scale, table, q_positions,
                  kv_positions)
     kw = dict(causal=causal, window=window, softcap=softcap)
-    if q.device.type == "cpu":
-        return flash_decode_paged_quant_fwd_ref(
-            q, k_codes, k_scale, v_codes, v_scale, table, q_positions,
-            kv_positions, **kw)
-    return _launch_decode("flash_decode_paged_quant_fwd", q, k_codes, v_codes,
-                          k_scale, v_scale, table, q_positions, kv_positions,
-                          T=NP * ps, code_bits=bits, page_size=ps, **kw)
+    with accounting.launch("flash_decode_paged_quant_fwd", *_decode_work(
+            q, k_codes, v_codes, k_scale, v_scale, table, q_positions,
+            kv_positions, NP * ps)):
+        if q.device.type == "cpu":
+            return flash_decode_paged_quant_fwd_ref(
+                q, k_codes, k_scale, v_codes, v_scale, table, q_positions,
+                kv_positions, **kw)
+        return _launch_decode("flash_decode_paged_quant_fwd", q, k_codes,
+                              v_codes, k_scale, v_scale, table, q_positions,
+                              kv_positions, T=NP * ps, code_bits=bits,
+                              page_size=ps, **kw)
 
 
 def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -536,6 +600,6 @@ def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_pos = torch.arange(T, dtype=torch.int32, device=q.device).repeat(BH, 1)
     out, _ = flash_attention_fwd(q[:, None, None], k[:, None], v[:, None],
                                  q_pos, kv_pos, causal=causal, window=window)
-    if q.device.type != "cpu":
+    if q.device.type == "cuda":
         LAUNCHES["flash_attention_bh"] += 1
     return out[:, 0, 0]

@@ -30,7 +30,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import accounting, build
 
 LAUNCHES: Dict[str, int] = {"required_bits": 0, "pack_int4": 0,
                             "unpack_int4": 0}
@@ -86,7 +86,7 @@ def check_unpack(p: torch.Tensor) -> None:
 
 
 def _check_cuda(name: str, t: torch.Tensor, dtype) -> None:
-    if t.device.type != "cuda":
+    if not accounting.takes(t):
         raise ValueError(f"{name} on {t.device}: the CUDA kernel takes "
                          "tensors on the card")
     if t.dtype != dtype:
@@ -108,11 +108,14 @@ def required_bits_kernel(x: torch.Tensor, block: int = 256) -> torch.Tensor:
     card."""
     nb = check_required_bits(x, block)
     _check_cuda("x", x, torch.int32)
-    out = torch.empty(nb, dtype=torch.int32, device=x.device)
-    lib = _lib()
-    err = lib.repro_required_bits(x.data_ptr(), out.data_ptr(), nb, block,
-                                  int(block % 4 == 0) & _aligned(x),
-                                  _stream(x))
+    with accounting.launch("required_bits", 0, accounting.nbytes(x) + 4 * nb):
+        out = torch.empty(nb, dtype=torch.int32, device=x.device)
+        if x.device.type == "meta":
+            return out
+        lib = _lib()
+        err = lib.repro_required_bits(x.data_ptr(), out.data_ptr(), nb, block,
+                                      int(block % 4 == 0) & _aligned(x),
+                                      _stream(x))
     build.check(lib, err, "required_bits")
     LAUNCHES["required_bits"] += 1
     return out
@@ -122,10 +125,13 @@ def pack_int4_kernel(v: torch.Tensor) -> torch.Tensor:
     """Packed bytes (N // 2,) int8 of codes v (N,) int8 on the card."""
     check_pack(v)
     _check_cuda("v", v, torch.int8)
-    p = torch.empty(v.shape[0] // 2, dtype=torch.int8, device=v.device)
-    lib = _lib()
-    err = lib.repro_pack_int4(v.data_ptr(), p.data_ptr(), v.shape[0],
-                              _aligned(v, p), _stream(v))
+    with accounting.launch("pack_int4", 0, 3 * v.shape[0] // 2):
+        p = torch.empty(v.shape[0] // 2, dtype=torch.int8, device=v.device)
+        if v.device.type == "meta":
+            return p
+        lib = _lib()
+        err = lib.repro_pack_int4(v.data_ptr(), p.data_ptr(), v.shape[0],
+                                  _aligned(v, p), _stream(v))
     build.check(lib, err, "pack_int4")
     LAUNCHES["pack_int4"] += 1
     return p
@@ -136,10 +142,13 @@ def unpack_int4_kernel(p: torch.Tensor) -> torch.Tensor:
     card."""
     check_unpack(p)
     _check_cuda("p", p, torch.int8)
-    v = torch.empty(2 * p.shape[0], dtype=torch.int8, device=p.device)
-    lib = _lib()
-    err = lib.repro_unpack_int4(p.data_ptr(), v.data_ptr(), p.shape[0],
-                                _aligned(p, v), _stream(p))
+    with accounting.launch("unpack_int4", 0, 3 * p.shape[0]):
+        v = torch.empty(2 * p.shape[0], dtype=torch.int8, device=p.device)
+        if p.device.type == "meta":
+            return v
+        lib = _lib()
+        err = lib.repro_unpack_int4(p.data_ptr(), v.data_ptr(), p.shape[0],
+                                    _aligned(p, v), _stream(p))
     build.check(lib, err, "unpack_int4")
     LAUNCHES["unpack_int4"] += 1
     return v

@@ -36,7 +36,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import accounting, build
 
 LAUNCHES: Dict[str, int] = {"quant_matmul": 0}
 X_DTYPES = (torch.float32, torch.bfloat16)
@@ -162,6 +162,14 @@ def check_quant_matmul(x: torch.Tensor, codes: torch.Tensor,
     return bk
 
 
+def work(x: torch.Tensor, codes: torch.Tensor,
+         scales: torch.Tensor) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one call: ``2 M N K``; x, codes and scales read,
+    the (M, N) fp32 product written."""
+    (M, K), N = x.shape, codes.shape[1]
+    return 2 * M * N * K, accounting.nbytes(x, codes, scales) + 4 * M * N
+
+
 def quant_matmul_kernel(x: torch.Tensor, codes: torch.Tensor,
                         scales: torch.Tensor, *, block_m: int = 128,
                         block_n: int = 128,
@@ -172,7 +180,7 @@ def quant_matmul_kernel(x: torch.Tensor, codes: torch.Tensor,
                             block_n=block_n, block_k=block_k)
     for name, t, dtypes in (("x", x, X_DTYPES), ("codes", codes, (torch.int8,)),
                             ("scales", scales, (torch.float32,))):
-        if t.device.type != "cuda":
+        if not accounting.takes(t):
             raise ValueError(f"{name} on {t.device}: the CUDA kernel takes "
                              "tensors on the card")
         if t.dtype not in dtypes:
@@ -183,6 +191,14 @@ def quant_matmul_kernel(x: torch.Tensor, codes: torch.Tensor,
     if len({x.device, codes.device, scales.device}) != 1:
         raise ValueError(f"x on {x.device}, codes on {codes.device}, scales "
                          f"on {scales.device}")
+    with accounting.launch("quant_matmul", *work(x, codes, scales)):
+        if x.device.type == "meta":
+            return accounting.meta_outputs(
+                (((x.shape[0], codes.shape[1]), torch.float32),))[0]
+        return _launch(x, codes, scales, bk)
+
+
+def _launch(x, codes, scales, bk) -> torch.Tensor:
     (M, K), N = x.shape, codes.shape[1]
     p = plan(M, N, K, bk, x.dtype)
     dev = x.device

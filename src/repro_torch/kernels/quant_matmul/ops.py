@@ -1,6 +1,9 @@
 """The Proteus quantized matmul by device (counterpart:
 ``repro/kernels/quant_matmul/ops.py``): the CUDA kernel for tensors on the
-card, its plain version for tensors on the CPU. There is no other switch.
+card, its plain version for tensors on the CPU (reported to a step counter
+as the kernel's launch, ``kernels/accounting.py``; the kernel wrapper
+reports on the card, and answers ``meta`` tensors under a counter). There
+is no other switch.
 ``quantize_weights`` is plain PyTorch on either device, as it is jnp in the
 reference."""
 from __future__ import annotations
@@ -9,8 +12,9 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import accounting
 from repro_torch.kernels.quant_matmul.kernel import (check_quant_matmul,
-                                                     quant_matmul_kernel)
+                                                     quant_matmul_kernel, work)
 from repro_torch.kernels.quant_matmul.ref import (quant_matmul_ref,
                                                   quantize_weights_ref)
 
@@ -30,5 +34,6 @@ def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
     kw = dict(block_m=block_m, block_n=block_n, block_k=block_k)
     if x.device.type == "cpu":
         check_quant_matmul(x, codes, scales, **kw)
-        return quant_matmul_ref(x, codes, scales)
+        with accounting.launch("quant_matmul", *work(x, codes, scales)):
+            return quant_matmul_ref(x, codes, scales)
     return quant_matmul_kernel(x, codes, scales, **kw)

@@ -27,7 +27,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import accounting, build
 
 LAUNCHES: Dict[str, int] = {"rglru_scan": 0, "rglru_scan_bwd": 0}
 
@@ -91,6 +91,12 @@ def layout() -> Tuple[int, int, int, int]:
     return tuple(out)
 
 
+def work(a: torch.Tensor, b: torch.Tensor) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one call: a multiply and an add an element; a and
+    b read, h written."""
+    return 2 * a.numel(), 3 * accounting.nbytes(a)
+
+
 def rglru_scan_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h (B, T, D) fp32 of the recurrence over a, b (B, T, D) fp32 on the
     card."""
@@ -98,7 +104,7 @@ def rglru_scan_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"expected a and b (B, T, D) of one shape; got "
                          f"{tuple(a.shape)}, {tuple(b.shape)}")
     for name, t in (("a", a), ("b", b)):
-        if t.device.type != "cuda":
+        if not accounting.takes(t):
             raise ValueError(f"{name} on {t.device}: the CUDA kernel takes "
                              "tensors on the card")
         if t.dtype != torch.float32:
@@ -109,13 +115,16 @@ def rglru_scan_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device != b.device:
         raise ValueError(f"a on {a.device}, b on {b.device}")
     B, T, D = a.shape
-    h = torch.empty_like(b)
-    p = plan(B, T, D,
-             aligned=(a.data_ptr() | b.data_ptr() | h.data_ptr()) % 16 == 0)
-    lib = _lib()
-    err = lib.repro_rglru_scan(a.data_ptr(), b.data_ptr(), h.data_ptr(),
-                               B, T, D, p.vec,
-                               torch.cuda.current_stream(a.device).cuda_stream)
+    with accounting.launch("rglru_scan", *work(a, b)):
+        if a.device.type == "meta":
+            return accounting.meta_outputs(((tuple(b.shape), b.dtype),))[0]
+        h = torch.empty_like(b)
+        p = plan(B, T, D, aligned=(a.data_ptr() | b.data_ptr()
+                                   | h.data_ptr()) % 16 == 0)
+        lib = _lib()
+        err = lib.repro_rglru_scan(
+            a.data_ptr(), b.data_ptr(), h.data_ptr(), B, T, D, p.vec,
+            torch.cuda.current_stream(a.device).cuda_stream)
     build.check(lib, err, "rglru_scan")
     LAUNCHES["rglru_scan"] += 1
     return h

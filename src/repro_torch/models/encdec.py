@@ -53,7 +53,8 @@ from repro_torch.models.layers import (aligned_cache_len, chunked_attention,
 from repro_torch.models.model import (Block, ServingLM, _add_params, _Group,
                                       attn_out, layer_trees, qkv, remat_call)
 from repro_torch.models.module import (ParamSpec, attn_param_specs,
-                                       block_specs, mlp_param_specs,
+                                       block_specs, embed_spec, head_spec,
+                                       mlp_param_specs, norm_spec,
                                        torch_dtype)
 
 Cache = Dict[str, Any]
@@ -61,7 +62,7 @@ Cache = Dict[str, Any]
 
 def dec_layer_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     dtype = torch_dtype(cfg.param_dtype)
-    norm = ParamSpec((cfg.d_model,), torch.float32, ("ones",))
+    norm = norm_spec(cfg)
     specs = {"ln1": norm}
     specs.update({f"self_attn.{k}": s
                   for k, s in attn_param_specs(cfg, dtype).items()})
@@ -78,8 +79,8 @@ def encdec_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     """Flat ``name -> ParamSpec`` of ``EncDecLM(cfg)``, in the reference's
     order."""
     dtype = torch_dtype(cfg.param_dtype)
-    norm = ParamSpec((cfg.d_model,), torch.float32, ("ones",))
-    specs = {"embed": ParamSpec((cfg.vocab_size, cfg.d_model), dtype)}
+    norm = norm_spec(cfg)
+    specs = {"embed": embed_spec(cfg, dtype)}
     for i in range(cfg.num_encoder_layers):
         specs.update({f"enc_blocks.{i}.{k}": s
                       for k, s in block_specs(cfg).items()})
@@ -88,7 +89,7 @@ def encdec_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
         specs.update({f"dec_blocks.{i}.{k}": s
                       for k, s in dec_layer_specs(cfg).items()})
     specs["final_norm"] = norm
-    specs["head"] = ParamSpec((cfg.d_model, cfg.vocab_size), dtype)
+    specs["head"] = head_spec(cfg, dtype)
     return specs
 
 

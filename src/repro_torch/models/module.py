@@ -27,11 +27,12 @@ is the layer axis; weights for parity tests come through ``bridge.py``.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.tree import tree_map
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -41,29 +42,48 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 class ParamSpec(NamedTuple):
+    """One parameter: its per-layer shape and dtype, the reference's
+    logical axis name of each dim (``None``: never sharded; the MIMDRAM
+    planner maps names to mesh axes, ``core/mimdram.py``) and its init
+    recipe."""
     shape: Tuple[int, ...]
     dtype: torch.dtype
+    logical_axes: Tuple[Optional[str], ...]
     init: Tuple = ("normal",)      # ("normal"[, fan_in_axis]) | ("ones",) |
     #                                ("zeros",) | ("rglru_lambda",)
+
+
+def norm_spec(cfg: ModelConfig) -> ParamSpec:
+    """An RMSNorm scale: (d_model,) fp32 ones, never sharded."""
+    return ParamSpec((cfg.d_model,), torch.float32, (None,), ("ones",))
+
+
+def embed_spec(cfg: ModelConfig, dtype) -> ParamSpec:
+    return ParamSpec((cfg.vocab_size, cfg.d_model), dtype, ("vocab", "embed"))
+
+
+def head_spec(cfg: ModelConfig, dtype) -> ParamSpec:
+    return ParamSpec((cfg.d_model, cfg.vocab_size), dtype, ("embed", "vocab"))
 
 
 def attn_param_specs(cfg: ModelConfig, dtype) -> Dict[str, ParamSpec]:
     d, hq, hkv, dh = (cfg.d_model, cfg.tp_pad_heads or cfg.num_heads,
                       cfg.num_kv_heads, cfg.resolved_head_dim)
     return {
-        "w_q": ParamSpec((d, hq, dh), dtype),
-        "w_k": ParamSpec((d, hkv, dh), dtype),
-        "w_v": ParamSpec((d, hkv, dh), dtype),
-        "w_o": ParamSpec((hq, dh, d), dtype, ("normal", 0)),
+        "w_q": ParamSpec((d, hq, dh), dtype, ("embed", "heads", "head_dim")),
+        "w_k": ParamSpec((d, hkv, dh), dtype, ("embed", "kv", "head_dim")),
+        "w_v": ParamSpec((d, hkv, dh), dtype, ("embed", "kv", "head_dim")),
+        "w_o": ParamSpec((hq, dh, d), dtype, ("heads", "head_dim", "embed"),
+                         ("normal", 0)),
     }
 
 
 def mlp_param_specs(cfg: ModelConfig, dtype) -> Dict[str, ParamSpec]:
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "wi_gate": ParamSpec((d, f), dtype),
-        "wi_up": ParamSpec((d, f), dtype),
-        "wo": ParamSpec((f, d), dtype),
+        "wi_gate": ParamSpec((d, f), dtype, ("embed", "mlp")),
+        "wi_up": ParamSpec((d, f), dtype, ("embed", "mlp")),
+        "wo": ParamSpec((f, d), dtype, ("mlp", "embed")),
     }
 
 
@@ -73,19 +93,19 @@ def moe_param_specs(cfg: ModelConfig, dtype) -> Dict[str, ParamSpec]:
     weights."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
     return {
-        "router": ParamSpec((d, e), dtype),
-        "wi_gate": ParamSpec((e, d, f), dtype, ("normal", 1)),
-        "wi_up": ParamSpec((e, d, f), dtype, ("normal", 1)),
-        "wo": ParamSpec((e, f, d), dtype, ("normal", 1)),
+        "router": ParamSpec((d, e), dtype, ("embed", "expert")),
+        "wi_gate": ParamSpec((e, d, f), dtype, ("expert", "embed", "mlp"),
+                             ("normal", 1)),
+        "wi_up": ParamSpec((e, d, f), dtype, ("expert", "embed", "mlp"),
+                           ("normal", 1)),
+        "wo": ParamSpec((e, f, d), dtype, ("expert", "mlp", "embed"),
+                        ("normal", 1)),
     }
 
 
 def block_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     dtype = torch_dtype(cfg.param_dtype)
-    specs = {
-        "ln1": ParamSpec((cfg.d_model,), torch.float32, ("ones",)),
-        "ln2": ParamSpec((cfg.d_model,), torch.float32, ("ones",)),
-    }
+    specs = {"ln1": norm_spec(cfg), "ln2": norm_spec(cfg)}
     specs.update({f"attn.{k}": s for k, s in attn_param_specs(cfg, dtype).items()})
     if cfg.num_experts > 0:
         specs.update({f"moe.{k}": s
@@ -112,12 +132,11 @@ def param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"unknown model family {cfg.family!r}")
     dtype = torch_dtype(cfg.param_dtype)
-    specs = {"embed": ParamSpec((cfg.vocab_size, cfg.d_model), dtype),
-             "final_norm": ParamSpec((cfg.d_model,), torch.float32, ("ones",))}
+    specs = {"embed": embed_spec(cfg, dtype), "final_norm": norm_spec(cfg)}
     for i in range(cfg.num_layers):
         specs.update({f"blocks.{i}.{k}": s for k, s in block_specs(cfg).items()})
     if not cfg.tie_embeddings:
-        specs["head"] = ParamSpec((cfg.d_model, cfg.vocab_size), dtype)
+        specs["head"] = head_spec(cfg, dtype)
     return specs
 
 
@@ -149,6 +168,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     ``generator`` and placed on ``device``."""
     return {name: init_tensor(s, generator).to(device)
             for name, s in param_specs(cfg).items()}
+
+
+def param_pspecs(specs: Any, plan) -> Any:
+    """``specs`` (a dict or tree of :class:`ParamSpec`) with each leaf
+    replaced by its sharding under ``plan`` (a ``core.mimdram.Plan``):
+    ``plan.spec(*logical_axes, dims=shape)``, per dim ``None``, a mesh axis
+    name or a tuple of them (counterpart: the reference's
+    ``module.param_pspecs``). The port's specs are per layer; a stacked
+    leaf of the reference has the same spec after a leading ``None``."""
+    return tree_map(lambda s: plan.spec(*s.logical_axes, dims=s.shape),
+                    specs, is_leaf=lambda x: isinstance(x, ParamSpec))
 
 
 def count_params(cfg: ModelConfig) -> int:

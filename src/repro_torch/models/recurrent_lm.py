@@ -64,8 +64,9 @@ from repro_torch.models.layers import (aligned_cache_len, chunked_attention,
                                        softmax_xent)
 from repro_torch.models.model import (Block, ServingLM, _add_params, _Group,
                                       attn_out, layer_trees, qkv, remat_call)
-from repro_torch.models.module import (ParamSpec, block_specs,
-                                       mlp_param_specs, torch_dtype)
+from repro_torch.models.module import (ParamSpec, block_specs, embed_spec,
+                                       mlp_param_specs, norm_spec,
+                                       torch_dtype)
 from repro_torch.models.rglru import (init_rglru_state, recurrent_block,
                                       rglru_param_specs)
 from repro_torch.models.xlstm import (init_mlstm_state, init_slstm_state,
@@ -78,7 +79,7 @@ Cache = Dict[str, Any]
 
 def rec_layer_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     dtype = torch_dtype(cfg.param_dtype)
-    norm = ParamSpec((cfg.d_model,), torch.float32, ("ones",))
+    norm = norm_spec(cfg)
     specs = {"ln1": norm}
     specs.update({f"rec.{k}": s
                   for k, s in rglru_param_specs(cfg, dtype).items()})
@@ -92,7 +93,7 @@ def griffin_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     """Flat ``name -> ParamSpec`` of ``GriffinLM(cfg)``, in a fixed order."""
     dtype = torch_dtype(cfg.param_dtype)
     n_groups = cfg.num_layers // 3
-    specs = {"embed": ParamSpec((cfg.vocab_size, cfg.d_model), dtype)}
+    specs = {"embed": embed_spec(cfg, dtype)}
     layer = {"rec1": rec_layer_specs(cfg), "rec2": rec_layer_specs(cfg),
              "attn": block_specs(cfg)}
     for g in range(n_groups):
@@ -101,7 +102,7 @@ def griffin_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     for i in range(cfg.num_layers - 3 * n_groups):
         specs.update({f"tail.{i}.{k}": s
                       for k, s in rec_layer_specs(cfg).items()})
-    specs["final_norm"] = ParamSpec((cfg.d_model,), torch.float32, ("ones",))
+    specs["final_norm"] = norm_spec(cfg)
     return specs
 
 
@@ -380,8 +381,8 @@ def is_slstm(cfg: ModelConfig, i: int) -> bool:
 def xlstm_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     """Flat ``name -> ParamSpec`` of ``XLSTMLM(cfg)``, in a fixed order."""
     dtype = torch_dtype(cfg.param_dtype)
-    norm = ParamSpec((cfg.d_model,), torch.float32, ("ones",))
-    specs = {"embed": ParamSpec((cfg.vocab_size, cfg.d_model), dtype)}
+    norm = norm_spec(cfg)
+    specs = {"embed": embed_spec(cfg, dtype)}
     for i in range(cfg.num_layers):
         kind, sub = (("slstm", slstm_param_specs(cfg, dtype))
                      if is_slstm(cfg, i)
@@ -399,8 +400,7 @@ class XBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, slstm: bool, device):
         super().__init__()
         dtype = torch_dtype(cfg.param_dtype)
-        _add_params(self, {"ln": ParamSpec((cfg.d_model,), torch.float32)},
-                    device)
+        _add_params(self, {"ln": norm_spec(cfg)}, device)
         self.kind = "slstm" if slstm else "mlstm"
         specs = (slstm_param_specs if slstm else mlstm_param_specs)(cfg, dtype)
         setattr(self, self.kind, _Group(specs, device))

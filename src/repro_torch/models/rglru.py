@@ -30,14 +30,14 @@ def rglru_param_specs(cfg: ModelConfig, dtype) -> Dict[str, ParamSpec]:
     d, w = cfg.d_model, cfg.conv_width
     return {
         # gated two-branch temporal block (Griffin recurrent block)
-        "w_gate": ParamSpec((d, d), dtype),
-        "w_x": ParamSpec((d, d), dtype),
-        "conv_w": ParamSpec((w, d), dtype),
-        "conv_b": ParamSpec((d,), dtype, ("zeros",)),
-        "lam": ParamSpec((d,), torch.float32, ("rglru_lambda",)),
-        "w_input_gate": ParamSpec((d, d), dtype),
-        "w_rec_gate": ParamSpec((d, d), dtype),
-        "w_out": ParamSpec((d, d), dtype),
+        "w_gate": ParamSpec((d, d), dtype, ("embed", "mlp")),
+        "w_x": ParamSpec((d, d), dtype, ("embed", "mlp")),
+        "conv_w": ParamSpec((w, d), dtype, ("conv", "mlp")),
+        "conv_b": ParamSpec((d,), dtype, ("mlp",), ("zeros",)),
+        "lam": ParamSpec((d,), torch.float32, ("mlp",), ("rglru_lambda",)),
+        "w_input_gate": ParamSpec((d, d), dtype, ("embed", "mlp")),
+        "w_rec_gate": ParamSpec((d, d), dtype, ("embed", "mlp")),
+        "w_out": ParamSpec((d, d), dtype, ("mlp", "embed")),
     }
 
 

@@ -44,16 +44,16 @@ def mlstm_param_specs(cfg: ModelConfig, dtype) -> Dict[str, ParamSpec]:
     d, h = cfg.d_model, cfg.num_heads
     dh = d // h
     return {
-        "w_q": ParamSpec((d, h, dh), dtype),
-        "w_k": ParamSpec((d, h, dh), dtype),
-        "w_v": ParamSpec((d, h, dh), dtype),
-        "w_i": ParamSpec((d, h), dtype),
-        "w_f": ParamSpec((d, h), dtype),
-        "b_i": ParamSpec((h,), torch.float32, ("zeros",)),
-        "b_f": ParamSpec((h,), torch.float32, ("ones",)),
-        "w_gate": ParamSpec((d, d), dtype),
-        "w_out": ParamSpec((d, d), dtype),
-        "norm": ParamSpec((d,), torch.float32, ("ones",)),
+        "w_q": ParamSpec((d, h, dh), dtype, ("embed", "heads", "head_dim")),
+        "w_k": ParamSpec((d, h, dh), dtype, ("embed", "heads", "head_dim")),
+        "w_v": ParamSpec((d, h, dh), dtype, ("embed", "heads", "head_dim")),
+        "w_i": ParamSpec((d, h), dtype, ("embed", "heads")),
+        "w_f": ParamSpec((d, h), dtype, ("embed", "heads")),
+        "b_i": ParamSpec((h,), torch.float32, ("heads",), ("zeros",)),
+        "b_f": ParamSpec((h,), torch.float32, ("heads",), ("ones",)),
+        "w_gate": ParamSpec((d, d), dtype, ("embed", "mlp")),
+        "w_out": ParamSpec((d, d), dtype, ("mlp", "embed")),
+        "norm": ParamSpec((d,), torch.float32, (None,), ("ones",)),
     }
 
 
@@ -176,16 +176,16 @@ def mlstm_step(cfg: ModelConfig, p, x: torch.Tensor,
 def slstm_param_specs(cfg: ModelConfig, dtype) -> Dict[str, ParamSpec]:
     d = cfg.d_model
     return {
-        "w_z": ParamSpec((d, d), dtype),
-        "w_i": ParamSpec((d, d), dtype),
-        "w_f": ParamSpec((d, d), dtype),
-        "w_o": ParamSpec((d, d), dtype),
-        "r_z": ParamSpec((d,), torch.float32, ("zeros",)),
-        "r_i": ParamSpec((d,), torch.float32, ("zeros",)),
-        "r_f": ParamSpec((d,), torch.float32, ("zeros",)),
-        "r_o": ParamSpec((d,), torch.float32, ("zeros",)),
-        "w_out": ParamSpec((d, d), dtype),
-        "norm": ParamSpec((d,), torch.float32, ("ones",)),
+        "w_z": ParamSpec((d, d), dtype, ("embed", "mlp")),
+        "w_i": ParamSpec((d, d), dtype, ("embed", "mlp")),
+        "w_f": ParamSpec((d, d), dtype, ("embed", "mlp")),
+        "w_o": ParamSpec((d, d), dtype, ("embed", "mlp")),
+        "r_z": ParamSpec((d,), torch.float32, ("mlp",), ("zeros",)),
+        "r_i": ParamSpec((d,), torch.float32, ("mlp",), ("zeros",)),
+        "r_f": ParamSpec((d,), torch.float32, ("mlp",), ("zeros",)),
+        "r_o": ParamSpec((d,), torch.float32, ("mlp",), ("zeros",)),
+        "w_out": ParamSpec((d, d), dtype, ("mlp", "embed")),
+        "norm": ParamSpec((d,), torch.float32, (None,), ("ones",)),
     }
 
 

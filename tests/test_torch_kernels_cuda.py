@@ -1072,3 +1072,65 @@ def test_decode_kernels_noncausal(cuda, dtype, G, D, T, ps):
         gq = tuple(gather(x, table) for x in pq)
         assert torch.equal(o, tk.flash_decode_quant_fwd(q, *gq, qp, kp,
                                                         **kw))
+
+
+@pytest.mark.cuda
+def test_step_counts_card_equal_meta(cuda):
+    """DAMOV's step counter (core/damov.py) over a pimref prefill, decode
+    step and AdamW train step at full width and 2 layers: the card's counts
+    (FLOPs, bytes, op counts, kernel reports) equal the meta device's, and
+    the kernel reports equal the launch counters' delta (less the counters
+    that count launches already counted under another name)."""
+    import dataclasses
+
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config
+    from repro_torch.core.damov import count_step
+    from repro_torch.kernels import SUBCOUNTS, launch_counters
+    from repro_torch.launch.specs import input_specs
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model, param_specs, reference_tree
+    from repro_torch.models.model import model_class, training_model
+    from repro_torch.optim import make_optimizer
+
+    cfg = get_config("pimref-100m").replace(num_layers=2)
+    B, S, G = 2, 64, 8
+
+    def batch(mode, dev):
+        return {k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+                for k, s in input_specs(cfg, ShapeConfig(
+                    "s", S, B, mode)).items()}
+
+    def counts(dev):
+        m = build_model(cfg, dev)
+        toks = batch("prefill", dev)["tokens"]
+        (_, cache), pre = count_step(m.prefill, toks, S + G)
+        _, dec = count_step(m.decode_step, cache, toks[:, :1])
+        params = reference_tree(
+            {n: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+             for n, s in param_specs(cfg).items()}, model_class(cfg).LISTS)
+        opt = make_optimizer(cfg.optimizer, RunConfig())
+        step = make_train_step(training_model(cfg), opt, RunConfig())
+        _, tr = count_step(step, params, opt.init(params), batch("train", dev))
+        return pre, dec, tr
+
+    before = {k: v for c in launch_counters() for k, v in c.items()}
+    card = counts("cuda")
+    torch.cuda.synchronize()
+    after = {k: v for c in launch_counters() for k, v in c.items()}
+    meta = counts("meta")
+    for c, m in zip(card, meta):
+        assert dataclasses.asdict(c) == dataclasses.asdict(m)
+    reports = {}
+    for c in card:
+        for k, v in c.kernels.items():
+            reports[k] = reports.get(k, 0) + v
+    delta = {k: after[k] - before[k] for k in after
+             if after[k] != before[k] and k not in SUBCOUNTS}
+    assert reports == delta == {"flash_attention_fwd": 2 + 4,
+                                "flash_decode_fwd": 2}
+    # outside a counter a kernel entry refuses meta tensors
+    q = torch.zeros((1, 1, 1, 4, 64), device="meta")
+    k = torch.zeros((1, 1, 4, 64), device="meta")
+    p = torch.zeros((1, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tk.flash_attention_fwd(q, k, k, p, p)

@@ -12,7 +12,7 @@ torch.set_num_threads(2)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from repro.configs import ShapeConfig, get_config  # noqa: E402
+from repro.configs import SHAPES, ShapeConfig, get_config  # noqa: E402
 from repro.configs.base import param_count  # noqa: E402
 from repro.core.mimdram import plan_sharding, use_plan  # noqa: E402
 from repro.models import build_model, init_params  # noqa: E402
@@ -101,6 +101,31 @@ def test_config_copy_matches_reference(arch, smoke):
     shape = dict(name="s", seq_len=8, global_batch=2, mode="decode")
     assert dataclasses.asdict(tconfigs.ShapeConfig(**shape)) == \
         dataclasses.asdict(ShapeConfig(**shape))
+    # the four shape cells, and every leaf's logical axes (the reference's
+    # stacked leaves after their leading "layers")
+    assert [dataclasses.asdict(s) for s in tconfigs.SHAPES] == \
+        [dataclasses.asdict(s) for s in SHAPES]
+    assert {n: s.logical_axes for n, s in param_specs(t).items()} == \
+        _flat_axes(j, jspecs)
+
+
+def _flat_axes(cfg, jspecs):
+    """The reference's logical axes by the port's flat parameter names: a
+    stacked leaf's (``blocks``, ``groups``, ``enc_blocks``, ``dec_blocks``
+    holding dicts) per layer, without the leading ``layers``."""
+    flat = {}
+    for path, s in jax.tree_util.tree_flatten_with_path(
+            jspecs, is_leaf=lambda x: hasattr(x, "logical_axes"))[0]:
+        keys = [getattr(p, "key", getattr(p, "idx", None)) for p in path]
+        if keys[0] in ("blocks", "groups", "enc_blocks", "dec_blocks") and \
+                isinstance(path[1], jax.tree_util.DictKey):
+            assert s.logical_axes[0] == "layers", keys
+            for i in range(s.shape[0]):
+                flat[".".join(map(str, [keys[0], i] + keys[1:]))] = \
+                    s.logical_axes[1:]
+        else:
+            flat[".".join(map(str, keys))] = s.logical_axes
+    return flat
 
 
 def test_run_config_copy_matches_reference():

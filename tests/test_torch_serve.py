@@ -256,8 +256,9 @@ def test_port_imports_no_jax_and_no_reference():
     tolerance and chaos, the attention kernel under autograd, the fleet and
     its dispatcher, the MoE layer, the encoder-decoder and xLSTM models,
     every architecture's config, smoke model and weightless training
-    model, the RG-LRU recurrence under autograd, among them) and
-    chip_smoke.py's imports load without jax or the reference package."""
+    model, the RG-LRU recurrence under autograd, the MIMDRAM planner, DaPPA,
+    DAMOV and the kernels' step accounting, among them) and chip_smoke.py's
+    imports load without jax or the reference package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -294,7 +295,9 @@ def test_port_imports_no_jax_and_no_reference():
         "       'repro_torch.configs.xlstm_125m',\n"
         "       'repro_torch.configs.seamless_m4t_large',\n"
         "       'repro_torch.kernels.rglru.autograd', 'repro_torch.models.model',\n"
-        "       'repro_torch.models.bridge', 'repro_torch.launch.steps')\n"
+        "       'repro_torch.models.bridge', 'repro_torch.launch.steps',\n"
+        "       'repro_torch.core.mimdram', 'repro_torch.core.dappa',\n"
+        "       'repro_torch.core.damov', 'repro_torch.kernels.accounting')\n"
         "from repro_torch.configs import ALL_IDS, get_config\n"
         "from repro_torch.models import build_model\n"
         "from repro_torch.models.model import training_model\n"
