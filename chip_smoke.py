@@ -286,6 +286,23 @@ a table, pimref-100m's beside what phases serve and train measured; and a
 pimref step (2 layers) counted on the card equal to its ``meta`` count,
 the kernels' reports equal to the launches.
 
+Phase ``distributed`` runs after it, on a one-rank mesh over ``("pod",)``
+(NCCL for the card's tensors, gloo for the host's: one card cannot host two
+NCCL ranks, so every multi-rank result comes from the CPU tests on gloo
+ranks): ``proteus_psum`` of 2^24 fp32 at 8 and 4 bits, card == CPU
+bitwise; three AdamW steps of ``make_train_step_proteus`` on full-width
+pimref-100m at 4 x 4096, bitwise equal to the plain step whose gradients
+pass through ``quantize`` / ``dequantize`` (losses, parameters, state), 24
+prefill launches a step each, both timed, with the quantize pass's cost;
+``pipelined_forward`` of pimref's 12 blocks over 4 microbatches of 2 x 512
+at one stage, bitwise equal to the stack run microbatch by microbatch and
+within the bf16 limit of the whole-batch stack; the dry-run's cells
+(pimref-100m train / prefill / decode / long_500k on the (16, 16) mesh,
+mixtral-8x7b train_4k with Proteus and long_500k on (2, 16, 16)), counted
+on ``meta`` by worker processes started at the build, ``OK`` or ``SKIP``
+where the reference skips; and the dry-run's predicted peak for the
+Proteus step's own one-device problem beside the card's.
+
 The second-to-last line is a JSON object of per-kernel numbers, the last is
 ``{"ok": true, "device": {...}}``. Any failure raises.
 
@@ -317,7 +334,7 @@ PHASES = ("device", "build", "kernels", "serve", "engine", "robust", "fleet",
           "train_families", "train_families_parity", "proteus",
           "serve_griffin", "engine_griffin", "parity_griffin", "archs",
           "moe", "parity_moe", "vlm", "parity_vlm", "encdec", "parity_encdec",
-          "xlstm", "paper")
+          "xlstm", "paper", "distributed")
 # the H100 SXM's figures (NVIDIA data sheet), one copy for every bound of
 # the run: repro_torch.core.damov's
 from repro_torch.core.damov import H100_SXM  # noqa: E402
@@ -5575,6 +5592,384 @@ def _paper_on_card(smi: str, seed: int) -> None:
         f"meta {time.perf_counter() - t2:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase distributed: the Proteus collectives and train step, the pipeline
+# and the dry-run, on a one-rank mesh
+# ---------------------------------------------------------------------------
+DIST_PSUM_N = 1 << 24                # proteus_psum elements, fp32
+DIST_PSUM_BLOCK = 256
+DIST_STEPS = 3
+DIST_PIPE = (4, 2, 512)              # microbatches, rows each, sequence
+# the dry-run's cells: (arch, shape, multi-pod, Proteus); the slowest first
+DIST_CELLS = (("mixtral-8x7b", "train_4k", True, True),
+              ("pimref-100m", "train_4k", False, False),
+              ("pimref-100m", "prefill_32k", False, False),
+              ("pimref-100m", "decode_32k", False, False),
+              ("pimref-100m", "long_500k", False, False),
+              ("mixtral-8x7b", "long_500k", True, False))
+# where the reference's skip_reason skips (a full-attention arch at
+# long_500k; tests/test_torch_dryrun.py holds the port's to it)
+DIST_SKIPS = {("pimref-100m", "long_500k")}
+DIST_WORKERS = 2
+# the card's peak for the Proteus step against the dry-run's prediction:
+# "held" within this share (a reading, not a check)
+DIST_PEAK_SHARE = 0.15
+
+
+def _dist_run(seed: int):
+    from repro_torch.configs import RunConfig
+    return RunConfig(warmup_steps=2, learning_rate=3e-4, microbatches=1,
+                     total_steps=DIST_STEPS, proteus_enabled=True,
+                     proteus_grad_bits=8, seed=seed)
+
+
+def _dist_shape():
+    from repro_torch.configs import TRAIN_4K, ShapeConfig
+    return ShapeConfig("proteus 4x4096", TRAIN_4K.seq_len, TRAIN_BATCH,
+                       "train")
+
+
+def _dryrun_task(arch: str, shape: str, multi: bool, prot: bool) -> dict:
+    """One dry-run cell in a worker process (host only, on ``meta``)."""
+    torch.set_num_threads(1)
+    from repro_torch.configs import RunConfig
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    row = dryrun.run_cell(arch, shape, multi, RunConfig(proteus_enabled=prot),
+                          {}, "proteus" if prot else "", verbose=False)
+    row["wall_s"] = time.perf_counter() - t0
+    row["end"] = time.perf_counter()      # the host's monotonic clock
+    return row
+
+
+def _dryrun_one_device() -> tuple:
+    """The dry-run's memory of the phase's own Proteus problem (pimref-100m
+    at 4 x 4096, AdamW, a one-rank pod mesh): (memory, Proteus step,
+    seconds)."""
+    torch.set_num_threads(1)
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.mimdram import plan_sharding
+    from repro_torch.launch import dryrun
+    cfg, shape = get_config("pimref-100m"), _dist_shape()
+    with dryrun.fake_world(1):
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("pod",))
+        got = dryrun.predict_cell(cfg, shape, plan_sharding(cfg, shape, mesh),
+                                  _dist_run(0))
+    return got["memory"], got["proteus_step"], got["seconds"]
+
+
+@contextlib.contextmanager
+def dryrun_cells(phases):
+    """Phase distributed's dry-run cells and its one-device prediction,
+    started on DIST_WORKERS worker processes before the build: yields
+    (the cells' futures in DIST_CELLS' order, the prediction's, the start
+    time), or None without phase distributed."""
+    if "distributed" not in phases:
+        yield None
+        return
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    pool = ProcessPoolExecutor(max_workers=DIST_WORKERS,
+                               mp_context=mp.get_context("spawn"))
+    try:
+        futs = [pool.submit(_dryrun_task, *c) for c in DIST_CELLS]
+        yield futs, pool.submit(_dryrun_one_device), time.perf_counter()
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _dist_psum(smi, seed, mesh) -> None:
+    """proteus_psum of DIST_PSUM_N fp32 on the card against the same call
+    on the host (the mesh's gloo side), at 8 and 4 bits."""
+    from repro_torch.core import proteus
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = randn(gen, (DIST_PSUM_N,), torch.float32)
+    host = x.cpu()
+    for bits in (8, 4):
+        got = proteus.proteus_psum(x, "pod", bits=bits,
+                                   block=DIST_PSUM_BLOCK, mesh=mesh)
+        t0 = time.perf_counter()
+        want = proteus.proteus_psum(host, "pod", bits=bits,
+                                    block=DIST_PSUM_BLOCK, mesh=mesh)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"distributed/psum {bits}-bit: card and CPU "
+                                 "differ")
+        # one rank: the exact sum is x, each element within scale / 2 (the
+        # reference's bound, n scale / 2 with its 1% for the rounding of
+        # code x scale)
+        blocks = x.reshape(-1, DIST_PSUM_BLOCK)
+        half = blocks.abs().amax(1, keepdim=True) / (2 ** (bits - 1) - 1) / 2
+        worst = ((got.reshape(-1, DIST_PSUM_BLOCK) - blocks).abs()
+                 / half).max().item()
+        if worst > 1.01:
+            raise AssertionError(f"distributed/psum {bits}-bit: an element "
+                                 f"{worst:.4f} half-scales off")
+        ms = _event_ms(lambda: proteus.proteus_psum(
+            x, "pod", bits=bits, block=DIST_PSUM_BLOCK, mesh=mesh), 3)
+        log("distributed/psum", f"{smi}: proteus_psum {bits}-bit over "
+            f"{DIST_PSUM_N} fp32 (block {DIST_PSUM_BLOCK}) on the one-rank "
+            f"mesh: card == CPU bitwise; worst error {worst:.4f} of half a "
+            f"scale; {ms:.3f} ms on the card (CUDA events, mean of 3, eager, "
+            f"the fp32 max all-reduce included), {cpu_ms:.0f} ms on the host")
+    del x, host
+    torch.cuda.empty_cache()
+
+
+def _tree_equal(a, b) -> bool:
+    from repro_torch.tree import leaves
+    return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+
+def _dist_train(smi, seed, mesh, one) -> dict:
+    """DIST_STEPS AdamW steps of make_train_step_proteus against the plain
+    step with the quantize hook, from the same parameters; returns the
+    launches of the Proteus steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mimdram import plan_sharding
+    from repro_torch.core.proteus import quantize_hook
+    from repro_torch.data import make_batch_fn
+    from repro_torch.kernels.accounting import nbytes
+    from repro_torch.launch.steps import (make_train_step,
+                                          make_train_step_proteus)
+    from repro_torch.launch.train import initial_params
+    from repro_torch.models.model import training_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import leaves, tree_map
+    cfg, shape, run = get_config("pimref-100m"), _dist_shape(), _dist_run(seed)
+    L = cfg.num_layers
+    plan = plan_sharding(cfg, shape, mesh)
+    model = training_model(cfg)
+    host = initial_params(cfg, seed, "cpu")
+    bf = make_batch_fn(cfg, shape, seed=seed)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    batches = [{k: torch.from_numpy(v).to(DEVICE) for k, v in bf(i).items()}
+               for i in range(DIST_STEPS)]
+
+    hook = quantize_hook(run)
+
+    def side(name):
+        opt = make_optimizer(cfg.optimizer, run)
+        params = tree_map(lambda t: t.to(DEVICE, copy=True), host)
+        state = opt.init(params)
+        step = (make_train_step_proteus(model, opt, plan, run)
+                if name == "proteus" else
+                make_train_step(model, opt, run, grad_hook=hook))
+        return {"step": step, "params": params, "state": state}
+
+    sides = {"proteus": side("proteus")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = {"proteus": [], "hooked": []}
+    peak = None
+    total = {}
+    for i in range(DIST_STEPS):
+        losses = {}
+        for name in ("proteus", "hooked"):
+            if name not in sides:
+                sides[name] = side(name)
+            sd = sides[name]
+            _reset()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            sd["params"], sd["state"], m = sd["step"](sd["params"],
+                                                      sd["state"], batches[i])
+            end.record()
+            torch.cuda.synchronize()
+            ms[name].append(start.elapsed_time(end))
+            counts = {k: v for k, v in _flat_counts().items() if v}
+            if counts != {"flash_attention_fwd": 2 * L}:
+                raise AssertionError(f"distributed/train {name} step {i}: "
+                                     f"launches {counts}, want 2 x {L} of "
+                                     "flash_attention_fwd")
+            if name == "proteus":
+                for k, v in counts.items():
+                    total[k] = total.get(k, 0) + v
+            if peak is None:
+                peak = torch.cuda.max_memory_allocated()
+            losses[name] = m["loss"]
+        a, b = sides["proteus"], sides["hooked"]
+        if not (torch.equal(losses["proteus"], losses["hooked"])
+                and _tree_equal(a["params"], b["params"])
+                and _tree_equal(a["state"], b["state"])):
+            raise AssertionError(f"distributed/train step {i}: the Proteus "
+                                 "step and the hooked plain step differ")
+        log("distributed/train", f"step {i}: loss "
+            f"{losses['proteus'].item():.6f}; losses, parameters and AdamW "
+            f"state bitwise equal; {2 * L} prefill launches each")
+    quant_ms = _event_ms(lambda: hook(None, a["params"], None), 3)
+    n = sum(t.numel() for t in leaves(host))
+    med = {k: float(np.median(v[1:])) for k, v in ms.items()}
+    log("distributed/train", f"{smi}: pimref-100m full width ({n} params, "
+        f"AdamW, bf16 compute) at {TRAIN_BATCH} x {shape.seq_len}, "
+        f"{DIST_STEPS} steps a side (CUDA events, the first with its "
+        f"warm-up): Proteus step {', '.join('%.1f' % x for x in ms['proteus'])}"
+        f" ms, hooked plain step {', '.join('%.1f' % x for x in ms['hooked'])}"
+        f" ms; median of steps 1-{DIST_STEPS - 1}: {med['proteus']:.1f} / "
+        f"{med['hooked']:.1f} ms; the quantize + dequantize pass over every "
+        f"gradient leaf {quant_ms:.2f} ms ({quant_ms / med['hooked']:.2%} of "
+        f"the plain step)")
+    READINGS["distributed"] = dict(proteus_ms=med["proteus"],
+                                   hooked_ms=med["hooked"], quant_ms=quant_ms)
+    # the dry-run's prediction for this step's own problem
+    own = nbytes(*leaves(a["params"]), *leaves(a["state"]),
+                 *batches[0].values())
+    extra = nbytes(*(t for bt in batches[1:] for t in bt.values()))
+    measured = peak - base - extra
+    mem, prot, secs = one.result()
+    pred = mem["peak_bytes"]
+    share = measured / pred - 1
+    log("distributed/peak", f"{smi}: the Proteus step's first step: "
+        f"torch.cuda.max_memory_allocated {measured} B over what was live "
+        f"before it (its arguments {own} B); the dry-run predicted "
+        f"{pred} B (arguments {mem['argument_bytes']}, temporaries "
+        f"{mem['temp_bytes']}; its step the "
+        f"{'Proteus' if prot else 'plain'} one; {secs:.1f} s on meta): "
+        f"{share:+.1%}, {'held' if abs(share) <= DIST_PEAK_SHARE else 'missed'}"
+        f" (the prediction: within {DIST_PEAK_SHARE:.0%})")
+    if mem["argument_bytes"] != own:
+        raise AssertionError(f"distributed/peak: the dry-run's argument "
+                             f"bytes {mem['argument_bytes']} != the card's "
+                             f"{own}")
+    del sides, a, b, batches
+    torch.cuda.empty_cache()
+    return total
+
+
+def _dist_pipeline(smi, seed, mesh) -> dict:
+    """pimref's 12 blocks as a one-stage pipeline over DIST_PIPE's
+    microbatches against the stack run microbatch by microbatch (bitwise)
+    and over the whole batch (the bf16 limit)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.pipeline import (bubble_fraction,
+                                                  pipelined_forward)
+    from repro_torch.launch.train import initial_params
+    from repro_torch.models.model import training_model
+    from repro_torch.tree import tree_map
+    cfg = get_config("pimref-100m")
+    L, (M, R, S) = cfg.num_layers, DIST_PIPE
+    model = training_model(cfg)
+    blocks = tree_map(lambda t: t.to(DEVICE),
+                      initial_params(cfg, seed, "cpu")["blocks"])
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    x = randn(gen, (M, R, S, cfg.d_model), torch.bfloat16)
+    positions = torch.arange(S, dtype=torch.int32, device=DEVICE)
+
+    def block(p, h):
+        return model._tree_block(h, p, positions)
+
+    def stack(h):
+        for i in range(L):
+            h = block(tree_map(lambda a: a[i], blocks), h)
+        return h
+
+    with torch.no_grad():
+        _reset()
+        t0 = time.perf_counter()
+        got = pipelined_forward(block, blocks, x, mesh=mesh, n_stages=1,
+                                n_layers=L)
+        torch.cuda.synchronize()
+        pipe_s = time.perf_counter() - t0
+        counts = {k: v for k, v in _flat_counts().items() if v}
+        seq = torch.stack([stack(x[m]) for m in range(M)])
+        whole = stack(x.reshape(M * R, S, -1)).reshape(x.shape)
+    if counts != {"flash_attention_fwd": M * L}:
+        raise AssertionError(f"distributed/pipeline: launches {counts}, want "
+                             f"{M} x {L} of flash_attention_fwd")
+    if not torch.equal(got, seq):
+        raise AssertionError("distributed/pipeline: the pipeline differs "
+                             "from the stack run microbatch by microbatch")
+    rel = ((got.float() - whole.float()).abs().max()
+           / whole.float().abs().max()).item()
+    if rel > TOL[torch.bfloat16]:
+        raise AssertionError(f"distributed/pipeline: {rel:.3e} of the whole "
+                             f"batch's max off (limit {TOL[torch.bfloat16]})")
+    log("distributed/pipeline", f"{smi}: pimref-100m's {L} blocks, {M} "
+        f"microbatches of {R} x {S} (bf16) at 1 stage ({M} ticks, bubble "
+        f"{bubble_fraction(1, M):.2f}; the 2-stage schedule on gloo ranks in "
+        f"the CPU tests): bitwise == the stack microbatch by microbatch; "
+        f"{rel:.2e} of max |out| from the whole-batch stack (limit "
+        f"{TOL[torch.bfloat16]}); {counts['flash_attention_fwd']} prefill "
+        f"launches; {pipe_s * 1e3:.1f} ms wall")
+    del blocks, x, got, seq, whole
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _dist_dryrun(smi, futs, t0) -> None:
+    """The dry-run's cells from the worker processes: OK, or SKIP where the
+    reference skips."""
+    rows = [fut.result() for fut in futs]
+    for (arch, shape, multi, prot), row in zip(DIST_CELLS, rows):
+        want = "SKIP" if (arch, shape) in DIST_SKIPS else "OK"
+        label = (f"{arch} x {shape} x {row['mesh']}"
+                 f"{' (Proteus)' if prot else ''}")
+        if row["status"] != want:
+            raise AssertionError(f"distributed/dryrun {label}: "
+                                 f"{row['status']}, want {want}: "
+                                 f"{row.get('error') or row.get('reason')}")
+        if want == "SKIP":
+            log("distributed/dryrun", f"{label}: SKIP ({row['reason']})")
+            continue
+        mem, d = row["memory"], row["damov"]
+        log("distributed/dryrun", f"{label}: OK in {row['wall_s']:.1f} s; "
+            f"a device's arguments {mem['argument_bytes']} B, temporaries "
+            f"{mem['temp_bytes']} B, peak {mem['peak_GB']} GiB (fits 80 GB: "
+            f"{mem['fits_80GB']}), microbatches {row['microbatches']}, split "
+            f"{row['split']}, Proteus step {row['proteus_step']}; roofline "
+            f"compute {d['compute_s']:.4e} s, memory {d['memory_s']:.4e} s, "
+            f"collective {d['collective_s']:.4e} s, {d['bottleneck_class']}, "
+            f"MF/HF {d['useful_ratio']:.3f}; kernels "
+            f"{row['step_cost']['kernels']}")
+    log("distributed/dryrun", f"{len(DIST_CELLS)} cells on {DIST_WORKERS} "
+        f"worker processes, all done {max(r['end'] for r in rows) - t0:.1f} "
+        f"s after they started (at the build)")
+
+
+def phase_distributed(smi: str, seed: int, cells) -> dict:
+    """The Proteus collective and train step and the pipeline on a
+    one-rank mesh, the dry-run's cells (``cells``: ``dryrun_cells``'
+    futures); returns the launches of the Proteus steps and the
+    pipeline."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    futs, one, t_start = cells
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    log("distributed", "one rank, NCCL for the card's tensors and gloo for "
+        "the host's, over ('pod',): one card cannot host two NCCL ranks, so "
+        "every multi-rank result (proteus_psum on 8 ranks, the Proteus step "
+        "on (2, 2, 2), the 2-stage pipeline) comes from the CPU tests on "
+        "gloo ranks (tests/test_torch_distributed.py)")
+    try:
+        mesh = init_device_mesh(DEVICE, (1,), mesh_dim_names=("pod",))
+        t0 = time.perf_counter()
+        _dist_psum(smi, seed, mesh)
+        t1 = time.perf_counter()
+        train = _dist_train(smi, seed, mesh, one)
+        t2 = time.perf_counter()
+        pipe = _dist_pipeline(smi, seed, mesh)
+        t3 = time.perf_counter()
+    finally:
+        dist.destroy_process_group()
+    _dist_dryrun(smi, futs, t_start)
+    log("distributed", f"psum {t1 - t0:.1f} s, train {t2 - t1:.1f} s, "
+        f"pipeline {t3 - t2:.1f} s, dry-run rows "
+        f"{time.perf_counter() - t3:.1f} s")
+    return {"distributed": train, "distributed_pipeline": pipe}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -5588,11 +5983,11 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     smi = phase_device()
-    with damov_counts(phases) as damov:
-        return run_phases(args, phases, smi, damov)
+    with damov_counts(phases) as damov, dryrun_cells(phases) as cells:
+        return run_phases(args, phases, smi, damov, cells)
 
 
-def run_phases(args, phases, smi, damov) -> int:
+def run_phases(args, phases, smi, damov, cells=None) -> int:
     if "build" in phases:
         phase_build()
     rows = phase_kernels(args.seed) if "kernels" in phases else {}
@@ -5695,7 +6090,9 @@ def run_phases(args, phases, smi, damov) -> int:
                               src_rows=64, layouts=ENCDEC_PARITY_LAYOUTS)}),
                       ("xlstm", lambda: phase_xlstm(smi, args.seed)),
                       ("paper", lambda: phase_paper(smi, args.seed, damov)
-                       or {})):
+                       or {}),
+                      ("distributed", lambda: phase_distributed(
+                          smi, args.seed, cells))):
         if name in phases:
             t0 = time.perf_counter()
             launches.update(run())

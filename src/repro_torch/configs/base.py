@@ -64,6 +64,14 @@ class ModelConfig:
     source: str = ""
 
     @property
+    def is_subquadratic(self) -> bool:
+        """Whether the arch can decode 500k tokens: a bounded state
+        (hybrid, ssm) or a sliding window."""
+        return (self.family in ("hybrid", "ssm")
+                or (self.attention_kind == "sliding"
+                    and self.sliding_window > 0))
+
+    @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
 

@@ -10,11 +10,14 @@
   the int4 nibble pair ``pack_int4`` / ``unpack_int4`` (re-exported from
   ``kernels/common.py``, as the reference re-exports its own);
 * collective buckets (``bucketize``) and the µProgram select unit, a
-  roofline cost model over ``REPRESENTATIONS`` (``CostModel``).
-
-The reference's collectives inside ``shard_map`` (``proteus_psum``,
-``cross_pod_psum``, ``maybe_compress_grads``) wait for the port's
-``torch.distributed`` layer.
+  roofline cost model over ``REPRESENTATIONS`` (``CostModel``);
+* the quantized collectives over a mesh axis: ``proteus_psum`` (one fp32
+  ``all_reduce(MAX)`` of the block maxima, then a ring of int8 codes over
+  ``batch_isend_irecv``, summed in int32), ``cross_pod_psum`` over a tree
+  and ``maybe_compress_grads``, the train step's switch. Every rank of the
+  axis's process group calls them together (the reference's run inside
+  ``shard_map``). ``quantize_hook`` is their one-pod equivalent, a
+  ``grad_hook`` of the plain train step.
 
 The statistics stay on the tensor's device: they are 0-d tensors, so a
 caller can branch on them with ``torch.where`` and no host sync.
@@ -23,12 +26,14 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, List, Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.common import div_by
 from repro_torch.kernels.common import pack_int4, unpack_int4  # noqa: F401
 from repro_torch.kernels.narrow_value.ref import magnitude_width
+from repro_torch.tree import tree_map
 
 
 def _blocks(x: torch.Tensor, block: int) -> torch.Tensor:
@@ -108,13 +113,15 @@ class QTensor:
 
 def quantize(x: torch.Tensor, bits: int = 8, block: int = 256) -> QTensor:
     """Symmetric per-block quantization, bits in {4, 8}; ``torch.round``
-    rounds half to even, as ``jnp.round`` does."""
+    rounds half to even, as ``jnp.round`` does, and the scale
+    ``maxabs / qmax`` is the correctly rounded quotient on every device."""
     if bits not in (4, 8):
         raise ValueError(f"bits={bits}: expected 4 or 8")
     qmax = float(2 ** (bits - 1) - 1)
     blocks = _blocks(x, block)
     maxabs = blocks.abs().amax(dim=1)
-    scale = torch.where(maxabs == 0, torch.ones_like(maxabs), maxabs / qmax)
+    scale = torch.where(maxabs == 0, torch.ones_like(maxabs),
+                        div_by(maxabs, qmax))
     q = torch.clamp(torch.round(blocks / scale[:, None]), -qmax - 1, qmax)
     return QTensor(q.to(torch.int8), scale, bits, block, tuple(x.shape),
                    x.dtype)
@@ -124,6 +131,98 @@ def dequantize(qt: QTensor) -> torch.Tensor:
     blocks = qt.values.float() * qt.scale[:, None]
     flat = blocks.reshape(-1)[: math.prod(qt.shape)]
     return flat.reshape(qt.shape).to(qt.dtype)
+
+
+# ---------------------------------------------------------------------------
+# quantized collectives
+# ---------------------------------------------------------------------------
+def _axis_group(axis: str, mesh):
+    """The process group of mesh axis ``axis`` (``mesh`` defaults to the
+    active plan's)."""
+    from repro_torch.core.mimdram import current_plan, mesh_shape
+    if mesh is None:
+        plan = current_plan()
+        mesh = plan.mesh if plan is not None else None
+    if mesh is None:
+        raise ValueError(f"a collective over {axis!r} needs a mesh (or a "
+                         "plan with one)")
+    if axis not in mesh_shape(mesh):
+        raise ValueError(f"no axis {axis!r} in the mesh "
+                         f"{tuple(mesh_shape(mesh))}")
+    return mesh.get_group(axis)
+
+
+def proteus_psum(x: torch.Tensor, axis: str, *, bits: int = 8,
+                 block: int = 256, mesh=None) -> torch.Tensor:
+    """Quantized all-reduce of ``x`` over the mesh axis ``axis``: a shared
+    per-block scale (one fp32 ``all_reduce(MAX)`` of the block maxima), the
+    int8 codes ``round(blocks / scale)`` (half to even, unclipped, as the
+    reference's) summed around a ring of n - 1 hops that each carry the
+    codes, accumulated in int32, and dequantized as ``acc * scale``.
+
+    The exact sum's error is at most n scale / 2 an element. A group of one
+    rank does no hop. Returns a new tensor of ``x``'s shape and dtype."""
+    import torch.distributed as dist
+    group = _axis_group(axis, mesh)
+    blocks = _blocks(x, block)
+    qmax = float(2 ** (bits - 1) - 1)
+    gmax = blocks.abs().amax(dim=1)
+    dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.where(gmax == 0, torch.ones_like(gmax), div_by(gmax, qmax))
+    codes = torch.round(blocks / scale[:, None]).to(torch.int8)
+    acc = codes.to(torch.int32)
+    n = dist.get_world_size(group)
+    if n > 1:
+        ranks = dist.get_process_group_ranks(group)
+        i = dist.get_group_rank(group, dist.get_rank())
+        buf = codes
+        for _ in range(n - 1):
+            nxt = torch.empty_like(buf)
+            ops = [dist.P2POp(dist.isend, buf, ranks[(i + 1) % n], group),
+                   dist.P2POp(dist.irecv, nxt, ranks[(i - 1) % n], group)]
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+            buf = nxt
+            acc += buf.to(torch.int32)
+    out = (acc.float() * scale[:, None]).reshape(-1)[: x.numel()]
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def cross_pod_psum(tree: Any, pod_axis: str = "pod", *, bits: int = 8,
+                   block: int = 256, mean: bool = False,
+                   n_pods: Optional[int] = None, mesh=None) -> Any:
+    """:func:`proteus_psum` over ``pod_axis`` of every leaf of a gradient
+    tree, each leaf blocked on its own; with ``mean`` and ``n_pods``
+    divided by ``n_pods``."""
+    def red(g):
+        y = proteus_psum(g, pod_axis, bits=bits, block=block, mesh=mesh)
+        if mean and n_pods:
+            y = y / n_pods
+        return y
+    return tree_map(red, tree)
+
+
+def maybe_compress_grads(grads: Any, enabled: bool, pod_axis: Optional[str],
+                         bits: int = 8, block: int = 256,
+                         n_pods: Optional[int] = None, mesh=None) -> Any:
+    """The quantized cross-pod mean of ``grads`` when ``enabled`` and there
+    is a pod axis; else ``grads`` itself."""
+    if not enabled or pod_axis is None:
+        return grads
+    return cross_pod_psum(grads, pod_axis, bits=bits, block=block,
+                          mean=True, n_pods=n_pods, mesh=mesh)
+
+
+def quantize_hook(run):
+    """A ``grad_hook`` for ``make_train_step`` that passes every gradient
+    leaf through ``quantize`` and ``dequantize`` at the run's
+    ``proteus_grad_bits`` and ``proteus_block``: what a one-pod Proteus
+    step does to the gradients, bit for bit (one pod: the global block max
+    is the local one, and the ring makes no hop)."""
+    def hook(loss, grads, arm):
+        return loss, tree_map(lambda g: dequantize(quantize(
+            g, run.proteus_grad_bits, run.proteus_block)), grads)
+    return hook
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 KV-cache quantization and speculative-decoding mode names and their
 validators (the reference reads the same values from ``REPRO_KV_QUANT``,
 ``REPRO_SPEC_DECODE``, ``REPRO_SPEC_K`` and ``REPRO_SPEC_DRAFT_LAYERS``; the
-port takes them as arguments), the int4 nibble pack/unpack pair, and the
-exact bf16 split of fp32 values that the tensor-core routes of
+port takes them as arguments), the int4 nibble pack/unpack pair, a
+correctly rounded division by a constant (``div_by``), and the exact bf16
+split of fp32 values that the tensor-core routes of
 ``quant_matmul`` and of the fp32 prefill kernel state in their plain
 emulations."""
 from __future__ import annotations
@@ -15,6 +16,26 @@ import torch
 KV_QUANT_MODES = ("off", "int8", "int4", "auto")
 SPEC_DECODE_MODES = ("off", "ngram", "draft")
 SPEC_K_DEFAULT = 3
+
+
+_DIVISORS: dict = {}
+
+
+def div_by(x: torch.Tensor, q: float) -> torch.Tensor:
+    """``x / q`` rounded once, on every device. PyTorch's CUDA division by
+    a Python number multiplies by its rounded reciprocal (one ulp off the
+    quotient for some x), where the CPU and the reference divide; a 0-d
+    tensor divisor on ``x``'s device takes the true division on both. The
+    divisor is made once per value, dtype and device, by a blocking copy,
+    so a captured graph reads it and launches nothing for it; one first
+    asked for inside a capture is filled by a kernel of the graph."""
+    key = (q, x.dtype, x.device)
+    d = _DIVISORS.get(key)
+    if d is None:
+        if x.is_cuda and torch.cuda.is_current_stream_capturing():
+            return x / torch.full((), q, dtype=x.dtype, device=x.device)
+        d = _DIVISORS[key] = torch.tensor(q, dtype=x.dtype).to(x.device)
+    return x / d
 
 
 def check_kv_quant(mode: str) -> str:

@@ -1,8 +1,10 @@
-"""The train step, sampling, speculative decoding and the fused decode loop
-(counterpart: ``repro/launch/steps.py``: ``auto_microbatches``,
-``_loss_and_grads``, ``make_train_step``, ``logits_transform``,
-``sample_tokens``, ``spec_config``, ``ngram_draft`` and
-``make_generate_step``).
+"""The train steps, the serving steps, sampling, speculative decoding, the
+fused decode loop and one cell's artifacts (counterpart:
+``repro/launch/steps.py``: ``auto_microbatches``, ``_loss_and_grads``,
+``make_train_step``, ``make_train_step_proteus``, ``make_prefill_step``,
+``make_decode_step``, ``logits_transform``, ``sample_tokens``,
+``spec_config``, ``ngram_draft``, ``make_generate_step`` and
+``cell_artifacts``).
 
 A train step takes the parameter tree and optimizer state in the
 reference's layout and updates them in place; gradients accumulate over
@@ -19,6 +21,7 @@ body runs eagerly.
 """
 from __future__ import annotations
 
+import math
 import time
 import warnings
 from dataclasses import dataclass, fields, is_dataclass
@@ -27,6 +30,7 @@ from typing import Callable, Iterator, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
+from repro_torch.core.mimdram import use_plan
 from repro_torch.kernels import launch_counters
 from repro_torch.kernels.common import (SPEC_K_DEFAULT, check_draft_layers,
                                         check_spec_decode, check_spec_k)
@@ -39,19 +43,24 @@ from repro_torch.tree import leaves, tree_map, unflatten
 # Train
 # ---------------------------------------------------------------------------
 def auto_microbatches(cfg: ModelConfig, shape: ShapeConfig,
-                      budget_bytes: float = 5e9) -> int:
+                      budget_bytes: float = 5e9, plan=None) -> int:
     """Pick the grad-accumulation factor so saved activations + logits fit
-    (the reference's estimate on one device: no data or vocab sharding).
+    a device: the batch over the plan's ``act_batch`` axes, the vocab over
+    its ``act_vocab`` axes (without a plan, one device).
 
     Rough model: saved block inputs (B*S*d*2B*L) plus the logits round trip
     (B*S*V*6B)."""
+    from repro_torch.core.mimdram import _axis_size
     if shape.mode != "train":
         return 1
     if cfg.microbatches_hint:
         return cfg.microbatches_hint
-    b = shape.global_batch
+    mesh, rules = (plan.mesh, plan.rules) if plan is not None else (None, {})
+    dw = _axis_size(mesh, rules.get("act_batch")) or 1
+    vw = _axis_size(mesh, rules.get("act_vocab")) or 1
+    b = max(shape.global_batch // dw, 1)
     saved = b * shape.seq_len * cfg.d_model * 2 * max(cfg.num_layers, 1)
-    logits = b * shape.seq_len * cfg.vocab_size * 6
+    logits = b * shape.seq_len * (cfg.vocab_size / vw) * 6
     est = saved + logits
     nm = 1
     while est / nm > budget_bytes and nm < b:
@@ -132,6 +141,122 @@ def make_train_step(model, optimizer: Optimizer, run: RunConfig, *,
         return params, opt_state, metrics
 
     return train_step
+
+
+def make_train_step_proteus(model, optimizer: Optimizer, plan, run: RunConfig,
+                            pod_axis: str = "pod"):
+    """``train_step(params, opt_state, batch) -> (params', opt_state',
+    {"loss"})`` with the quantized cross-pod gradient reduction (Proteus).
+
+    Every rank of the plan's mesh, which must have a ``pod_axis``, calls it
+    with the same global ``batch``. The pod axis splits the batch; the
+    parameters and optimizer state are replicated across pods and updated
+    in place (``optimizer.update_``), as ``make_train_step`` updates them.
+
+    The port has no GSPMD, so this stands in for the reference's automatic
+    distribution inside a pod: the ranks of the plan's other ``act_batch``
+    axes split the pod's rows, ranks along the remaining axes (``model``)
+    take the same rows (no tensor parallelism), and the gradients and the
+    loss are averaged in fp32 over the splitting axes by
+    ``reduce_hierarchical``. Only the pod hop carries int8 codes:
+    ``cross_pod_psum(..., bits=run.proteus_grad_bits,
+    block=run.proteus_block, mean=True, n_pods=...)``; the loss is averaged
+    over the pods in fp32. The pod's loss is the mean of its ranks' means,
+    which is the mean over its rows when every row counts as many
+    positions (no ``loss_mask``)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.mimdram import mesh_shape, reduce_hierarchical
+    from repro_torch.core.proteus import cross_pod_psum
+    mesh = plan.mesh
+    sizes = mesh_shape(mesh)
+    if pod_axis not in sizes:
+        raise ValueError(f"the Proteus step needs a mesh with a "
+                         f"{pod_axis!r} axis, not {tuple(sizes)}")
+    n_pods = sizes[pod_axis]
+    names = list(sizes)
+    local = tuple(a for a in names if a != pod_axis
+                  and a in (plan.rules.get("act_batch") or ()))
+    n_local = math.prod(sizes[a] for a in local)
+    coord = mesh.get_coordinate()
+    shard = coord[names.index(pod_axis)]
+    for a in local:
+        shard = shard * sizes[a] + coord[names.index(a)]
+    pod_group = mesh.get_group(pod_axis)
+    nm = max(run.microbatches, 1)
+
+    def rows(batch):
+        B = next(iter(batch.values())).shape[0]
+        if B % (n_pods * n_local):
+            raise ValueError(f"batch {B} does not split over {n_pods} pods x "
+                             f"{n_local} ranks of {local}")
+        per = B // (n_pods * n_local)
+        return {k: v[shard * per:(shard + 1) * per] for k, v in batch.items()}
+
+    def local_mean(t):
+        t = reduce_hierarchical(t.float(), local, mesh, pod_axis)
+        return t / n_local
+
+    def train_step(params, opt_state, batch):
+        loss, grads = _loss_and_grads(model, params, rows(batch), nm)
+        if n_local > 1:
+            loss = local_mean(loss)
+            grads = tree_map(lambda g: local_mean(g).to(g.dtype), grads)
+        grads = cross_pod_psum(grads, pod_axis, bits=run.proteus_grad_bits,
+                               block=run.proteus_block, mean=True,
+                               n_pods=n_pods, mesh=mesh)
+        loss = loss.float().clone()
+        dist.all_reduce(loss, group=pod_group)
+        loss = loss / n_pods
+        optimizer.update_(grads, opt_state, params, None)
+        return params, opt_state, {"loss": loss}
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Serve
+# ---------------------------------------------------------------------------
+def _own_weights(model, params) -> None:
+    """The serving model holds its weights: ``params`` must be its own
+    parameters (``dict(model.named_parameters())``), or None."""
+    if params is None:
+        return
+    own = dict(model.named_parameters())
+    if params.keys() != own.keys() or any(params[k] is not own[k]
+                                          for k in own):
+        raise ValueError("a serving step runs on its model's own weights: "
+                         "pass dict(model.named_parameters())")
+
+
+def make_prefill_step(model, plan, max_len: Optional[int] = None,
+                      full_logits: bool = False):
+    """``prefill_step(params, batch) -> (logits, cache)``: ``model.prefill``
+    of ``batch`` (``input_specs``' entries; the extras of a VLM or an
+    encoder-decoder go in as keywords) under ``plan``, the cache pre-sized
+    for ``max_len`` positions when given (every position's logits with
+    ``full_logits``). ``params`` is the model's own weights (its
+    ``named_parameters``; the port's serving model holds them)."""
+    def prefill_step(params, batch):
+        _own_weights(model, params)
+        extras = dict(batch)
+        tokens = extras.pop("tokens")
+        with use_plan(plan):
+            if max_len is None:
+                return model.prefill(tokens, **extras)
+            return model.prefill(tokens, max_len=max_len,
+                                 full_logits=full_logits, **extras)
+    return prefill_step
+
+
+def make_decode_step(model, plan):
+    """``decode_step(params, cache, tokens) -> (logits, cache)``: one
+    ``model.decode_step`` under ``plan``, the cache updated in place."""
+    def decode_step(params, cache, tokens):
+        _own_weights(model, params)
+        with use_plan(plan):
+            return model.decode_step(cache, tokens)
+    return decode_step
 
 
 def logits_transform(logits: torch.Tensor, temperature: float,
@@ -629,3 +754,79 @@ def make_generate_step(model, *, chunk: int, temperature: float = 0.0,
     return GenerateStep(model, chunk=chunk, temperature=temperature,
                         top_k=top_k, spec=spec, spec_k=spec_k,
                         draft_layers=draft_layers, logits_hook=logits_hook)
+
+
+# ---------------------------------------------------------------------------
+# Assembly for one cell: abstract inputs and their placements (dry-run)
+# ---------------------------------------------------------------------------
+def cell_artifacts(cfg: ModelConfig, shape: ShapeConfig, plan,
+                   run: RunConfig, optimizer_name: Optional[str] = None,
+                   grad_hook: Optional[Callable] = None):
+    """``(model, step, args, placements, donate, run, out_placements)`` of
+    one (arch x shape) cell under ``plan``: the model built on ``meta``,
+    the step (``make_train_step_proteus`` exactly when the reference picks
+    it: the run asks for Proteus and the mesh has a ``pod`` axis; else
+    ``make_train_step``, ``make_prefill_step`` or ``make_decode_step``),
+    its arguments as ``meta`` tensors (train: the parameter tree in the
+    reference's layout, the optimizer state, the batch; prefill: the
+    model's weights, the batch; decode: the weights, the cache, the
+    tokens), a matching tree of DTensor placements (``Plan.placements`` of
+    each leaf's logical axes; None without a mesh), the indices of the
+    arguments the step updates in place, the run (``auto_microbatches``
+    applied for train) and the placements of the outputs (the returned
+    cache's, for prefill and decode). ``grad_hook`` goes to
+    ``make_train_step``."""
+    from repro_torch.core.mimdram import mesh_shape
+    from repro_torch.launch import specs as specs_lib
+    from repro_torch.models import build_model, param_specs
+    from repro_torch.models.module import ParamSpec
+    from repro_torch.optim import make_optimizer
+
+    def place(axes, dims):
+        return (plan.placements(*axes, dims=tuple(dims))
+                if plan.mesh is not None else None)
+
+    def is_spec(x):
+        return isinstance(x, ParamSpec)
+
+    def meta(s):
+        return torch.empty(s.shape, dtype=s.dtype, device="meta")
+
+    model = build_model(cfg, "meta")
+    batch = specs_lib.meta_batch(cfg, shape)
+    batch_pl = {k: (plan.placements(*specs_lib.batch_axes(shape, v.dim()))
+                    if plan.mesh is not None else None)
+                for k, v in batch.items()}
+
+    if shape.mode == "train":
+        if run.microbatches == 0:
+            run = run.replace(microbatches=auto_microbatches(cfg, shape,
+                                                             plan=plan))
+        opt = make_optimizer(optimizer_name or cfg.optimizer, run)
+        pspecs = specs_lib.param_spec_tree(cfg)
+        ospecs = opt.state_specs(pspecs)
+        args = tuple(tree_map(meta, t, is_leaf=is_spec)
+                     for t in (pspecs, ospecs)) + (batch,)
+        placements = tuple(
+            tree_map(lambda s: place(s.logical_axes, s.shape), t,
+                     is_leaf=is_spec) for t in (pspecs, ospecs)) + (batch_pl,)
+        if run.proteus_enabled and "pod" in mesh_shape(plan.mesh):
+            step = make_train_step_proteus(model, opt, plan, run)
+        else:
+            step = make_train_step(model, opt, run, grad_hook=grad_hook)
+        return model, step, args, placements, (0, 1), run, None
+
+    weights = dict(model.named_parameters())
+    weights_pl = {n: place(s.logical_axes, s.shape)
+                  for n, s in param_specs(cfg).items()}
+    cache = specs_lib.cache_specs(model, shape)
+    cache_pl = specs_lib.map_cache(lambda a, t: place(a, t.shape),
+                                   model.cache_logical_axes(), cache)
+    if shape.mode == "prefill":
+        step = make_prefill_step(model, plan)
+        return (model, step, (weights, batch), (weights_pl, batch_pl), (),
+                run, (None, cache_pl))
+    step = make_decode_step(model, plan)
+    return (model, step, (weights, cache, batch["tokens"]),
+            (weights_pl, cache_pl, batch_pl["tokens"]), (1,), run,
+            (None, cache_pl))

@@ -20,7 +20,7 @@ that layout.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -78,12 +78,15 @@ def load_jax_params(model: torch.nn.Module, np_params: Dict[str, Any]) -> None:
         p.copy_(torch.from_numpy(np.array(arr)).to(p.dtype))
 
 
-def reference_tree(named: Dict[str, torch.Tensor],
-                   lists: Tuple[str, ...] = ()) -> Dict[str, Any]:
+def reference_tree(named: Dict[str, Any], lists: Tuple[str, ...] = (),
+                   stack: Callable[[List[Any]], Any] = torch.stack
+                   ) -> Dict[str, Any]:
     """Flat ``name -> tensor`` (names as ``model.named_parameters()``
     gives them) -> the reference's nested tree: entries of ``STACKED`` keys
-    joined on a new leading axis, entries of the keys in ``lists`` (which
-    take precedence) gathered into a list by their index."""
+    joined on a new leading axis (by ``stack``, given the layers' entries
+    in order; for leaves other than tensors, such as specs), entries of the
+    keys in ``lists`` (which take precedence) gathered into a list by their
+    index."""
     tree: Dict[str, Any] = {}
     stacks: Dict[tuple, Dict[int, torch.Tensor]] = {}
     for name, t in named.items():
@@ -98,8 +101,7 @@ def reference_tree(named: Dict[str, torch.Tensor],
     for key, by_layer in stacks.items():
         if sorted(by_layer) != list(range(len(by_layer))):
             raise ValueError(f"{'.'.join(key)}: layers {sorted(by_layer)}")
-        _put(tree, key, torch.stack([by_layer[i]
-                                     for i in range(len(by_layer))]))
+        _put(tree, key, stack([by_layer[i] for i in range(len(by_layer))]))
     for key in lists:
         if key in tree:
             by_index = tree[key]

@@ -46,8 +46,9 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (aligned_cache_len, chunked_attention,
-                                       dense, gated_mlp, kv_cache_init,
-                                       kv_cache_len, kv_cache_store,
+                                       dense, gated_mlp, kv_cache_axes,
+                                       kv_cache_init, kv_cache_len,
+                                       kv_cache_store,
                                        kv_cache_update, kv_cast, kv_quantize,
                                        rms_norm, softmax_xent, stack_kv)
 from repro_torch.models.model import (Block, ServingLM, _add_params, _Group,
@@ -267,12 +268,15 @@ class EncDecLM(ServingLM):
                 "pos": torch.zeros((batch,), dtype=torch.int32,
                                    device=self.device)}
 
-    def cache_batch_axes(self) -> Cache:
-        """The batch axis of every leaf of a contiguous cache (the
-        counterpart of the reference's ``cache_logical_axes``); a paged
-        engine writes the self cache's pages through the table and the
-        cross cache's rows along axis 1."""
-        return {"k": 1, "v": 1, "xk": 1, "xv": 1, "pos": 0}
+    def cache_logical_axes(self) -> Cache:
+        """The logical axes of every leaf of ``init_cache``'s tree (the
+        reference's ``cache_logical_axes``): the self cache in this model's
+        KV layout, the cross cache contiguous (codes when quantized)."""
+        axes = ("layers", "act_batch", "cache_seq", "cache_kv", "cache_hd")
+        kv = kv_cache_axes(axes, self.kv_quant, self.page_size)
+        xkv = kv_cache_axes(axes, self.kv_quant, 0)
+        return {"k": kv, "v": kv, "xk": xkv, "xv": xkv,
+                "pos": ("act_batch",)}
 
     def _cross_store(self, x: torch.Tensor):
         x = x.to(self.cdtype)

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.proteus import required_bits_float
-from repro_torch.kernels.common import check_kv_quant, pack_int4
+from repro_torch.kernels.common import check_kv_quant, div_by, pack_int4
 from repro_torch.kernels.flash_attention.ops import (flash_attention_gqa_fwd,
                                                      flash_decode,
                                                      flash_decode_paged,
@@ -186,7 +186,8 @@ def kv_quantize(x: torch.Tensor, mode: str) -> QKVCache:
     xf = x.float()
     qmax = _kv_qmax(xf, check_kv_quant(mode))
     maxabs = xf.abs().amax(dim=-1)
-    scale = torch.where(maxabs == 0, torch.ones_like(maxabs), maxabs / qmax)
+    q = div_by(maxabs, qmax) if isinstance(qmax, float) else maxabs / qmax
+    scale = torch.where(maxabs == 0, torch.ones_like(maxabs), q)
     codes = torch.clamp(torch.round(xf / scale[..., None]), -qmax - 1, qmax)
     codes = codes.to(torch.int8)
     if mode == "int4":
@@ -325,6 +326,23 @@ def kv_cache_init(shape: Tuple[int, ...], dtype, mode: str = "off",
                          device)
         return PagedKVCache(pages, _identity_table(B, npg, lead, device))
     return kv_zeros(tuple(shape), dtype, mode, device)
+
+
+def kv_cache_axes(axes: Tuple, mode: str = "off", page_size: int = 0):
+    """The logical axes of a leaf of :func:`kv_cache_init`'s structure
+    (``axes`` name its dims ``(..., B, T, H, D)``): the tuple itself, a
+    :class:`QKVCache` of the codes' axes and the scales' (the last dropped),
+    or a :class:`PagedKVCache` whose pool has no batch axis (pages are shared
+    by the slots: ``cache_pages``, ``cache_page_seq``, H, D) and whose table
+    keeps the slot axis."""
+    axes = tuple(axes)
+    quant = check_kv_quant(mode) != "off"
+    if page_size > 0:
+        lead = axes[:-4]
+        pool = lead + ("cache_pages", "cache_page_seq") + axes[-2:]
+        pages = QKVCache(pool, pool[:-1]) if quant else pool
+        return PagedKVCache(pages, lead + (axes[-4], "cache_pages"))
+    return QKVCache(axes, axes[:-1]) if quant else axes
 
 
 def kv_cache_store(k: torch.Tensor, total: int, cache_len: int,

@@ -57,8 +57,10 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import check_kv_quant
 from repro_torch.models.bridge import reference_tree
-from repro_torch.models.layers import (aligned_cache_len, chunked_attention,
-                                       dense, gated_mlp, kv_cache_init,
+from repro_torch.models.layers import (PagedKVCache, QKVCache,
+                                       aligned_cache_len, chunked_attention,
+                                       dense, gated_mlp, kv_cache_axes,
+                                       kv_cache_init,
                                        kv_cache_len, kv_cache_store,
                                        kv_cache_update, kv_cast,
                                        paged_last_writers,
@@ -173,6 +175,23 @@ class ServingLM(nn.Module):
         """The module's own weights as the reference's parameter tree (the
         stacked layers copied into one tensor a leaf)."""
         return reference_tree(dict(self.named_parameters()), self.LISTS)
+
+    def cache_batch_axes(self) -> Cache:
+        """The batch axis of every leaf of ``init_cache``'s tree: where the
+        leaf's ``cache_logical_axes`` has ``act_batch`` (a QKVCache's codes
+        and scales share the codes' one; a paged leaf's is its table's,
+        through which the paged engine writes)."""
+        def axis(ax):
+            if isinstance(ax, dict):
+                return {k: axis(v) for k, v in ax.items()}
+            if isinstance(ax, list):
+                return [axis(v) for v in ax]
+            if isinstance(ax, PagedKVCache):
+                return axis(ax.table)
+            if isinstance(ax, QKVCache):
+                return axis(ax.codes)
+            return ax.index("act_batch")
+        return axis(self.cache_logical_axes())
 
     def with_kv_layout(self, kv_quant: str = "off", page_size: int = 0):
         """This model (weights shared, not copied) serving from another KV
@@ -330,6 +349,14 @@ class TransformerLM(ServingLM):
             "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
         }
 
+    def cache_logical_axes(self) -> Cache:
+        """The logical axes of every leaf of ``init_cache``'s tree, in this
+        model's KV layout (the reference's ``cache_logical_axes``)."""
+        kv = kv_cache_axes(("layers", "act_batch", "cache_seq", "cache_kv",
+                            "cache_hd"), self.kv_quant, self.page_size)
+        return {"k": kv, "v": kv, "pos_ids": ("act_batch", "cache_seq"),
+                "pos": ("act_batch",)}
+
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None,
                 full_logits: bool = False,
@@ -400,12 +427,6 @@ class TransformerLM(ServingLM):
         pos.add_(S)
         return self._logits(x), cache
 
-    def cache_batch_axes(self) -> Cache:
-        """The batch axis of every leaf of a contiguous cache (a QKVCache's
-        codes and scales share one), the counterpart of the reference's
-        ``cache_logical_axes``; the paged engine writes pages through the
-        table instead."""
-        return {"k": 1, "v": 1, "pos_ids": 0, "pos": 0}
 
 
 def model_class(cfg: ModelConfig) -> type:

@@ -279,13 +279,17 @@ class GriffinLM(ServingLM):
             "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
         }
 
-    def cache_batch_axes(self) -> Cache:
-        """The batch axis of every cache leaf, the counterpart of the
-        reference's ``cache_logical_axes``."""
-        rec = {"h": 1, "conv": 1}
-        return {"rec1": rec, "rec2": rec, "k": 1, "v": 1,
-                "tail": [{"h": 0, "conv": 0} for _ in range(self.n_tail)],
-                "pos_ids": 0, "pos": 0}
+    def cache_logical_axes(self) -> Cache:
+        """The logical axes of every leaf of ``init_cache``'s tree (the
+        reference's ``cache_logical_axes``; the KV cache is contiguous)."""
+        rec = {"h": ("layers", "act_batch", "act_embed"),
+               "conv": ("layers", "act_batch", None, "act_embed")}
+        kv = ("layers", "act_batch", "cache_seq", "cache_kv", "cache_hd")
+        return {"rec1": rec, "rec2": rec, "k": kv, "v": kv,
+                "tail": [{"h": ("act_batch", "act_embed"),
+                          "conv": ("act_batch", None, "act_embed")}
+                         for _ in range(self.n_tail)],
+                "pos_ids": ("act_batch", "cache_seq"), "pos": ("act_batch",)}
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None,
@@ -508,11 +512,15 @@ class XLSTMLM(ServingLM):
                 "pos": torch.zeros((batch,), dtype=torch.int32,
                                    device=self.device)}
 
-    def cache_batch_axes(self) -> Cache:
-        """The batch axis of every cache leaf (all 0), the counterpart of
-        the reference's ``cache_logical_axes``."""
-        return {"blocks": [dict.fromkeys(st, 0) for st in
-                           self.init_cache(1)["blocks"]], "pos": 0}
+    def cache_logical_axes(self) -> Cache:
+        """The logical axes of every leaf of ``init_cache``'s tree (the
+        reference's ``cache_logical_axes``)."""
+        mlstm = {"C": ("act_batch", "act_heads", "act_hd", None),
+                 "n": ("act_batch", "act_heads", "act_hd"),
+                 "m": ("act_batch", "act_heads")}
+        slstm = dict.fromkeys(("c", "n", "m", "h"), ("act_batch", "act_embed"))
+        return {"blocks": [dict(slstm if blk.kind == "slstm" else mlstm)
+                           for blk in self.blocks], "pos": ("act_batch",)}
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None

@@ -27,6 +27,7 @@ from typing import Any, Callable, Tuple
 import torch
 
 from repro_torch.configs.base import RunConfig
+from repro_torch.models.module import ParamSpec
 from repro_torch.tree import leaves, tree_map
 
 
@@ -68,6 +69,10 @@ class Optimizer:
     # (g, s, p, keep) -> None: the update written into s and p in place,
     # where ``keep`` (a bool device scalar, or None for always) holds
     update_: Callable[[Any, Any, Any, Any], None]
+    # a tree of the parameters' ``ParamSpec`` s -> the state's (fp32, each
+    # moment on its parameter's logical axes, so that it shards as its
+    # parameter does); the dry-run's abstract state
+    state_specs: Callable[[Any], Any]
 
     def update(self, grads: Any, state: Any, params: Any
                ) -> Tuple[Any, Any]:
@@ -78,6 +83,22 @@ class Optimizer:
             for x in (params, state))
         self.update_(grads, state, params, None)
         return params, state
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def _f32_spec(shape, axes) -> ParamSpec:
+    return ParamSpec(tuple(shape), torch.float32, tuple(axes), ("zeros",))
+
+
+def _f32_specs(specs: Any) -> Any:
+    return tree_map(lambda s: _f32_spec(s.shape, s.logical_axes), specs,
+                    is_leaf=_is_spec)
+
+
+_STEP_SPEC = ParamSpec((), torch.int32, (), ("zeros",))
 
 
 def _step0(params: Any) -> torch.Tensor:
@@ -158,7 +179,12 @@ def adamw(run: RunConfig) -> Optimizer:
         delta = mh / (torch.sqrt(vh) + eps) + wd * pf
         return (pf - lr * delta).to(p.dtype), m, v
 
-    return Optimizer("adamw", init, _elementwise(upd, begin, ("mu", "nu")))
+    def state_specs(specs):
+        return {"step": _STEP_SPEC, "mu": _f32_specs(specs),
+                "nu": _f32_specs(specs)}
+
+    return Optimizer("adamw", init, _elementwise(upd, begin, ("mu", "nu")),
+                     state_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +251,17 @@ def adafactor(run: RunConfig) -> Optimizer:
                 _write(s[k], t, keep)
         _write(state["step"], step, keep)
 
-    return Optimizer("adafactor", init, update_)
+    def state_specs(specs):
+        def st(s):
+            if _factored(s.shape):
+                return {"vr": _f32_spec(s.shape[:-1], s.logical_axes[:-1]),
+                        "vc": _f32_spec(s.shape[:-2] + s.shape[-1:],
+                                        s.logical_axes[:-2]
+                                        + s.logical_axes[-1:])}
+            return {"v": _f32_spec(s.shape, s.logical_axes)}
+        return {"step": _STEP_SPEC, "v": tree_map(st, specs, is_leaf=_is_spec)}
+
+    return Optimizer("adafactor", init, update_, state_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -247,7 +283,9 @@ def sgd(run: RunConfig, momentum: float = 0.9) -> Optimizer:
         m = momentum * m + (g * scale.to(g.dtype)).to(torch.float32)
         return (p.to(torch.float32) - lr * m).to(p.dtype), m
 
-    return Optimizer("sgd", init, _elementwise(upd, begin, ("mu",)))
+    return Optimizer("sgd", init, _elementwise(upd, begin, ("mu",)),
+                     lambda specs: {"step": _STEP_SPEC,
+                                    "mu": _f32_specs(specs)})
 
 
 def make_optimizer(name: str, run: RunConfig) -> Optimizer:

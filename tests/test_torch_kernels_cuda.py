@@ -1134,3 +1134,23 @@ def test_step_counts_card_equal_meta(cuda):
     p = torch.zeros((1, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         tk.flash_attention_fwd(q, k, k, p, p)
+
+
+@pytest.mark.cuda
+def test_quantizer_scales_card_equal_cpu(cuda):
+    """The block scales ``maxabs / qmax`` of ``proteus.quantize`` and
+    ``kv_quantize`` and their codes, card == CPU bitwise: the division is
+    the correctly rounded one on both (``kernels.common.div_by``; CUDA's
+    division by a Python number multiplies by the rounded reciprocal)."""
+    from repro_torch.core import proteus
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    x = torch.randn((1 << 20,), generator=gen)
+    for bits in (8, 4):
+        a, b = proteus.quantize(x.to(cuda), bits), proteus.quantize(x, bits)
+        assert torch.equal(a.scale.cpu(), b.scale)
+        assert torch.equal(a.values.cpu(), b.values)
+    kv = x.reshape(64, 256, 1, 64)
+    for mode in ("int8", "int4"):
+        a, b = kv_quantize(kv.to(cuda), mode), kv_quantize(kv, mode)
+        assert torch.equal(a.scale.cpu(), b.scale)
+        assert torch.equal(a.codes.cpu(), b.codes)

@@ -257,7 +257,8 @@ def test_port_imports_no_jax_and_no_reference():
     its dispatcher, the MoE layer, the encoder-decoder and xLSTM models,
     every architecture's config, smoke model and weightless training
     model, the RG-LRU recurrence under autograd, the MIMDRAM planner, DaPPA,
-    DAMOV and the kernels' step accounting, among them) and chip_smoke.py's
+    DAMOV and the kernels' step accounting, the GPipe pipeline, the
+    production mesh and the dry-run, among them) and chip_smoke.py's
     imports load without jax or the reference package."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -297,7 +298,9 @@ def test_port_imports_no_jax_and_no_reference():
         "       'repro_torch.kernels.rglru.autograd', 'repro_torch.models.model',\n"
         "       'repro_torch.models.bridge', 'repro_torch.launch.steps',\n"
         "       'repro_torch.core.mimdram', 'repro_torch.core.dappa',\n"
-        "       'repro_torch.core.damov', 'repro_torch.kernels.accounting')\n"
+        "       'repro_torch.core.damov', 'repro_torch.kernels.accounting',\n"
+        "       'repro_torch.distributed.pipeline', 'repro_torch.launch.mesh',\n"
+        "       'repro_torch.launch.dryrun')\n"
         "from repro_torch.configs import ALL_IDS, get_config\n"
         "from repro_torch.models import build_model\n"
         "from repro_torch.models.model import training_model\n"

@@ -78,15 +78,11 @@ def _inputs(cfg, seed, batch, n_tok, n_patch):
 @pytest.mark.parametrize("mode", ["train", "prefill", "decode"])
 def test_input_specs_match_reference(mode):
     """The batch template: tokens cut to S - P, the patch prefix (P =
-    min(num_patches, S // 2)); the decode template is not ported."""
+    min(num_patches, S // 2)); the decode template is one token a
+    sequence."""
     for arch in (ARCH, "pimref-100m", "mixtral-8x7b"):
         for S in (6, 16, 40):
             shape = dict(name="s", seq_len=S, global_batch=2, mode=mode)
-            if mode == "decode":
-                with pytest.raises(ValueError, match="decode"):
-                    tspecs.input_specs(tconfigs.get_config(arch, smoke=True),
-                                       tconfigs.ShapeConfig(**shape))
-                continue
             want = jspecs.input_specs(get_config(arch, smoke=True),
                                       ShapeConfig(**shape))
             got = tspecs.input_specs(tconfigs.get_config(arch, smoke=True),

@@ -5,9 +5,17 @@ jax, no ``repro``), and the launcher that runs them with time limits.
         every arch x shape x mesh planned by ``repro_torch.core.mimdram`` on
         ``DeviceMesh`` es under torch's fake process group of 512 ranks
         (one process; the group is destroyed before it exits)
-    python torch_dist_worker.py <mode> RANK WORLD STORE OUT_DIR
-        one gloo rank of ``mode`` (``reduce``, ``dappa``), rendezvous
-        through the ``FileStore`` at STORE; writes OUT_DIR/rank<RANK>.npz
+    python torch_dist_worker.py dryrun OUT.json
+        the dry-run's per-device argument bytes of every arch x shape on the
+        two production meshes and of the smoke serving cells on one device,
+        and the decode cache's specs in every KV layout (fake groups of 256,
+        512 and 1 ranks, one after the other)
+    python torch_dist_worker.py <mode> RANK WORLD STORE OUT_DIR [INPUTS]
+        one gloo rank of ``mode`` (``reduce``, ``dappa``, ``proteus``,
+        ``proteus_train``, ``proteus_one``, ``pipeline``), rendezvous
+        through the ``FileStore`` at STORE; reads its inputs from the npz
+        INPUTS when the mode takes any (the reference's, from
+        ``torch_dist_reference.py``); writes OUT_DIR/rank<RANK>.npz
 
 Every rank's process group is created with a timeout, so a hung
 rendezvous or collective fails in seconds.
@@ -21,6 +29,10 @@ import subprocess
 import sys
 
 import numpy as np
+
+# the reference's cells and the layout of its npz trees
+from torch_dist_reference import (PSUM_BLOCK, TRAIN_BLOCK, TRAIN_RUN,
+                                  TRAIN_SHAPE, flat_tree, nested)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "..", "src"))
@@ -38,18 +50,20 @@ REDUCE_MESH = ((2, 2, 2), ("pod", "data", "model"))
 REDUCE_N = 1000
 
 
-def run_ranks(mode: str, world: int, tmp_path, timeout: float = 120.0):
-    """Run ``mode`` on ``world`` gloo ranks, each in its own process;
-    returns the ranks' outputs (dicts of arrays) in rank order. A rank
-    that fails or outlives ``timeout`` fails the call (every rank is
-    killed)."""
+def run_ranks(mode: str, world: int, tmp_path, timeout: float = 120.0,
+              inputs: str = ""):
+    """Run ``mode`` on ``world`` gloo ranks, each in its own process (with
+    the npz ``inputs``, if given); returns the ranks' outputs (dicts of
+    arrays) in rank order. A rank that fails or outlives ``timeout`` fails
+    the call (every rank is killed)."""
     store = os.path.join(str(tmp_path), f"store_{mode}")
     out = os.path.join(str(tmp_path), f"out_{mode}")
     os.makedirs(out, exist_ok=True)
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), mode, str(r), str(world),
-         store, out], env=env, stdout=subprocess.PIPE,
+         store, out] + ([inputs] if inputs else []), env=env,
+        stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
     logs = []
     try:
@@ -69,9 +83,11 @@ def run_ranks(mode: str, world: int, tmp_path, timeout: float = 120.0):
             for r in range(world)]
 
 
-def run_plans(out_json: str, timeout: float = 300.0) -> dict:
-    """The ``plans`` mode in a subprocess; returns its JSON."""
-    subprocess.run([sys.executable, os.path.abspath(__file__), "plans",
+def run_plans(out_json: str, timeout: float = 300.0,
+              mode: str = "plans") -> dict:
+    """The ``plans`` (or ``dryrun``) mode in a subprocess; returns its
+    JSON."""
+    subprocess.run([sys.executable, os.path.abspath(__file__), mode,
                     out_json], check=True, timeout=timeout,
                    env=dict(os.environ, OMP_NUM_THREADS="1"))
     with open(out_json) as f:
@@ -134,6 +150,99 @@ def plans(out_json: str) -> None:
             get_config("pixtral-12b"), SHAPES[2], meshes["8"]).notes)
     finally:
         dist.destroy_process_group()
+    with open(out_json, "w") as f:
+        json.dump(out, f)
+
+
+# the dry-run's cells held to the reference: every arch x shape on the two
+# production meshes (arithmetic), and the smoke configs' serving cells on
+# one device (against the reference's compiled argument bytes)
+DRYRUN_MESHES = {"16x16": ((16, 16), ("data", "model")),
+                 "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
+ONE_DEVICE_ARCHS = ("internlm2-1.8b", "mixtral-8x7b", "recurrentgemma-2b")
+ONE_DEVICE_SHAPE = (64, 8)                # seq, batch
+# KV layouts (kv_quant, page_size) of the cache specs
+CACHE_LAYOUTS = (("off", 0), ("int8", 0), ("int4", 0), ("auto", 0),
+                 ("off", 16), ("int8", 16))
+
+
+def dryrun_cells(world_shape, names, cells, budget=None) -> dict:
+    """Per cell of ``cells`` ((cfg, shape) by key) on a mesh of
+    ``world_shape`` under a fake process group of its ranks: the
+    per-device argument bytes (one entry an argument of the step), the
+    microbatches ``cell_artifacts`` picks, and its step's name with Proteus
+    asked for."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.mimdram import plan_sharding
+    from repro_torch.configs import RunConfig
+    from repro_torch.launch import dryrun, steps
+    out = {}
+    with dryrun.fake_world(int(np.prod(world_shape))):
+        mesh = init_device_mesh("cpu", world_shape, mesh_dim_names=names)
+        for key, (cfg, shape) in cells.items():
+            kw = {} if budget is None else {"serving_param_budget": budget}
+            plan = plan_sharding(cfg, shape, mesh, **kw)
+            _, step, args, pl, _, run, _ = steps.cell_artifacts(
+                cfg, shape, plan, RunConfig(microbatches=0,
+                                            proteus_enabled=True))
+            out[key] = [[dryrun.device_bytes(a, p, mesh)
+                         for a, p in zip(args, pl)], run.microbatches,
+                        step.__qualname__.split(".")[0]]
+    return out
+
+
+def dryrun(out_json: str) -> None:
+    """The dry-run's argument bytes (production meshes with the reference's
+    serving budget; one device) and cache specs in every KV layout."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import ALL_IDS, SHAPES, ShapeConfig, get_config
+    from repro_torch.core.mimdram import plan_sharding
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import specs
+    from repro_torch.models import build_model
+    out = {}
+    cells = {}
+    for arch in ALL_IDS:
+        for shape in SHAPES:
+            cfg = get_config(arch)
+            if shape.mode != "train":
+                cfg = cfg.replace(param_dtype="bfloat16")
+            cells[f"{arch}|{shape.name}"] = (cfg, shape)
+    for mname, (shp, names) in DRYRUN_MESHES.items():
+        got = dryrun_cells(shp, names, cells, REFERENCE_SERVING_BUDGET)
+        out.update({f"args|{k}|{mname}": v for k, v in got.items()})
+        # the cache specs of the decode cell in every KV layout
+        with dr.fake_world(int(np.prod(shp))):
+            from repro_torch.launch import mesh as mesh_lib
+            prod = mesh_lib.make_production_mesh(len(shp) == 3, "cpu")
+            out[f"mesh|{mname}"] = [mesh_lib.describe(prod),
+                                    mesh_lib.n_chips(prod)]
+            mesh = init_device_mesh("cpu", shp, mesh_dim_names=names)
+            for arch in ALL_IDS:
+                cfg = get_config(arch).replace(param_dtype="bfloat16")
+                layouts = (CACHE_LAYOUTS if cfg.family in
+                           ("dense", "moe", "vlm", "audio") else
+                           (("off", 0),))
+                plan = plan_sharding(cfg, SHAPES[2], mesh,
+                                     serving_param_budget=REFERENCE_SERVING_BUDGET)
+                for q, ps in layouts:
+                    m = build_model(cfg, "meta", kv_quant=q, page_size=ps)
+                    out[f"cache|{arch}|{q}|{ps}|{mname}"] = _jsonable(
+                        specs.cache_leaves(specs.cache_pspecs(m, plan,
+                                                              SHAPES[2])))
+    seq, batch = ONE_DEVICE_SHAPE
+    one = {f"{arch}|{mode}": (get_config(arch, smoke=True),
+                              ShapeConfig("t", seq, batch, mode))
+           for arch in ONE_DEVICE_ARCHS for mode in ("prefill", "decode")}
+    out.update({f"one|{k}": v[0] for k, v in dryrun_cells(
+        (1,), ("data",), one).items()})
+    with dr.fake_world(8):
+        from repro_torch.launch import mesh as mesh_lib
+        local = mesh_lib.make_local_mesh(("data", "model"), "cpu")
+        out["mesh|local"] = [mesh_lib.describe(local),
+                             mesh_lib.n_chips(local)]
     with open(out_json, "w") as f:
         json.dump(out, f)
 
@@ -219,22 +328,182 @@ def dappa_mode(rank: int, world: int) -> dict:
     return out
 
 
+PIPE_STAGES = 2
+
+
+def proteus_mode(rank: int, world: int, inputs: dict) -> dict:
+    """proteus_psum at 8 and 4 bits over a (world,) pod mesh, each rank its
+    row of the reference's inputs; the exact sum by one all_reduce."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import proteus
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("pod",))
+    out = {}
+    for name in ("g", "odd"):
+        x = torch.from_numpy(inputs[f"{name}_in"][rank])
+        # the exact sum in rank order, as the reference's psum adds
+        rows = torch.empty((world,) + tuple(x.shape), dtype=x.dtype)
+        dist.all_gather(list(rows), x, group=mesh.get_group("pod"))
+        exact = rows[0].clone()
+        for r in range(1, world):
+            exact += rows[r]
+        out[f"{name}_exact"] = exact.numpy()
+        for bits in (8, 4):
+            out[f"{name}_q{bits}"] = proteus.proteus_psum(
+                x, "pod", bits=bits, block=PSUM_BLOCK, mesh=mesh).numpy()
+        # the same from the active plan's mesh
+        from repro_torch.core.mimdram import Plan, use_plan
+        with use_plan(Plan(rules={}, mesh=mesh)):
+            out[f"{name}_q8_plan"] = proteus.proteus_psum(
+                x, "pod", bits=8, block=PSUM_BLOCK).numpy()
+        out[f"{name}_tree"] = proteus.maybe_compress_grads(
+            {"a": x}, True, "pod", bits=8, block=PSUM_BLOCK, n_pods=world,
+            mesh=mesh)["a"].numpy()
+    return out
+
+
+def _smoke_train(world_mesh, **run_kw):
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config
+    from repro_torch.core.mimdram import plan_sharding
+    cfg = get_config("pimref-100m", smoke=True).replace(
+        compute_dtype="float32")
+    shape = ShapeConfig("t", seq_len=TRAIN_SHAPE[1],
+                        global_batch=TRAIN_SHAPE[0], mode="train")
+    run = RunConfig(**dict(dict(total_steps=10, microbatches=1,
+                                proteus_enabled=True, proteus_grad_bits=8,
+                                proteus_block=TRAIN_BLOCK), **run_kw))
+    return cfg, shape, run, plan_sharding(cfg, shape, world_mesh)
+
+
+def proteus_train_mode(rank: int, world: int, inputs: dict) -> dict:
+    """One Proteus step of the fp32 smoke pimref (SGD, the reference's
+    ``TRAIN_RUN``) on a (2, 2, 2) pod x data x model mesh from the
+    reference's parameters and batch: the new parameters, SGD's momentum
+    (the reduced gradient) and the loss."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.steps import make_train_step_proteus
+    from repro_torch.models.model import training_model
+    from repro_torch.optim import make_optimizer
+    mesh = init_device_mesh("cpu", REDUCE_MESH[0],
+                            mesh_dim_names=REDUCE_MESH[1])
+    cfg, _, run, plan = _smoke_train(mesh, **TRAIN_RUN)
+    params = _to_torch(nested(inputs, "param"))
+    batch = {k: torch.from_numpy(v)
+             for k, v in nested(inputs, "batch").items()}
+    opt = make_optimizer("sgd", run)
+    step = make_train_step_proteus(training_model(cfg), opt, plan, run)
+    params, state, m = step(params, opt.init(params), batch)
+    out = flat_tree(params, "new")
+    out.update(flat_tree(state["mu"], "mu"))
+    out["loss"] = m["loss"].numpy()
+    out["rules_batch"] = np.array(plan.rules["act_batch"])
+    return out
+
+
+def _to_torch(tree):
+    import torch
+    if isinstance(tree, dict):
+        return {k: _to_torch(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree))
+
+
+def proteus_one_mode(rank: int, world: int, inputs: dict) -> dict:
+    """On one rank (a (1,) pod mesh): three AdamW steps of the Proteus step
+    and of the plain step whose gradients pass through quantize and
+    dequantize, from the port's init; the losses, parameters and states
+    of both."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.proteus import quantize_hook
+    from repro_torch.data import make_batch_fn
+    from repro_torch.launch.steps import (make_train_step,
+                                          make_train_step_proteus)
+    from repro_torch.launch.train import initial_params
+    from repro_torch.models.model import training_model
+    from repro_torch.optim import make_optimizer
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("pod",))
+    cfg, shape, run, plan = _smoke_train(mesh)
+    model = training_model(cfg)
+    hook = quantize_hook(run)
+
+    bf = make_batch_fn(cfg, shape)
+    out = {}
+    for name, make in (("proteus", lambda o: make_train_step_proteus(
+            model, o, plan, run)), ("hooked", lambda o: make_train_step(
+                model, o, run, grad_hook=hook))):
+        opt = make_optimizer("adamw", run)
+        params = initial_params(cfg, 0, "cpu")
+        state = opt.init(params)
+        step = make(opt)
+        for i in range(3):
+            batch = {k: torch.from_numpy(v) for k, v in bf(i).items()}
+            params, state, m = step(params, state, batch)
+            out[f"{name}_loss{i}"] = m["loss"].numpy()
+        out.update(flat_tree(params, f"{name}_params"))
+        out.update(flat_tree(state["mu"], f"{name}_mu"))
+        out.update(flat_tree(state["nu"], f"{name}_nu"))
+        out[f"{name}_step"] = state["step"].numpy()
+    return out
+
+
+def pipeline_mode(rank: int, world: int, inputs: dict) -> dict:
+    """pipelined_forward over the (2, 2, 2) mesh's two pod stages, and the
+    sequential stack microbatch by microbatch."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.pipeline import pipelined_forward
+    mesh = init_device_mesh("cpu", REDUCE_MESH[0],
+                            mesh_dim_names=REDUCE_MESH[1])
+    w, x = (torch.from_numpy(inputs[k]) for k in ("w", "x"))
+
+    def block(wl, h):
+        return torch.tanh(h @ wl)
+
+    out = pipelined_forward(block, w, x, mesh=mesh, n_stages=PIPE_STAGES,
+                            n_layers=w.shape[0])
+    seq = []
+    for mb in x:
+        for wl in w:
+            mb = block(wl, mb)
+        seq.append(mb)
+    refused = ""
+    try:
+        pipelined_forward(block, w[:3], x, mesh=mesh, n_stages=PIPE_STAGES,
+                          n_layers=3)
+    except ValueError as e:
+        refused = str(e)
+    return {"out": out.numpy(), "seq": torch.stack(seq).numpy(),
+            "refused": np.array(refused)}
+
+
 MODES = {"reduce": reduce, "dappa": dappa_mode}
+INPUT_MODES = {"proteus": proteus_mode, "proteus_train": proteus_train_mode,
+               "proteus_one": proteus_one_mode, "pipeline": pipeline_mode}
 
 
 def main(argv) -> int:
     mode = argv[1]
-    if mode == "plans":
-        plans(argv[2])
+    if mode in ("plans", "dryrun"):
+        (plans if mode == "plans" else dryrun)(argv[2])
         return 0
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)
     rank, world, store, out_dir = int(argv[2]), int(argv[3]), argv[4], \
         argv[5]
+    inputs = dict(np.load(argv[6])) if len(argv) > 6 else {}
     _init(rank, world, store)
     try:
-        res = MODES[mode](rank, world)
+        if mode in INPUT_MODES:
+            res = INPUT_MODES[mode](rank, world, inputs)
+        else:
+            res = MODES[mode](rank, world)
         dist.barrier()
     finally:
         dist.destroy_process_group()
