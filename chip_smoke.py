@@ -178,19 +178,30 @@ vector's int4 codes, bitwise, with an exact round trip; the
 and ``flash_attention_bh_fp32``). Exact launch counts, then device times at
 the path's shapes.
 
-Phases ``archs``, ``moe``, ``parity_moe``, ``vlm`` and ``parity_vlm`` run
-last: the other families of ``TransformerLM``, random weights from
-``--seed``, at full width with depth cut to fit one card (fp32 weights and
-their bf16 copies, 6 bytes a weight). ``archs``: ``stablelm-1.6b`` (D 64)
-and ``internlm2-1.8b`` (D 128, G 2) at full depth, batch 8 x 512 + 64,
-three ways with exact launches. ``moe``: ``mixtral-8x7b`` at 2 of 32
+Phases ``archs``, ``parity_archs``, ``moe``, ``parity_moe``, ``vlm`` and
+``parity_vlm`` run last: the other families of ``TransformerLM``, random
+weights from ``--seed``, at full width with depth cut to fit one card (fp32
+weights and their bf16 copies, 6 bytes a weight). ``archs``:
+``stablelm-1.6b`` (D 64) and ``internlm2-1.8b`` (D 128, G 2) at 4 of 24
+layers, ``stablelm-3b`` (D 80, 32 heads) at full depth, batch 8 x 512 + 64,
+three ways with exact launches; stablelm-3b also in the int4 and
+paged16-int8 layouts three ways, its engine drained graph against eager
+body (contiguous, paged16) and a profile whose kernel events equal the
+counters; then ``kimi-k2-1t-a32b`` (D 112, 64 q heads on 8 kv heads) at
+full width and 1 of its 61 layers (all 384 experts, bf16 weights, 38.8 GB;
+its peak under 75 GB), batch 8 x 512 + 64 three ways in contiguous and
+graph against eager chunk in int4, paged16 and paged16-int8, a profile.
+``parity_archs``: stablelm-3b at 2 layers of full width, fp32 card against
+CPU as ``parity_moe`` below (contiguous and int8). The kernels phase checks
+every route and layout at D 80 and 112 at these shapes (rows ``*_d80``,
+``*_d112``). ``moe``: ``mixtral-8x7b`` at 1 of 32
 layers (8 experts, top 2, capacity factor 1.25, window 4096), batch 8 x
 512 + 64 in the contiguous, int8, paged16 and paged16-int8 layouts and one
 long request (2 x 4200 + 32, past the window, so the ring wraps), three
 ways each: identical tokens, exact launches, the graph's device ms a step
 against its byte bound (``step_bytes``: every expert's weights each step);
 the engine phase's requests drained graph against eager body (contiguous,
-paged16); a profile. ``vlm``: ``pixtral-12b`` at 4 of 40 layers, batch 8 x
+paged16); a profile. ``vlm``: ``pixtral-12b`` at 2 of 40 layers, batch 8 x
 512 (256 patch embeddings + 256 tokens) + 64, contiguous and paged16, and
 2 x 2048 with the full 1024-row patch prefix, three ways; ``serve(spec=
 "ngram")`` against speculation off (bf16 recorded, fp32 identical);
@@ -208,8 +219,8 @@ beside SDPA with ``enable_gqa``.
 Phases ``encdec``, ``parity_encdec`` and ``xlstm`` run after
 ``parity_vlm``: the last two architectures of the reference, random
 weights from ``--seed``. ``encdec``: ``seamless-m4t-large-v2`` at full
-width (d_model 1024, 16 heads of 64, d_ff 8192, vocab 256206), 4 of 24
-encoder and 4 of 24 decoder layers (full depth has 2,034,784,256
+width (d_model 1024, 16 heads of 64, d_ff 8192, vocab 256206), 2 of 24
+encoder and 2 of 24 decoder layers (full depth has 2,034,784,256
 parameters), ``serve()`` of batch 8 x
 512 tokens over 512 source frames + 64 new in the contiguous, int8,
 paged16 and paged16-int8 layouts as the graph replay and the eager chunk
@@ -246,13 +257,14 @@ Phases ``train_families`` and ``train_families_parity`` run after
 ``train_parity``. ``train_families``: each non-dense family trained
 through ``train()`` on the card at full width, bf16 compute, guarded AdamW
 (warm-up 2, lr 3e-4), one warm-up step and four more, the batch with the
-family's extras: ``xlstm-125m`` 6 of 12 layers at 8 x 512, seamless 12 +
-12 of 24 + 24 at 4 x 512 over 512 frames, ``pixtral-12b`` 4 of 40 layers
-at 2 x 2048 (1024 patches + 1024 tokens), ``mixtral-8x7b`` 2 of 32 at 4 x
-1024, Griffin 26 layers at 1 x 4096 (past its 2048 window); mixtral's and
+family's extras: ``xlstm-125m`` 6 of 12 layers at 8 x 512, seamless 6 +
+6 of 24 + 24 at 4 x 512 over 512 frames, ``pixtral-12b`` 2 of 40 layers
+at 2 x 2048 (1024 patches + 1024 tokens), ``mixtral-8x7b`` 1 of 32 at 4 x
+1024, Griffin 14 of 26 layers at 1 x 4096 (past its 2048 window); mixtral's and
 pixtral's depths cut to keep a family's 16 bytes a weight (fp32 weights,
 gradients, both moments: the model holds none) under 75 GB, the xLSTM's
-and seamless's for the run's time limit (phase ``paper``). Every loss finite, none skipped, exact
+and seamless's for the run's time limit (phase ``paper``), and all but the
+xLSTM's again for it (stablelm-3b's and kimi-k2's phases). Every loss finite, none skipped, exact
 launches a step (the prefill kernel twice per attention layer, the RG-LRU
 kernel three times per grouped recurrent layer and twice per tail layer),
 one profiled step whose kernel events equal the counters (not for the
@@ -298,7 +310,9 @@ prefill launches a step each, both timed, with the quantize pass's cost;
 at one stage, bitwise equal to the stack run microbatch by microbatch and
 within the bf16 limit of the whole-batch stack; the dry-run's cells
 (pimref-100m train / prefill / decode / long_500k on the (16, 16) mesh,
-mixtral-8x7b train_4k with Proteus and long_500k on (2, 16, 16)), counted
+mixtral-8x7b train_4k with Proteus and long_500k on (2, 16, 16);
+stablelm-3b's and kimi-k2's train, prefill and decode cells, D 80 and 112,
+on one mesh or the other, kimi-k2's long_500k; ``DIST_CELLS``), counted
 on ``meta`` by worker processes started at the build, ``OK`` or ``SKIP``
 where the reference skips; and the dry-run's predicted peak for the
 Proteus step's own one-device problem beside the card's.
@@ -333,7 +347,7 @@ PHASES = ("device", "build", "kernels", "serve", "engine", "robust", "fleet",
           "parity", "train", "train_kernels", "train_parity",
           "train_families", "train_families_parity", "proteus",
           "serve_griffin", "engine_griffin", "parity_griffin", "archs",
-          "moe", "parity_moe", "vlm", "parity_vlm", "encdec", "parity_encdec",
+          "parity_archs", "moe", "parity_moe", "vlm", "parity_vlm", "encdec", "parity_encdec",
           "xlstm", "paper", "distributed")
 # the H100 SXM's figures (NVIDIA data sheet), one copy for every bound of
 # the run: repro_torch.core.damov's
@@ -388,8 +402,11 @@ INT16_MAX = 32767                  # bench_proteus_precision's code grid
 BH_SHAPE = (96, 64)                # (B * H, D): 8 x 12 heads of 64
 BH_LENGTHS = (512, 500)
 BH_WINDOWS = (0, 128)
-DECODE_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_decode.cu"
-PREFILL_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_prefill.cu"
+# the attention kernels' code (the .cu beside each holds the design note and
+# the C entry point; flash_*.d<D>.cu instantiate it a head dim at a time)
+DECODE_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_decode.cuh"
+PREFILL_SOURCE = (
+    "src/repro_torch/kernels/flash_attention/csrc/flash_prefill.cuh")
 NV_SOURCE = "src/repro_torch/kernels/narrow_value/csrc/narrow_value.cu"
 RGLRU_SOURCE = "src/repro_torch/kernels/rglru/csrc/rglru.cu"
 QMM_SOURCE = "src/repro_torch/kernels/quant_matmul/csrc/quant_matmul.cu"
@@ -549,6 +566,32 @@ COUNTER = {"flash_attention_fwd_d256": "flash_attention_fwd",
            "flash_attention_fwd_train_d128": "flash_attention_fwd",
            "flash_attention_fwd_train_noncausal": "flash_attention_fwd",
            "flash_attention_fwd_train_cross": "flash_attention_fwd"}
+# the rows at head dims 80 and 112 (kernels_head_dims): the base row's
+# kernel with the suffix, and the run whose launches it reports: phase
+# archs' graph serve of the layout (paged16 at D 80: the graph engine's
+# drain), the fp32 route's phase parity_archs; kimi-k2 runs in fp32 on no
+# path (at one layer its fp32 weights, 77.6 GB, fit neither card nor host)
+HEAD_DIM_RUNS = {
+    "_d80": {"flash_attention_fwd": "archs/stablelm-3b",
+             "flash_attention_fwd_fp32": "parity_archs",
+             "flash_decode_fwd": "archs/stablelm-3b",
+             "flash_decode_quant_fwd": "archs/stablelm-3b/int4",
+             "flash_decode_paged_fwd": "archs/stablelm-3b/engine_paged16",
+             "flash_decode_paged_quant_fwd":
+                 "archs/stablelm-3b/paged16_int8"},
+    "_d112": {"flash_attention_fwd": "archs/kimi-k2-1t-a32b",
+              "flash_attention_fwd_fp32": None,
+              "flash_decode_fwd": "archs/kimi-k2-1t-a32b",
+              "flash_decode_quant_fwd": "archs/kimi-k2-1t-a32b/int4",
+              "flash_decode_paged_fwd": "archs/kimi-k2-1t-a32b/paged16",
+              "flash_decode_paged_quant_fwd":
+                  "archs/kimi-k2-1t-a32b/paged16_int8"}}
+for _sfx, _runs in HEAD_DIM_RUNS.items():
+    for _base, _run in _runs.items():
+        SOURCES[_base + _sfx] = SOURCES[_base]
+        REPLACES[_base + _sfx] = REPLACES[_base]
+        MAIN_LAYOUT[_base + _sfx] = _run
+        COUNTER[_base + _sfx] = _base
 NO_LIBRARY = ("no single PyTorch call computes attention over quantized "
               "codes or through a page table")
 NO_LIBRARY_RGLRU = "no single PyTorch call computes a linear recurrence"
@@ -586,14 +629,17 @@ TRAIN_TREE_RTOL = 1e-4
 # AdamW moments) with the step's transients pass TRAIN_FAMILIES_PEAK
 # (mixtral, pixtral), and to pay for phase paper's ~30 s within the run's
 # time limit (the xLSTM 12 -> 6 layers, ~15 s of its 5.5 s steps; seamless
-# 24 + 24 -> 12 + 12, ~15 s of its steps and profiled step)
+# 24 + 24 -> 12 + 12, ~15 s of its steps and profiled step); then, for
+# stablelm-3b's and kimi-k2's phases, seamless 6 + 6, pixtral 2,
+# mixtral 1 and Griffin 14 of 26 layers (four (r, r, a) groups and the two
+# trailing recurrent layers; 28.4 s of the phase at 26)
 # arch: (decoder layers, encoder layers or None, batch, seq)
 TRAIN_FAMILIES = {
     "xlstm-125m": (6, None, 8, 512),
-    "seamless-m4t-large-v2": (12, 12, 4, 512),
-    "pixtral-12b": (4, None, 2, 2048),
-    "mixtral-8x7b": (2, None, 4, 1024),
-    "recurrentgemma-2b": (26, None, 1, 4096),
+    "seamless-m4t-large-v2": (6, 6, 4, 512),
+    "pixtral-12b": (2, None, 2, 2048),
+    "mixtral-8x7b": (1, None, 4, 1024),
+    "recurrentgemma-2b": (14, None, 1, 4096),
 }
 TRAIN_FAMILIES_STEPS = 5
 TRAIN_FAMILIES_PEAK = 75e9
@@ -654,13 +700,16 @@ SPEC_MODES = ("ngram", "draft")
 # new tokens of a spec drain: 16 keeps the run inside its time limit (64,
 # with every other phase as it is, ran past it on the H100)
 SPEC_GEN = 16
-# decode steps of a chunk in the profiled serves and the spec profile: 4
-# for the time limit too (8 ran past it)
-PROFILE_CHUNK = 4
+# decode steps of a chunk in the profiled serves and the spec profile: 2
+# for the time limit too (8 ran past it; at 4 stablelm-3b's profile at 32
+# layers took 34 s, most of it the trace's processing)
+PROFILE_CHUNK = 2
 # pimref-100m's depth in phases robust, spec and spec_fp32 (full width):
 # 6 of 12 layers, for the run's time limit on slower hosts (with phase
 # paper and these phases at 12 layers the run took 1245.9 s on one H100
-# host); serve, engine, profile and fleet keep 12
+# host); serve, engine, profile and fleet keep 12. Not fewer: at 4 layers
+# the draft drafter (2 layers) accepted no draft on serve()'s batch (1.0
+# on the H100; the phase's gate is > 1.0)
 CUT_PIMREF_LAYERS = 6
 T_START = time.perf_counter()
 # what the serving and training phases measured, by label, for the paper
@@ -786,7 +835,10 @@ def phase_build() -> None:
     log("build", f"{len(build.sources())} source(s) ready in "
         f"{time.perf_counter() - t0:.2f}s")
     for name, rec in info.items():
-        log("build", f"{name}: nvcc {rec['seconds']:.2f}s -> {rec['path']}")
+        log("build", f"{name}: nvcc {rec['seconds']:.2f}s -> {rec['path']}"
+            + (f" (translation units: " + ", ".join(
+                f"{u} {sec:.1f}s" for u, sec in rec["parts"].items()) + ")"
+               if len(rec["parts"]) > 1 else ""))
         for line in rec["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("build", "  " + line.strip())
@@ -911,11 +963,15 @@ def fp32_prefill_row(gen, label, B, Hkv, G, S, D, window,
 TRACE_LEAD_KERNELS = 50
 # the families' train traces follow a run of train() (tens of GB allocated
 # and freed): runs on the H100 kept 8-10 of 50 lead kernels there, so they
-# take a longer lead-in
+# take a longer lead-in; so do the serving profiles (``phase_profile``),
+# one to three of which kept 0 of 50 a run on the H100 (Griffin's, the
+# archs', mixtral's, seamless's: a different set each run)
 TRAIN_TRACE_LEAD = 120
 TRACE_LEAD_GAP_S = 0.05
 TRACE_PAD_S = 0.1
 LEAD_KERNEL = "lgamma"
+# (lead kernels, seconds of the lead-in) of every trace of the run
+LEAD_IN = []
 
 
 @contextlib.contextmanager
@@ -931,10 +987,12 @@ def traced(lead: int = TRACE_LEAD_KERNELS):
         torch.cuda.synchronize()
         prof.step()
         x = torch.full((1,), 2.0, device=DEVICE)
+        t0 = time.perf_counter()
         for _ in range(lead):
             x.lgamma_()
             torch.cuda.synchronize()
             time.sleep(TRACE_LEAD_GAP_S)
+        LEAD_IN.append((lead, time.perf_counter() - t0))
         yield prof
         torch.cuda.synchronize()
         time.sleep(TRACE_PAD_S)
@@ -1138,6 +1196,7 @@ def phase_kernels(seed: int) -> dict:
     rows.update(kernels_kv_layouts(gen))
     rows.update(kernels_griffin(gen))
     rows.update(kernels_d128(gen))
+    rows.update(kernels_head_dims(gen))
     rows.update(kernels_noncausal(gen))
     return rows
 
@@ -1381,37 +1440,41 @@ D128_HEADS = (8, 4, 128)            # (Hkv, G, D)
 D128_WINDOW = 4096
 
 
-def kernels_d128(gen) -> dict:
-    """The prefill and decode kernels at the MoE / VLM shape: B 8, 32 q
-    heads on 8 kv heads (G 4) of 128, bf16, mixtral's window of 4096;
-    prefill S = T = 512 and a decode step over a ring of 576, through
-    ``ops`` as the models call them, against their plain versions; device
-    times beside the plain versions and SDPA (``enable_gqa``: q head h reads
-    kv head h // G, the models' grouping); then the quantized and paged
-    layouts at this shape with their bitwise identities. Returns the rows
-    ``flash_attention_fwd_d128`` and ``flash_decode_fwd_d128``."""
+def _attention_rows(gen, Hkv, G, D, window, sfx, label) -> dict:
+    """The bf16 prefill at B 8 x S = T = 512 and a decode step over a ring
+    of 576, Hkv kv heads of D with G q heads each, ``window`` (0: none),
+    through ``ops`` as the models call them, against their plain versions:
+    the prefill's out within 2e-2 and ``ref.bf16_route_limit``, lse 1e-4,
+    the decode within 2e-2, two calls of each bitwise equal; device times
+    beside the plain versions and SDPA (``enable_gqa`` where G > 1: q head
+    h reads kv head h // G, the models' grouping). Rows
+    ``flash_attention_fwd`` and ``flash_decode_fwd`` with the suffix
+    ``sfx``; ``label`` names the shape in the log."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ops, ref
     from repro_torch.kernels.flash_attention.ref import visible_mask
-    Hkv, G, D = D128_HEADS
-    H, W, B, dt = Hkv * G, D128_WINDOW, 8, torch.bfloat16
+    B, S, T, dt = 8, 512, 576, torch.bfloat16
+    H, W = Hkv * G, window
+    gqa = dict(enable_gqa=True) if G > 1 else {}
+    split = lambda x: x.reshape(B, -1, Hkv, G, D).permute(0, 2, 3, 1, 4)  # noqa: E731
+    to4 = lambda x: x.permute(0, 3, 1, 2, 4).reshape(B, -1, H, D)  # noqa: E731
     rows = {}
 
-    # -- prefill: B 8 x S = T = 512 ------------------------------------------
-    S = 512
+    # -- prefill, bf16 route: B 8 x S = T = 512 -------------------------------
     q = randn(gen, (B, S, H, D), dt)
     k, v = (randn(gen, (B, S, Hkv, D), dt) for _ in range(2))
     out, lse = ops.flash_attention_gqa_fwd(q, k, v, causal=True, window=W)
     pos = torch.arange(S, dtype=torch.int32, device=DEVICE).expand(B, S)
-    split = lambda x: x.reshape(B, S, Hkv, G, D).permute(0, 2, 3, 1, 4)
-    to4 = lambda x: x.permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
     args5 = (split(q), k.transpose(1, 2), v.transpose(1, 2), pos, pos)
     r_out, r_lse = ref.flash_attention_fwd_ref(*args5, causal=True, window=W)
-    err = _check_bf16("prefill B8 Hkv8 G4 S=T=512 D128 window 4096 bf16 "
-                      "(model layout)", out, to4(r_out),
-                      to4(_abs_v_out(*args5, causal=True, window=W)), lse,
-                      r_lse)
+    err = _check_bf16(f"prefill {label} S=T=512 bf16 (model layout)", out,
+                      to4(r_out), to4(_abs_v_out(*args5, causal=True,
+                                                 window=W)), lse, r_lse)
+    o2, l2 = ops.flash_attention_gqa_fwd(q, k, v, causal=True, window=W)
+    _identical(f"prefill {label} bf16 out: two calls", o2, out)
+    _identical(f"prefill {label} bf16 lse: two calls", l2, lse)
+    del o2, l2, r_out, r_lse
     n_sets = n_sets_for(q.nbytes + k.nbytes + v.nbytes)
     sets = [(randn(gen, (B, S, H, D), dt), randn(gen, (B, S, Hkv, D), dt),
              randn(gen, (B, S, Hkv, D), dt)) for _ in range(n_sets)]
@@ -1423,66 +1486,123 @@ def kernels_d128(gen) -> dict:
         *sets5[i], pos, pos, causal=True, window=W), n_sets, 4)
     sets4 = [tuple(x.transpose(1, 2).contiguous() for x in s) for s in sets]
     t_l = device_ms(lambda i: F.scaled_dot_product_attention(
-        *sets4[i], is_causal=True, enable_gqa=True), n_sets, 20)
+        *sets4[i], is_causal=True, **gqa), n_sets, 20)
     del sets, sets4, sets5
     nbytes = 2 * q.nbytes + k.nbytes + v.nbytes + lse.nbytes + 2 * pos.nbytes
     flops = 4.0 * D * H * visible_pairs(pos, pos, True, W)
     b_ms, b_by = bound_ms(nbytes, flops, dt)
-    rows["flash_attention_fwd_d128"] = dict(
+    rows["flash_attention_fwd" + sfx] = dict(
         max_abs_err=err, ms=t_ops, plain_ms=t_p, bound_ms=b_ms,
         bound_by=b_by, library_ms=t_l)
-    log("kernels", f"prefill D128 times (B8 Hkv8 G4 S=T=512 window 4096 "
-        f"bf16): kernel {t_ops:.4f} ms (through ops), plain {t_p:.4f} ms, "
-        f"sdpa (is_causal, enable_gqa) {t_l:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}: {nbytes} B, {flops:.3e} FLOP)")
+    log("kernels", f"prefill {label} S=T=512 bf16 times: kernel {t_ops:.4f} "
+        f"ms (through ops), plain {t_p:.4f} ms, sdpa (is_causal"
+        f"{', enable_gqa' if gqa else ''}) {t_l:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}: {nbytes} B, {flops:.3e} FLOP); plan "
+        f"{fk.prefill_plan(G, S)}")
+    del q, k, v, out, lse
 
     # -- decode: one step over a ring of 576 ---------------------------------
-    T = 576
     qp, kp = ring_positions([575 - 8 * b for b in range(B)], 1, T)
     q = randn(gen, (B, 1, H, D), dt)
     k, v = (randn(gen, (B, T, Hkv, D), dt) for _ in range(2))
-    to5 = lambda x: x.reshape(B, 1, Hkv, G, D).permute(0, 2, 3, 1, 4)
+    o = ops.flash_decode(q, k, v, qp, kp, window=W)
     dec_err = _check(
-        "decode B8 Hkv8 G4 T576 S1 D128 window 4096 bf16 (model layout)",
-        ops.flash_decode(q, k, v, qp, kp, window=W),
-        ref.flash_decode_fwd_ref(to5(q), k.transpose(1, 2), v.transpose(1, 2),
-                                 qp, kp, window=W
-                                 ).permute(0, 3, 1, 2, 4).reshape(B, 1, H, D),
+        f"decode {label} T576 S1 bf16 (model layout)", o,
+        to4(ref.flash_decode_fwd_ref(split(q), k.transpose(1, 2),
+                                     v.transpose(1, 2), qp, kp, window=W)),
         TOL[dt])
+    _identical(f"decode {label} bf16: two calls",
+               ops.flash_decode(q, k, v, qp, kp, window=W), o)
     n_sets = n_sets_for(2 * B * T * Hkv * D * 2)
     sets = [(randn(gen, (B, 1, H, D), dt), randn(gen, (B, T, Hkv, D), dt),
              randn(gen, (B, T, Hkv, D), dt)) for _ in range(n_sets)]
     t_k = device_ms(lambda i: ops.flash_decode(*sets[i], qp, kp, window=W),
                     n_sets, 50)
-    sets5 = [(to5(a), b.transpose(1, 2), c.transpose(1, 2))
+    sets5 = [(split(a), b.transpose(1, 2), c.transpose(1, 2))
              for a, b, c in sets]
     t_p = device_ms(lambda i: ref.flash_decode_fwd_ref(*sets5[i], qp, kp,
                                                        window=W), n_sets, 10)
     mask = visible_mask(qp, kp, causal=True, window=W)[:, None]
     sets4 = [tuple(x.transpose(1, 2).contiguous() for x in s) for s in sets]
     t_l = device_ms(lambda i: F.scaled_dot_product_attention(
-        *sets4[i], attn_mask=mask, enable_gqa=True), n_sets, 50)
+        *sets4[i], attn_mask=mask, **gqa), n_sets, 50)
     del sets, sets4, sets5
     valid_rows = int((kp >= 0).sum())
     nbytes = (2 * 2 * valid_rows * Hkv * D + 2 * B * H * D * 2 + qp.nbytes
               + kp.nbytes)
     flops = 4.0 * D * H * visible_pairs(qp, kp, True, W)
     b_ms, b_by = bound_ms(nbytes, flops, dt)
-    rows["flash_decode_fwd_d128"] = dict(
+    rows["flash_decode_fwd" + sfx] = dict(
         max_abs_err=dec_err, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
         bound_by=b_by, library_ms=t_l)
-    log("kernels", f"decode D128 times (B8 Hkv8 G4 T576 S1 bf16): kernel "
-        f"{t_k:.4f} ms, plain {t_p:.4f} ms, sdpa (mask, enable_gqa) "
+    log("kernels", f"decode {label} T576 S1 bf16 times: kernel {t_k:.4f} ms, "
+        f"plain {t_p:.4f} ms, sdpa (mask{', enable_gqa' if gqa else ''}) "
         f"{t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
         f"{flops:.3e} FLOP); plan {fk.decode_plan(B, Hkv, G, T)}")
+    return rows
+
+
+def kernels_d128(gen) -> dict:
+    """The prefill and decode kernels at the MoE / VLM shape: B 8, 32 q
+    heads on 8 kv heads (G 4) of 128, bf16, mixtral's window of 4096
+    (``_attention_rows``); then the quantized and paged layouts at this
+    shape with their bitwise identities. Returns the rows
+    ``flash_attention_fwd_d128`` and ``flash_decode_fwd_d128``."""
+    Hkv, G, D = D128_HEADS
+    rows = _attention_rows(gen, Hkv, G, D, D128_WINDOW, "_d128",
+                           f"B8 Hkv{Hkv} G{G} D{D} window {D128_WINDOW}")
     # the layout kernels at this shape (and the verify block's S 4), paged
     # == dense and paged-quant == quant bit for bit
     for dt in (torch.bfloat16, torch.float32):
         for S in (1, SPEC_K + 1):
             _check_layouts_case(gen, dt, 4, Hkv, G, S, 576, D, 16,
                                 [100, 575 - S, 2100, 40],
-                                dict(causal=True, window=W, softcap=0.0),
+                                dict(causal=True, window=D128_WINDOW,
+                                     softcap=0.0),
                                 share=2)
+    return rows
+
+
+# the head dims the kernels took last: stablelm-3b's 32 heads of 80
+# (MHA: 2560 / 32) and kimi-k2's 64 q heads on 8 kv heads of 112, at the
+# serving shapes (B 8, prompt 512, a ring of 576): (Hkv, G, D) by row suffix
+HEAD_DIM_SHAPES = {"_d80": (32, 1, 80), "_d112": (8, 8, 112)}
+HEAD_DIM_LABELS = {"_d80": "stablelm-3b", "_d112": "kimi-k2-1t-a32b"}
+
+
+def kernels_head_dims(gen) -> dict:
+    """Every kernel route at head dims 80 and 112 (HEAD_DIM_SHAPES), B 8:
+    the prefill's bf16 route and a decode step (``_attention_rows``, no
+    window), the prefill's fp32 route at S = T = 512 (2e-5, two calls
+    bitwise equal), and the quantized and paged layouts (int8 and int4
+    codes, pages of 16; S 1 and the verify block's S 4, bf16 and fp32, a
+    wrapped ring) against their plain versions with paged == dense and
+    paged-quant == quant bit for bit; device times beside the plain
+    versions and SDPA. Rows ``flash_attention_fwd``,
+    ``flash_attention_fwd_fp32``, ``flash_decode_fwd``,
+    ``flash_decode_quant_fwd`` (int4 codes, the layout the archs phase
+    serves), ``flash_decode_paged_fwd`` and
+    ``flash_decode_paged_quant_fwd`` with the suffix ``_d80`` / ``_d112``."""
+    rows = {}
+    B, S, T, dt = 8, 512, 576, torch.bfloat16
+    for sfx, (Hkv, G, D) in HEAD_DIM_SHAPES.items():
+        label = f"B{B} Hkv{Hkv} G{G} D{D} ({HEAD_DIM_LABELS[sfx]})"
+        rows.update(_attention_rows(gen, Hkv, G, D, 0, sfx, label))
+        rows["flash_attention_fwd_fp32" + sfx] = fp32_prefill_row(
+            gen, f"{label} S=T=512", B, Hkv, G, S, D, 0)
+        # the layouts: checks at the serving shape and at the verify
+        # block's, bf16 and fp32, then times at the serving shape
+        errs = _check_layouts_case(gen, dt, B, Hkv, G, 1, T, D, 16,
+                                   [575 - 8 * b for b in range(B)],
+                                   dict(causal=True, window=0, softcap=0.0),
+                                   share=3)
+        for cdt in (torch.bfloat16, torch.float32):
+            _check_layouts_case(gen, cdt, 4, Hkv, G, SPEC_K + 1, T, D, 16,
+                                [100, T - SPEC_K - 1, 2100, 40],
+                                dict(causal=True, window=0, softcap=0.0),
+                                share=2)
+        rows.update(_layout_rows(gen, B, Hkv, G, T, D, 16, errs, sfx,
+                                 quant="int4"))
     return rows
 
 
@@ -1778,7 +1898,22 @@ def kernels_kv_layouts(gen) -> dict:
         _check(f"ops.flash_decode_quant {mode} B8 H12 T576 S1 D64 bf16", o,
                r.permute(0, 3, 1, 2, 4).reshape(B, 1, H, D), TOL[dt])
 
-    # -- device times at the main path's shape ------------------------------
+    rows.update(_layout_rows(gen, B, H, 1, T, D, ps, main_err))
+    return rows
+
+
+def _layout_rows(gen, B, Hkv, G, T, D, ps, errs, suffix="",
+                 quant="int8") -> dict:
+    """Device times of the quantized and paged decode kernels at a main
+    path's shape, one token a slot (bf16, a ring of T, slots 575 - 8 b
+    deep): codes of ``quant`` (contiguous), pages of ``ps``, pages of int8
+    codes, through ``ops`` as a model calls them, each beside its plain
+    version; rows ``flash_decode_quant_fwd``, ``flash_decode_paged_fwd``
+    and ``flash_decode_paged_quant_fwd`` plus ``suffix``, their errors from
+    ``errs`` (``_check_layouts_case``'s at this shape)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.models.layers import kv_quantize
+    dt, H = torch.bfloat16, Hkv * G
     qp, kp = ring_positions([575 - 8 * b for b in range(B)], 1, T)
     NP = T // ps
     table = page_table(gen, kp, ps)
@@ -1786,35 +1921,42 @@ def kernels_kv_layouts(gen) -> dict:
     flops = 4.0 * D * H * visible_pairs(qp, kp, True, 0)
     base_bytes = 2 * B * H * D * 2 + qp.nbytes + kp.nbytes   # q, out, positions
     P = 1 + B * NP
+    to5 = lambda x: x.reshape(B, 1, Hkv, G, D).permute(0, 2, 3, 1, 4)  # noqa: E731
+    code_bytes = {"int8": D, "int4": D // 2}
 
     def quant_set(lead, mode):
-        kq, vq = (kv_quantize(randn(gen, lead + (H, D), dt), mode)
+        kq, vq = (kv_quantize(randn(gen, lead + (Hkv, D), dt), mode)
                   for _ in range(2))
         return kq.codes, kq.scale, vq.codes, vq.scale
 
+    rows = {}
     cases = {
-        # name: (make one input set, kernel call, plain call, bytes)
+        # name: (make one input set, kernel call, plain call, bytes, what)
         "flash_decode_quant_fwd": (
-            lambda: (randn(gen, (B, 1, H, D), dt),) + quant_set((B, T), "int8"),
+            lambda: (randn(gen, (B, 1, H, D), dt),) + quant_set((B, T), quant),
             lambda s: ops.flash_decode_quant(*s, qp, kp),
             lambda s: ref.flash_decode_quant_fwd_ref(
                 to5(s[0]), *(x.transpose(1, 2) for x in s[1:]), qp, kp),
-            valid_rows * H * (2 * D + 2 * 4)),
+            valid_rows * Hkv * (2 * code_bytes[quant] + 2 * 4),
+            f"{quant} codes"),
         "flash_decode_paged_fwd": (
-            lambda: (randn(gen, (B, 1, H, D), dt), randn(gen, (P, ps, H, D), dt),
-                     randn(gen, (P, ps, H, D), dt)),
+            lambda: (randn(gen, (B, 1, H, D), dt),
+                     randn(gen, (P, ps, Hkv, D), dt),
+                     randn(gen, (P, ps, Hkv, D), dt)),
             lambda s: ops.flash_decode_paged(*s, table, qp, kp),
             lambda s: ref.flash_decode_paged_fwd_ref(to5(s[0]), *s[1:], table,
                                                      qp, kp),
-            valid_rows * H * 2 * D * 2 + table.nbytes),
+            valid_rows * Hkv * 2 * D * 2 + table.nbytes, f"pages of {ps}"),
         "flash_decode_paged_quant_fwd": (
-            lambda: (randn(gen, (B, 1, H, D), dt),) + quant_set((P, ps), "int8"),
+            lambda: (randn(gen, (B, 1, H, D), dt),) + quant_set((P, ps),
+                                                                "int8"),
             lambda s: ops.flash_decode_paged_quant(*s, table, qp, kp),
             lambda s: ref.flash_decode_paged_quant_fwd_ref(to5(s[0]), *s[1:],
                                                            table, qp, kp),
-            valid_rows * H * (2 * D + 2 * 4) + table.nbytes),
+            valid_rows * Hkv * (2 * D + 2 * 4) + table.nbytes,
+            f"int8 codes in pages of {ps}"),
     }
-    for name, (make, kern, plain_fn, kv_bytes) in cases.items():
+    for name, (make, kern, plain_fn, kv_bytes, what) in cases.items():
         sample = make()
         n_sets = n_sets_for(sum(x.nbytes for x in sample))
         sets = [sample] + [make() for _ in range(n_sets - 1)]
@@ -1823,15 +1965,13 @@ def kernels_kv_layouts(gen) -> dict:
         del sets
         nbytes = kv_bytes + base_bytes
         b_ms, b_by = bound_ms(nbytes, flops, dt)
-        rows[name] = dict(max_abs_err=main_err[name], ms=t_k, plain_ms=t_p,
-                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        what = {"flash_decode_quant_fwd": "int8 codes",
-                "flash_decode_paged_fwd": f"pages of {ps}",
-                "flash_decode_paged_quant_fwd": f"int8 codes in pages of {ps}"}
-        log("kernels", f"{name} times (B8 H12 T576 S1 D64 bf16, {what[name]}"
-            f"): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {flops:.3e} FLOP); library: "
-            f"none ({NO_LIBRARY})")
+        rows[name + suffix] = dict(max_abs_err=errs[name], ms=t_k,
+                                   plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                                   library_ms=None)
+        log("kernels", f"{name + suffix} times (B{B} Hkv{Hkv} G{G} T{T} S1 "
+            f"D{D} bf16, {what}): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}: {nbytes} B, {flops:.3e} FLOP); "
+            f"library: none ({NO_LIBRARY})")
     return rows
 
 
@@ -3220,19 +3360,38 @@ def phase_parity_griffin(seed: int) -> dict:
 # depth cuts that fit one 80 GB card: ServingLM holds fp32 weights and a bf16
 # copy, 6 bytes a weight (mixtral 6 of 32 layers: 8.97 G parameters, 53.8 GB;
 # pixtral 20 of 40: 6.79 G, 40.8 GB); cut again to 2 and 4 so that
-# the run with the families' training stays inside its time limit; widths,
+# the run with the families' training stays inside its time limit, and to
+# 1 and 2 (stablelm-3b's and kimi-k2's phases); widths,
 # experts, top-k, capacity,
 # window, heads and vocab are the published ones
-MOE_ARCH, MOE_LAYERS = "mixtral-8x7b", 2
-VLM_ARCH, VLM_LAYERS = "pixtral-12b", 4
+MOE_ARCH, MOE_LAYERS = "mixtral-8x7b", 1
+VLM_ARCH, VLM_LAYERS = "pixtral-12b", 2
 FAMILY_PARITY_LAYERS = 2
 MOE_LAYOUTS = ("contiguous", "int8", "paged16", "paged16_int8")
 VLM_LAYOUTS = ("contiguous", "paged16")
 FAMILY_ENGINE_LAYOUTS = ("contiguous", "paged16")
-# full width and depth: stablelm-1.6b (D 64, 32 heads = kv heads) and
-# internlm2-1.8b (D 128, G 2); stablelm-3b (D 80) and kimi-k2 (D 112) are
-# refused by the kernels (a card test holds the ValueError)
-ARCHS = ("stablelm-1.6b", "internlm2-1.8b")
+# full width: stablelm-1.6b (D 64, 32 heads = kv heads) and internlm2-1.8b
+# (D 128, G 2) at ARCHS_LAYERS of their 24 (cut to pay for
+# stablelm-3b's and kimi-k2's runs within the time limit), stablelm-3b (D
+# 80, MHA; 2.80 G parameters, 16.8 GB at 6 bytes a weight) at full depth
+ARCHS = ("stablelm-1.6b", "internlm2-1.8b", "stablelm-3b")
+ARCHS_LAYERS = {"stablelm-1.6b": 4, "internlm2-1.8b": 4}
+# stablelm-3b's layouts beside contiguous, served three ways too: BITS 4
+# and, through pages of 16, 8; its engine drains run contiguous and paged16
+# over D80_REQUESTS requests (one wave of the 8 slots, for the time limit:
+# the eager drain takes ~100 ms a step at 32 layers)
+D80_LAYOUTS = ("int4", "paged16_int8")
+D80_REQUESTS = dict(requests=8, prompt_len=256, gen=32, shared_prefix=64)
+# kimi-k2 (D 112, 64 q heads on 8 kv heads) at full width and 1 of its 61
+# layers: all 384 experts, top 8, bf16 weights as its config holds them
+# (19.4 G parameters, 38.8 GB); its depth does not fit one card. Served
+# three ways in contiguous, graph and eager chunk in the other layouts
+KIMI_ARCH, KIMI_LAYERS = "kimi-k2-1t-a32b", 1
+KIMI_LAYOUTS = ("contiguous", "int4", "paged16", "paged16_int8")
+KIMI_PEAK = 75e9
+# stablelm-3b fp32 card against CPU (phase parity_archs): 2 layers of full
+# width (0.42 G parameters), prefill 64 + 8 decode steps
+D80_PARITY_LAYOUTS = ("contiguous", "int8")
 
 
 def _load_cut(arch, layers, seed, **replace):
@@ -3293,7 +3452,7 @@ def _family_drains(model, smi, label, seed, reqs, prefix_hits) -> dict:
 
 
 def phase_moe(smi: str, seed: int) -> dict:
-    """mixtral-8x7b at full width, 2 of 32 layers: batch 8 x 512 + 64 in
+    """mixtral-8x7b at full width, MOE_LAYERS of 32 layers: batch 8 x 512 + 64 in
     four layouts and 2 x 4200 + 32 past the window, three ways each, exact
     launches; the engine phase's requests drained graph against eager body;
     a profile. Returns the launches of the graph runs."""
@@ -3329,7 +3488,7 @@ def _vlm_requests(model, seed: int) -> list:
 
 
 def phase_vlm(smi: str, seed: int) -> dict:
-    """pixtral-12b at full width, 4 of 40 layers: batch 8 x 512 (256
+    """pixtral-12b at full width, VLM_LAYERS of 40 layers: batch 8 x 512 (256
     patches + 256 tokens) + 64, contiguous and paged16, and 2 x 2048 with
     the full 1024-patch prefix, three ways each, exact launches;
     ``serve(spec="ngram")`` against speculation off (bf16 recorded, fp32
@@ -3519,20 +3678,22 @@ def _parity_family(label, arch, seed, patch_rows=0, src_rows=0,
 
 
 ENCDEC_ARCH = "seamless-m4t-large-v2"
-# 4 of its 24 encoder and 24 decoder layers: the run with the families'
-# training stays inside its time limit
-ENCDEC_LAYERS = 4
+# 2 of its 24 encoder and 24 decoder layers: the run with the families'
+# training (at 4 layers) and stablelm-3b's and kimi-k2's phases stays
+# inside its time limit
+ENCDEC_LAYERS = 2
 ENCDEC_LAYOUTS = ("contiguous", "int8", "paged16", "paged16_int8")
 ENCDEC_PARITY_LAYOUTS = ("contiguous", "paged16", "int8")
 
 
 def phase_encdec(smi: str, seed: int) -> dict:
-    """seamless-m4t-large-v2 at full width, ``ENCDEC_LAYERS`` encoder and
-    decoder layers (4 of 24 each): batch 8 x 512 tokens over 512 source
+    """seamless-m4t-large-v2 at full width, ``ENCDEC_LAYERS`` of its 24
+    encoder and 24 decoder layers: batch 8 x 512 tokens over 512 source
     frames + 64 in four layouts, graph and eager chunk (and the per-token
-    loop, contiguous), identical tokens (12 prefill launches a prefill;
-    per step the self cache's decode kernel and the cross cache's
-    contiguous one, 4 each), the graph's device ms a step against its byte bound; 24
+    loop, contiguous), identical tokens (3 x ENCDEC_LAYERS prefill launches
+    a prefill; per step the self cache's decode kernel and the cross
+    cache's contiguous one, ENCDEC_LAYERS each), the graph's device ms a
+    step against its byte bound; 24
     requests with their source frames drained graph against eager body
     (contiguous, paged16; no prefix hits), a misshaped source extra
     (``bad_request``, nothing launched); a profile. Returns the launches of
@@ -3790,18 +3951,69 @@ def phase_xlstm(smi: str, seed: int) -> dict:
 
 
 def phase_archs(smi: str, seed: int) -> dict:
-    """stablelm-1.6b and internlm2-1.8b at full width and depth, batch 8 x
-    512 + 64, three ways, exact launches. Returns the graph runs'
-    launches."""
+    """The dense archs at full width (ARCHS, ARCHS_LAYERS), batch 8 x 512 +
+    64, three ways, exact launches; stablelm-3b (D 80) also in
+    D80_LAYOUTS three ways, its engine drains (contiguous, paged16) and a
+    profile whose kernel events equal the counters; then kimi-k2 (D 112,
+    ``phase_kimi``). Returns the graph runs' launches (and the paged16
+    graph drain's, ``archs/stablelm-3b/engine_paged16``)."""
     from repro_torch.configs import get_config
     launches = {}
+    kw = dict(batch=8, prompt_len=512, gen=64, chunk=8, seed=0)
     for arch in ARCHS:
-        model = _load_cut(arch, get_config(arch).num_layers, seed)
-        launches[f"archs/{arch}"] = _serve_engines(
-            model, smi, f"archs/{arch}", batch=8, prompt_len=512, gen=64,
-            chunk=8, seed=0)
+        model = _load_cut(arch, ARCHS_LAYERS.get(
+            arch, get_config(arch).num_layers), seed)
+        label = f"archs/{arch}"
+        launches[label] = _serve_engines(model, smi, label, **kw)
+        if arch == "stablelm-3b":
+            for layout in D80_LAYOUTS:
+                kv_quant, page_size, decode_kernel = LAYOUTS[layout]
+                launches[f"{label}/{layout}"] = _serve_engines(
+                    model, smi, f"{label}/{layout}", decode_kernel,
+                    kv_quant=kv_quant, page_size=page_size, **kw)
+            from repro_torch.launch.serve import synth_requests
+            _family_drains(model, smi, f"{label}/engine", seed,
+                           synth_requests(cfg=model.cfg, seed=seed,
+                                          **D80_REQUESTS), prefix_hits=True)
+            # the counters hold the last drain's: paged16's graph engine
+            launches[f"{label}/engine_paged16"] = {
+                n: c for counter in _counters() for n, c in counter.items()}
+            phase_profile(model, smi, f"profile_{label}", engines=("graph",))
         del model
         torch.cuda.empty_cache()
+    launches.update(phase_kimi(smi, seed))
+    return launches
+
+
+def phase_kimi(smi: str, seed: int) -> dict:
+    """kimi-k2 at full width and KIMI_LAYERS of its 61 layers (bf16
+    weights): batch 8 x 512 + 64 in KIMI_LAYOUTS (contiguous three ways,
+    the others graph and eager chunk), exact launches, a profile whose
+    kernel events equal the counters; its peak device memory under
+    KIMI_PEAK. Returns the graph runs' launches."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = _load_cut(KIMI_ARCH, KIMI_LAYERS, seed)
+    label = f"archs/{KIMI_ARCH}"
+    launches = {}
+    for layout in KIMI_LAYOUTS:
+        kv_quant, page_size, decode_kernel = LAYOUTS[layout]
+        tag = label if layout == "contiguous" else f"{label}/{layout}"
+        launches[tag] = _serve_engines(
+            model, smi, tag, decode_kernel,
+            engines=ENGINES if layout == "contiguous" else ENGINES[:2],
+            batch=8, prompt_len=512, gen=64, chunk=8, seed=0,
+            kv_quant=kv_quant, page_size=page_size)
+    phase_profile(model, smi, f"profile_{label}", engines=("graph",))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(label, f"{smi}: peak device memory {peak / 1e9:.2f} GB (limit "
+        f"{KIMI_PEAK / 1e9:.0f} GB)")
+    if peak > KIMI_PEAK:
+        raise AssertionError(f"{label}: peak {peak / 1e9:.2f} GB over "
+                             f"{KIMI_PEAK / 1e9:.0f} GB")
+    del model
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -3819,7 +4031,8 @@ def phase_profile(model, smi: str, label: str = "profile",
     chunk: busy share, kernels by device time, and the launches of the
     prefill, decode and RG-LRU kernels by the profiler's kernel events
     against the launch counters; ``engines`` names the runs profiled,
-    ``chunk`` the chunk's steps."""
+    ``chunk`` the chunk's steps; each trace takes TRAIN_TRACE_LEAD lead
+    kernels."""
     from repro_torch.launch.serve import serve
     kw = dict(model=model, batch=8, prompt_len=512, gen=2 * chunk,
               chunk=chunk, seed=0)
@@ -3828,7 +4041,7 @@ def phase_profile(model, smi: str, label: str = "profile",
     for name in engines:
         tag = f"{label}/{name}"
         _reset()
-        with traced() as prof:
+        with traced(TRAIN_TRACE_LEAD) as prof:
             t0 = time.perf_counter()
             out = _serve_as(name, **kw)
             torch.cuda.synchronize()
@@ -3850,7 +4063,7 @@ def phase_profile(model, smi: str, label: str = "profile",
         seen = {n: sum(e.count for e in kern if k in e.key)
                 for n, k in PROFILED.items()}
         want = {n: counted[n] for n in PROFILED}
-        _profiled_launches(tag, prof, kern, seen, want)
+        _profiled_launches(tag, prof, kern, seen, want, TRAIN_TRACE_LEAD)
         ranked = sorted(kern, key=lambda e: -e.self_device_time_total)
         # the top twelve, and every attention and RG-LRU kernel of the port
         for e in ranked[:12] + [e for e in ranked[12:]
@@ -5217,12 +5430,15 @@ PAPER_REPS = 3
 # training at the train phases' shapes, but for the phase's time: the
 # xLSTM at 8 x 64 (8 x 512 in train_families; its sLSTM runs ~600 counted
 # ops a position), internlm2 and stablelm, which the card does not train,
-# at 4 x 1024 (the plain attention backward's ops grow with S^2)
+# at 4 x 1024 (the plain attention backward's ops grow with S^2), and so
+# stablelm-3b and kimi-k2 (D 80 and 112; kimi-k2's 61 layers
+# and 384 experts on meta, which no card holds)
 PAPER_SERVE = (8, 512, 64)
 PAPER_TRAIN = {"pimref-100m": (4, 4096), "recurrentgemma-2b": (1, 4096),
                "mixtral-8x7b": (4, 1024), "pixtral-12b": (2, 2048),
                "seamless-m4t-large-v2": (4, 512), "xlstm-125m": (8, 64),
-               "internlm2-1.8b": (4, 1024), "stablelm-1.6b": (4, 1024)}
+               "internlm2-1.8b": (4, 1024), "stablelm-1.6b": (4, 1024),
+               "stablelm-3b": (4, 1024), "kimi-k2-1t-a32b": (4, 1024)}
 # worker processes of the DAMOV counts, which run while the kernels build
 # (nvcc leaves most of the host's 8 cores idle after its short sources)
 PAPER_WORKERS = 6
@@ -5600,16 +5816,27 @@ DIST_PSUM_N = 1 << 24                # proteus_psum elements, fp32
 DIST_PSUM_BLOCK = 256
 DIST_STEPS = 3
 DIST_PIPE = (4, 2, 512)              # microbatches, rows each, sequence
-# the dry-run's cells: (arch, shape, multi-pod, Proteus); the slowest first
-DIST_CELLS = (("mixtral-8x7b", "train_4k", True, True),
+# the dry-run's cells: (arch, shape, multi-pod, Proteus); the slowest first.
+# stablelm-3b (D 80) and kimi-k2 (D 112): kimi-k2's train cell
+# on (2, 16, 16), 8 microbatches of 61 layers (~190 s of meta ops on one
+# host core); its 16-microbatch (16, 16) cell (~370 s) is held by
+# tests/test_torch_dryrun.py alone
+DIST_CELLS = (("kimi-k2-1t-a32b", "train_4k", True, False),
+              ("mixtral-8x7b", "train_4k", True, True),
+              ("stablelm-3b", "train_4k", False, False),
               ("pimref-100m", "train_4k", False, False),
               ("pimref-100m", "prefill_32k", False, False),
               ("pimref-100m", "decode_32k", False, False),
               ("pimref-100m", "long_500k", False, False),
-              ("mixtral-8x7b", "long_500k", True, False))
+              ("mixtral-8x7b", "long_500k", True, False),
+              ("stablelm-3b", "prefill_32k", False, False),
+              ("stablelm-3b", "decode_32k", True, False),
+              ("kimi-k2-1t-a32b", "prefill_32k", True, False),
+              ("kimi-k2-1t-a32b", "decode_32k", False, False),
+              ("kimi-k2-1t-a32b", "long_500k", True, False))
 # where the reference's skip_reason skips (a full-attention arch at
 # long_500k; tests/test_torch_dryrun.py holds the port's to it)
-DIST_SKIPS = {("pimref-100m", "long_500k")}
+DIST_SKIPS = {("pimref-100m", "long_500k"), ("kimi-k2-1t-a32b", "long_500k")}
 DIST_WORKERS = 2
 # the card's peak for the Proteus step against the dry-run's prediction:
 # "held" within this share (a reading, not a check)
@@ -6076,6 +6303,10 @@ def run_phases(args, phases, smi, damov, cells=None) -> int:
     if "parity_griffin" in phases:
         launches["parity_griffin"] = phase_parity_griffin(args.seed)
     for name, run in (("archs", lambda: phase_archs(smi, args.seed)),
+                      ("parity_archs", lambda: {
+                          "parity_archs": _parity_family(
+                              "parity_archs", "stablelm-3b", args.seed,
+                              layouts=D80_PARITY_LAYOUTS)}),
                       ("moe", lambda: phase_moe(smi, args.seed)),
                       ("parity_moe", lambda: {"parity_moe": _parity_family(
                           "parity_moe", MOE_ARCH, args.seed)}),
@@ -6098,6 +6329,11 @@ def run_phases(args, phases, smi, damov, cells=None) -> int:
             launches.update(run())
             log(name, f"phase took {time.perf_counter() - t0:.1f} s")
 
+    log("run", f"the traces' lead-ins took {sum(t for _, t in LEAD_IN):.1f} s"
+        f" ({len(LEAD_IN)} traces; by lead kernels: " + ", ".join(
+            f"{n} x{sum(1 for m, _ in LEAD_IN if m == n)} "
+            f"{sum(t for m, t in LEAD_IN if m == n):.1f} s"
+            for n in sorted({m for m, _ in LEAD_IN})) + ")")
     log("run", f"the whole run took {time.perf_counter() - T_START:.1f} s")
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name],

@@ -1,13 +1,18 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Every ``*.cu`` source under ``repro_torch/kernels/**/csrc/`` is compiled by
-``nvcc`` for ``sm_90a`` into a shared library of its own with a plain C
-interface, ``build/kernels/lib<stem>-<hash>.so`` at the repository root,
-where ``<hash>`` covers the source, the headers beside it and the flags: a
-changed source builds a new library, an unchanged one is loaded as it is. A
-plain C interface builds in seconds, where a source that includes PyTorch's
-headers takes minutes. :func:`build_all` starts one ``nvcc`` per source, all
-at once, and waits for every one of them.
+Every ``<stem>.cu`` source under ``repro_torch/kernels/**/csrc/`` is
+compiled by ``nvcc`` for ``sm_90a`` into a shared library of its own with a
+plain C interface, ``build/kernels/lib<stem>-<hash>.so`` at the repository
+root, where ``<hash>`` covers the source, its parts, the headers beside it
+and the flags: a changed source builds a new library, an unchanged one is
+loaded as it is. A source may have parts, ``<stem>.<part>.cu`` beside it
+(translation units that share a ``.cuh`` header, so that one library's
+template instantiations compile in parallel). Every translation unit, the
+source and each of its parts, compiles to an object, and a library's
+objects link into it. A plain C interface builds in seconds, where a
+source that includes PyTorch's headers takes minutes. :func:`build_all`
+starts one ``nvcc -c`` per translation unit, all at once, waits for every
+one of them, then links each library.
 
 Callers set ``argtypes`` on the functions they use (``c_void_p`` for every
 pointer and for the stream) and raise when a function returns a CUDA error
@@ -21,14 +26,15 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Any, Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 KERNELS_DIR = Path(__file__).resolve().parent
 REPO_ROOT = KERNELS_DIR.parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # where nvcc is looked for after PATH
 CUDA_ROOTS = ("CUDA_HOME", "CUDA_PATH")
 DEFAULT_CUDA_ROOT = "/usr/local/cuda"
@@ -39,13 +45,21 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def sources() -> Dict[str, Path]:
-    """``stem -> path`` of the CUDA source of every kernel module."""
-    return {p.stem: p for p in sorted(KERNELS_DIR.glob("**/csrc/*.cu"))}
+    """``stem -> path`` of the CUDA source of every kernel module (its
+    parts, ``<stem>.<part>.cu``, are :func:`parts`')."""
+    return {p.stem: p for p in sorted(KERNELS_DIR.glob("**/csrc/*.cu"))
+            if "." not in p.stem}
+
+
+def parts(src: Path) -> List[Path]:
+    """The translation units of ``src``'s library: the source, then its
+    parts in name order."""
+    return [src, *sorted(src.parent.glob(f"{src.stem}.*.cu"))]
 
 
 def library_path(src: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [src, *sorted(src.parent.glob("*.cuh"))]:
+    for path in [*parts(src), *sorted(src.parent.glob("*.cuh"))]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
@@ -66,32 +80,68 @@ def find_nvcc() -> str:
         f"{DEFAULT_CUDA_ROOT}/bin")
 
 
+def _run_all(cmds: Dict[Any, List[str]]) -> Dict[Any, Tuple[int, str, float]]:
+    """Run every command at once, each read by a thread of its own;
+    ``key -> (return code, output, seconds until it ended)``."""
+    t0 = time.perf_counter()
+
+    def run(cmd):
+        res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        return res.returncode, res.stdout, time.perf_counter() - t0
+
+    if not cmds:
+        return {}
+    with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+        futs = {k: pool.submit(run, c) for k, c in cmds.items()}
+        return {k: f.result() for k, f in futs.items()}
+
+
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Dict[str, Any]]:
     """Compile the named sources (default: all) that are not built yet, one
-    ``nvcc`` per source, all started together; returns ``BUILD_INFO``."""
+    ``nvcc -c`` per translation unit, all started together, then link each
+    library from its objects; returns ``BUILD_INFO``."""
     srcs = sources()
     names = list(srcs) if names is None else list(names)
-    pending = {}
+    pending, cmds = {}, {}
     for name in names:
         out = library_path(srcs[name])
         if out.exists():
             continue
+        nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(srcs[name])]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        pending[name] = (proc, cmd, tmp, out, time.perf_counter())
+        objs = []
+        for i, u in enumerate(parts(srcs[name])):
+            objs.append(tmp.with_name(f"{out.stem}.{os.getpid()}.{i}.o"))
+            cmds[(name, i)] = [nvcc, *NVCC_FLAGS, "-c", "-o", str(objs[i]),
+                               str(u)]
+        pending[name] = (tmp, out, objs)
+    ran = _run_all(cmds)
     failed = []
-    for name, (proc, cmd, tmp, out, t0) in pending.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}):\n"
-                          f"{' '.join(cmd)}\n{log}")
+    for name, (tmp, out, objs) in pending.items():
+        units = [(k, ran[k]) for k in sorted(ran) if k[0] == name]
+        bad = [f"nvcc failed ({rc}):\n{' '.join(cmds[k])}\n{log}"
+               for k, (rc, log, _) in units if rc != 0]
+        log = "".join(log for _, (_, log, _) in units)
+        seconds = max(sec for _, (_, _, sec) in units)
+        if not bad:
+            t0 = time.perf_counter()
+            link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+            res = subprocess.run(link, capture_output=True, text=True)
+            seconds += time.perf_counter() - t0
+            if res.returncode != 0:
+                bad.append(f"link failed ({res.returncode}):\n"
+                           f"{' '.join(link)}\n{res.stdout}{res.stderr}")
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if bad:
+            failed.extend(bad)
             continue
         os.replace(tmp, out)          # atomic: concurrent builders agree
-        BUILD_INFO[name] = {"seconds": time.perf_counter() - t0,
-                            "path": str(out), "log": log}
+        BUILD_INFO[name] = {"seconds": seconds, "path": str(out), "log": log,
+                            "parts": {parts(srcs[name])[k[1]].name: sec
+                                      for k, (_, _, sec) in units}}
     if failed:
         raise RuntimeError("\n".join(failed))
     return BUILD_INFO

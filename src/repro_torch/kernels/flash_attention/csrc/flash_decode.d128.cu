@@ -1,0 +1,7 @@
+// The decode kernel's instantiations at head dim 128 (flash_decode.cuh),
+// a translation unit of their own, linked into the flash_decode library.
+#include "flash_decode.cuh"
+
+namespace repro_decode {
+REPRO_DECODE_DIM(128)
+}  // namespace repro_decode

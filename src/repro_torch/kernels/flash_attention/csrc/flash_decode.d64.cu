@@ -1,0 +1,7 @@
+// The decode kernel's instantiations at head dim 64 (flash_decode.cuh),
+// a translation unit of their own, linked into the flash_decode library.
+#include "flash_decode.cuh"
+
+namespace repro_decode {
+REPRO_DECODE_DIM(64)
+}  // namespace repro_decode

@@ -20,8 +20,9 @@ their argument layouts:
   with ``Hkv = BH`` and ``G = 1``.
 
 ``q_positions`` ``(B, S)`` and ``kv_positions`` ``(B, T)`` (``T = NP * ps``
-when paged) are int32, -1 = masked. Head dims 64, 128 and 256 for every
-kernel and layout.
+when paged) are int32, -1 = masked. Head dims 64, 80, 112, 128 and 256 for
+every kernel and layout (:data:`KERNEL_HEAD_DIMS`); any other raises
+``ValueError``.
 
 The prefill kernel has two routes, chosen by q's dtype (there is no knob),
 both in ``csrc/flash_prefill.cu`` on the tensor cores (``wgmma``, fp32
@@ -45,7 +46,9 @@ The four decode wrappers launch one streaming kernel,
 K/V row, so the paged kernels equal the dense and quantized ones on the
 gathered pages bit for bit. :func:`decode_plan` lays the q rows and the kv
 axis over its one-warp blocks. Every K/V pointer and row stride must be
-16-byte aligned; anything else raises ``ValueError``.
+aligned to the chunk the kernel copies a row in (:func:`copy_align`: 16
+bytes, 8 for int4 rows of 40 or 56 bytes at D 80 and 112); anything else
+raises ``ValueError``.
 
 Bound on the H100: decode and the bf16 prefill route are bound by bytes at
 the serving shapes: they stream q and the K/V operands once (decode: the
@@ -93,7 +96,7 @@ LAUNCHES: Dict[str, int] = {
     "flash_decode_quant_fwd": 0, "flash_decode_paged_fwd": 0,
     "flash_decode_paged_quant_fwd": 0, "flash_attention_bh": 0,
 }
-KERNEL_HEAD_DIMS = (64, 128, 256)
+KERNEL_HEAD_DIMS = (64, 80, 112, 128, 256)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_PAGE_SIZES = (8, 16, 32, 64)
 # the bf16 prefill kernel's query rows per block
@@ -101,14 +104,18 @@ PREFILL_BLOCK_ROWS = 128
 # the fp32 prefill kernel's (query rows a block, kv rows a tile) by
 # head_dim, as csrc/flash_prefill.cu F32Tiles sets them (fp32_layout()
 # reads the source's)
-FP32_PREFILL_TILES = {64: (128, 128), 128: (128, 64), 256: (64, 32)}
+FP32_PREFILL_TILES = {64: (128, 128), 80: (128, 64), 112: (128, 64),
+                      128: (128, 64), 256: (64, 32)}
 # the byte alignment of every pointer and row stride that the prefill
-# kernel (q, k, v) and the decode kernel (k, v) copy in 16-byte chunks
+# kernel (q, k, v) and the decode kernel (k, v) copy in 16-byte chunks;
+# the decode kernel copies a row whose bytes are no multiple of 16 (int4
+# codes at D 80 and 112: 40 and 56 bytes) in 8-byte chunks (copy_align)
 COPY_ALIGN = 16
 # decode: the q-row counts a block is built for (csrc/flash_decode.cu NR);
 # aim for this many one-warp blocks per launch (8 per SM on 132 SMs); a
 # split is a whole number of the kernel's largest ring stage (16 rows of
-# int4 codes at D 64) and at most DECODE_MAX_SPLIT rows
+# int4 codes at D 64; the 6-row stage of bf16 at D 80 divides no split,
+# whose last stage then runs part-full) and at most DECODE_MAX_SPLIT rows
 DECODE_ROWS = (1, 2, 4)
 DECODE_TARGET_BLOCKS = 1056
 DECODE_SPLIT_MULTIPLE = 16
@@ -301,17 +308,24 @@ def _mask_args(causal, window, softcap, D):
             torch.cuda.current_stream().cuda_stream]
 
 
-def _check_aligned(operands, kernel: str) -> None:
-    """``kernel`` copies 16-byte chunks: every pointer, and the stride of
-    every axis longer than one but the last, must be a multiple of 16
-    bytes."""
+def copy_align(row_bytes: int) -> int:
+    """The chunk, in bytes, that the decode kernel copies a K/V row of
+    ``row_bytes`` in (csrc/flash_decode.cu ``Layout::kCopyBytes``): 16, or 8
+    where the row is no multiple of 16 bytes (int4 codes at D 80 and 112)."""
+    return COPY_ALIGN if row_bytes % COPY_ALIGN == 0 else 8
+
+
+def _check_aligned(operands, kernel: str, align: int = COPY_ALIGN) -> None:
+    """``kernel`` copies ``align``-byte chunks: every pointer, and the
+    stride of every axis longer than one but the last, must be a multiple
+    of ``align`` bytes."""
     for name, t in operands:
-        step = COPY_ALIGN // t.element_size()
-        if t.data_ptr() % COPY_ALIGN or any(
+        step = align // t.element_size()
+        if t.data_ptr() % align or any(
                 st % step for n, st in zip(t.shape[:-1], t.stride()[:-1])
                 if n > 1):
             raise ValueError(
-                f"{name}: the {kernel} kernel needs a {COPY_ALIGN}-byte "
+                f"{name}: the {kernel} kernel needs a {align}-byte "
                 f"aligned pointer and row strides; got pointer "
                 f"{t.data_ptr():#x}, strides {t.stride()}")
 
@@ -429,7 +443,8 @@ def _launch_decode(name: str, q, k, v, k_scale, v_scale, table, q_positions,
     if paged:
         ints.append(("table", table))
     _check_cuda(q, D, (("k", k), ("v", v)), ints)
-    _check_aligned((("k", k), ("v", v)), "decode")
+    _check_aligned((("k", k), ("v", v)), "decode",
+                   copy_align(k.shape[-1] * k.element_size()))
     if q.device.type == "meta":
         return accounting.meta_outputs(((tuple(q.shape), q.dtype),))[0]
     lib = _decode_lib()

@@ -35,6 +35,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.tree import tree_map
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# a "normal" leaf of more elements is drawn this many at a time, so that its
+# fp32 draw never takes more than 1 GB beside the leaf (kimi-k2's expert
+# leaves: 5.6 G elements, 22.5 GB as one fp32 draw). Such a leaf's values
+# are those of its parts' draws, not those of one draw of its shape: with
+# a CUDA generator they need not agree (Philox offsets advance per call),
+# with a CPU one they agree only where every part is a multiple of 16 long
+INIT_CHUNK = 1 << 28
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -156,9 +163,13 @@ def init_tensor(s: ParamSpec, generator: torch.Generator) -> torch.Tensor:
     if s.init[0] == "normal":
         fan_axis = s.init[1] if len(s.init) > 1 else 0
         scale = 1.0 / math.sqrt(max(s.shape[fan_axis], 1))
-        x = torch.randn(s.shape, generator=generator, dtype=torch.float32,
-                        device=dev)
-        return (x * scale).to(s.dtype)
+        # a leaf of at most INIT_CHUNK elements: the values of one draw of
+        # its shape; a larger one: those of its parts' draws (INIT_CHUNK)
+        out = torch.empty(s.shape, dtype=s.dtype, device=dev)
+        for part in out.view(-1).split(INIT_CHUNK):
+            part.copy_(torch.randn(part.numel(), generator=generator,
+                                   dtype=torch.float32, device=dev) * scale)
+        return out
     raise ValueError(f"unknown init {s.init!r}")
 
 

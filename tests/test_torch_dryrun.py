@@ -250,6 +250,73 @@ def test_optimizer_state_specs_match_init():
             assert ranks and not any(ranks)
 
 
+# the archs whose head dims (stablelm-3b 80, kimi-k2 112) the kernels took
+# last; run_cell holds them on meta at the card's head dims
+HEAD_DIM_ARCHS = ("stablelm-3b", "kimi-k2-1t-a32b")
+HEAD_DIM_SHAPES = ("prefill_32k", "decode_32k", "train_4k", "long_500k")
+
+
+@pytest.fixture(scope="module")
+def head_dim_cells(tmp_path_factory):
+    """run_cell's rows for HEAD_DIM_ARCHS x HEAD_DIM_SHAPES on both
+    production meshes, through the dry-run's CLI in parallel processes (on
+    meta kimi-k2's train cells take minutes each: 16 and 8 microbatches of
+    61 layers, the plain attention backward's tiles counted op by op); by
+    (arch, shape, multi_pod), with each process's output."""
+    out = tmp_path_factory.mktemp("dryrun_head_dims")
+    kimi = HEAD_DIM_ARCHS[1]
+    jobs = ([(kimi, "train_4k", m) for m in ("single", "multi")]
+            + [(kimi, s, "both") for s in HEAD_DIM_SHAPES if s != "train_4k"]
+            + [(HEAD_DIM_ARCHS[0], None, "both")])
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape, mesh in jobs:
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                arch, "--mesh", mesh, "--out", str(out)]
+        procs.append(subprocess.Popen(
+            argv + (["--shape", shape] if shape else []), env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate(timeout=1200)[0] for p in procs]
+    rows = {}
+    for name in os.listdir(out):
+        with open(out / name) as f:
+            row = json.load(f)
+        rows[(row["arch"], row["shape"], row["multi_pod"])] = row
+    return rows, "\n".join(log[-1500:] for log in logs)
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["16x16", "2x16x16"])
+@pytest.mark.parametrize("shape", HEAD_DIM_SHAPES)
+@pytest.mark.parametrize("arch", HEAD_DIM_ARCHS)
+def test_head_dim_cells_run(arch, shape, multi, head_dim_cells):
+    """stablelm-3b's and kimi-k2's cells come out OK on both meshes (the
+    kernel entries take D 80 and 112 on meta), with argument bytes equal
+    to the reference's PartitionSpec arithmetic and the attention kernel
+    counted once a layer (a train step: forward and remat recompute, each
+    microbatch); long_500k stays SKIP with the reference's reason."""
+    rows, logs = head_dim_cells
+    row = rows[(arch, shape, multi)]
+    ref_shape = {s.name: s for s in SHAPES}[shape]
+    cfg = get_config(arch)
+    if shape == "long_500k":
+        assert row["status"] == "SKIP"
+        assert row["reason"] == jdry.skip_reason(cfg, ref_shape)
+        return
+    assert row["status"] == "OK", (row.get("error"), logs)
+    mname = "2x16x16" if multi else "16x16"
+    mesh = AbstractMesh(*worker.DRYRUN_MESHES[mname])
+    want, microbatches, _ = _reference_bytes(_serving(cfg, ref_shape),
+                                             ref_shape, mesh)
+    assert row["memory"]["argument_bytes"] == sum(want)
+    kernel, per_layer = {"prefill": ("flash_attention_fwd", 1),
+                         "decode": ("flash_decode_fwd", 1),
+                         "train": ("flash_attention_fwd",
+                                   2 * microbatches)}[ref_shape.mode]
+    assert row["step_cost"]["kernels"] == {kernel: per_layer *
+                                           cfg.num_layers}
+
+
 def test_predict_cell_one_device():
     """Without a mesh a cell's argument bytes are its arguments' bytes; the
     one-device step is counted on meta (temporaries, FLOPs, kernels)."""

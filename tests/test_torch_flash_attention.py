@@ -161,7 +161,8 @@ def _emulate_bf16_prefill(q, k, v, qp, kp, *, causal, window, softcap, BK):
     return acc / lsafe[..., None], lse
 
 
-@pytest.mark.parametrize("D,BK", [(64, 128), (128, 128), (256, 64)])
+@pytest.mark.parametrize("D,BK", [(64, 128), (80, 128), (112, 128),
+                                  (128, 128), (256, 64)])
 @pytest.mark.parametrize("G,S,T,window,cap", [
     (1, 40, 300, 0, 0.0), (4, 23, 150, 48, 20.0), (10, 12, 90, 0, 0.0)])
 def test_bf16_prefill_rounding_within_quarter_of_limit(D, BK, G, S, T,
@@ -234,7 +235,7 @@ def test_bf16_route_limits_catch_a_window_off_by_one():
 # the fp32 prefill route (csrc/flash_prefill.cu): its block plan, and a plain
 # emulation of its arithmetic (ref.fp32_route_ref) held against the reference
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 112, 128, 256])
 @pytest.mark.parametrize("G", [1, 4, 10])
 @pytest.mark.parametrize("S", [1, 77, 512])
 def test_fp32_prefill_plan_covers_every_row_once(D, G, S):
@@ -278,7 +279,7 @@ def _fp32_case(rng, D, G, S, T, spike=80.0):
     return q, k, v, qp, kp
 
 
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 112, 128, 256])
 @pytest.mark.parametrize("G,S,T,window,cap", [
     (1, 40, 301, 0, 0.0), (4, 23, 150, 48, 20.0), (10, 13, 91, 0, 0.0)])
 def test_fp32_route_within_quarter_of_limit(D, G, S, T, window, cap):

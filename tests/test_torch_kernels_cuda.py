@@ -111,7 +111,7 @@ def _prefill_case(gen, dev, B, H, G, S, T, D, dtype, shift=None):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 112, 128, 256])
 @pytest.mark.parametrize("G,S,T,window,cap", [
     (1, 77, 203, 0, 0.0),          # ragged: neither BQ nor BK divides S, T
     (2, 1, 33, 0, 0.0),
@@ -145,7 +145,7 @@ def test_prefill_bf16_tensor_core_route(cuda, D, G, S, T, window, cap):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 112, 128, 256])
 @pytest.mark.parametrize("G,causal", [(1, True), (3, True), (2, False)])
 def test_prefill_bf16_masked_rows_in_unmasked_tiles(cuda, D, G, causal):
     """q rows at -1 among valid ones, with no kv slot at -1: the kernel
@@ -169,7 +169,7 @@ def test_prefill_bf16_masked_rows_in_unmasked_tiles(cuda, D, G, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 112, 128, 256])
 def test_prefill_bf16_model_layout_and_adapter(cuda, D):
     """Strided views as the model passes them ((B, S, H, D) projections
     transposed), and the flash_attention_bh adapter, on the bf16 route."""
@@ -219,7 +219,7 @@ def test_prefill_bf16_rejects_misaligned_views(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 112, 128, 256])
 @pytest.mark.parametrize("G", [1, 4, 10])
 @pytest.mark.parametrize("window,cap,holes", [
     (0, 0.0, False), (48, 20.0, False), (0, 0.0, True)])
@@ -258,7 +258,7 @@ def test_prefill_fp32_route(cuda, D, G, window, cap, holes):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 112, 128, 256])
 def test_prefill_fp32_route_is_deterministic(cuda, D):
     """A fixed order of sums and no atomics: two calls on the same inputs
     give the same bits, out and lse."""
@@ -295,7 +295,7 @@ def test_prefill_fp32_rejects_misaligned_views(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 112, 128, 256])
 def test_fp32_prefill_tiles_state_the_kernels_layout(cuda, D):
     """FP32_PREFILL_TILES, which the CPU tests' plan and emulation take,
     are the rows and kv tile the CUDA source launches with, within the
@@ -350,7 +350,8 @@ def _table(gen, kp, ps):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,G,D,ps,window,cap", [
     (1, 1, 64, 16, 0, 0.0), (4, 4, 128, 8, 100, 30.0), (2, 2, 64, 32, 0, 10.0),
-    (1, 1, 128, 64, 0, 0.0)])
+    (1, 1, 128, 64, 0, 0.0), (1, 1, 80, 16, 0, 0.0), (4, 8, 112, 16, 0, 0.0),
+    (2, 1, 80, 8, 100, 30.0)])
 def test_layout_decode_kernels(cuda, dtype, S, G, D, ps, window, cap):
     """The quantized, paged and paged-quant decode kernels against their
     plain versions, and bitwise against the dense / quant kernels on the
@@ -415,23 +416,86 @@ def test_kernels_reject_other_head_dims(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant,page_size", [("off", 0), ("int4", 0),
+                                                ("int8", 16)])
 @pytest.mark.parametrize("arch", ["stablelm-3b", "kimi-k2-1t-a32b"])
-def test_models_with_unported_head_dims_are_refused(cuda, arch):
-    """stablelm-3b's head_dim 80 (2560 / 32) and kimi-k2's 112: the
-    attention kernels take 64, 128 and 256, so serving them on the card
-    raises ValueError in the prefill (its smoke config at the published
-    head_dim), with no fallback to the plain path."""
+def test_models_at_published_head_dims_serve_on_card(cuda, arch, kv_quant,
+                                                     page_size):
+    """stablelm-3b's head_dim 80 (2560 / 32) and kimi-k2's 112, their smoke
+    configs at the published head_dim, fp32 compute: the card's prefill
+    and greedy decode steps (the kernels: the fp32 prefill route once a
+    layer, the layout's decode kernel once a layer a step) give the plain
+    path's tokens on the CPU from the same weights."""
+    import numpy as np
+
     from repro_torch.configs import get_config
-    from repro_torch.models import build_model, init_params_
+    from repro_torch.launch.serve import load_model
     full = get_config(arch)
     cfg = get_config(arch, smoke=True).replace(
-        head_dim=full.resolved_head_dim, compute_dtype="bfloat16")
+        head_dim=full.resolved_head_dim, compute_dtype="float32")
     assert cfg.resolved_head_dim in (80, 112)
-    m = build_model(cfg, cuda)
-    init_params_(m, torch.Generator(device=cuda).manual_seed(0))
-    toks = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="head_dim"):
-        m.prefill(toks, max_len=12)
+    kw = dict(smoke=True, seed=0, cfg=cfg, kv_quant=kv_quant,
+              page_size=page_size)
+    cpu = load_model(arch, device="cpu", **kw)
+    card = load_model(arch, device=cuda, **kw)
+    with torch.no_grad():
+        for (n, pc), (_, pg) in zip(cpu.named_parameters(),
+                                    card.named_parameters()):
+            pg.copy_(pc)
+    toks = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    decode = {(0, "off"): "flash_decode_fwd",
+              (0, "int4"): "flash_decode_quant_fwd",
+              (16, "int8"): "flash_decode_paged_quant_fwd"}[
+        (page_size, kv_quant)]
+    out, steps = {}, 8
+    for dev, m in (("cpu", cpu), ("cuda", card)):
+        n = dict(tk.LAUNCHES)
+        logits, cache = m.prefill(torch.from_numpy(toks).to(dev), max_len=48)
+        got = []
+        for _ in range(steps):
+            tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+            got.append(tok.cpu().numpy())
+            logits, cache = m.decode_step(cache, tok)
+        out[dev] = np.concatenate(got, 1)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            L = cfg.num_layers
+            assert {k: tk.LAUNCHES[k] - n[k] for k in n} == {
+                **dict.fromkeys(n, 0), "flash_attention_fwd": L,
+                "flash_attention_fwd_fp32": L, decode: L * steps}
+    np.testing.assert_array_equal(out["cuda"], out["cpu"])
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_an_unported_head_dim(cuda):
+    """The attention kernels take D 64, 80, 112, 128 and 256: D 96 raises
+    ValueError from every entry, prefill and the four decode layouts, with
+    nothing launched and no fallback to the plain path."""
+    D, n = 96, dict(tk.LAUNCHES)
+    q = torch.zeros(1, 1, 1, 2, D, device=cuda)
+    kv = torch.zeros(1, 1, 32, D, device=cuda)
+    qp = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+    kp = torch.zeros(1, 32, dtype=torch.int32, device=cuda)
+    codes = torch.zeros(1, 1, 32, D // 2, dtype=torch.int8, device=cuda)
+    scale = torch.ones(1, 1, 32, device=cuda)
+    pool = torch.zeros(3, 16, 1, D, device=cuda)
+    pcodes = torch.zeros(3, 16, 1, D, dtype=torch.int8, device=cuda)
+    pscale = torch.ones(3, 16, 1, device=cuda)
+    table = torch.ones(1, 2, dtype=torch.int32, device=cuda)
+    for call in (lambda: tk.flash_attention_fwd(q, kv, kv, qp, kp),
+                 lambda: tk.flash_attention_fwd(q.bfloat16(), kv.bfloat16(),
+                                                kv.bfloat16(), qp, kp),
+                 lambda: tk.flash_decode_fwd(q, kv, kv, qp, kp),
+                 lambda: tk.flash_decode_quant_fwd(q, codes, scale, codes,
+                                                   scale, qp, kp),
+                 lambda: tk.flash_decode_paged_fwd(q, pool, pool, table, qp,
+                                                   kp),
+                 lambda: tk.flash_decode_paged_quant_fwd(
+                     q, pcodes, pscale, pcodes, pscale, table, qp, kp)):
+        with pytest.raises(ValueError, match="head_dim 96"):
+            call()
+    assert tk.LAUNCHES == n
 
 
 # ---------------------------------------------------------------------------
@@ -473,16 +537,17 @@ def test_decode_kernel_d256_mqa_wrapped_ring(cuda, dtype, S):
 
 @pytest.mark.cuda
 def test_layout_kernels_reject_head_dim_256(cuda):
-    """The layout kernels take head_dim 256 now (test_decode_streaming_*);
-    they still refuse a head_dim outside 64 / 128 / 256, here 80."""
-    q = torch.zeros(1, 1, 1, 1, 80, device=cuda)
-    codes = torch.zeros(1, 1, 64, 80, dtype=torch.int8, device=cuda)
+    """The layout kernels take head_dim 256, 80 and 112 now
+    (test_decode_streaming_*); they still refuse a head_dim outside 64 / 80
+    / 112 / 128 / 256, here 96."""
+    q = torch.zeros(1, 1, 1, 1, 96, device=cuda)
+    codes = torch.zeros(1, 1, 64, 96, dtype=torch.int8, device=cuda)
     scale = torch.ones(1, 1, 64, device=cuda)
     qp = torch.zeros(1, 1, dtype=torch.int32, device=cuda)
     kp = torch.zeros(1, 64, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         tk.flash_decode_quant_fwd(q, codes, scale, codes, scale, qp, kp)
-    pool = torch.zeros(3, 16, 1, 80, device=cuda)
+    pool = torch.zeros(3, 16, 1, 96, device=cuda)
     table = torch.ones(1, 4, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         tk.flash_decode_paged_fwd(q, pool, pool, table, qp, kp)
@@ -535,7 +600,7 @@ def _decode_call(src, q, ops, qp, kp, table=None, **kw):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 112, 128, 256])
 @pytest.mark.parametrize("G,S,NP,ps,window,cap,T_odd", _DECODE_CASES)
 def test_decode_streaming_kernel(cuda, dtype, D, G, S, NP, ps, window, cap,
                                  T_odd):
