@@ -57,14 +57,14 @@ Runs on one NVIDIA GPU; exits non-zero without one. Phases:
    chunks): the device's busy share, the kernels by device time, and the
    launches of the prefill, decode and RG-LRU kernels counted from the
    profiler's kernel events against the launch counters;
-8. serve_griffin: ``recurrentgemma-2b`` at full width and depth (random
-   weights from ``--seed``), batch 8 x prompt 512 x 64 new tokens and one
-   long request (batch 2 x prompt 2100 x 32, past the local window of
-   2048, so the ring wraps), graph, eager chunk and loop as in phase
-   serve: identical tokens, and exact launches: per
-   prefill 8 of the prefill kernel (attention layers) and 18 of the RG-LRU
-   kernel (recurrent layers), per decode step 8 of the decode kernel;
-   then a profile of its serving;
+8. serve_griffin: ``recurrentgemma-2b`` at full width, 14 of its 26
+   layers (GRIFFIN_SERVE_LAYERS; random weights from ``--seed``), batch 8
+   x prompt 512 x 64 new tokens and one long request (batch 2 x prompt
+   2100 x 32, past the local window of 2048, so the ring wraps), graph,
+   eager chunk and loop as in phase serve: identical tokens, and exact
+   launches: per prefill 4 of the prefill kernel (attention layers) and
+   10 of the RG-LRU kernel (recurrent layers), per decode step 4 of the
+   decode kernel; then a profile of its serving;
 9. engine_griffin: 16 mixed-length requests drained through 8 slots, graph
    against eager body;
 10. parity_griffin: card vs CPU fp32 logits and caches at full width with
@@ -1538,7 +1538,7 @@ def _attention_rows(gen, Hkv, G, D, window, sfx, label) -> dict:
     log("kernels", f"decode {label} T576 S1 bf16 times: kernel {t_k:.4f} ms, "
         f"plain {t_p:.4f} ms, sdpa (mask{', enable_gqa' if gqa else ''}) "
         f"{t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
-        f"{flops:.3e} FLOP); plan {fk.decode_plan(B, Hkv, G, T)}")
+        f"{flops:.3e} FLOP); plan {fk.decode_plan(B, Hkv, G, T, D)}")
     return rows
 
 
@@ -3376,6 +3376,16 @@ FAMILY_ENGINE_LAYOUTS = ("contiguous", "paged16")
 # 80, MHA; 2.80 G parameters, 16.8 GB at 6 bytes a weight) at full depth
 ARCHS = ("stablelm-1.6b", "internlm2-1.8b", "stablelm-3b")
 ARCHS_LAYERS = {"stablelm-1.6b": 4, "internlm2-1.8b": 4}
+# new tokens a serve of phase archs (64 unless named): stablelm-3b's eager
+# chunk and loop take ~0.1 s a token at its 32 layers, so 32 (~28 s of
+# the run), paying with Griffin's serving depth (GRIFFIN_SERVE_LAYERS) for
+# a build of ~80-95 s (the D 80 / 112 kernels' instantiations)
+ARCHS_GEN = {"stablelm-3b": 32}
+# recurrentgemma-2b serves (phases serve_griffin, engine_griffin and its
+# profile) at 14 of its 26 layers: four (r, r, a) groups and the two
+# trailing recurrent layers, as phase train_families trains it (~45 s of
+# the run at 26)
+GRIFFIN_SERVE_LAYERS = 14
 # stablelm-3b's layouts beside contiguous, served three ways too: BITS 4
 # and, through pages of 16, 8; its engine drains run contiguous and paged16
 # over D80_REQUESTS requests (one wave of the 8 slots, for the time limit:
@@ -3952,15 +3962,17 @@ def phase_xlstm(smi: str, seed: int) -> dict:
 
 def phase_archs(smi: str, seed: int) -> dict:
     """The dense archs at full width (ARCHS, ARCHS_LAYERS), batch 8 x 512 +
-    64, three ways, exact launches; stablelm-3b (D 80) also in
+    64 (ARCHS_GEN: stablelm-3b + 32), three ways, exact launches;
+    stablelm-3b (D 80) also in
     D80_LAYOUTS three ways, its engine drains (contiguous, paged16) and a
     profile whose kernel events equal the counters; then kimi-k2 (D 112,
     ``phase_kimi``). Returns the graph runs' launches (and the paged16
     graph drain's, ``archs/stablelm-3b/engine_paged16``)."""
     from repro_torch.configs import get_config
     launches = {}
-    kw = dict(batch=8, prompt_len=512, gen=64, chunk=8, seed=0)
     for arch in ARCHS:
+        kw = dict(batch=8, prompt_len=512, gen=ARCHS_GEN.get(arch, 64),
+                  chunk=8, seed=0)
         model = _load_cut(arch, ARCHS_LAYERS.get(
             arch, get_config(arch).num_layers), seed)
         label = f"archs/{arch}"
@@ -6282,11 +6294,15 @@ def run_phases(args, phases, smi, damov, cells=None) -> int:
     if {"serve_griffin", "engine_griffin"} & set(phases):
         from repro_torch.launch.serve import load_model
         t0 = time.perf_counter()
+        from repro_torch.configs import get_config
         model = load_model("recurrentgemma-2b", smoke=False, seed=args.seed,
-                           device="cuda")
+                           device="cuda", cfg=get_config(
+                               "recurrentgemma-2b").replace(
+                                   num_layers=GRIFFIN_SERVE_LAYERS))
         torch.cuda.synchronize()
         n = sum(p.numel() for p in model.parameters())
-        log("serve_griffin", f"recurrentgemma-2b full width and depth: {n} "
+        log("serve_griffin", f"recurrentgemma-2b full width, depth cut to "
+            f"{GRIFFIN_SERVE_LAYERS} of 26 layers: {n} "
             f"params ({model.cfg.num_layers} layers), compute "
             f"{model.cfg.compute_dtype}, built in "
             f"{time.perf_counter() - t0:.2f}s; device memory "

@@ -18,8 +18,9 @@
 // output of 0 and lse = -1e30, otherwise lse = m + log(l). q is
 // (B, Hkv, G, S, D), k/v (B, Hkv, T, D), all by element strides with a
 // contiguous last axis and 16-byte aligned rows; out (B, Hkv, G, S, D) in
-// q's type and lse (B, Hkv, G, S) fp32, contiguous. Any S and T: ragged
-// edges are masked here, nothing is padded.
+// q's type and lse (B, Hkv, G, S) fp32, contiguous, but for the bf16
+// route's out, which is stored in (B, S, Hkv, G, D) order, the model's. Any
+// S and T: ragged edges are masked here, nothing is padded.
 //
 // Numerics of the bf16 route, a difference by design: the reference does
 // both products in fp32 from fp32 copies of q, k and v. Here q.k runs on
@@ -56,32 +57,75 @@
 //     registers (the S accumulator's layout is the A fragment's, so p never
 //     leaves the registers) and V read through the descriptor's transpose,
 //     not copied;
-//   * the kv tiles are classified up front, a warp a tile, from each tile's
-//     kv position range while q is loaded: a tile in which no pair can be
-//     visible is neither loaded nor computed (dead ring slots, the upper
-//     causal triangle, tiles left of the window), and a tile in which every
-//     pair of a valid row is visible skips the mask;
+//   * the kv tiles are classified from each tile's kv position range (the
+//     fp32 route: up front, a warp a tile, while q is loaded; the bf16
+//     route: by its producer warp as it stages them): a tile in which no
+//     pair can be visible is neither loaded nor computed (dead ring slots,
+//     the upper causal triangle, tiles left of the window), and a tile in
+//     which every pair of a valid row is visible skips the mask;
 //   * scale, softcap, mask and the online softmax run on the accumulator
 //     fragments in registers: scores stay unscaled, so p is one FFMA and
 //     one ex2 per element, the mask is one unsigned compare against the
 //     row's visible position range, and row max and sum take the four
 //     lanes of a row, with no shared-memory round trip.
-// The bf16 route copies q and K/V with 16-byte cp.async into the
-// 128-byte-swizzled layout wgmma's descriptors read, K/V through a
-// two-stage ring; BK = 128 kv rows at D 64, 80, 112 and 128, 64 at D 256;
-// shared memory q 16 / 32 / 64 KiB + 2 stages of K and V 64 / 128 / 128
-// KiB, so two D-64 blocks share an SM and one D-256 block fills one.
-// D 80 and 112 (stablelm-3b, kimi-k2): a row of 160 or 224 bytes is no
-// whole number of 128-byte swizzle rows, so q, K and V are laid out as at
-// D 128 (pad64; both routes): S = Q K^T runs D / 16 k-slices (5 or 7) and
-// O += P V one wgmma of N = D (n80, n112) whose B spans both 64-column
-// blocks; the columns past D are neither copied (bf16 route) nor read
-// (fp32 route: TMA's zeros), so the padding costs shared memory, not
-// tensor-core work: 160 KiB a bf16 block as at D 128, where 1 - D / 128
-// of it (37.5% at D 80, 12.5% at D 112) holds nothing, one block an SM.
-// A later redesign would keep the rows unpadded in a 64-byte swizzle
-// (80 = 5 x 16 columns, 112 = 7 x 16) and fit a second block an SM at D
-// 80, or a deeper K/V ring.
+// The bf16 route, tma::flash_prefill_kernel, one warp-specialised design at
+// every head dim:
+//   * rows unpadded: a row of D columns is D / 64 blocks of 64 columns,
+//     then one of 32 and one of 16 where D needs them (D 80: 64 + 16; D
+//     112: 64 + 32 + 16), each operand stored a column block after
+//     another, a block's rows 128, 64 or 32 bytes in the swizzle of that
+//     width (layout types 1, 2, 3 of the descriptors); S = Q K^T runs its
+//     D / 16 k-slices through the blocks, and O += P V one product a block
+//     (n64, n32, n16), each into its columns of o;
+//   * warps 0-7 are two consumer warpgroups of 64 q rows each, warps 8-11
+//     the producer warpgroup, of which warp 8 works: it asks the Tensor
+//     Memory Accelerator for q's tile and the first K/V tile at once, then
+//     for every other live K/V tile into an mbarrier ring of NS stages (a
+//     full-K, a full-V and an empty barrier a stage; the stage's kv
+//     positions and a header {tile, full} stored by the warp's lanes before
+//     their arrival), and a header of -1 after the last; the tiles are
+//     classified from the positions it stages (scan_tiles' rule);
+//   * setmaxnreg: the producer warpgroup gives up its registers (24 a
+//     thread) and the consumers take them: 65,536 / (MINB x 384) at launch
+//     in steps of 8 (80 at two blocks an SM, 168 at one), consumers 104 /
+//     240 (128 x 24 + 256 x 104 <= 384 x 80; 128 x 24 + 256 x 240 = 384 x
+//     168); the launch refuses a build that gives fewer at launch (the
+//     consumers' setmaxnreg.inc would wait forever);
+//   * the consumer warpgroups take turns on the tensor cores (named
+//     barriers 1 and 2, strictly alternating): a warpgroup issues S, passes
+//     the turn, and runs its softmax while the other issues its S; then
+//     the same for O += P V;
+//   * the epilogue writes O / l into the warpgroup's rows of q's region
+//     (the layout q arrived in) and one thread stores the block's tile by
+//     TMA, a box a column block, in the model's (B, S, Hkv, G, D) order:
+//     the wrapper's out is a view of it and ops' merge of the heads copies
+//     nothing;
+//   * a block's bytes: q 128 x D x 2, NS stages of a K and a V tile of BK
+//     rows (BK x D x 2 each), BK x 4 + 8 of positions and header a stage,
+//     8 x (1 + 3 NS) of mbarriers, 1,024 to align. Two blocks an SM fit
+//     where 2 x (bytes + 1,024) <= 233,472 and the consumers' S (BK / 2
+//     registers a thread), O (D / 2) and P (BK / 4) fit 104 registers:
+//     D 64: BK 64, NS 4: 16,384 + 4 x (2 x 8,192) + 4 x 264 + 104 + 1,024
+//     = 84,104 bytes, two blocks an SM; S 32, O 32, P 16 registers.
+//     D 80: BK 64, NS 4: 20,480 + 4 x (2 x 10,240) + 4 x 264 + 104 + 1,024
+//     = 104,584 bytes, two blocks an SM (the layout padded to D 128 took
+//     164 KiB, one block an SM); S 32, O 40, P 16.
+//     D 112: BK 32, NS 4: 28,672 + 4 x (2 x 7,168) + 4 x 136 + 104 + 1,024
+//     = 87,688 bytes, two blocks an SM; S 16, O 56, P 8 (BK 64 would not
+//     fit O and S in 104 registers, and one block an SM of BK 128 ran
+//     slower: each of kimi-k2's 2,048 short blocks then waits for its
+//     first tile with nothing beside it).
+//     D 128: BK 64, NS 4: 32,768 + 4 x (2 x 16,384) + 4 x 264 + 104 +
+//     1,024 = 166,024 bytes, one block an SM (O's 64 registers and S's 32
+//     pass 104 at two); consumers 240 registers.
+//     D 256: BK 32, NS 4: 65,536 + 4 x (2 x 16,384) + 4 x 136 + 104 +
+//     1,024 = 198,280 bytes, one block an SM; O 128, S 16, P 8 of 240.
+//     On the H100 this design ran every head dim faster than the two-stage
+//     cp.async kernel it replaced at D 64, 128 and 256 (PERF.md).
+// The fp32 route at D 80 and 112 lays q, K and V out as at D 128 (pad64):
+// S = Q K^T runs D / 16 k-slices (5 or 7) and O += P V one wgmma of N = D
+// (n80, n112) whose B spans both 64-column blocks; the columns past D are
+// not read (TMA's zeros).
 // The fp32 route (F32Tiles: 128 q rows and BK 128 at D 64, BK 64 at D 80,
 // 112 and 128; 64 and 32 at D 256):
 //   * a pre-pass, split_kv_parts, splits K and V into their bf16 parts
@@ -188,6 +232,22 @@ int repro_flash_prefill_f32(
     case 128: return prefill_f32_d128(p, parts, blocks, st);
     case 256: return prefill_f32_d256(p, parts, blocks, st);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 route's layout at head dim D, as out = {q rows a block, kv rows
+// a tile, ring stages, dynamic shared memory bytes, blocks an SM} (zeros
+// for another D): kernel.py BF16_PREFILL_TILES states it for the CPU
+// tests; a card test compares.
+void repro_flash_prefill_bf16_layout(int D, int* out) {
+  for (int i = 0; i < 5; ++i) out[i] = 0;
+  switch (D) {
+    case 64: bf16_layout_d64(out); break;
+    case 80: bf16_layout_d80(out); break;
+    case 112: bf16_layout_d112(out); break;
+    case 128: bf16_layout_d128(out); break;
+    case 256: bf16_layout_d256(out); break;
+    default: break;
   }
 }
 

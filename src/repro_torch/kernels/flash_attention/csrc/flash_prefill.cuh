@@ -15,8 +15,8 @@ namespace repro_prefill {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;          // bf16: two warpgroups
-constexpr int kRows = 128;             // bf16: q rows per block
+constexpr int kThreads = 256;          // fp32 route: two warpgroups
+constexpr int kRows = 128;             // bf16 route: q rows per block
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr size_t kSmemLimit = 232448;  // bytes a block may use (227 KB)
@@ -51,13 +51,6 @@ __device__ __forceinline__ uint32_t swz(int rows, int r, int c) {
   return (c >> 3) * (rows * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  // src-size 0 fills the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -263,25 +256,11 @@ constexpr uint8_t kLive = 1;  // a pair of the tile may be visible
 constexpr uint8_t kFull = 2;  // every pair of a valid q row is visible
 
 // A head dim padded to whole 64-column blocks of the 128-byte swizzle: the
-// width of a bf16 operand's rows in shared memory. D 80 and 112 are stored
-// in D 128's layout; the columns past D are neither copied nor read.
+// width of the fp32 route's operand rows in shared memory. D 80 and 112 are
+// stored in D 128's layout; the columns past D are not read.
 __host__ __device__ constexpr int pad64(int d) {
   return (d + 63) / 64 * 64;
 }
-
-template <int D, int BK>
-struct PrefillSmem {
-  static constexpr int kChunks = D / 8;        // 16-byte chunks of a row
-  static constexpr int kDP = pad64(D);         // columns a row is laid out in
-  static constexpr int kQBytes = kRows * kDP * 2;
-  static constexpr int kTileBytes = BK * kDP * 2;  // one K or V tile
-  static constexpr int kKV = kQBytes;          // stage s: K, then V
-  static constexpr int kKpos = kKV + 4 * kTileBytes;   // 2 stages x BK
-  static constexpr int kFlags = kKpos + 2 * BK * 4;    // kScanTiles
-  static constexpr int kBytes = kFlags + kScanTiles;
-  static constexpr size_t kSmem = kBytes + 1024;  // slack to align the base
-  static_assert(kSmem <= kSmemLimit, "shared memory");
-};
 
 // Block row r (0 .. rows - 1) -> its query head g and position s; false if
 // the row holds none (unused rows of the plan, past G or past S).
@@ -386,28 +365,6 @@ __device__ __forceinline__ void load_kpos(const int* kpos_b, int T, int j,
                    "r"(-1)
                    : "memory");
   }
-}
-
-// Issue the cp.async copies of K/V tile j and its kv positions into stage
-// sK (K, V, then the positions at sKp).
-template <int D, int BK>
-__device__ __forceinline__ void load_kv(const Params& p, const bf16* kb,
-                                        const bf16* vb, const int* kpos_b,
-                                        int j, uint32_t sK, uint32_t sKp) {
-  using L = PrefillSmem<D, BK>;
-  const int t0 = j * BK;
-  const uint32_t sV = sK + L::kTileBytes;
-#pragma unroll 4
-  for (int idx = threadIdx.x; idx < BK * L::kChunks; idx += kThreads) {
-    const int r = idx / L::kChunks, c = idx % L::kChunks;
-    const int t = t0 + r;
-    const bool ok = t < p.T;
-    const long long tr = ok ? t : 0;
-    const uint32_t o = swz(BK, r, c);
-    cp_async16(sK + o, kb + tr * p.ks_t + c * 8, ok);
-    cp_async16(sV + o, vb + tr * p.vs_t + c * 8, ok);
-  }
-  load_kpos<BK>(kpos_b, p.T, j, sKp);
 }
 
 // The kv positions a q row at qp sees (the masking rule above) as
@@ -545,172 +502,6 @@ struct RowPair {
     }
   }
 };
-
-// ---------------------------------------------------------------------------
-// The bf16 route. One block: kRows query rows (prefill_plan; the q tiles in
-// reverse, so the blocks with the most causal work start first) of kv head
-// blockIdx.y of batch row blockIdx.z against every live kv tile.
-// ---------------------------------------------------------------------------
-template <int D, int BK, int MINB>
-__global__ void __launch_bounds__(kThreads, MINB)
-flash_prefill_kernel(const Params p) {
-  using L = PrefillSmem<D, BK>;
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
-  const uint32_t base = (raw + 1023u) & ~1023u;
-  unsigned char* const sm = smem_raw + (base - raw);
-  const int* const kps = reinterpret_cast<const int*>(sm + L::kKpos);
-  uint8_t* const flags = sm + L::kFlags;
-
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int wg = tid >> 7, wq = (tid >> 5) & 3;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int nq = static_cast<int>(gridDim.x) / p.groups;
-  const int qt = nq - 1 - static_cast<int>(blockIdx.x) / p.groups;
-  const int gg = blockIdx.x % p.groups;
-  const int nt = (p.T + BK - 1) / BK;
-  const int* kpos_b = p.kpos + static_cast<long long>(b) * p.T;
-  const int* qpos_b = p.qpos + static_cast<long long>(b) * p.S;
-  const bf16* kb = p.k + b * p.ks_b + h * p.ks_h;
-  const bf16* vb = p.v + b * p.vs_b + h * p.vs_h;
-
-  // the q rows first: their copies fly while the kv tiles are classified
-  for (int idx = tid; idx < kRows * L::kChunks; idx += kThreads) {
-    const int r = idx / L::kChunks, c = idx % L::kChunks;
-    int g, s;
-    const bool ok = block_row(p, r, qt, gg, g, s);
-    const long long off =
-        ok ? b * p.qs_b + h * p.qs_h + g * p.qs_g + s * p.qs_s : 0;
-    cp_async16(base + swz(kRows, r, c), p.q + off + c * 8, ok);
-  }
-
-  int qmin, qmax;
-  q_range(p, qpos_b, qt, qmin, qmax);
-  int c0 = 0;
-  scan_tiles<BK>(p, kpos_b, 0, nt, qmin, qmax, flags);
-  __syncthreads();
-
-  int j = next_live<BK>(p, kpos_b, 0, nt, qmin, qmax, flags, c0);
-  if (j < nt)
-    load_kv<D, BK>(p, kb, vb, kpos_b, j, base + L::kKV, base + L::kKpos);
-  cp_async_commit();
-
-  const int r0 = wg * 64 + wq * 16 + (lane >> 2), r1 = r0 + 8;
-  RowPair rows(p, qpos_b, r0, qt, gg);
-
-  float o[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-  const uint32_t a_q = base + wg * (64 * 128);
-
-  int st = 0;
-  while (j < nt) {
-    const bool full = flags[j - c0] & kFull;
-    const int jn = next_live<BK>(p, kpos_b, j + 1, nt, qmin, qmax, flags, c0);
-    if (jn < nt) {
-      load_kv<D, BK>(p, kb, vb, kpos_b, jn,
-                     base + L::kKV + (st ^ 1) * 2 * L::kTileBytes,
-                     base + L::kKpos + (st ^ 1) * BK * 4);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    fence_proxy_async();
-    __syncthreads();
-
-    const uint32_t sK = base + L::kKV + st * 2 * L::kTileBytes;
-    const uint32_t sV = sK + L::kTileBytes;
-
-    // S = Q K^T (64 x BK per warpgroup); the first k-slice overwrites s
-    float s[BK / 2];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint64_t da =
-          desc_k(a_q + (kk >> 2) * (kRows * 128) + (kk & 3) * 32);
-#pragma unroll
-      for (int n = 0; n < BK / 64; ++n)
-        wgmma_ss(&s[32 * n], da,
-                 desc_k(sK + (kk >> 2) * (BK * 128) + n * (64 * 128) +
-                        (kk & 3) * 32),
-                 kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    reg_fence(s);
-
-    float alpha0, alpha1;
-    rows.softmax<BK>(p, s, kps + st * BK, full, alpha0, alpha1);
-
-    // P in bf16, straight into the A fragments of the second product:
-    // k-slice kk holds columns 16 kk .. 16 kk + 15
-    uint32_t pa[BK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-    }
-#pragma unroll
-    for (int I = 0; I < D / 8; ++I) {
-      o[4 * I] *= alpha0;
-      o[4 * I + 1] *= alpha0;
-      o[4 * I + 2] *= alpha1;
-      o[4 * I + 3] *= alpha1;
-    }
-
-    // O += P V (64 x D per warpgroup, 64 columns per instruction; at D 80
-    // and 112 one instruction of N = D over both 64-column blocks)
-    reg_fence(o);
-    reg_fence(pa);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      if constexpr (D % 64 == 0) {
-#pragma unroll
-        for (int dd = 0; dd < D / 64; ++dd)
-          wgmma_rs(&o[32 * dd], pa[kk],
-                   desc_mn(sV + dd * (BK * 128) + kk * (16 * 128)));
-      } else {
-        wgmma_rs_n<D>(o, pa[kk],
-                      desc_sw128(sV + kk * (16 * 128), BK * 128, 1024));
-      }
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    reg_fence(o);
-    reg_fence(pa);
-
-    __syncthreads();             // stage st is free for the next prefetch
-    j = jn;
-    st ^= 1;
-  }
-  cp_async_wait<0>();            // the q copies, if no tile was live
-  __syncthreads();
-
-  // epilogue: out = O / l through the q region of shared memory
-  float inv0, inv1;
-  rows.finish(p, b, h, inv0, inv1);
-#pragma unroll
-  for (int I = 0; I < D / 8; ++I) {
-    const int cb = (lane & 3) * 4;
-    *reinterpret_cast<uint32_t*>(sm + swz(kRows, r0, I) + cb) =
-        pack_bf16(o[4 * I] * inv0, o[4 * I + 1] * inv0);
-    *reinterpret_cast<uint32_t*>(sm + swz(kRows, r1, I) + cb) =
-        pack_bf16(o[4 * I + 2] * inv1, o[4 * I + 3] * inv1);
-  }
-  __syncthreads();
-  for (int idx = tid; idx < kRows * L::kChunks; idx += kThreads) {
-    const int r = idx / L::kChunks, c = idx % L::kChunks;
-    int g, s;
-    if (!block_row(p, r, qt, gg, g, s)) continue;
-    const long long orow = ((static_cast<long long>(b) * p.H + h) * p.G + g) * p.S + s;
-    *reinterpret_cast<uint4*>(p.out + orow * D + c * 8) =
-        *reinterpret_cast<const uint4*>(sm + swz(kRows, r, c));
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The fp32 route: the bf16 route's block, with every product in three exact
@@ -1109,6 +900,462 @@ flash_prefill_f32_kernel(const ParamsT<float> p,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 route (flash_prefill.cu's design note): rows unpadded, as column
+// blocks of 64, 32 and 16 columns in the swizzle of their width; one
+// producer warp feeds q and the live K/V tiles by TMA into an mbarrier
+// ring, and two consumer warpgroups take turns on the tensor cores.
+// ---------------------------------------------------------------------------
+namespace tma {
+
+constexpr int kConsumers = 256;             // two warpgroups
+constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
+constexpr int kProducerRegs = 24;
+
+// A row of D columns as D / 64 blocks of 64 columns, then one of 32 and one
+// of 16 where D needs them (D 80: 64 + 16; D 112: 64 + 32 + 16; D 256: four
+// of 64): block b's width, first column, and the block of column c. A
+// block's rows are 128, 64 or 32 bytes, swizzled at that width.
+__host__ __device__ constexpr int n_blocks(int d) {
+  return d / 64 + (d % 64 >= 32) + (d % 32 >= 16);
+}
+__host__ __device__ constexpr int blk_cols(int d, int b) {
+  return b < d / 64 ? 64 : (b == d / 64 && d % 64 >= 32) ? 32 : 16;
+}
+__host__ __device__ constexpr int blk_start(int d, int b) {
+  return b <= d / 64 ? 64 * b : 64 * (d / 64) + 32;
+}
+__host__ __device__ constexpr int blk_of(int d, int c) {
+  return c < 64 * (d / 64) ? c / 64
+         : (d % 64 >= 32 && c >= 64 * (d / 64) + 32) ? d / 64 + 1
+                                                      : d / 64;
+}
+constexpr int kMaxBlocks = 4;    // D 256
+
+// Consumer registers a thread once the producer warpgroup has given its up
+// (setmaxnreg works a warpgroup at a time): 168 at launch at one block an
+// SM, 80 at two (65,536 / (MINB x 384), in steps of 8); 128 x 24 + 256 x
+// 240 = 384 x 168 and 128 x 24 + 256 x 104 <= 384 x 80.
+template <int MINB>
+__host__ __device__ constexpr int consumer_regs() {
+  return MINB == 1 ? 240 : 104;
+}
+
+// Shared memory of a block (byte offsets from its 1024-aligned base): q's
+// 128 rows, NS stages of a K and a V tile of BK rows, each operand as its
+// column blocks one after another (block b of an R-row operand at R * 2 *
+// blk_start(b), a row of it 2 * blk_cols(b) bytes); the stages' kv
+// positions and headers ({tile, flags}, tile -1: no more tiles); q's
+// mbarrier, then a full-K, a full-V and an empty mbarrier a stage.
+template <int D, int BK, int NS>
+struct Smem {
+  static constexpr int kQ = 0;
+  static constexpr int kQBytes = kRows * D * 2;
+  static constexpr int kTile = BK * D * 2;              // one K or V tile
+  static constexpr int kKV = kQBytes;                   // stage s: K, then V
+  static constexpr int kKpos = kKV + NS * 2 * kTile;    // NS x BK positions
+  static constexpr int kHdr = kKpos + NS * BK * 4;      // NS x {tile, flags}
+  static constexpr int kBars = kHdr + NS * 8;
+  static constexpr int kBytes = kBars + 8 * (1 + 3 * NS);
+  static constexpr size_t kSmem = kBytes + 1024;   // slack to align the base
+  static_assert(D % 16 == 0 && D >= 64 && n_blocks(D) <= kMaxBlocks &&
+                    (BK == 32 || BK % 64 == 0), "tiles");
+  static_assert(kQBytes % 1024 == 0 && kTile % 1024 == 0,
+                "1024-byte aligned regions");
+  static_assert(kSmem <= kSmemLimit, "shared memory");
+};
+
+// q's, K's, V's and out's tensor maps, one a column block
+struct Maps {
+  CUtensorMap q[kMaxBlocks], k[kMaxBlocks], v[kMaxBlocks], o[kMaxBlocks];
+};
+
+// Byte offset of 16-byte chunk c of row r in a column block whose rows are
+// row_bytes long, in the swizzle of that width (the layout TMA writes and
+// wgmma reads: chunk bits ^= the row bits above 128 bytes)
+__device__ __forceinline__ uint32_t swz_rows(int r, int c, int row_bytes) {
+  const int x = row_bytes == 128 ? (r & 7) : row_bytes == 64 ? ((r >> 1) & 3)
+                                                             : ((r >> 2) & 1);
+  return r * row_bytes + ((c ^ x) << 4);
+}
+// box (c0, .., c4) of shared memory at src to a 5-D tensor map's tensor
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* m,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group [%0, {%1, %2, "
+      "%3, %4, %5}], [%6];\n" ::"l"(reinterpret_cast<uint64_t>(m)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4), "r"(src)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of an operand whose rows are row_bytes
+// (128, 64 or 32) long in the swizzle of that width: 8-row groups 8 *
+// row_bytes apart (K-major: along M or N; MN-major: along K); the other
+// offset spans a whole atom, which no product here steps past
+__device__ __forceinline__ uint64_t desc_rows(uint32_t addr, int row_bytes) {
+  const uint64_t layout = row_bytes == 128 ? 1 : row_bytes == 64 ? 2 : 3;
+  const uint64_t group = static_cast<uint64_t>(8 * row_bytes) >> 4;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (group << 16) |
+         (group << 32) | (layout << 62);
+}
+
+#define ACC8(d)                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7])
+#define REGS8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+
+// d (64 x W fp32, W / 2 per thread) += A (64 x 16 bf16, registers) * B
+// (16 x W, shared, MN-major: the transpose bit), W = 64, 32 or 16
+template <int W>
+__device__ __forceinline__ void wgmma_rs_w(float* d, const uint32_t (&a)[4],
+                                           uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs_w<64>(float* d,
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  wgmma_rs(d, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_w<32>(float* d,
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " REGS16
+      ", {%16, %17, %18, %19}, %20, 1, 1, 1, 1;\n"
+      : ACC16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_w<16>(float* d,
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " REGS8
+      ", {%8, %9, %10, %11}, %12, 1, 1, 1, 1;\n"
+      : ACC8(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// O's columns of block CB += P (k-slice kk of the tile, registers) times
+// V's rows 16 kk .. 16 kk + 15 of that block
+template <int D, int BK, int CB>
+__device__ __forceinline__ void pv_block(float* o, const uint32_t (&a)[4],
+                                         uint32_t sV, int kk) {
+  constexpr int W = blk_cols(D, CB), RB = 2 * W;
+  wgmma_rs_w<W>(o + blk_start(D, CB) / 2, a,
+                desc_rows(sV + BK * 2 * blk_start(D, CB) + kk * 16 * RB, RB));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// box (c0, .., c3) of a 4-D tensor map into shared memory at dst
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* m,
+                                            int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(bar)
+      : "memory");
+}
+// the consumer warpgroups' turns on the tensor cores: named barrier 1 + c
+// is warpgroup c's turn; it syncs on its own and arrives on the other's
+__device__ __forceinline__ void turn_wait(int c) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + c), "n"(kConsumers)
+               : "memory");
+}
+__device__ __forceinline__ void turn_pass(int c) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(2 - c), "n"(kConsumers)
+               : "memory");
+}
+
+// expect tx bytes more on the barrier's current phase, without arriving
+__device__ __forceinline__ void mbar_expect_only(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// The producer warp: q's tile and the first K/V tile at once, then every
+// other live K/V tile of the block in kv order into the ring (a tile in
+// which no pair can be visible is neither loaded nor computed: scan_tiles'
+// rule, from the positions it stages), then a header of -1. The first tile
+// goes before its positions are read (it is live but where every q or kv
+// position is masked, and then the consumers compute it fully masked, to
+// the same result), so that the block's first product waits one load, not
+// three.
+template <int D, int BK, int NS>
+__device__ __forceinline__ void produce(const Params& p, const Maps& maps,
+                                        unsigned char* sm, uint32_t base,
+                                        int b, int h, int qt, int gg) {
+  using L = Smem<D, BK, NS>;
+  constexpr int NB = n_blocks(D), kPer = BK / 32;
+  const int lane = threadIdx.x & 31;
+  int* const kps = reinterpret_cast<int*>(sm + L::kKpos);
+  int* const hdr = reinterpret_cast<int*>(sm + L::kHdr);
+  const uint32_t bar_q = base + L::kBars;
+  const int* kpos_b = p.kpos + static_cast<long long>(b) * p.T;
+  const int nt = (p.T + BK - 1) / BK;
+  // K's and V's tile j into stage st, by lane 0: the bytes counted on the
+  // stage's full-K (no arrival: the lanes arrive once the positions are
+  // stored) and full-V barriers
+  auto issue = [&](int j, int st) {
+    const uint32_t sK = base + L::kKV + st * 2 * L::kTile;
+    const uint32_t full_k = bar_q + 8 * (1 + st);
+    const uint32_t full_v = bar_q + 8 * (1 + NS + st);
+    mbar_expect_only(full_k, L::kTile);
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb)
+      tma_load_4d(sK + BK * 2 * blk_start(D, cb), &maps.k[cb],
+                  blk_start(D, cb), j * BK, h, b, full_k);
+    mbar_expect_tx(full_v, L::kTile);          // lane 0's arrival on it
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb)
+      tma_load_4d(sK + L::kTile + BK * 2 * blk_start(D, cb), &maps.v[cb],
+                  blk_start(D, cb), j * BK, h, b, full_v);
+  };
+  if (lane == 0) {
+    mbar_expect_tx(bar_q, p.GG * p.BQ * D * 2);
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb)
+      tma_load_5d(base + L::kQ + kRows * 2 * blk_start(D, cb), &maps.q[cb],
+                  blk_start(D, cb), qt * p.BQ, gg * p.GG, h, b, bar_q);
+    if (nt > 0) issue(0, 0);
+  }
+  int nxt[kPer];
+  auto fetch = [&](int j) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int t = j * BK + lane + 32 * i;
+      nxt[i] = t < p.T ? kpos_b[t] : -1;
+    }
+  };
+  if (nt > 0) fetch(0);          // in flight with q_range's loads
+  int qmin, qmax;
+  q_range(p, p.qpos + static_cast<long long>(b) * p.S, qt, qmin, qmax);
+  int st = 0;
+  uint32_t ph = 0;
+  for (int j = 0; j < nt; ++j) {
+    int cur[kPer];
+    int kmin = 0x7fffffff, kmax = -1;
+    bool hole = false;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      cur[i] = nxt[i];
+      if (cur[i] >= 0) {
+        kmin = min(kmin, cur[i]);
+        kmax = max(kmax, cur[i]);
+      } else {
+        hole = true;
+      }
+    }
+    if (j + 1 < nt) fetch(j + 1);    // the next tile's positions in flight
+    kmin = __reduce_min_sync(0xffffffffu, kmin);
+    kmax = __reduce_max_sync(0xffffffffu, kmax);
+    hole = __any_sync(0xffffffffu, hole);
+    const bool live = kmax >= 0 && qmax >= 0 && !(p.causal && kmin > qmax) &&
+                      !(p.window > 0 && kmax <= qmin - p.window);
+    const bool full = live && !hole && (!p.causal || kmax <= qmin) &&
+                      (p.window <= 0 || kmin > qmax - p.window);
+    if (j > 0) {
+      if (!live) continue;
+      mbar_wait(bar_q + 8 * (1 + 2 * NS + st), ph ^ 1);   // stage st is free
+      if (lane == 0) issue(j, st);
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) kps[st * BK + lane + 32 * i] = cur[i];
+    if (lane == 0) {
+      hdr[2 * st] = j;
+      hdr[2 * st + 1] = full ? kFull : 0;
+    }
+    mbar_arrive(bar_q + 8 * (1 + st));   // after this lane's stores
+    if (++st == NS) {
+      st = 0;
+      ph ^= 1;
+    }
+  }
+  mbar_wait(bar_q + 8 * (1 + 2 * NS + st), ph ^ 1);
+  if (lane == 0) hdr[2 * st] = -1;
+  mbar_arrive(bar_q + 8 * (1 + st));
+}
+
+// A consumer warpgroup c: 64 of the block's rows against every tile the
+// producer stages. Per tile: its turn for S = Q K^T, the softmax while the
+// other warpgroup takes its turn, then its turn for O += P V. Then out = O
+// / l into its rows of q's region, and the block's tile by TMA stores.
+template <int D, int BK, int NS>
+__device__ __forceinline__ void consume(const Params& p, const Maps& maps,
+                                        unsigned char* sm, uint32_t base,
+                                        int b, int h, int qt, int gg) {
+  using L = Smem<D, BK, NS>;
+  constexpr int NB = n_blocks(D);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int c = tid >> 7, wq = (tid >> 5) & 3;
+  const int* const kps = reinterpret_cast<const int*>(sm + L::kKpos);
+  const int* const hdr = reinterpret_cast<const int*>(sm + L::kHdr);
+  const uint32_t bar_q = base + L::kBars;
+  const int r0 = c * 64 + wq * 16 + (lane >> 2);
+  RowPair rows(p, p.qpos + static_cast<long long>(b) * p.S, r0, qt, gg);
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  if (c == 1) turn_pass(c);      // warpgroup 0 takes the first turn
+  mbar_wait(bar_q, 0);
+
+  int st = 0;
+  uint32_t ph = 0;
+  for (;;) {
+    mbar_wait(bar_q + 8 * (1 + st), ph);         // K and the header
+    if (hdr[2 * st] < 0) break;
+    const bool full = hdr[2 * st + 1] & kFull;
+    const uint32_t sK = base + L::kKV + st * 2 * L::kTile;
+    const uint32_t sV = sK + L::kTile;
+
+    // S = Q K^T (64 x BK), k-slices of 16 columns through the column
+    // blocks; the first overwrites s
+    float s[BK / 2];
+    turn_wait(c);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int cb = blk_of(D, 16 * kk), rb = 2 * blk_cols(D, cb);
+      const int off = (16 * kk - blk_start(D, cb)) * 2;
+      const uint64_t da = desc_rows(base + L::kQ + kRows * 2 * blk_start(D, cb)
+                                        + c * 64 * rb + off, rb);
+      const uint32_t kb = sK + BK * 2 * blk_start(D, cb) + off;
+      if constexpr (BK == 32) {
+        wgmma_ss_n32(s, da, desc_rows(kb, rb), kk > 0);
+      } else {
+#pragma unroll
+        for (int n = 0; n < BK / 64; ++n)
+          wgmma_ss(&s[32 * n], da, desc_rows(kb + n * 64 * rb, rb), kk > 0);
+      }
+    }
+    wgmma_commit();
+    turn_pass(c);
+    wgmma_wait_all();
+    reg_fence(s);
+
+    float alpha0, alpha1;
+    rows.softmax<BK>(p, s, kps + st * BK, full, alpha0, alpha1);
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+#pragma unroll
+    for (int I = 0; I < D / 8; ++I) {
+      o[4 * I] *= alpha0;
+      o[4 * I + 1] *= alpha0;
+      o[4 * I + 2] *= alpha1;
+      o[4 * I + 3] *= alpha1;
+    }
+
+    // O += P V, a product a column block (n64, n32, n16)
+    mbar_wait(bar_q + 8 * (1 + NS + st), ph);    // V
+    turn_wait(c);
+    reg_fence(o);
+    reg_fence(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      pv_block<D, BK, 0>(o, pa[kk], sV, kk);
+      if constexpr (NB > 1) pv_block<D, BK, 1>(o, pa[kk], sV, kk);
+      if constexpr (NB > 2) pv_block<D, BK, 2>(o, pa[kk], sV, kk);
+      if constexpr (NB > 3) pv_block<D, BK, 3>(o, pa[kk], sV, kk);
+    }
+    wgmma_commit();
+    turn_pass(c);
+    wgmma_wait_all();
+    reg_fence(o);
+    reg_fence(pa);
+    mbar_arrive(bar_q + 8 * (1 + 2 * NS + st));  // stage st is free
+    if (++st == NS) {
+      st = 0;
+      ph ^= 1;
+    }
+  }
+  if (c == 0) turn_wait(c);      // warpgroup 1's last turn passed to it
+
+  // epilogue: out = O / l into this warpgroup's rows of q's region (its
+  // products are done), as q lies there (column blocks, swizzled), then
+  // the block's GG x BQ rows to out by TMA, a box a column block, in the
+  // model's (B, S, Hkv, G, D) order (rows past S or G fall outside the
+  // map and are not written), so that no transpose follows
+  float inv0, inv1;
+  rows.finish(p, b, h, inv0, inv1);
+#pragma unroll
+  for (int I = 0; I < D / 8; ++I) {
+    const int cb = blk_of(D, 8 * I), rb = 2 * blk_cols(D, cb);
+    const int ch = (8 * I - blk_start(D, cb)) / 8;
+    unsigned char* blk = sm + L::kQ + kRows * 2 * blk_start(D, cb) +
+                         4 * (lane & 3);
+    *reinterpret_cast<uint32_t*>(blk + swz_rows(r0, ch, rb)) =
+        pack_bf16(o[4 * I] * inv0, o[4 * I + 1] * inv0);
+    *reinterpret_cast<uint32_t*>(blk + swz_rows(r0 + 8, ch, rb)) =
+        pack_bf16(o[4 * I + 2] * inv1, o[4 * I + 3] * inv1);
+  }
+  fence_proxy_async();           // the stores, before TMA reads them
+  asm volatile("bar.sync 3, %0;\n" ::"n"(kConsumers) : "memory");
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb)
+      tma_store_5d(&maps.o[cb], base + L::kQ + kRows * 2 * blk_start(D, cb),
+                   blk_start(D, cb), qt * p.BQ, gg * p.GG, h, b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+// One block: kRows query rows (prefill_plan; the q tiles in reverse, as
+// the other bf16 kernel) of kv head blockIdx.y of batch row blockIdx.z.
+// Warps 0-7 are the consumer warpgroups, warps 8-11 the producer
+// warpgroup, of which warp 8 works and the others give up their registers
+// and end; the roles part after the barriers are set up and never meet
+// again.
+template <int D, int BK, int NS, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+flash_prefill_kernel(const Params p, const __grid_constant__ Maps maps) {
+  using L = Smem<D, BK, NS>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const sm = smem_raw + (base - raw);
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int nq = static_cast<int>(gridDim.x) / p.groups;
+  const int qt = nq - 1 - static_cast<int>(blockIdx.x) / p.groups;
+  const int gg = blockIdx.x % p.groups;
+  if (threadIdx.x == 0) {
+    const uint32_t bar_q = base + L::kBars;
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(bar_q + 8 * (1 + s), 32);               // full K
+      mbar_init(bar_q + 8 * (1 + NS + s), 1);           // full V
+      mbar_init(bar_q + 8 * (1 + 2 * NS + s), kConsumers);  // empty
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x < kConsumers + 32)
+      produce<D, BK, NS>(p, maps, sm, base, b, h, qt, gg);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        consumer_regs<MINB>()));
+    consume<D, BK, NS>(p, maps, sm, base, b, h, qt, gg);
+  }
+}
+
+}  // namespace tma
+
 // Allow a kernel the dynamic shared memory it asks for, once.
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes, bool& ready) {
@@ -1144,11 +1391,13 @@ inline PFN_cuTensorMapEncodeTiled encoder() {
 
 // An operand of `rank` dimensions (dims[0] innermost and contiguous,
 // strides[i] in elements for dims 1 ..) of esize-byte elements as a map
-// with boxes of box[0] x box[1] x .., 128-byte swizzled, zeros outside; a
-// dimension of extent 1 gets a packed stride, which no coordinate uses.
+// with boxes of box[0] x box[1] x .., swizzled (128 bytes unless asked
+// otherwise), zeros outside; a dimension of extent 1 gets a packed stride,
+// which no coordinate uses.
 inline cudaError_t make_map(CUtensorMap* m, CUtensorMapDataType type, int esize,
                      const void* ptr, int rank, const long long* dims,
-                     const long long* strides, const int* box) {
+                     const long long* strides, const int* box,
+                     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   auto enc = encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
   cuuint64_t gdim[5], gstride[4];
@@ -1165,23 +1414,10 @@ inline cudaError_t make_map(CUtensorMap* m, CUtensorMapDataType type, int esize,
     packed = static_cast<long long>(gstride[i - 1]) * dims[i];
   }
   const CUresult r = enc(m, type, rank, const_cast<void*>(ptr), gdim, gstride,
-                         gbox, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         gbox, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-template <int D, int BK, int MINB>
-cudaError_t launch(const Params& p, int blocks, cudaStream_t st) {
-  using L = PrefillSmem<D, BK>;
-  static bool ready = false;
-  const cudaError_t e = allow_smem(flash_prefill_kernel<D, BK, MINB>,
-                                   L::kSmem, ready);
-  if (e != cudaSuccess) return e;
-  dim3 grid(blocks, p.H, p.B);
-  flash_prefill_kernel<D, BK, MINB><<<grid, kThreads, L::kSmem, st>>>(p);
-  return cudaGetLastError();
 }
 
 // The fp32 route: K and V split into their parts (parts: (6, B, Hkv, T, D)
@@ -1231,6 +1467,68 @@ cudaError_t launch_f32(const ParamsT<float>& p, void* parts, int blocks,
   return cudaLaunchKernelEx(&cfg, flash_prefill_f32_kernel<D>, p, mq, mkv);
 }
 
+// The bf16 route: q, K, V and out as tensor maps a column block (boxes of
+// the block's width: q's and out's GG heads x BQ positions, K's and V's a
+// kv tile), then the warp-specialised kernel.
+template <int D, int BK, int NS, int MINB>
+cudaError_t launch_bf16(const Params& p, int blocks, cudaStream_t st) {
+  using L = tma::Smem<D, BK, NS>;
+  static bool ready = false;
+  tma::Maps m{};
+  for (int cb = 0; cb < tma::n_blocks(D); ++cb) {
+    const int w = tma::blk_cols(D, cb);
+    const CUtensorMapSwizzle sw = w == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                  : w == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                            : CU_TENSOR_MAP_SWIZZLE_32B;
+    const long long qd[5] = {D, p.S, p.G, p.H, p.B};
+    const long long qs[4] = {p.qs_s, p.qs_g, p.qs_h, p.qs_b};
+    const int qbox[5] = {w, p.BQ, p.GG, 1, 1};
+    cudaError_t e = make_map(&m.q[cb], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                             p.q, 5, qd, qs, qbox, sw);
+    // out (B, S, Hkv, G, D) contiguous, with q's boxes
+    const long long os[4] = {static_cast<long long>(p.H) * p.G * D, D,
+                             static_cast<long long>(p.G) * D,
+                             static_cast<long long>(p.S) * p.H * p.G * D};
+    if (e == cudaSuccess)
+      e = make_map(&m.o[cb], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.out, 5,
+                   qd, os, qbox, sw);
+    if (e != cudaSuccess || p.T == 0) {
+      if (e != cudaSuccess) return e;
+      continue;
+    }
+    const long long kd[4] = {D, p.T, p.H, p.B};
+    const long long ks[3] = {p.ks_t, p.ks_h, p.ks_b};
+    const long long vs[3] = {p.vs_t, p.vs_h, p.vs_b};
+    const int kbox[4] = {w, BK, 1, 1};
+    e = make_map(&m.k[cb], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.k, 4, kd,
+                 ks, kbox, sw);
+    if (e == cudaSuccess)
+      e = make_map(&m.v[cb], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.v, 4, kd,
+                   vs, kbox, sw);
+    if (e != cudaSuccess) return e;
+  }
+  const auto kernel = tma::flash_prefill_kernel<D, BK, NS, MINB>;
+  const cudaError_t e = allow_smem(kernel, L::kSmem, ready);
+  if (e != cudaSuccess) return e;
+  // the consumers' setmaxnreg.inc waits for the registers the producer
+  // gives up: refuse a build whose launch count cannot cover them (it
+  // would never return)
+  static int regs = 0;
+  if (regs == 0) {
+    cudaFuncAttributes a;
+    const cudaError_t ea = cudaFuncGetAttributes(&a, kernel);
+    if (ea != cudaSuccess) return ea;
+    regs = a.numRegs;
+  }
+  if (regs * tma::kThreads < 128 * tma::kProducerRegs +
+                                 tma::kConsumers * tma::consumer_regs<MINB>())
+    return cudaErrorInvalidConfiguration;
+  dim3 grid(blocks, p.H, p.B);
+  tma::flash_prefill_kernel<D, BK, NS, MINB>
+      <<<grid, tma::kThreads, L::kSmem, st>>>(p, m);
+  return cudaGetLastError();
+}
+
 // Fill the parameters of either route and check the plan: GG query heads x
 // BQ positions, GG * BQ <= rows, in `groups` head groups over `blocks`
 // blocks per kv head; refuse one that leaves a (head, position) row
@@ -1275,13 +1573,30 @@ void f32_layout(int* out) {
   out[2] = static_cast<int>(F32Smem<D>::kSmem);
 }
 
+// The bf16 route's {q rows a block, kv rows a tile, ring stages, dynamic
+// shared memory bytes, blocks an SM} at head dim D
+template <int D, int BK, int NS, int MINB>
+void bf16_layout(int* out) {
+  out[0] = kRows;
+  out[1] = BK;
+  out[2] = NS;
+  out[3] = static_cast<int>(tma::Smem<D, BK, NS>::kSmem);
+  out[4] = MINB;
+}
+
 // The launches at head dim D, one pair a head dim, each defined in
 // flash_prefill.d<D>.cu by REPRO_PREFILL_DIM: the bf16 route's kernel (its
-// kv tile BK and blocks an SM by D), and the fp32 route's with its layout
+// kv tile BK, ring stages and blocks an SM by D), and the fp32 route's,
+// with their layouts
 cudaError_t prefill_bf16_d64(const Params& p, int blocks, cudaStream_t st);
 cudaError_t prefill_f32_d64(const ParamsT<float>& p, void* parts, int blocks,
                             cudaStream_t st);
 void f32_layout_d64(int* out);
+void bf16_layout_d64(int* out);
+void bf16_layout_d80(int* out);
+void bf16_layout_d112(int* out);
+void bf16_layout_d128(int* out);
+void bf16_layout_d256(int* out);
 cudaError_t prefill_bf16_d80(const Params& p, int blocks, cudaStream_t st);
 cudaError_t prefill_f32_d80(const ParamsT<float>& p, void* parts, int blocks,
                             cudaStream_t st);
@@ -1299,11 +1614,14 @@ cudaError_t prefill_f32_d256(const ParamsT<float>& p, void* parts, int blocks,
                              cudaStream_t st);
 void f32_layout_d256(int* out);
 
-#define REPRO_PREFILL_DIM(D, BK, MINB)                                      \
+// the bf16 route's kernel (kv tiles of BK in a ring of NS stages, MINB
+// blocks an SM) and the fp32 route's, with their layouts
+#define REPRO_PREFILL_DIM(D, BK, NS, MINB)                                  \
   cudaError_t prefill_bf16_d##D(const Params& p, int blocks,                \
                                 cudaStream_t st) {                          \
-    return launch<D, BK, MINB>(p, blocks, st);                              \
+    return launch_bf16<D, BK, NS, MINB>(p, blocks, st);                     \
   }                                                                         \
+  void bf16_layout_d##D(int* out) { bf16_layout<D, BK, NS, MINB>(out); }    \
   cudaError_t prefill_f32_d##D(const ParamsT<float>& p, void* parts,        \
                                int blocks, cudaStream_t st) {               \
     return launch_f32<D>(p, parts, blocks, st);                             \

@@ -1,8 +1,9 @@
 // The prefill kernels' instantiations at head dim 256 (flash_prefill.cuh):
-// the bf16 route (kv tiles of 64 rows, 1 block an SM) and the fp32 route,
-// a translation unit of their own, linked into the flash_prefill library.
+// the bf16 route's warp-specialised kernel (kv tiles of 32 rows in a ring
+// of 4 stages, 1 block an SM) and the fp32 route, a translation unit of
+// their own, linked into the flash_prefill library.
 #include "flash_prefill.cuh"
 
 namespace repro_prefill {
-REPRO_PREFILL_DIM(256, 64, 1)
+REPRO_PREFILL_DIM(256, 32, 4, 1)
 }  // namespace repro_prefill

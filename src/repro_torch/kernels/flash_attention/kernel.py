@@ -30,7 +30,11 @@ accumulators and softmax):
 
 * bf16: bf16 operands; p is rounded to bf16 before ``p @ v``. A block holds
   ``PREFILL_BLOCK_ROWS`` query rows, ``GG`` heads x ``BQ`` positions of one
-  kv head, as :func:`prefill_plan` lays them out;
+  kv head, as :func:`prefill_plan` lays them out; :data:`BF16_PREFILL_TILES`
+  its kv tile, ring and blocks an SM. A warp-specialised kernel (TMA loads,
+  unpadded rows) runs it and stores out in the model's ``(B, S, Hkv, G,
+  D)`` order: the ``(B, Hkv, G, S, D)`` out it returns is a view, and ops'
+  merge of the heads copies nothing;
 * fp32: q, k, v and p each as three exact bf16 parts and the six products
   of parts ``i + j <= 2`` (``ref.fp32_route_ref`` states it), which the
   fp32 parity checks hold to 2e-5; :data:`FP32_PREFILL_TILES` rows a block.
@@ -45,10 +49,14 @@ The four decode wrappers launch one streaming kernel,
 ``csrc/flash_decode.cu``, that differs only in how it finds and decodes a
 K/V row, so the paged kernels equal the dense and quantized ones on the
 gathered pages bit for bit. :func:`decode_plan` lays the q rows and the kv
-axis over its one-warp blocks. Every K/V pointer and row stride must be
-aligned to the chunk the kernel copies a row in (:func:`copy_align`: 16
-bytes, 8 for int4 rows of 40 or 56 bytes at D 80 and 112); anything else
-raises ``ValueError``.
+axis over its blocks: one-warp blocks at D 64 and 256 (a second launch
+merges the splits), four-warp blocks at D 80, 112 and 128 that stream a
+split once for all of a kv head's q rows and merge the splits themselves
+(the last block of a kv head, by a ticket from a device's zeroed counters,
+:func:`_tickets`). Every K/V pointer and row stride must be aligned to the
+chunk the kernel copies a row in (:func:`copy_align`: 16 bytes, 8 for int4
+rows of 40 or 56 bytes at D 80 and 112); anything else raises
+``ValueError``.
 
 Bound on the H100: decode and the bf16 prefill route are bound by bytes at
 the serving shapes: they stream q and the K/V operands once (decode: the
@@ -101,6 +109,11 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_PAGE_SIZES = (8, 16, 32, 64)
 # the bf16 prefill kernel's query rows per block
 PREFILL_BLOCK_ROWS = 128
+# the bf16 prefill route's (kv rows a tile, ring stages, blocks an SM) by
+# head_dim, as csrc/flash_prefill.d<D>.cu instantiate its warp-specialised
+# kernel (bf16_layout() reads the source's)
+BF16_PREFILL_TILES = {64: (64, 4, 2), 80: (64, 4, 2), 112: (32, 4, 2),
+                      128: (64, 4, 1), 256: (32, 4, 1)}
 # the fp32 prefill kernel's (query rows a block, kv rows a tile) by
 # head_dim, as csrc/flash_prefill.cu F32Tiles sets them (fp32_layout()
 # reads the source's)
@@ -111,15 +124,28 @@ FP32_PREFILL_TILES = {64: (128, 128), 80: (128, 64), 112: (128, 64),
 # the decode kernel copies a row whose bytes are no multiple of 16 (int4
 # codes at D 80 and 112: 40 and 56 bytes) in 8-byte chunks (copy_align)
 COPY_ALIGN = 16
-# decode: the q-row counts a block is built for (csrc/flash_decode.cu NR);
-# aim for this many one-warp blocks per launch (8 per SM on 132 SMs); a
-# split is a whole number of the kernel's largest ring stage (16 rows of
-# int4 codes at D 64; the 6-row stage of bf16 at D 80 divides no split,
-# whose last stage then runs part-full) and at most DECODE_MAX_SPLIT rows
+# decode at D 64 and 256: the q-row counts a one-warp block is built
+# for (csrc/flash_decode.cuh NR); aim for this many blocks per launch (8
+# per SM on 132 SMs); a split is a whole number of the kernel's largest
+# ring stage (16 rows of int4 codes at D 64) and at most DECODE_MAX_SPLIT
+# rows
 DECODE_ROWS = (1, 2, 4)
 DECODE_TARGET_BLOCKS = 1056
 DECODE_SPLIT_MULTIPLE = 16
 DECODE_MAX_SPLIT = 256
+# decode at D 80, 112 and 128 (csrc/flash_decode.cuh namespace wide): a
+# block of four warps streams its split once for WIDE_DECODE_ROWS q rows of
+# a kv head (all of kimi-k2's 8; 2 rows run as 4, so that the library
+# builds three row counts, not four); aim for 2 such blocks an SM (fewer,
+# longer splits: less to merge; on an H100 kimi-k2's step ran 2.6 us
+# faster than at 4), splits of whole 16-row ring stages, at most
+# WIDE_DECODE_MAX_SPLIT rows. At D 64 its int8 routes ran slower than the
+# one-warp kernel's on an H100, and D 256's rows overflow its static shared
+# memory
+WIDE_DECODE_DIMS = (80, 112, 128)
+WIDE_DECODE_ROWS = (1, 4, 8)
+WIDE_DECODE_TARGET_BLOCKS = 264
+WIDE_DECODE_MAX_SPLIT = 128
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -134,11 +160,11 @@ def _decode_lib() -> ctypes.CDLL:
     global _decode_bound
     lib = build.library("flash_decode")
     if not _decode_bound:
-        # 12 pointers, 4 q + 3 x 4 operand strides, B H G S T D is_bf16
-        # code_bits n_pages page_size, then the plan's rows groups n_split
-        # split_len
-        lib.repro_flash_decode.argtypes = ([_P] * 12 + [_L] * 16
-                                           + [_I] * 14 + _MASK)
+        # 13 pointers, 4 q + 3 x 4 operand strides, B H G S T D is_bf16
+        # code_bits n_pages page_size n_pool, then the plan's rows groups
+        # n_split split_len
+        lib.repro_flash_decode.argtypes = ([_P] * 13 + [_L] * 16
+                                           + [_I] * 15 + _MASK)
         lib.repro_flash_decode.restype = _I
         _decode_bound = True
     return lib
@@ -159,6 +185,8 @@ def _prefill_lib() -> ctypes.CDLL:
         lib.repro_flash_prefill_f32.restype = _I
         lib.repro_flash_prefill_f32_layout.argtypes = [_I, _P]
         lib.repro_flash_prefill_f32_layout.restype = None
+        lib.repro_flash_prefill_bf16_layout.argtypes = [_I, _P]
+        lib.repro_flash_prefill_bf16_layout.restype = None
         _prefill_bound = True
     return lib
 
@@ -170,6 +198,26 @@ def fp32_layout(D: int) -> Tuple[int, int, int]:
     out = (ctypes.c_int * 3)()
     _prefill_lib().repro_flash_prefill_f32_layout(D, out)
     return tuple(out)
+
+
+def bf16_layout(D: int) -> Tuple[int, int, int, int, int]:
+    """(query rows a block, kv rows a tile, ring stages, dynamic shared
+    memory bytes, blocks an SM) of the bf16 prefill route at head_dim D, as
+    the CUDA source sets them (builds the library)."""
+    out = (ctypes.c_int * 5)()
+    _prefill_lib().repro_flash_prefill_bf16_layout(D, out)
+    return tuple(out)
+
+
+def bf16_prefill_smem(D: int) -> int:
+    """Dynamic shared memory bytes of a bf16 prefill block at head_dim D, as
+    ``csrc/flash_prefill.cuh`` lays it out (``bf16_layout`` reads the
+    source's; a card test compares): q's 128 rows, ``stages`` K and V
+    tiles, all unpadded; the stages' kv positions and headers (8 bytes); an
+    mbarrier for q and three a stage; 1 KiB to align the base."""
+    bk, stages, _ = BF16_PREFILL_TILES[D]
+    return (PREFILL_BLOCK_ROWS * D * 2 + stages * (2 * bk * D * 2 + bk * 4 + 8)
+            + 8 * (1 + 3 * stages) + 1024)
 
 
 class PrefillPlan(NamedTuple):
@@ -363,7 +411,13 @@ def _prefill_cuda(q, k, v, q_positions, kv_positions, causal, window,
     if q.device.type == "meta":
         return accounting.meta_outputs((((B, H, G, S, D), q.dtype),
                                         ((B, H, G, S), torch.float32)))
-    out = torch.empty((B, H, G, S, D), dtype=q.dtype, device=q.device)
+    if bf16:
+        # written in the model's (B, S, Hkv, G, D) order: ops' merge of the
+        # heads is then a view, not a transpose
+        out = torch.empty((B, S, H, G, D), dtype=q.dtype,
+                          device=q.device).permute(0, 2, 3, 1, 4)
+    else:
+        out = torch.empty((B, H, G, S, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, G, S), dtype=torch.float32, device=q.device)
     lib = _prefill_lib()
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
@@ -387,40 +441,70 @@ def _prefill_cuda(q, k, v, q_positions, kv_positions, causal, window,
 
 
 class DecodePlan(NamedTuple):
-    """How the decode kernel lays one launch over its one-warp blocks: the
-    R = G * S q rows of a kv head in ``groups`` groups of ``rows`` (group
-    ``rg`` takes rows ``rg * rows .. rg * rows + rows - 1``, those past R
-    unused), and the kv axis in ``n_split`` splits of ``split_len`` rows
-    (split ``x`` takes ``x * split_len .. x * split_len + split_len - 1``,
-    those past T unused). Block ``(x, h * groups + rg, b)`` takes one
-    split of one group of slot b, kv head h."""
+    """How the decode kernel lays one launch over its blocks (one warp at D
+    64 and 256, four at D 80, 112 and 128): the R = G * S q rows of a kv
+    head in ``groups`` groups of ``rows`` (group ``rg`` takes rows
+    ``rg * rows .. rg * rows + rows - 1``, those past R unused), and the kv
+    axis in ``n_split`` splits of ``split_len`` rows (split ``x`` takes
+    ``x * split_len .. x * split_len + split_len - 1``, those past T
+    unused). Block ``(x, h * groups + rg, b)`` takes one split of one group
+    of slot b, kv head h."""
     rows: int
     groups: int
     n_split: int
     split_len: int
 
 
-def decode_splits(B: int, H: int, T: int, groups: int = 1) -> Tuple[int, int]:
+def decode_splits(B: int, H: int, T: int, groups: int = 1,
+                  D: int = 64) -> Tuple[int, int]:
     """(n_split, split_len): enough kv splits that B * H * groups * n_split
-    blocks reach ``DECODE_TARGET_BLOCKS`` where T allows, each a whole
-    number of ``DECODE_SPLIT_MULTIPLE`` rows and at most
-    ``DECODE_MAX_SPLIT``. A function of the shapes only, so every call at
-    one shape sums in the same order (and a paged call in the order of a
-    contiguous one)."""
-    want = max(1, -(-DECODE_TARGET_BLOCKS // max(B * H * groups, 1)))
+    blocks reach ``DECODE_TARGET_BLOCKS`` (``WIDE_DECODE_TARGET_BLOCKS`` at
+    ``WIDE_DECODE_DIMS``) where T allows, each a whole number of
+    ``DECODE_SPLIT_MULTIPLE`` rows and at most ``DECODE_MAX_SPLIT``
+    (``WIDE_DECODE_MAX_SPLIT``). A function of the shapes only, so every
+    call at one shape sums in the same order (and a paged call in the order
+    of a contiguous one)."""
+    wide = D in WIDE_DECODE_DIMS
+    target = WIDE_DECODE_TARGET_BLOCKS if wide else DECODE_TARGET_BLOCKS
+    want = max(1, -(-target // max(B * H * groups, 1)))
     split_len = -(-max(T, 1) // want)
     split_len = -(-split_len // DECODE_SPLIT_MULTIPLE) * DECODE_SPLIT_MULTIPLE
-    split_len = min(split_len, DECODE_MAX_SPLIT)
+    split_len = min(split_len,
+                    WIDE_DECODE_MAX_SPLIT if wide else DECODE_MAX_SPLIT)
     return -(-max(T, 1) // split_len), split_len
 
 
-def decode_plan(B: int, H: int, R: int, T: int) -> DecodePlan:
-    """The smallest of ``DECODE_ROWS`` that holds all R q rows of a kv head
-    (else groups of the largest), and :func:`decode_splits` for that many
-    groups."""
-    rows = next((n for n in DECODE_ROWS if n >= R), DECODE_ROWS[-1])
+def decode_plan(B: int, H: int, R: int, T: int, D: int = 64) -> DecodePlan:
+    """The smallest of ``DECODE_ROWS`` (``WIDE_DECODE_ROWS`` at
+    ``WIDE_DECODE_DIMS``) that holds all R q rows of a kv head (else groups of the largest),
+    and :func:`decode_splits` for that many groups."""
+    sizes = WIDE_DECODE_ROWS if D in WIDE_DECODE_DIMS else DECODE_ROWS
+    rows = next((n for n in sizes if n >= R), sizes[-1])
     groups = -(-max(R, 1) // rows)
-    return DecodePlan(rows, groups, *decode_splits(B, H, T, groups))
+    return DecodePlan(rows, groups, *decode_splits(B, H, T, groups, D))
+
+
+# The split counters of the four-warp decode kernel, a device's int32
+# zeros: the last block of a (slot, kv head, group) to finish its split
+# merges the partials and sets its counter back to 0, so the zeros hold
+# from launch to launch and through graph replays. One buffer a device
+# serves every launch (the port runs no two decode launches on concurrent
+# streams); a larger one is added when a launch needs it, never freed,
+# since a captured graph holds the pointer it was captured with.
+_TICKETS: Dict[torch.device, list] = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    bufs = _TICKETS.setdefault(device, [])
+    if not bufs or bufs[-1].numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"the four-warp decode kernel needs {n} split counters on "
+                f"{device}, first allocated while a CUDA graph is being "
+                "captured: run the step once eagerly before the capture")
+        bufs.append(torch.zeros(max(n, 4096), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]
 
 
 def _rows3(x: torch.Tensor, paged: bool):
@@ -448,17 +532,20 @@ def _launch_decode(name: str, q, k, v, k_scale, v_scale, table, q_positions,
     if q.device.type == "meta":
         return accounting.meta_outputs(((tuple(q.shape), q.dtype),))[0]
     lib = _decode_lib()
-    plan = decode_plan(B, H, G * S, T)
+    plan = decode_plan(B, H, G * S, T, D)
     R = G * S
     out = torch.empty((B, H, G, S, D), dtype=q.dtype, device=q.device)
-    scratch = [None] * 3
+    scratch = [None] * 4
     if plan.n_split > 1:
-        pm = torch.empty((B, H, plan.n_split, R), dtype=torch.float32,
+        # the partials' max and sum (held here until the launch is queued)
+        ml = torch.empty((2, B, H, plan.n_split, R), dtype=torch.float32,
                          device=q.device)
         pacc = torch.empty((B, H, plan.n_split, R, D), dtype=torch.float32,
                            device=q.device)
-        scratch = [pm.data_ptr(), torch.empty_like(pm).data_ptr(),
-                   pacc.data_ptr()]
+        tickets = (_tickets(q.device, B * H * plan.groups).data_ptr()
+                   if D in WIDE_DECODE_DIMS else None)
+        scratch = [ml[0].data_ptr(), ml[1].data_ptr(), pacc.data_ptr(),
+                   tickets]
     scaled = code_bits > 0
     err = lib.repro_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -471,7 +558,8 @@ def _launch_decode(name: str, q, k, v, k_scale, v_scale, table, q_positions,
         *(_rows3(k_scale, paged) if scaled else (0, 0, 0)),
         *(_rows3(v_scale, paged) if scaled else (0, 0, 0)),
         B, H, G, S, T, D, int(q.dtype == torch.bfloat16), code_bits,
-        table.shape[1] if paged else 0, page_size, *plan,
+        table.shape[1] if paged else 0, page_size,
+        k.shape[0] if paged else 0, *plan,
         *_mask_args(causal, window, softcap, D))
     build.check(lib, err, name)
     LAUNCHES[name] += 1

@@ -306,6 +306,73 @@ def test_fp32_prefill_tiles_state_the_kernels_layout(cuda, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 80, 112, 128, 256])
+def test_bf16_prefill_tiles_state_the_kernels_layout(cuda, D):
+    """BF16_PREFILL_TILES and bf16_prefill_smem, which the CPU tests hold
+    to the occupancy they claim, are the kv tile, ring, blocks an SM and
+    shared memory the CUDA source launches with."""
+    rows, bk, stages, smem, per_sm = tk.bf16_layout(D)
+    assert rows == tk.PREFILL_BLOCK_ROWS
+    assert (bk, stages, per_sm) == tk.BF16_PREFILL_TILES[D]
+    assert smem == tk.bf16_prefill_smem(D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hkv,G,D", [(3, 1, 80), (2, 8, 112), (3, 1, 64),
+                                   (2, 4, 128), (1, 10, 256)])
+def test_prefill_tma_route_writes_the_model_layout(cuda, Hkv, G, D):
+    """The bf16 route writes out in the model's (B, S, Hkv, G, D) order: the wrapper's (B, Hkv, G, S, D) out is a view of it, and
+    ops' merge of the heads copies nothing; the values as the plain
+    version's."""
+    from repro_torch.kernels.flash_attention import ops
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    B, S = 2, 200
+    q = _randn(gen, (B, S, Hkv * G, D), torch.bfloat16, cuda)
+    k, v = (_randn(gen, (B, S, Hkv, D), torch.bfloat16, cuda)
+            for _ in range(2))
+    out, lse = ops.flash_attention_gqa_fwd(q, k, v, causal=True)
+    assert out.is_contiguous() and out.shape == q.shape
+    q5 = q.reshape(B, S, Hkv, G, D).permute(0, 2, 3, 1, 4)
+    pos = torch.arange(S, dtype=torch.int32, device=cuda).expand(B, S)
+    pos = pos.contiguous()
+    o5, l5 = tk.flash_attention_fwd(q5, k.transpose(1, 2), v.transpose(1, 2),
+                                    pos, pos)
+    assert o5.permute(0, 3, 1, 2, 4).is_contiguous()
+    _assert_prefill(torch.bfloat16, o5, l5, q5, k.transpose(1, 2),
+                    v.transpose(1, 2), pos, pos, causal=True)
+    assert torch.equal(out, o5.permute(0, 3, 1, 2, 4).reshape(q.shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kimi_heads_one_block_and_graph_replays(cuda, dtype):
+    """kimi-k2's 8 q rows a kv head at D 112 in one block a split (the
+    plan), against the plain version; the split counters the last block
+    resets: a CUDA graph of two launches replayed three times gives the
+    eager bits each time."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    B, H, G, T, D = 8, 8, 8, 576, 112
+    plan = tk.decode_plan(B, H, G, T, D)
+    assert (plan.rows, plan.groups) == (8, 1) and plan.n_split > 1
+    q = _randn(gen, (B, H, G, 1, D), dtype, cuda)
+    k, v = (_randn(gen, (B, H, T, D), dtype, cuda) for _ in range(2))
+    qp, kp = _ring([575 - 8 * b for b in range(B)], 1, T, cuda)
+    want = ref.flash_decode_fwd_ref(q, k, v, qp, kp)
+    eager = tk.flash_decode_fwd(q, k, v, qp, kp)
+    assert _err(eager, want) <= TOL[dtype]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o1 = tk.flash_decode_fwd(q, k, v, qp, kp)
+        o2 = tk.flash_decode_fwd(q, k, v, qp, kp)
+    for _ in range(3):
+        o1.zero_()
+        o2.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(o1, eager) and torch.equal(o2, eager)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,G,D", [(1, 1, 64), (4, 1, 64), (4, 4, 128)])
 def test_decode_kernel(cuda, dtype, S, G, D):
@@ -632,8 +699,8 @@ def test_decode_streaming_kernel(cuda, dtype, D, G, S, NP, ps, window, cap,
                 assert torch.equal(o, _decode_call(src, q, dense, qp, kp,
                                                    **kw)[0]), src
     if T <= tk.DECODE_SPLIT_MULTIPLE:             # the kernel writes out itself
-        assert tk.decode_plan(B, H, G * S, T).n_split == 1
-        assert tk.decode_plan(B, H, G * S, T_odd).n_split == 1
+        assert tk.decode_plan(B, H, G * S, T, D).n_split == 1
+        assert tk.decode_plan(B, H, G * S, T_odd, D).n_split == 1
 
 
 @pytest.mark.cuda
