@@ -64,13 +64,24 @@ Runs on one NVIDIA GPU; exits non-zero without one. Phases:
    eager chunk and loop as in phase serve: identical tokens, and exact
    launches: per prefill 4 of the prefill kernel (attention layers) and
    10 of the RG-LRU kernel (recurrent layers), per decode step 4 of the
-   decode kernel; then a profile of its serving;
+   decode kernel; then batch 8 x 512 + 32 new tokens from the int8, int4,
+   paged16 and paged16 int8 caches (GRIFFIN_LAYOUTS, the same weights),
+   graph and eager chunk: identical tokens, 4 launches a step of the
+   layout's decode kernel at head_dim 256, the graph below the eager
+   chunk, its device ms against the step's byte bound; then a profile of
+   its contiguous serving;
 9. engine_griffin: 16 mixed-length requests drained through 8 slots, graph
-   against eager body;
+   against eager body; then one wave of 8 requests with a 64-token shared
+   prefix from pages of 16 and int8 codes in pages of 16, graph against
+   eager body: one completion each, one capture, prefix hits, every page
+   back, each drain stopped at four times its worst-case chunks
+   (``chunk_cap``);
 10. parity_griffin: card vs CPU fp32 logits and caches at full width with
    the depth cut to 5 layers (one group and the two trailing recurrent
-   layers), prefill 64 plus 8 decode steps; its one prefill launched the
-   fp32 route once (its one attention layer).
+   layers), prefill 64 plus 8 decode steps, contiguous, int8 (logits 2e-2,
+   codes within one step) and paged16 (1e-3, tables and positions equal);
+   each prefill launched the fp32 route once (its one attention layer).
+   Each Griffin phase logs its time.
 
 Phases ``robust`` and ``fleet`` run after ``engine``, on full-width
 ``pimref-100m`` (``robust`` at 6 of 12 layers, ``CUT_PIMREF_LAYERS``) with
@@ -379,6 +390,15 @@ PARITY_INT8_ATOL = 2e-2
 PARITY_GRIFFIN_ATOL = 1e-3
 PARITY_GRIFFIN_REL = 1e-3
 GRIFFIN_PARITY_LAYERS = 5          # one (r, r, a) group + 2 trailing r
+GRIFFIN_PARITY_LAYOUTS = ("contiguous", "int8", "paged16")
+# Griffin's quantized and paged layouts beside contiguous: serve_griffin's
+# batch (B 8 x 512) in each, graph and eager chunk, GRIFFIN_LAYOUT_GEN new
+# tokens; engine_griffin's paged drains of one wave of 8 requests on 8
+# slots with a shared prefix
+GRIFFIN_LAYOUTS = ("int8", "int4", "paged16", "paged16_int8")
+GRIFFIN_LAYOUT_GEN = 32
+GRIFFIN_ENGINE_LAYOUTS = ("paged16", "paged16_int8")
+GRIFFIN_WAVE = dict(requests=8, prompt_len=256, gen=32, shared_prefix=64)
 # RG-LRU kernel vs its plain loop: the same rounded multiply and add in the
 # same order, so 0 is expected; |h| stays below ~3 for these inputs
 RGLRU_TOL = 1e-6
@@ -592,6 +612,18 @@ for _sfx, _runs in HEAD_DIM_RUNS.items():
         REPLACES[_base + _sfx] = REPLACES[_base]
         MAIN_LAYOUT[_base + _sfx] = _run
         COUNTER[_base + _sfx] = _base
+# the layout kernels at Griffin's decode step (kernels_griffin: B 8, one kv
+# head for ten q heads of 256, a ring of 576, int8 codes / pages of 16 /
+# int8 codes in pages of 16), their launches from serve_griffin's graph run
+# of the layout
+GRIFFIN_LAYOUT_RUNS = {"flash_decode_quant_fwd": "griffin/int8",
+                       "flash_decode_paged_fwd": "griffin/paged16",
+                       "flash_decode_paged_quant_fwd": "griffin/paged16_int8"}
+for _base, _run in GRIFFIN_LAYOUT_RUNS.items():
+    SOURCES[_base + "_d256"] = SOURCES[_base]
+    REPLACES[_base + "_d256"] = REPLACES[_base]
+    MAIN_LAYOUT[_base + "_d256"] = _run
+    COUNTER[_base + "_d256"] = _base
 NO_LIBRARY = ("no single PyTorch call computes attention over quantized "
               "codes or through a page table")
 NO_LIBRARY_RGLRU = "no single PyTorch call computes a linear recurrence"
@@ -1374,6 +1406,13 @@ def kernels_griffin(gen) -> dict:
                             [100, 575, 2100, 40],
                             dict(causal=True, window=W, softcap=0.0),
                             share=2)
+    # and at Griffin's decode step (the ring of 576 lies inside the window),
+    # with their device times: rows flash_decode_*_fwd_d256
+    errs = _check_layouts_case(gen, torch.bfloat16, B, 1, G, 1, 576, Dh, 16,
+                               [575 - 8 * b for b in range(B)],
+                               dict(causal=True, window=W, softcap=0.0),
+                               share=3)
+    rows.update(_layout_rows(gen, B, 1, G, 576, Dh, 16, errs, "_d256"))
     return rows
 
 
@@ -2058,10 +2097,11 @@ def phase_serve(model, smi: str) -> dict:
             in LAYOUTS.items()}
 
 
-def _cache_diff(cc, cg):
-    """(max |CPU - card| over the K/V values or scales, codes that differ,
-    largest code difference) of two caches of one layout (an
-    encoder-decoder's cross cache too)."""
+def _cache_diff(cc, cg, diff=lambda c, g: (c - g.cpu()).abs().max().item()):
+    """(largest ``diff`` (max |CPU - card|) over the K/V values or scales,
+    codes that differ, largest code difference) of two caches of one layout
+    (an encoder-decoder's cross cache too); the page tables must be
+    equal."""
     from repro_torch.models.layers import PagedKVCache, QKVCache
     err, flips, code_max = 0.0, 0, 0
     for n in ("k", "v", "xk", "xv"):
@@ -2077,7 +2117,7 @@ def _cache_diff(cc, cg):
             flips += int((d != 0).sum())
             code_max = max(code_max, int(d.abs().max()))
             a, b = a.scale, b.scale
-        err = max(err, (a - b.cpu()).abs().max().item())
+        err = max(err, diff(a, b))
     return err, flips, code_max
 
 
@@ -2143,14 +2183,31 @@ def phase_parity(seed: int) -> dict:
     return _check_fp32_prefills("parity", cfg, len(layouts))
 
 
-def _drain(eng, reqs, label, decode_kernel, prefix_hits=True) -> dict:
-    """Drain ``reqs`` through ``eng``: exact launches, one completion per
-    request, each of the right length, every page back (and, with
-    ``prefix_hits``, shared prompt pages); returns the engine's stats."""
+def chunk_cap(reqs, chunk: int) -> int:
+    """Four times a drain's worst-case chunks (every request alone, its
+    tokens ``chunk`` a dispatch): a cap a drain that never ends reaches in
+    seconds."""
+    return 4 * sum(-(-r.max_new_tokens // chunk) for r in reqs)
+
+
+def _drain(eng, reqs, label, decode_kernel, prefix_hits=True,
+           cap=None) -> dict:
+    """Drain ``reqs`` through ``eng`` (with ``cap``, stopped after that
+    many chunks: work left then fails the drain): exact launches, one
+    completion per request, each of the right length, every page back (and,
+    with ``prefix_hits``, shared prompt pages); returns the engine's
+    stats."""
     cfg = eng.model.cfg
     _reset()
-    comps = eng.run(list(reqs))
+    chunks = []
+    stop = None if cap is None else (
+        lambda: chunks.append(1) or len(chunks) >= cap)
+    comps = eng.run(list(reqs), stop=stop)
     torch.cuda.synchronize()
+    if eng._queue or eng._active:
+        raise AssertionError(f"{label}: the drain stopped (cap {cap} chunks) "
+                             f"with {len(eng._queue)} requests queued and "
+                             f"{len(eng._active)} active")
     s = eng.stats
     _check_launches(label, cfg, s["prefills"], s["decode_steps"],
                     decode_kernel, s["draft_steps"],
@@ -2202,18 +2259,20 @@ def _completions(eng) -> list:
 
 
 def _drain_pair(make, reqs, label, decode_kernel, prefix_hits=True,
-                keep=False) -> tuple:
+                keep=False, cap=None) -> tuple:
     """Drain ``reqs`` through an engine from ``make()`` that runs the chunk
-    body eagerly, then through one that replays the captured chunk: the
-    same completions, one capture for the whole drain; returns the graph
-    engine's stats and completions (and, with ``keep``, the engine)."""
+    body eagerly, then through one that replays the captured chunk (each
+    stopped after ``cap`` chunks, if given): the same completions, one
+    capture for the whole drain; returns the graph engine's stats and
+    completions (and, with ``keep``, the engine)."""
     with eager_chunks():
         eager = make()
-        e = _drain(eager, reqs, f"{label}/eager", decode_kernel, prefix_hits)
+        e = _drain(eager, reqs, f"{label}/eager", decode_kernel, prefix_hits,
+                   cap)
         want, eager_captures = _completions(eager), e["graph_captures"]
         del eager
     eng = make()
-    s = _drain(eng, reqs, f"{label}/graph", decode_kernel, prefix_hits)
+    s = _drain(eng, reqs, f"{label}/graph", decode_kernel, prefix_hits, cap)
     same = _completions(eng) == want
     log(label, f"graph == eager-body completions: {same}; tokens/s graph "
         f"{s['tokens_per_second']:.1f} (wall {s['wall_seconds']:.3f} s, the "
@@ -3261,23 +3320,39 @@ def phase_serve_griffin(model, smi: str) -> dict:
     """recurrentgemma-2b batch serving at B 8 x 512 + 64, then one long
     request (B 2 x 2100 + 32) whose prompt crosses the local window, so the
     prefill keeps the last 2048 positions and every decode write wraps the
-    ring. Returns the launches of the two graph runs."""
-    launches = _serve_engines(model, smi, "serve_griffin", batch=8,
-                              prompt_len=512, gen=64, chunk=8, seed=0)
+    ring; then B 8 x 512 + GRIFFIN_LAYOUT_GEN in each of GRIFFIN_LAYOUTS
+    (the same weights through ``with_kv_layout``), graph and eager chunk.
+    Returns the launches of the graph runs by run name."""
+    launches = {"griffin": _serve_engines(model, smi, "serve_griffin",
+                                          batch=8, prompt_len=512, gen=64,
+                                          chunk=8, seed=0)}
     W = model.cfg.local_window
     if model.cache_len(2100 + 32) != W:
         raise AssertionError(f"long request: ring of "
                              f"{model.cache_len(2132)} slots, not {W}")
-    long = _serve_engines(model, smi, "serve_griffin/long", batch=2,
-                          prompt_len=2100, gen=32, chunk=8, seed=1)
-    return launches, long
+    launches["griffin_long"] = _serve_engines(
+        model, smi, "serve_griffin/long", batch=2, prompt_len=2100, gen=32,
+        chunk=8, seed=1)
+    for layout in GRIFFIN_LAYOUTS:
+        kv_quant, page_size, decode_kernel = LAYOUTS[layout]
+        t0 = time.perf_counter()
+        launches[f"griffin/{layout}"] = _serve_engines(
+            model, smi, f"serve_griffin/{layout}", decode_kernel,
+            engines=ENGINES[:2], batch=8, prompt_len=512,
+            gen=GRIFFIN_LAYOUT_GEN, chunk=8, seed=0, kv_quant=kv_quant,
+            page_size=page_size)
+        log(f"serve_griffin/{layout}",
+            f"took {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def phase_engine_griffin(model, seed: int) -> None:
     """16 mixed-length requests through 8 slots of one contiguous cache,
     graph against eager body; then a seeded chaos drain (``nan=2,fail=1``)
     and a snapshot / restore (contiguous: regenerated) against the graph
-    drain."""
+    drain; then one wave of 8 requests with a shared prefix in each of
+    GRIFFIN_ENGINE_LAYOUTS, graph against eager body, each drain capped at
+    ``chunk_cap`` chunks."""
     from repro_torch.launch.serve import make_queue_engine, synth_requests
     reqs = synth_requests(cfg=model.cfg, requests=16, prompt_len=256, gen=64,
                           seed=seed)
@@ -3290,6 +3365,17 @@ def phase_engine_griffin(model, seed: int) -> None:
     _robust_chaos(make, reqs, clean, "engine_griffin/chaos",
                   plan="nan=2,fail=1", seed=seed)
     _robust_restore(make, reqs, clean, "engine_griffin/restore")
+    wave = synth_requests(cfg=model.cfg, **GRIFFIN_WAVE, seed=seed)
+    for layout in GRIFFIN_ENGINE_LAYOUTS:
+        kv_quant, page_size, decode_kernel = LAYOUTS[layout]
+        t0 = time.perf_counter()
+        _drain_pair(lambda: make_queue_engine(
+            model=model, slots=8, prompt_len=GRIFFIN_WAVE["prompt_len"],
+            gen=GRIFFIN_WAVE["gen"], chunk=8, seed=seed, kv_quant=kv_quant,
+            page_size=page_size), wave, f"engine_griffin/{layout}",
+            decode_kernel, cap=chunk_cap(wave, 8))
+        log(f"engine_griffin/{layout}",
+            f"took {time.perf_counter() - t0:.1f} s")
 
 
 def _rel_err(c, g) -> float:
@@ -3299,8 +3385,10 @@ def _rel_err(c, g) -> float:
 
 def phase_parity_griffin(seed: int) -> dict:
     """recurrentgemma-2b at full width, depth cut to 5 layers, fp32: logits
-    of a 64-token prefill and 8 decode steps, and the caches, card vs CPU;
-    returns the launches of the card's side."""
+    of a 64-token prefill and 8 decode steps, and the caches, card vs CPU,
+    in each of GRIFFIN_PARITY_LAYOUTS (one model each side, its other
+    layouts through ``with_kv_layout``); returns the launches of the
+    card's side."""
     from repro_torch.configs import get_config
     from repro_torch.models import GriffinLM, init_params
     full = get_config("recurrentgemma-2b")
@@ -3311,47 +3399,58 @@ def phase_parity_griffin(seed: int) -> dict:
           "+ 2 trailing rec), full width d_model 2560, 10 q / 1 kv heads x "
           "256, d_ff 7680, vocab 256000, fp32", flush=True)
     state = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
-    cpu = GriffinLM(cfg, device="cpu")
-    cpu.load_state_dict(state)
-    gpu = GriffinLM(cfg, device=DEVICE)
-    gpu.load_state_dict(state)
+    cpu0 = GriffinLM(cfg, device="cpu")
+    cpu0.load_state_dict(state)
+    gpu0 = GriffinLM(cfg, device=DEVICE)
+    gpu0.load_state_dict(state)
     del state
     rng = np.random.default_rng(seed)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64))
                               .astype(np.int32))
     feed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8))
                             .astype(np.int32))
-    lc, cc = cpu.prefill(prompt, max_len=72)
     _reset()
-    lg, cg = gpu.prefill(prompt.to(DEVICE), max_len=72)
-    pairs = [(lc, lg)]
-    for i in range(feed.shape[1]):
-        lc, cc = cpu.decode_step(cc, feed[:, i:i + 1])
-        lg, cg = gpu.decode_step(cg, feed[:, i:i + 1].to(DEVICE))
-        pairs.append((lc, lg))
-    errs = [(c - g.cpu()).abs().max().item() for c, g in pairs]
-    agree = np.mean([float((c.argmax(-1) == g.cpu().argmax(-1)).all())
-                     for c, g in pairs])
-    leaves = {f"{n}.{m}": (cc[n][m], cg[n][m]) for n in ("rec1", "rec2")
-              for m in ("h", "conv")}
-    leaves.update({f"tail.{i}.{m}": (t[m], cg["tail"][i][m])
-                   for i, t in enumerate(cc["tail"]) for m in ("h", "conv")})
-    leaves.update({n: (cc[n], cg[n]) for n in ("k", "v")})
-    rel = {n: _rel_err(c, g) for n, (c, g) in leaves.items()}
-    same_pos = all(torch.equal(cc[n], cg[n].cpu()) for n in ("pos_ids", "pos"))
-    log("parity_griffin", f"fp32 logits card vs CPU, prefill 64 + 8 decode "
-        f"steps: max_abs_err per call {['%.2e' % e for e in errs]} (tol "
-        f"{PARITY_GRIFFIN_ATOL:.0e}), logit scale "
-        f"{pairs[0][0].abs().max().item():.3e}, top-1 agreement {agree:.3f}; "
-        f"cache error / max |value| "
-        f"{ {n: float('%.2e' % e) for n, e in rel.items()} } (tol "
-        f"{PARITY_GRIFFIN_REL:.0e}); positions equal {same_pos}")
-    if max(errs) > PARITY_GRIFFIN_ATOL or max(rel.values()) > \
-            PARITY_GRIFFIN_REL or not same_pos:
-        raise AssertionError(f"parity_griffin: card vs CPU differ: logits "
-                             f"{max(errs)}, cache {max(rel.values())}, "
-                             f"positions equal {same_pos}")
-    return _check_fp32_prefills("parity_griffin", cfg, 1)
+    for layout in GRIFFIN_PARITY_LAYOUTS:
+        kv_quant, page_size, _ = LAYOUTS[layout]
+        cpu = cpu0.with_kv_layout(kv_quant, page_size)
+        gpu = gpu0.with_kv_layout(kv_quant, page_size)
+        lc, cc = cpu.prefill(prompt, max_len=72)
+        lg, cg = gpu.prefill(prompt.to(DEVICE), max_len=72)
+        pairs = [(lc, lg)]
+        for i in range(feed.shape[1]):
+            lc, cc = cpu.decode_step(cc, feed[:, i:i + 1])
+            lg, cg = gpu.decode_step(cg, feed[:, i:i + 1].to(DEVICE))
+            pairs.append((lc, lg))
+        errs = [(c - g.cpu()).abs().max().item() for c, g in pairs]
+        agree = np.mean([float((c.argmax(-1) == g.cpu().argmax(-1)).all())
+                         for c, g in pairs])
+        leaves = {f"{n}.{m}": (cc[n][m], cg[n][m]) for n in ("rec1", "rec2")
+                  for m in ("h", "conv")}
+        leaves.update({f"tail.{i}.{m}": (t[m], cg["tail"][i][m])
+                       for i, t in enumerate(cc["tail"])
+                       for m in ("h", "conv")})
+        rel = {n: _rel_err(c, g) for n, (c, g) in leaves.items()}
+        rel["kv"], flips, code_max = _cache_diff(cc, cg, _rel_err)
+        same_pos = all(torch.equal(cc[n], cg[n].cpu())
+                       for n in ("pos_ids", "pos"))
+        tol = PARITY_INT8_ATOL if kv_quant != "off" else PARITY_GRIFFIN_ATOL
+        log("parity_griffin", f"{layout}: fp32 logits card vs CPU, prefill "
+            f"64 + 8 decode steps: max_abs_err per call "
+            f"{['%.2e' % e for e in errs]} (tol {tol:.0e}), logit scale "
+            f"{pairs[0][0].abs().max().item():.3e}, top-1 agreement "
+            f"{agree:.3f}; cache error / max |value| "
+            f"{ {n: float('%.2e' % e) for n, e in rel.items()} } (tol "
+            f"{PARITY_GRIFFIN_REL:.0e}; K / V scales where quantized), codes "
+            f"differing {flips} (largest difference {code_max}); positions "
+            f"equal {same_pos}")
+        if max(errs) > tol or max(rel.values()) > PARITY_GRIFFIN_REL \
+                or code_max > 1 or not same_pos:
+            raise AssertionError(
+                f"parity_griffin {layout}: card vs CPU differ: logits "
+                f"{max(errs)}, cache {max(rel.values())}, code {code_max}, "
+                f"positions equal {same_pos}")
+    return _check_fp32_prefills("parity_griffin", cfg,
+                                len(GRIFFIN_PARITY_LAYOUTS))
 
 
 # ---------------------------------------------------------------------------
@@ -6308,16 +6407,23 @@ def run_phases(args, phases, smi, damov, cells=None) -> int:
             f"{time.perf_counter() - t0:.2f}s; device memory "
             f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
         if "serve_griffin" in phases:
-            launches["griffin"], launches["griffin_long"] = \
-                phase_serve_griffin(model, smi)
+            t0 = time.perf_counter()
+            launches.update(phase_serve_griffin(model, smi))
+            log("serve_griffin", f"phase took {time.perf_counter() - t0:.1f} "
+                "s")
             if "profile" in phases:
                 phase_profile(model, smi, "profile_griffin")
         if "engine_griffin" in phases:
+            t0 = time.perf_counter()
             phase_engine_griffin(model, args.seed)
+            log("engine_griffin", f"phase took {time.perf_counter() - t0:.1f} "
+                "s")
         del model
         torch.cuda.empty_cache()
     if "parity_griffin" in phases:
+        t0 = time.perf_counter()
         launches["parity_griffin"] = phase_parity_griffin(args.seed)
+        log("parity_griffin", f"phase took {time.perf_counter() - t0:.1f} s")
     for name, run in (("archs", lambda: phase_archs(smi, args.seed)),
                       ("parity_archs", lambda: {
                           "parity_archs": _parity_family(

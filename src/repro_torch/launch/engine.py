@@ -34,11 +34,15 @@ The cache is laid out as the model says (``kv_quant``, ``page_size``):
   sharing, reference-counted, copied before a divergent write), and pool
   row 0 is the trash page: unused and retired slots point there. Admission
   reserves each request's worst-case pages, so decode can never run out of
-  pages; a request that can never fit ends in a ``page_pool`` error. An
-  encoder-decoder's cross cache stays contiguous beside the pages, a row
-  per slot. As in the reference, the two layouts decode an encoder-decoder
-  differently: its self-attention reads every bucket position up to the
-  decode position, the left pads of the contiguous layout included.
+  pages; a request that can never fit ends in a ``page_pool`` error. The
+  pools' leading axis is the model's attention layers (a hybrid model's
+  groups). An encoder-decoder's cross cache and a hybrid model's recurrent
+  states stay beside the pages, a row per slot. As in the reference, the
+  two layouts decode these families differently: an encoder-decoder's
+  self-attention reads every bucket position up to the decode position,
+  the left pads of the contiguous layout included, and a hybrid model's
+  recurrences run over the right pads of the paged bucket before decoding
+  starts at the true prompt end.
 
 With speculative decoding (``spec``: ``ngram`` or ``draft``) each chunk
 iteration drafts ``spec_k`` tokens and verifies them in one (k + 1)-token
@@ -379,9 +383,18 @@ class ServeEngine:
         # (the batch-1 prefill's shape, which the reference tiles)
         src = self._batch_template.get("src_embeds")
         self._batch_axes = model.cache_batch_axes()
-        # empty slot rows are zeros, like the reference's tiled template
+        # the model's cache for ``slots`` rows; empty slot rows are zeros,
+        # like the reference's tiled template
+        self.cache = model.init_cache(
+            slots, self._cache_max,
+            **({} if src is None else {"src_len": src.shape[1]}))
+        if "pos_ids" in self.cache:
+            self.cache["pos_ids"].zero_()
+        # the paged leaves (K / V; an encoder-decoder's cross cache and a
+        # hybrid model's recurrent states stay rows per slot)
+        self._paged_names = [n for n, leaf in self.cache.items()
+                             if isinstance(leaf, PagedKVCache)]
         if self.paged:
-            cfg, dev = model.cfg, self.device
             self.page_size = model.page_size
             self.cache_pos_len = model.cache_len(self._cache_max)
             self.n_logical_pages = self.cache_pos_len // self.page_size
@@ -389,28 +402,8 @@ class ServeEngine:
             self.n_phys_pages = (slots * self.n_logical_pages
                                  if page_pool_pages is None
                                  else int(page_pool_pages)) + 1
-            pool = (cfg.num_layers, self.n_phys_pages, self.page_size,
-                    cfg.num_kv_heads, cfg.resolved_head_dim)
-            table = (cfg.num_layers, slots, self.n_logical_pages)
-
-            def leaf():                  # every table row on the trash page
-                return PagedKVCache(
-                    kv_zeros(pool, model.cdtype, model.kv_quant, dev),
-                    torch.zeros(table, dtype=torch.int32, device=dev))
-            self.cache = {"k": leaf(), "v": leaf()}
-            if src is not None:
-                # the cross cache stays contiguous: a row per slot
-                xkv = (cfg.num_layers, slots, src.shape[1], cfg.num_kv_heads,
-                       cfg.resolved_head_dim)
-                for name in ("xk", "xv"):
-                    self.cache[name] = kv_zeros(xkv, model.cdtype,
-                                                model.kv_quant, dev)
-            if "pos_ids" in self._batch_axes:
-                self.cache["pos_ids"] = torch.zeros(
-                    (slots, self.cache_pos_len), dtype=torch.int32,
-                    device=dev)
-            self.cache["pos"] = torch.zeros((slots,), dtype=torch.int32,
-                                            device=dev)
+            for name in self._paged_names:
+                self.cache[name] = self._empty_pool(self.cache[name])
             self._alloc = _PageAllocator(self.n_phys_pages)
             self._host_table = np.zeros((slots, self.n_logical_pages),
                                         np.int32)
@@ -419,12 +412,6 @@ class ServeEngine:
             # prefill that never ring-wraps
             self._share_ok = (set(self._batch_template) == {"tokens"}
                               and self.cache_pos_len >= self.prompt_len)
-        else:
-            self.cache = model.init_cache(
-                slots, self._cache_max,
-                **({} if src is None else {"src_len": src.shape[1]}))
-            if "pos_ids" in self.cache:
-                self.cache["pos_ids"].zero_()
         self._tok = torch.zeros((slots, 1), dtype=torch.int32,
                                 device=self.device)
         # the EOS id as the chunk reads it, so setting eos_id between chunks
@@ -469,10 +456,12 @@ class ServeEngine:
             self.stats["spec_emitted_tokens"] = 0
             self.stats["spec_accept_hist"] = [0] * (self.spec_k + 1)
         if self.paged:
-            # the pages only: the contiguous cross cache is not counted, as
-            # in the reference
-            self._page_bytes = sum(t.nbytes // t.shape[1] for name in
-                                   ("k", "v") for t in self._leaf_tensors(name))
+            # the pages only (a pool's page axis follows its layer axis):
+            # the contiguous cross cache and the recurrent states are not
+            # counted, as in the reference
+            self._page_bytes = sum(t.nbytes // t.shape[1]
+                                   for name in self._paged_names
+                                   for t in self._leaf_tensors(name))
             self.stats["kv_hbm_bytes"] = 0
         else:
             # contiguous: the whole cache is committed up front; every leaf
@@ -482,6 +471,18 @@ class ServeEngine:
                 t.nbytes for name in ("k", "v", "xk", "xv", "pos_ids")
                 if name in self.cache for t in self._leaf_tensors(name))
         self.stats["kv_hbm_bytes_peak"] = self.stats["kv_hbm_bytes"]
+
+    def _empty_pool(self, leaf: PagedKVCache) -> PagedKVCache:
+        """A paged leaf of ``n_phys_pages`` pool rows, with ``leaf``'s
+        leading (layer) axes, every table row on the trash page."""
+        cfg, dev = self.model.cfg, self.device
+        lead = tuple(leaf.table.shape[:-2])
+        pool = lead + (self.n_phys_pages, self.page_size, cfg.num_kv_heads,
+                       cfg.resolved_head_dim)
+        return PagedKVCache(
+            kv_zeros(pool, self.model.cdtype, self.model.kv_quant, dev),
+            torch.zeros(lead + (self.slots, self.n_logical_pages),
+                        dtype=torch.int32, device=dev))
 
     def _leaf_tensors(self, name: str) -> List[torch.Tensor]:
         leaf = self.cache[name]
@@ -639,7 +640,7 @@ class ServeEngine:
         s["kv_pages_reserved"] = self._reserved_total
 
     def _set_table_row(self, slot: int, row) -> None:
-        for name in ("k", "v"):
+        for name in self._paged_names:
             self.cache[name].table[:, slot] = row
 
     def _ensure_writable(self) -> None:
@@ -658,7 +659,7 @@ class ServeEngine:
                         continue          # unclaimed tail: writes go to trash
                     if self._alloc.refs[phys] > 1:
                         new = self._alloc.alloc("copy-on-write")
-                        for name in ("k", "v"):
+                        for name in self._paged_names:
                             leaf = self.cache[name]
                             for pool in _pools(leaf.pages):
                                 pool[:, new] = pool[:, phys]
@@ -686,15 +687,17 @@ class ServeEngine:
             own = np.nonzero(dest)[0]
             dst = torch.from_numpy(dest[own].astype(np.int64)).to(self.device)
             src = torch.from_numpy(own + 1).to(self.device)   # identity table
-            for name in ("k", "v"):
+            for name in self._paged_names:
                 for pool, spool in zip(_pools(c[name].pages),
                                        _pools(small[name].pages)):
                     pool[:, dst] = spool[:, src]
             self._set_table_row(slot, torch.from_numpy(trow).to(self.device))
-            c["pos"][slot] = n      # decode resumes at the true prompt end
-            rows = [k for k in ("xk", "xv", "pos_ids") if k in c]
+            # the rows per slot: positions, a cross cache, recurrent states
+            # (which ran over the bucket's right pads, as the reference's)
+            rows = [k for k in c if k not in self._paged_names and k != "pos"]
             _put_rows({k: c[k] for k in rows}, {k: small[k] for k in rows},
                       self._batch_axes, slot)
+            c["pos"][slot] = n      # decode resumes at the true prompt end
         else:
             _put_rows(c, small, self._batch_axes, slot)
         self._tok[slot, 0] = first

@@ -18,11 +18,12 @@ sharing); the reference reads them from ``REPRO_KV_QUANT`` /
 ``REPRO_KV_PAGES``. ``--arch`` names a ported model: the dense
 ``pimref-100m``, ``internlm2-1.8b``, ``stablelm-1.6b``, ``stablelm-3b`` and
 ``deepseek-coder-33b``, the MoE ``mixtral-8x7b`` and ``kimi-k2-1t-a32b``,
-the VLM ``pixtral-12b``, the encoder-decoder ``seamless-m4t-large-v2``
-(every KV layout; on the card the attention kernels take head_dim 64, 128
-and 256, which ``stablelm-3b``'s 80 and kimi's 112 are not) or
-``recurrentgemma-2b`` (hybrid Griffin, contiguous KV only; the layout flags
-raise for it). A ``vlm`` prompt holds a patch prefix, an ``audio`` prompt
+the VLM ``pixtral-12b``, the encoder-decoder ``seamless-m4t-large-v2`` or
+``recurrentgemma-2b`` (hybrid Griffin), each in every KV layout (on the
+card the attention kernels take head_dim 64, 80, 112, 128 and 256). The
+paged engine right-pads its prompt bucket, so Griffin's recurrences run
+over the pads there and its paged streams differ from its contiguous
+ones, as the reference's do. A ``vlm`` prompt holds a patch prefix, an ``audio`` prompt
 comes with the encoder's frames (random embeddings here, the vision tower
 and the audio frontend being stubs in the reference too). ``xlstm-125m``
 is listed but not served: the reference cannot build serving programs for

@@ -20,16 +20,19 @@ Serving keeps a cache with an O(1) recurrent state per layer and a ring KV
 cache of ``min(max_len, local_window)`` slots per attention layer:
 
     rec1 / rec2  {"h": (G, B, D) fp32, "conv": (G, B, W-1, D)}
-    k / v        (G, B, T, Hkv, D) in compute dtype
+    k / v        (G, B, T, Hkv, D) in the model's KV layout
     tail         [{"h": (B, D) fp32, "conv": (B, W-1, D)}, ...]
     pos_ids      (B, T) int32, -1 = empty slot
     pos          (B,) int32
 
-Prefill runs each recurrence through the RG-LRU kernel and each attention
-layer through the flash prefill kernel; a one-token decode step updates the
-recurrent states elementwise and reads the ring through the decode kernel.
-The KV cache is contiguous here: quantized and paged KV for this family
-come in a later slice.
+``k`` / ``v`` follow ``kv_quant`` and ``page_size`` as the dense family's
+do (``models/model.py``): compute-dtype tensors, a ``QKVCache`` of int8
+codes and fp32 scales, or a ``PagedKVCache`` whose pools ``(G, P, ps, Hkv,
+D)`` and tables ``(G, B, NP)`` keep the group axis first; ``T`` is rounded
+up to whole pages. Prefill runs each recurrence through the RG-LRU kernel
+and each attention layer through the flash prefill kernel, and stores the
+ring through the layout; a one-token decode step updates the recurrent
+states elementwise and reads the ring through the layout's decode kernel.
 
 ``XLSTMLM`` is the ssm family (``xlstm-125m``): interleaved mLSTM and
 sLSTM blocks (``xlstm.py``), layer i an sLSTM block when ``(i + 1) %
@@ -58,10 +61,12 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (aligned_cache_len, chunked_attention,
-                                       dense, gated_mlp, kv_cache_store,
-                                       kv_cache_update, ring_cache_update,
+                                       dense, gated_mlp, kv_cache_axes,
+                                       kv_cache_init, kv_cache_len,
+                                       kv_cache_store, kv_cache_update,
+                                       kv_cast, ring_cache_update,
                                        ring_position_ids, rms_norm,
-                                       softmax_xent)
+                                       softmax_xent, stack_kv)
 from repro_torch.models.model import (Block, ServingLM, _add_params, _Group,
                                       attn_out, layer_trees, qkv, remat_call)
 from repro_torch.models.module import (ParamSpec, block_specs, embed_spec,
@@ -129,7 +134,8 @@ class GriffinGroup(nn.Module):
 
 class GriffinLM(ServingLM):
     """Hybrid RG-LRU / local-attention LM on one device (``"cuda"`` by
-    default), serving from the contiguous KV cache."""
+    default), serving from a KV cache laid out as ``kv_quant`` and
+    ``page_size`` say."""
 
     LISTS = ("tail",)
 
@@ -138,7 +144,6 @@ class GriffinLM(ServingLM):
         if cfg.family != "hybrid":
             raise ValueError(f"GriffinLM is the hybrid family, not "
                              f"{cfg.family!r}")
-        self._check_layout(kv_quant, page_size)
         super().__init__(cfg, device, kv_quant=kv_quant, page_size=page_size)
         self.n_groups = cfg.num_layers // 3
         self.n_tail = cfg.num_layers - 3 * self.n_groups
@@ -146,19 +151,6 @@ class GriffinLM(ServingLM):
                                     for _ in range(self.n_groups))
         self.tail = nn.ModuleList(RecLayer(cfg, self.device)
                                   for _ in range(self.n_tail))
-
-    @staticmethod
-    def _check_layout(kv_quant: str, page_size: int) -> None:
-        if kv_quant != "off" or page_size != 0:
-            raise NotImplementedError(
-                f"GriffinLM with kv_quant={kv_quant!r}, page_size="
-                f"{page_size}: the hybrid family serves from the contiguous "
-                "KV cache; quantized and paged KV come in a later slice")
-
-    def with_kv_layout(self, kv_quant: str = "off",
-                       page_size: int = 0) -> "GriffinLM":
-        self._check_layout(kv_quant, page_size)
-        return self
 
     # -- layers --------------------------------------------------------------
     def _rec_params(self, layer: RecLayer) -> Dict[str, torch.Tensor]:
@@ -255,8 +247,10 @@ class GriffinLM(ServingLM):
 
     # -- serving ---------------------------------------------------------------
     def cache_len(self, max_len: int) -> int:
-        """Ring slots per sequence: the local window bounds the KV cache."""
-        return aligned_cache_len(min(max_len, self.cfg.local_window))
+        """Ring slots per sequence: the local window bounds the KV cache,
+        rounded up to whole pages when paged."""
+        return aligned_cache_len(min(max_len, self.cfg.local_window),
+                                 self.page_size)
 
     def _rec_state_zero(self, batch: int, lead=()) -> Dict[str, torch.Tensor]:
         st = init_rglru_state(self.cfg, batch, self.cdtype, self.device)
@@ -268,11 +262,14 @@ class GriffinLM(ServingLM):
         T = self.cache_len(max_len)
         G, dev = self.n_groups, self.device
         kv = (G, batch, T, cfg.num_kv_heads, cfg.resolved_head_dim)
+
+        def leaf():
+            return kv_cache_init(kv, self.cdtype, self.kv_quant,
+                                 self.page_size, dev)
         return {
             "rec1": self._rec_state_zero(batch, (G,)),
             "rec2": self._rec_state_zero(batch, (G,)),
-            "k": torch.zeros(kv, dtype=self.cdtype, device=dev),
-            "v": torch.zeros(kv, dtype=self.cdtype, device=dev),
+            "k": leaf(), "v": leaf(),
             "tail": [self._rec_state_zero(batch) for _ in range(self.n_tail)],
             "pos_ids": torch.full((batch, T), -1, dtype=torch.int32,
                                   device=dev),
@@ -281,10 +278,11 @@ class GriffinLM(ServingLM):
 
     def cache_logical_axes(self) -> Cache:
         """The logical axes of every leaf of ``init_cache``'s tree (the
-        reference's ``cache_logical_axes``; the KV cache is contiguous)."""
+        reference's ``cache_logical_axes``), in this model's KV layout."""
         rec = {"h": ("layers", "act_batch", "act_embed"),
                "conv": ("layers", "act_batch", None, "act_embed")}
-        kv = ("layers", "act_batch", "cache_seq", "cache_kv", "cache_hd")
+        kv = kv_cache_axes(("layers", "act_batch", "cache_seq", "cache_kv",
+                            "cache_hd"), self.kv_quant, self.page_size)
         return {"rec1": rec, "rec2": rec, "k": kv, "v": kv,
                 "tail": [{"h": ("act_batch", "act_embed"),
                           "conv": ("act_batch", None, "act_embed")}
@@ -304,6 +302,10 @@ class GriffinLM(ServingLM):
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
         window = self.cfg.local_window
         s1, s2, ks, vs = [], [], [], []
+
+        def store(t):           # the ring in the layout: codes, pages
+            return kv_cache_store(t.to(self.cdtype), S, T, self.kv_quant,
+                                  self.page_size)
         for g in self.groups:
             x, st = self._rec_layer(g.rec1, x)
             s1.append(st)
@@ -312,8 +314,8 @@ class GriffinLM(ServingLM):
             q, k, v = self._attn_qkv(g.attn, x, positions)
             o = chunked_attention(q, k, v, causal=True, window=window)
             x = self._attn_finish(g.attn, x, o)
-            ks.append(kv_cache_store(k.to(self.cdtype), S, T))
-            vs.append(kv_cache_store(v.to(self.cdtype), S, T))
+            ks.append(store(k))
+            vs.append(store(v))
         tail = []
         for layer in self.tail:
             x, st = self._rec_layer(layer, x)
@@ -324,7 +326,7 @@ class GriffinLM(ServingLM):
             return {n: torch.stack([st[n] for st in states]) for n in ("h", "conv")}
         cache = {
             "rec1": stack(s1), "rec2": stack(s2),
-            "k": torch.stack(ks), "v": torch.stack(vs), "tail": tail,
+            "k": stack_kv(ks), "v": stack_kv(vs), "tail": tail,
             "pos_ids": ring_position_ids(B, S, T, x.device),
             "pos": torch.full((B,), S, dtype=torch.int32, device=x.device),
         }
@@ -350,7 +352,7 @@ class GriffinLM(ServingLM):
         S = tokens.shape[1]
         x = self._embed(tokens)
         pos = cache["pos"]
-        T = cache["k"].shape[2]
+        T = kv_cache_len(cache["k"])
         block_pos = pos[:, None] + torch.arange(S, dtype=pos.dtype,
                                                 device=pos.device)
         slot = block_pos % T
@@ -362,9 +364,9 @@ class GriffinLM(ServingLM):
             x = self._rec_step(g.rec2, x, {n: t[i] for n, t in
                                            cache["rec2"].items()})
             q, k, v = self._attn_qkv(g.attn, x, block_pos)
-            ck = kv_cache_update(cache["k"][i], k, slot)
-            cv = kv_cache_update(cache["v"][i], v, slot)
-            o = chunked_attention(q, ck.to(x.dtype), cv.to(x.dtype),
+            ck = kv_cache_update(cache["k"][i], k, slot, self.kv_quant)
+            cv = kv_cache_update(cache["v"][i], v, slot, self.kv_quant)
+            o = chunked_attention(q, kv_cast(ck, x.dtype), kv_cast(cv, x.dtype),
                                   causal=True, window=window, q_offset=pos,
                                   kv_positions=cache["pos_ids"])
             x = self._attn_finish(g.attn, x, o)

@@ -329,13 +329,17 @@ def test_encdec_engine_matches_reference(ref, kv_quant, pages, monkeypatch):
     monkeypatch.setenv("REPRO_KV_PAGES", str(pages))
     kw = dict(slots=2, prompt_len=12, max_new=8, chunk=4)
     queue = _queue(ref["tcfg"], 12, [3, 8, 5, 2, 7])
-    jeng = JServeEngine(ref["jm"], ref["params"], ref["plan"], **kw)
+    # both watchdogs off (a threshold no chunk reaches): a loaded host's
+    # slow chunks would halve the chunk and move the page accounting
+    # (ROADMAP §C)
+    off = dict(straggler_threshold=1e9)
+    jeng = JServeEngine(ref["jm"], ref["params"], ref["plan"], **kw, **off)
     jc = {c.uid: c for c in jeng.run([JRequest(u, t, n, extras=e)
                                       for u, t, n, e in queue])}
     teng = tserve.make_queue_engine(
         slots=2, prompt_len=12, gen=8, chunk=4, device="cpu",
         cfg=ref["tcfg"], params=ref["np_params"], kv_quant=kv_quant,
-        page_size=pages)
+        page_size=pages, **off)
     tc = {c.uid: c for c in teng.run([Request(u, t, n, extras=e)
                                       for u, t, n, e in queue])}
     assert sorted(tc) == sorted(jc) == list(range(len(queue)))

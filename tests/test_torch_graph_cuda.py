@@ -1,7 +1,8 @@
 """The fused decode chunk as a CUDA graph replay against the same chunk run
 eagerly, on a card, at smoke size with head_dim 64 (a width the kernels
 take): ``pimref-100m`` in its six KV layouts, ``recurrentgemma-2b``
-across a window wrap, the encoder-decoder in four layouts and xLSTM, the
+across a window wrap (contiguous, int8 codes, pages of 16), the
+encoder-decoder in four layouts and xLSTM, the
 engine, EOS set between chunks, a weight load
 after the capture, sampled decoding, speculative decoding (both drafters;
 contiguous, int8 and pages of 16; a new history; the engine), and the
@@ -225,6 +226,33 @@ def test_griffin_graph_across_window_wrap(cuda):
     assert torch.equal(got, want)
     _same_cache(cache, eager_cache)
     assert step.captures == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant,page_size,kernel", [
+    ("int8", 0, "flash_decode_quant_fwd"),
+    ("off", 16, "flash_decode_paged_fwd")])
+def test_griffin_layout_graph_equals_eager(cuda, kv_quant, page_size, kernel):
+    """Griffin over int8 codes and over pages of 16, from a 30-token
+    prompt across the window wrap, four chunks of 4: graph == eager chunk,
+    the cache byte for byte, one capture, and every replay one chunk's
+    launches of the layout's decode kernel (one a step per attention
+    layer), none of another kernel."""
+    model = _model("recurrentgemma-2b", cuda, kv_quant, page_size)
+    cache, tok = _prefill(model, cuda, S=30, max_len=46)
+    assert model.cache_len(46) == 32
+    want, eager_cache = _run(EagerChunk(model, chunk=4), clone_cache(cache),
+                             tok.clone(), 4)
+    step = make_generate_step(model, chunk=4)
+    step.prepare(cache, tok, None)
+    _reset()
+    got, _ = _run(step, cache, tok, 4)
+    assert torch.equal(got, want)
+    _same_cache(cache, eager_cache)
+    assert step.captures == 1
+    want_launches = dict.fromkeys(_launches(), 0)
+    want_launches[kernel] = 4 * 4 * (model.cfg.num_layers // 3)
+    assert _launches() == want_launches
 
 
 def _requests(vocab, n=7, prompt_len=16):

@@ -195,18 +195,34 @@ def test_bridge_over_groups_and_tail(ref):
 
 
 def test_build_model_and_layout_guards():
+    """Every KV layout builds (the quantized and paged caches, alone and
+    together), ``with_kv_layout`` shares the weights, and an unknown
+    quantization mode raises."""
+    from repro_torch.models.layers import PagedKVCache, QKVCache
     _, tcfg = _cfgs()
     assert isinstance(tbuild_model(tcfg, "cpu"), GriffinLM)
-    for kw in (dict(kv_quant="int8"), dict(page_size=16)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tbuild_model(tcfg, "cpu", **kw)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tserve.serve(ARCH, batch=1, prompt_len=4, gen=2, device="cpu",
-                         **kw)
     m = GriffinLM(tcfg, device="cpu")
     assert m.with_kv_layout() is m
-    with pytest.raises(NotImplementedError):
-        m.with_kv_layout("int4")
+    for kv_quant in ("off", "int8", "int4", "auto"):
+        for ps in (0, 16):
+            built = tbuild_model(tcfg, "cpu", kv_quant=kv_quant, page_size=ps)
+            assert (built.kv_quant, built.page_size) == (kv_quant, ps)
+            view = m.with_kv_layout(kv_quant, ps)
+            assert (view.kv_quant, view.page_size) == (kv_quant, ps)
+            assert view.embed is m.embed and view.groups is m.groups
+            assert (m.kv_quant, m.page_size) == ("off", 0)
+            k = view.init_cache(2, 20)["k"]
+            if ps:
+                assert isinstance(k, PagedKVCache) and k.kv_len == 32
+                assert k.table.shape == (1, 2, 2)      # group axis first
+                k = k.pages
+            assert isinstance(k, QKVCache) == (kv_quant != "off")
+    for bad in (lambda: tbuild_model(tcfg, "cpu", kv_quant="fp8"),
+                lambda: m.with_kv_layout("int2"),
+                lambda: tserve.serve(ARCH, batch=1, prompt_len=4, gen=2,
+                                     device="cpu", kv_quant="nf4")):
+        with pytest.raises(ValueError, match="kv_quant"):
+            bad()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             GriffinLM(tcfg)

@@ -22,6 +22,10 @@ from repro_torch.launch.engine import Request  # noqa: E402
 
 KNOBS = ("REPRO_KV_PAGES", "REPRO_KV_QUANT", "REPRO_SPEC_DECODE")
 PS = 4
+# both engines' straggler watchdog off (a threshold no chunk reaches): a
+# loaded host's slow chunks would halve the chunk and move the statistics
+# these tests hold equal (ROADMAP §C)
+NO_WATCHDOG = dict(straggler_threshold=1e9)
 STATS = ("prefills", "prefix_hits", "kv_pages_peak", "kv_pages_in_use",
          "kv_hbm_bytes_peak", "kv_bytes_per_token", "tokens_out",
          "decode_dispatches", "error_completions", "admission_blocked")
@@ -55,12 +59,15 @@ def layout(monkeypatch):
 
 
 def _engines(ref, lay, **kw):
-    """(reference engine, port engine) over one layout and bucket."""
-    jeng = JServeEngine(ref["jm"], ref["params"], ref["plan"], **kw)
+    """(reference engine, port engine) over one layout and bucket, both
+    with the watchdog off."""
+    jeng = JServeEngine(ref["jm"], ref["params"], ref["plan"], **kw,
+                        **NO_WATCHDOG)
     teng = tserve.make_queue_engine(
         slots=kw["slots"], prompt_len=kw["prompt_len"], gen=kw["max_new"],
         chunk=kw["chunk"], page_pool_pages=kw.get("page_pool_pages"),
-        device="cpu", cfg=ref["tcfg"], params=ref["np_params"], **lay)
+        device="cpu", cfg=ref["tcfg"], params=ref["np_params"], **lay,
+        **NO_WATCHDOG)
     assert teng.paged == jeng.paged == (lay["page_size"] > 0)
     return jeng, teng
 

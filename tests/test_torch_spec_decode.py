@@ -40,6 +40,10 @@ KNOBS = ("REPRO_KV_PAGES", "REPRO_KV_QUANT", "REPRO_SPEC_DECODE",
          "REPRO_SPEC_K", "REPRO_SPEC_DRAFT_LAYERS")
 PS = 4
 K = 3
+# both engines' straggler watchdog off (a threshold no chunk reaches): a
+# loaded host's slow chunks would shed speculation and move the statistics
+# these tests hold equal (ROADMAP §C)
+NO_WATCHDOG = dict(straggler_threshold=1e9)
 # the six KV layouts: (kv_quant, page_size)
 LAYOUTS = [("off", 0), ("int8", 0), ("int4", 0), ("auto", 0), ("off", PS),
            ("int8", PS)]
@@ -481,7 +485,7 @@ def test_engine_spec_matches_reference(ref, layout, mode, kv_quant, pages):
     kw = dict(slots=2, prompt_len=8, max_new=10, chunk=4)
     queue = _mixed_queue(ref["jcfg"].vocab_size, 8, [3, 10, 5, 2, 7, 9])
     jeng = JServeEngine(ref["jm"], ref["params"], ref["plan"], spec=mode,
-                        spec_k=K, **kw)
+                        spec_k=K, **kw, **NO_WATCHDOG)
     jc = {c.uid: c for c in jeng.run([JRequest(u, t, n)
                                       for u, t, n in queue])}
 
@@ -489,7 +493,7 @@ def test_engine_spec_matches_reference(ref, layout, mode, kv_quant, pages):
         eng = tserve.make_queue_engine(
             slots=2, prompt_len=8, gen=10, chunk=4, device="cpu",
             cfg=ref["tcfg"], params=ref["np_params"], spec=spec, spec_k=K,
-            **lay)
+            **lay, **NO_WATCHDOG)
         eng.run([Request(u, t, n) for u, t, n in queue])
         return eng
     teng, off = port(mode), port("off")
@@ -527,12 +531,12 @@ def test_engine_spec_draft_accepts(ref, layout):
                               rng.integers(3, 9)).astype(np.int32), n)
              for i, n in enumerate([3, 10, 5, 2, 7])]
     jeng = JServeEngine(ref["jm"], ref["params"], ref["plan"], spec="draft",
-                        spec_k=K, **kw)
+                        spec_k=K, **kw, **NO_WATCHDOG)
     jeng.run([JRequest(u, t, n) for u, t, n in queue])
     teng = tserve.make_queue_engine(slots=2, prompt_len=8, gen=10, chunk=4,
                                     device="cpu", cfg=ref["tcfg"],
                                     params=ref["np_params"], spec="draft",
-                                    spec_k=K)
+                                    spec_k=K, **NO_WATCHDOG)
     teng.run([Request(u, t, n) for u, t, n in queue])
     assert teng.stats["spec_accept_hist"] == jeng.stats["spec_accept_hist"]
     assert teng.stats["spec_accepted_len_per_draft"] > 1.0
